@@ -8,10 +8,12 @@ failure raises and the script exits non-zero. Phases:
 
   1. build  — compile the port's CUDA kernels from ray_tpu_torch/ops/csrc
               and print the card's name and power limit;
-  2. kernel — hold the flash-attention forward kernel against its plain
-              torch version (``_blockwise_fwd``) on the card at the main
-              path's shapes, and time kernel, plain version, the bound
-              and one PyTorch library call (a yardstick only);
+  2. kernel — hold the flash-attention forward kernel (K1) and the
+              backward kernels (K2 dq, K3 dk/dv) against their plain
+              torch versions (``_blockwise_fwd``, ``_blockwise_bwd``) on
+              the card at the main paths' shapes, and time each kernel,
+              its plain version, its bound and one PyTorch library call
+              (a yardstick only);
   3. sched  — drain 256 nodes x 100k tasks x 32 classes through the live
               raylet tick with the placement solve on CUDA: the
               single-buffered tick must place every task where the numpy
@@ -22,10 +24,20 @@ failure raises and the script exits non-zero. Phases:
               weights from a seed) and answers forward.remote(tokens)
               requests; the kernel's launch count over those requests
               must be 24 per request, and one request's logits must
-              agree with the same model on the plain attention.
+              agree with the same model on the plain attention;
+  5. train  — a Cluster with one GPU node; ray_tpu_torch.train.Trainer
+              with one GPU worker runs a train function that builds
+              ModelConfig.b1 at full width and depth (random weights from
+              a seed, remat "full") and takes 4 optimizer steps on one
+              seeded [8, 2049] token batch. Losses must be finite and
+              falling, K1 must launch 2 x 24 x 4 times (forward and remat
+              recompute) and K2 and K3 24 x 4 times each, and one step's
+              gradients must agree with the same step on the plain
+              attention, leaf by leaf.
 
 The line before the last is the card's name and power limit as
-nvidia-smi prints them; above it, one JSON line with the kernel table.
+nvidia-smi prints them; above it, one JSON line with the kernel table
+(``launches`` from the train phase, per path in ``launches_by_path``).
 The last line is {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json. Without CUDA the script exits 2 and
 prints no result.
@@ -34,6 +46,7 @@ prints no result.
 from __future__ import annotations
 
 import json
+import math
 import os
 import subprocess
 import sys
@@ -53,6 +66,13 @@ KERNEL_TOL = {
     "bfloat16": {"out": (2e-2, 2e-2), "lse": (1e-3, 1e-4)},
     "float32": {"out": (1e-4, 1e-4), "lse": (1e-4, 1e-4)},
 }
+# K2/K3 vs _blockwise_bwd on the card, (atol, rtol) on dq, dk and dv.
+# bf16: the kernels round ds (and p, for dv) to bf16 before the products
+# that consume them, as the TPU kernels do, and round the results to
+# bf16; the plain version keeps fp32 throughout. They differ by a few
+# bf16 steps (2^-8 relative) of gradients up to ~6 in magnitude (first
+# chip check: max abs 0.031). fp32: summation order only (<= 1e-6).
+BWD_TOL = {"bfloat16": (5e-2, 2e-2), "float32": (1e-5, 1e-5)}
 # served logits, kernel vs plain attention, relative L2: the two
 # attentions round differently at bf16's 2^-9 relative step, and 24
 # residual layers compound that; a wrong kernel (mask, scale, row)
@@ -60,16 +80,34 @@ KERNEL_TOL = {
 SERVE_REL_L2_TOL = 3e-2
 
 KERNEL_SHAPES = [
-    # name, B, S, H, D, causal, dtype — b1's shape, entry()'s shape after
-    # the GQA repeat, and a ragged fp32 one
+    # name, B, S, H, D, causal, dtype — b1's served shape, b1's train
+    # shape, entry()'s shape after the GQA repeat, and a ragged fp32 one
     ("b1", 2, 2048, 16, 128, True, "bfloat16"),
+    ("train", 8, 2048, 16, 128, True, "bfloat16"),
     ("entry", 2, 128, 8, 32, True, "bfloat16"),
     ("ragged", 1, 1000, 4, 64, False, "float32"),
+]
+
+BWD_SHAPES = [
+    # name, B, Sq, Sk, H, D, causal, dtype — the b1 train step's shape
+    # (8 x 2048 tokens), entry()'s shape, and a ragged fp32 one with
+    # Sq != Sk
+    ("train", 8, 2048, 2048, 16, 128, True, "bfloat16"),
+    ("entry", 2, 128, 128, 8, 32, True, "bfloat16"),
+    ("ragged", 1, 1000, 700, 4, 64, False, "float32"),
 ]
 
 SCHED = dict(nodes=256, tasks=100_000, classes=32)
 SERVE_REQUESTS = 4
 SERVE_TOKENS = (2, 2048)
+TRAIN_STEPS = 4
+TRAIN_TOKENS = (8, 2049)  # [B, S + 1]: next-token targets for S = 2048
+# one step's gradients, kernels vs the plain attention, relative L2 per
+# leaf: both run the same bf16 model; the kernels round p and ds to bf16
+# inside attention (the plain version keeps fp32) and that difference
+# flows back through 24 layers; a wrong kernel (mask, scale, transpose)
+# moves the gradients by O(1)
+GRAD_REL_L2_TOL = 5e-2
 
 
 def card_line() -> str:
@@ -113,11 +151,30 @@ def phase_build(report: dict) -> None:
 # --------------------------------------------------------------- phase 2
 
 
-def _attention_work(b, s, h, d, causal, dtype):
-    pairs = s * (s + 1) // 2 if causal else s * s
-    flops = 4 * b * h * d * pairs
+def _pairs(sq, sk, causal):
+    """(query, key) pairs the mask keeps (top-left causal alignment)."""
+    if not causal:
+        return sq * sk
+    if sq <= sk:
+        return sq * (sq + 1) // 2
+    return sk * (sk + 1) // 2 + (sq - sk) * sk
+
+
+def _attention_work(kernel, b, sq, sk, h, d, causal, dtype):
+    """(bound ms, what bounds it): the larger of FLOPs over the card's
+    peak and bytes over its HBM rate. FLOPs: 2*d per kept pair and
+    product (fwd: S, P.V; dq: S, dP, ds.K; dk/dv: S, dP, p.dO, ds.Q).
+    Bytes: each input read once, each output written once."""
     elt = 2 if dtype == "bfloat16" else 4
-    nbytes = 4 * b * s * h * d * elt + b * h * s * 4  # q,k,v,out + lse
+    q_bytes = b * sq * h * d * elt
+    kv_bytes = b * sk * h * d * elt
+    row_bytes = b * h * sq * 4  # lse or delta
+    products, nbytes = {
+        "fwd": (2, 2 * q_bytes + 2 * kv_bytes + row_bytes),
+        "dq": (3, 3 * q_bytes + 2 * kv_bytes + 2 * row_bytes),
+        "dkdv": (4, 2 * q_bytes + 4 * kv_bytes + 2 * row_bytes),
+    }[kernel]
+    flops = 2 * d * products * b * h * _pairs(sq, sk, causal)
     t_ops = flops / H100_PEAK_FLOPS[dtype]
     t_bytes = nbytes / H100_HBM_BYTES_PER_S
     return (max(t_ops, t_bytes) * 1e3,
@@ -137,7 +194,7 @@ def phase_kernel(report: dict) -> None:
         q, k, v = (torch.randn((b, s, h, d), generator=g, device="cuda")
                    .to(dt) for _ in range(3))
         scale = d ** -0.5
-        out, lse = attention.flash_attention(q, k, v, causal)
+        out, lse = attention._fwd_dispatch(q, k, v, causal)
         torch.cuda.synchronize()
         p_out, p_lse = attention._blockwise_fwd(q, k, v, causal, scale)
         err_out = (out.float() - p_out.float()).abs().max().item()
@@ -153,13 +210,14 @@ def phase_kernel(report: dict) -> None:
                     f" (atol {atol}, rtol {rtol})")
         if not (torch.isfinite(out).all() and torch.isfinite(lse).all()):
             raise AssertionError(f"kernel output not finite at {name}")
-        ms = cuda_ms(lambda: attention.flash_attention(q, k, v, causal), 20)
+        ms = cuda_ms(lambda: attention._fwd_dispatch(q, k, v, causal), 20)
         plain_ms = cuda_ms(
             lambda: attention._blockwise_fwd(q, k, v, causal, scale), 5)
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal), 20)
-        bound_ms, bound_by = _attention_work(b, s, h, d, causal, dtype)
+        bound_ms, bound_by = _attention_work("fwd", b, s, s, h, d, causal,
+                                             dtype)
         row = {"shape": name, "B": b, "S": s, "H": h, "D": d,
                "causal": causal, "dtype": dtype, "max_abs_err": err_out,
                "max_abs_err_lse": err_lse, "ms": ms, "plain_ms": plain_ms,
@@ -172,6 +230,85 @@ def phase_kernel(report: dict) -> None:
               f"({bound_by}) sdpa {library_ms:.4f}", flush=True)
         del q, k, v, out, lse, p_out, p_lse
     report["kernel_shapes"] = rows
+    report["bwd_shapes"] = [_bwd_row(*shape) for shape in BWD_SHAPES]
+
+
+def _bwd_row(name, b, sq, sk, h, d, causal, dtype):
+    """K2 and K3 at one shape: held against _blockwise_bwd, then timed
+    each alone (on the same inputs), beside the plain backward (dq, dk
+    and dv in one call) and the SDPA backward (the same)."""
+    import torch
+    import torch.nn.functional as F
+
+    from ray_tpu_torch.ops import attention
+
+    dt = getattr(torch, dtype)
+    g = torch.Generator(device="cuda").manual_seed(sq + sk + d)
+    q, do = (torch.randn((b, sq, h, d), generator=g, device="cuda").to(dt)
+             for _ in range(2))
+    k, v = (torch.randn((b, sk, h, d), generator=g, device="cuda").to(dt)
+            for _ in range(2))
+    scale = d ** -0.5
+    out, lse = attention._fwd_dispatch(q, k, v, causal)
+    got = attention._kernel_bwd(q, k, v, out, lse, do, causal, scale)
+    torch.cuda.synchronize()
+    want = attention._blockwise_bwd(q, k, v, out, lse, do, causal, scale)
+    atol, rtol = BWD_TOL[dtype]
+    errs = {}
+    for what, x, y in zip(("dq", "dk", "dv"), got, want):
+        errs[what] = (x.float() - y.float()).abs().max().item()
+        if not torch.isfinite(x).all() or not torch.allclose(
+                x.float(), y.float(), atol=atol, rtol=rtol):
+            raise AssertionError(
+                f"backward kernel {what} disagrees with the plain version "
+                f"at {name}: max abs err {errs[what]} (atol {atol}, rtol "
+                f"{rtol})")
+    delta = torch.einsum("bqhd,bqhd->bhq", out.float(),
+                         do.float()).contiguous()
+    dq_ms = cuda_ms(lambda: attention._kernel_bwd_dq(
+        q, k, v, do, lse, delta, causal, scale), 20)
+    dkdv_ms = cuda_ms(lambda: attention._kernel_bwd_dkdv(
+        q, k, v, do, lse, delta, causal, scale), 20)
+    plain_ms = cuda_ms(lambda: attention._blockwise_bwd(
+        q, k, v, out, lse, do, causal, scale), 3, warmup=1)
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    lib_out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    dot = do.transpose(1, 2)
+    library_ms = cuda_ms(lambda: torch.autograd.grad(
+        lib_out, (qt, kt, vt), dot, retain_graph=True), 20)
+    row = {"shape": name, "B": b, "Sq": sq, "Sk": sk, "H": h, "D": d,
+           "causal": causal, "dtype": dtype,
+           "max_abs_err": errs, "dq_ms": dq_ms, "dkdv_ms": dkdv_ms,
+           "plain_ms": plain_ms, "library_ms": library_ms}
+    for kernel in ("dq", "dkdv"):
+        bound_ms, bound_by = _attention_work(kernel, b, sq, sk, h, d,
+                                             causal, dtype)
+        row[f"{kernel}_bound_ms"] = bound_ms
+        row[f"{kernel}_bound_by"] = bound_by
+    print(f"kernel: bwd {name} B{b} Sq{sq} Sk{sk} H{h} D{d} "
+          f"causal={causal} {dtype}: err dq {errs['dq']:.3g} dk "
+          f"{errs['dk']:.3g} dv {errs['dv']:.3g}; ms dq {dq_ms:.4f} "
+          f"(bound {row['dq_bound_ms']:.4f}) dk/dv {dkdv_ms:.4f} (bound "
+          f"{row['dkdv_bound_ms']:.4f}) plain {plain_ms:.4f} sdpa-bwd "
+          f"{library_ms:.4f}", flush=True)
+    return row
+
+
+def _reset_counts() -> None:
+    from ray_tpu_torch.ops import attention
+
+    for count in (attention.launches, attention.dq_launches,
+                  attention.dkdv_launches):
+        count.reset()
+
+
+def _read_counts() -> dict:
+    from ray_tpu_torch.ops import attention
+
+    return {"fwd": attention.launches.count,
+            "dq": attention.dq_launches.count,
+            "dkdv": attention.dkdv_launches.count}
 
 
 # --------------------------------------------------------------- phase 3
@@ -331,16 +468,14 @@ class ModelServer:
 
         from ray_tpu_torch.models import transformer as tfm
         from ray_tpu_torch.models.training import build_forward
-        from ray_tpu_torch.ops.attention import _blockwise_fwd
+        from ray_tpu_torch.ops.attention import blockwise_attention
 
         self.cfg = tfm.ModelConfig.b1()
         gen = torch.Generator(device="cuda").manual_seed(seed)
         self.params = tfm.init_params(self.cfg, gen, device="cuda")
         self.fwd = build_forward(self.cfg, device="cuda")
-        self.fwd_plain = build_forward(
-            self.cfg, device="cuda",
-            attention_fn=lambda q, k, v: _blockwise_fwd(
-                q, k, v, True, q.shape[-1] ** -0.5)[0])
+        self.fwd_plain = build_forward(self.cfg, device="cuda",
+                                       attention_fn=blockwise_attention)
 
     def forward(self, tokens):
         import torch
@@ -364,7 +499,6 @@ def phase_serve(report: dict) -> None:
     import ray_tpu_torch
     from ray_tpu_torch.cluster_utils import Cluster
     from ray_tpu_torch.models.transformer import ModelConfig
-    from ray_tpu_torch.ops import attention
 
     cfg = ModelConfig.b1()
     cluster = Cluster(head_node_args={
@@ -384,7 +518,7 @@ def phase_serve(report: dict) -> None:
         # the first call includes construction (weights drawn on the card)
         ray_tpu_torch.get(server.forward.remote(batches[0][:, :16]))
         setup_s = time.monotonic() - t0
-        attention.launches.reset()
+        _reset_counts()
         latencies, first = [], None
         for tokens in batches:
             t = time.monotonic()
@@ -393,11 +527,14 @@ def phase_serve(report: dict) -> None:
             if first is None:
                 first = logits
             del logits
-        launches = attention.launches.count
-        if launches != cfg.layers * SERVE_REQUESTS:
+        counts = _read_counts()
+        launches = counts["fwd"]
+        if launches != cfg.layers * SERVE_REQUESTS or counts["dq"] or \
+                counts["dkdv"]:
             raise AssertionError(
-                f"attention kernel launched {launches} times for "
-                f"{SERVE_REQUESTS} requests; expected {cfg.layers} each")
+                f"attention kernels launched {counts} for "
+                f"{SERVE_REQUESTS} requests; expected {cfg.layers} "
+                f"forward launches each and no backward")
         plain = ray_tpu_torch.get(server.forward_plain.remote(batches[0]))
         if first.shape != (*SERVE_TOKENS, cfg.vocab_size) or \
                 not torch.isfinite(first).all():
@@ -430,6 +567,156 @@ def phase_serve(report: dict) -> None:
     return launches
 
 
+# --------------------------------------------------------------- phase 5
+
+
+def _b1_train_batch():
+    import numpy as np
+
+    from ray_tpu_torch.models.transformer import ModelConfig
+
+    rng = np.random.default_rng(0)
+    return rng.integers(0, ModelConfig.b1().vocab_size, size=TRAIN_TOKENS)
+
+
+def train_b1():
+    """The train function: b1 at full width and depth on this worker's
+    card, TRAIN_STEPS optimizer steps on one seeded batch, each step's
+    loss, grad norm and wall time reported."""
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.transformer import ModelConfig
+    from ray_tpu_torch.models.training import build_train_step
+
+    cfg = ModelConfig.b1()
+    step, init_fn = build_train_step(cfg, device="cuda")
+    params, opt_state = init_fn(
+        torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.as_tensor(_b1_train_batch(), device="cuda")
+    torch.cuda.synchronize()
+    for i in range(TRAIN_STEPS):
+        t0 = time.monotonic()
+        params, opt_state, metrics = step(params, opt_state, tokens)
+        loss = metrics["loss"].item()  # waits for the step's kernels
+        train.report(step=i, loss=loss,
+                     grad_norm=metrics["grad_norm"].item(),
+                     step_s=time.monotonic() - t0,
+                     peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    return train.world_rank()
+
+
+def _one_step_grads(attention_fn):
+    """Gradients of b1's loss at its seeded initial weights on the train
+    batch, with ``attention_fn`` (None: the kernels)."""
+    import torch
+
+    from ray_tpu_torch.models import transformer as tfm
+    from ray_tpu_torch.models.training import tree_leaves
+
+    cfg = tfm.ModelConfig.b1()
+    params = tfm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    leaves = tree_leaves(params)
+    for p in leaves:
+        p.requires_grad_(True)
+    tokens = torch.as_tensor(_b1_train_batch(), device="cuda").long()
+    loss = tfm.loss_fn(params, tokens, cfg, attention_fn)
+    grads = torch.autograd.grad(loss, leaves)
+    names = [f"layers.{n}" if k == "layers" else k
+             for k, v in params.items()
+             for n in (v if k == "layers" else (None,))]
+    return loss.item(), dict(zip(names, grads))
+
+
+def phase_train(report: dict) -> dict:
+    import ray_tpu_torch
+    from ray_tpu_torch import train
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.models.transformer import ModelConfig
+    from ray_tpu_torch.ops.attention import blockwise_attention
+
+    cfg = ModelConfig.b1()
+    rows = []
+
+    class Collect(train.TrainingCallback):
+        def handle_result(self, results, **info):
+            rows.append(results[0])
+
+    cluster = Cluster(head_node_args={"num_cpus": 4, "num_gpus": 1,
+                                      "device": "cuda"})
+    try:
+        trainer = train.Trainer(num_workers=1, use_gpu=True)
+        trainer.start()
+        _reset_counts()
+        t0 = time.monotonic()
+        trainer.run(train_b1, callbacks=[Collect()])
+        run_s = time.monotonic() - t0
+        counts = _read_counts()
+        trainer.shutdown()
+    finally:
+        cluster.shutdown()
+    want = {"fwd": 2 * cfg.layers * TRAIN_STEPS,
+            "dq": cfg.layers * TRAIN_STEPS,
+            "dkdv": cfg.layers * TRAIN_STEPS}
+    if counts != want:
+        raise AssertionError(
+            f"attention kernels launched {counts} over {TRAIN_STEPS} "
+            f"train steps; expected {want}")
+    losses = [r["loss"] for r in rows]
+    if len(rows) != TRAIN_STEPS or not all(
+            math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"b1 train losses not finite and falling: "
+                             f"{losses}")
+
+    loss_k, grads_k = _one_step_grads(None)
+    loss_p, grads_p = _one_step_grads(blockwise_attention)
+    rel = {name: ((grads_k[name].float() - grads_p[name].float()).norm()
+                  / grads_p[name].float().norm()).item()
+           for name in grads_k}
+    worst = max(rel, key=rel.get)
+    if not all(math.isfinite(r) for r in rel.values()) or \
+            rel[worst] > GRAD_REL_L2_TOL:
+        raise AssertionError(
+            f"one step's gradients on the kernels off the plain attention:"
+            f" {worst} rel L2 {rel[worst]:.3g} > {GRAD_REL_L2_TOL}")
+    if abs(loss_k - losses[0]) > 1e-3 * abs(losses[0]):
+        raise AssertionError(f"the replayed first step's loss {loss_k} is "
+                             f"not the train run's {losses[0]}")
+
+    steady = [r["step_s"] for r in rows[1:]]
+    step_s = sum(steady) / len(steady)
+    tokens = TRAIN_TOKENS[0] * (TRAIN_TOKENS[1] - 1)
+    kernel_ms = {"fwd": next(r["ms"] for r in report["kernel_shapes"]
+                             if r["shape"] == "train")}
+    bwd = next(r for r in report["bwd_shapes"] if r["shape"] == "train")
+    kernel_ms.update(dq=bwd["dq_ms"], dkdv=bwd["dkdv_ms"])
+    share = {k: counts[k] / TRAIN_STEPS * kernel_ms[k] / (step_s * 1e3)
+             for k in counts}
+    report["train"] = {
+        "model": "ModelConfig.b1 (hidden 2048, 24 layers, 16 heads, d 128, "
+                 "inter 5632, vocab 32000, bf16, remat full)",
+        "tokens": list(TRAIN_TOKENS), "steps": rows, "run_s": run_s,
+        "kernel_launches": counts, "step_s_steady": step_s,
+        "tokens_per_s": tokens / step_s,
+        "kernel_share_of_step_est": share,
+        "grad_rel_l2_vs_plain": rel, "loss_kernels": loss_k,
+        "loss_plain": loss_p,
+    }
+    print(f"train: b1 through Trainer(num_workers=1, use_gpu=True), "
+          f"{TRAIN_STEPS} steps on {TRAIN_TOKENS[0]}x{TRAIN_TOKENS[1]} "
+          f"tokens: losses {[round(x, 4) for x in losses]}, grad norms "
+          f"{[round(r['grad_norm'], 4) for r in rows]}, step s "
+          f"{[round(r['step_s'], 4) for r in rows]}; steady {step_s:.4f} "
+          f"s/step, {tokens / step_s:.0f} tokens/s, peak "
+          f"{rows[-1]['peak_gib']:.1f} GiB; launches {counts}; kernel "
+          f"share of a step (launches x kernel-phase ms) "
+          f"{ {k: round(v, 4) for k, v in share.items()} }; grads vs "
+          f"plain attention: worst rel L2 {rel[worst]:.3g} ({worst}), "
+          f"loss {loss_k:.5f} vs {loss_p:.5f}", flush=True)
+    return counts
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -445,21 +732,44 @@ def main() -> int:
     phase_build(report)
     phase_kernel(report)
     phase_sched(report)
-    launches = phase_serve(report)
-    b1 = report["kernel_shapes"][0]
+    serve_launches = phase_serve(report)
+    counts = phase_train(report)
+    fwd = next(r for r in report["kernel_shapes"] if r["shape"] == "train")
+    bwd = next(r for r in report["bwd_shapes"] if r["shape"] == "train")
+    shape = "B8 S2048 H16 D128 causal bfloat16 (the b1 train step)"
+    csrc = "ray_tpu_torch/ops/csrc/"
     kernels = [{
-        "name": "flash_attention_fwd",
-        "route": "cuda",
-        "source": "ray_tpu_torch/ops/csrc/flash_attn_fwd.cu",
+        "name": "flash_attention_fwd", "route": "cuda",
+        "source": csrc + "flash_attn_fwd.cu",
         "replaces": "ray_tpu/ops/attention.py:202",
-        "launches": launches,
+        "launches": counts["fwd"],
+        "launches_by_path": {"serve": serve_launches,
+                             "train": counts["fwd"]},
         "max_abs_err": max(r["max_abs_err"]
                            for r in report["kernel_shapes"]),
-        "ms": b1["ms"], "plain_ms": b1["plain_ms"],
-        "bound_ms": b1["bound_ms"], "bound_by": b1["bound_by"],
-        "library_ms": b1["library_ms"],
-        "shape": "B2 S2048 H16 D128 causal bfloat16",
+        "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
+        "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
+        "library_ms": fwd["library_ms"], "shape": shape,
     }]
+    for name, kernel, line, errs in (
+            ("flash_attention_bwd_dq", "dq", 356, ("dq",)),
+            ("flash_attention_bwd_dkdv", "dkdv", 404, ("dk", "dv"))):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "source": csrc + "flash_attn_bwd.cu",
+            "replaces": f"ray_tpu/ops/attention.py:{line}",
+            "launches": counts[kernel],
+            "launches_by_path": {"serve": 0, "train": counts[kernel]},
+            "max_abs_err": max(r["max_abs_err"][e]
+                               for r in report["bwd_shapes"] for e in errs),
+            "ms": bwd[f"{kernel}_ms"],
+            # the plain backward and SDPA's backward compute dq, dk and
+            # dv in one call: the same time stands in both rows
+            "plain_ms": bwd["plain_ms"],
+            "bound_ms": bwd[f"{kernel}_bound_ms"],
+            "bound_by": bwd[f"{kernel}_bound_by"],
+            "library_ms": bwd["library_ms"], "shape": shape,
+        })
     report["kernels"] = kernels
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:

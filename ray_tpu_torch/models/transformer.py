@@ -1,4 +1,4 @@
-"""Flagship model family: decoder-only transformer, dense inference path.
+"""Flagship model family: decoder-only transformer, dense path.
 
 Port of ``ray_tpu/models/transformer.py`` to plain functions on torch
 tensors. Parameters keep the JAX package's pytree layout — a dict with
@@ -7,16 +7,24 @@ map one to one (``models/convert.py``); the layer loop is a Python loop
 where the JAX package scans.
 
 Architecture: RMSNorm, rotary embeddings, GQA attention via
-``ops.flash_attention`` (the hand-written Hopper kernel on CUDA), SwiGLU
-MLP. Not ported yet (a later slice): MoE layers, ``loss_fn``, remat.
+``ops.flash_attention`` (the hand-written Hopper kernels on CUDA, forward
+and backward), SwiGLU MLP; ``loss_fn`` with optional chunked cross
+entropy, and remat of each layer through ``torch.utils.checkpoint``. Not
+ported yet (a later slice): MoE layers.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
+import logging
 from typing import Any, Callable, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import (
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.ops.attention import flash_attention
@@ -40,7 +48,24 @@ class ModelConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
     dtype: torch.dtype = torch.bfloat16
+    remat: bool = True
+    # remat granularity when ``remat`` is on: "full" recomputes the whole
+    # layer in the backward (lowest memory); "dots" saves the weight
+    # matmul outputs and recomputes the rest, the counterpart of
+    # jax.checkpoint_policies.dots_with_no_batch_dims_saveable (attention
+    # products have batch dims and are never saved)
+    remat_policy: str = "full"
     tie_embeddings: bool = True
+    # chunked cross-entropy: when >0 and it divides the sequence, the
+    # loss projects to vocab one [B, chunk, V] slab at a time under
+    # checkpoint, so the fp32 [B, S, V] logits never materialize
+    logits_chunk: int = 0
+
+    def __post_init__(self):
+        if self.remat_policy not in ("full", "dots"):
+            raise ValueError(
+                f"remat_policy must be 'full' or 'dots', "
+                f"got {self.remat_policy!r}")
 
     @property
     def head_dim(self) -> int:
@@ -111,10 +136,6 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
 # -- transformer block -------------------------------------------------------
 
 
-def _flash_out(q, k, v):
-    return flash_attention(q, k, v, True)[0]
-
-
 def attention_block(x, layer, cfg: ModelConfig, cos, sin,
                     attention_fn: Callable) -> torch.Tensor:
     b, s, h = x.shape
@@ -139,23 +160,52 @@ def mlp_block(x, layer, cfg: ModelConfig) -> torch.Tensor:
     return x + swiglu(xn, layer["w_gate"], layer["w_up"], layer["w_down"])
 
 
+def _block(x, layer, cfg: ModelConfig, cos, sin, attention_fn):
+    x = attention_block(x, layer, cfg, cos, sin, attention_fn)
+    return mlp_block(x, layer, cfg)
+
+
+# "dots": matmuls without batch dims (x @ W reaches aten.mm), as JAX's
+# dots_with_no_batch_dims_saveable
+_DOT_OPS = [torch.ops.aten.mm.default]
+
+
+def _remat_kwargs(cfg: ModelConfig) -> Dict[str, Any]:
+    kw: Dict[str, Any] = {"use_reentrant": False}
+    if cfg.remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _DOT_OPS)
+    return kw
+
+
 def hidden_states(params: Dict[str, Any], tokens: torch.Tensor,
                   cfg: ModelConfig,
                   attention_fn: Optional[Callable] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] int -> (final hidden states [B, S, H], aux). ``aux``
-    is the MoE auxiliary loss, always 0 on this dense path."""
+    is the MoE auxiliary loss, always 0 on this dense path. With
+    ``cfg.remat`` and autograd on, each layer runs under
+    ``torch.utils.checkpoint`` and its forward is recomputed in the
+    backward."""
     if attention_fn is None:
-        attention_fn = _flash_out
+        attention_fn = functools.partial(flash_attention, causal=True)
     embed = params["embed"]
     cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                                 device=embed.device)
     x = embed[tokens]
-    stacked = params["layers"]
-    for i in range(cfg.layers):
-        layer = {name: w[i] for name, w in stacked.items()}
-        x = attention_block(x, layer, cfg, cos, sin, attention_fn)
-        x = mlp_block(x, layer, cfg)
+    names = list(params["layers"])
+    # unbind, not w[i]: its backward stacks the layers' grads once instead
+    # of adding a full-stack zero tensor per layer
+    per_layer = zip(*(params["layers"][n].unbind(0) for n in names))
+    remat = cfg.remat and torch.is_grad_enabled()
+    kw = _remat_kwargs(cfg) if remat else {}
+    for weights in per_layer:
+        layer = dict(zip(names, weights))
+        if remat:
+            x = checkpoint(_block, x, layer, cfg, cos, sin, attention_fn,
+                           **kw)
+        else:
+            x = _block(x, layer, cfg, cos, sin, attention_fn)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
 
@@ -172,3 +222,43 @@ def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
     x, aux = hidden_states(params, tokens, cfg, attention_fn)
     logits = x.float() @ _unembed(params, cfg).float()
     return logits, aux
+
+
+def _chunk_nll(x_c, t_c, unembed):
+    logits = x_c.float() @ unembed.float()
+    logp = torch.log_softmax(logits, dim=-1)
+    return -logp.gather(-1, t_c[..., None])[..., 0].sum()
+
+
+def loss_fn(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
+            attention_fn: Optional[Callable] = None) -> torch.Tensor:
+    """Next-token cross entropy over tokens[:, :-1] -> tokens[:, 1:],
+    plus 0.01 x the MoE aux loss.
+
+    When ``cfg.logits_chunk`` divides the sequence, the vocab projection
+    and log-softmax run one sequence chunk at a time under checkpoint, so
+    the fp32 [B, S, V] logits never materialize; the backward recomputes
+    one [B, C, V] chunk at a time."""
+    x, aux = hidden_states(params, tokens[:, :-1], cfg, attention_fn)
+    targets = tokens[:, 1:]
+    unembed = _unembed(params, cfg)
+    b, s, _ = x.shape
+    chunk = cfg.logits_chunk
+    if chunk and (s % chunk != 0 and s > chunk):
+        # a non-dividing chunk would silently reintroduce the full
+        # [B,S,V] fp32 logits — the allocation this option exists to avoid
+        logging.getLogger(__name__).warning(
+            "logits_chunk=%d does not divide sequence length %d; "
+            "falling back to UNCHUNKED loss (full [B,S,V] fp32 logits "
+            "materialize — may OOM at large batch x vocab)", chunk, s)
+    if chunk and s % chunk == 0 and s > chunk:
+        total = torch.zeros((), dtype=torch.float32, device=x.device)
+        for c in range(0, s, chunk):
+            total = total + checkpoint(
+                _chunk_nll, x[:, c:c + chunk], targets[:, c:c + chunk],
+                unembed, use_reentrant=False)
+        return total / (b * s) + 0.01 * aux
+    logits = x.float() @ unembed.float()
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, targets[..., None])[..., 0]
+    return nll.mean() + 0.01 * aux

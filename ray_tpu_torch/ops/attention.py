@@ -1,16 +1,25 @@
-"""Flash attention forward: a hand-written Hopper kernel and its plain
-torch versions.
+"""Flash attention: hand-written Hopper kernels and their plain torch
+versions.
 
-Port of the forward half of ``ray_tpu/ops/attention.py``:
+Port of ``ray_tpu/ops/attention.py``:
 
-  flash_attention(q, k, v, causal=True, sm_scale=None) -> (out, lse)
-    -> CUDA tensors: the kernel in csrc/flash_attn_fwd.cu (the port of
-       the TPU kernel ``_flash_kernel``), built with nvcc at first use;
-    -> CPU tensors: ``_blockwise_fwd``, the plain blockwise version.
+  flash_attention(q, k, v, causal=True, sm_scale=None) -> out
+    a differentiable op (``_FlashAttention``, the JAX package's
+    ``custom_vjp``); it saves (q, k, v, out, lse) and its backward
+    recomputes p from lse, so the [S, S] matrix never materializes;
+    -> CUDA tensors: the kernels in csrc/, built with nvcc at first use:
+       K1 ``flash_attn_fwd.cu`` (port of the TPU kernel ``_flash_kernel``)
+       for the forward, K2 and K3 ``flash_attn_bwd.cu`` (ports of
+       ``_bwd_dq_kernel`` and ``_bwd_dkdv_kernel``) for the backward;
+    -> CPU tensors: ``_blockwise_fwd`` / ``_blockwise_bwd``, the plain
+       blockwise versions.
+  _fwd_dispatch(q, k, v, causal, sm_scale) -> (out, lse), the forward
+    alone (no autograd), as in the JAX package.
 
-There is no fallback between the two: a CUDA tensor the kernel does not
-take (dtype, head dim, layout) raises. The backward kernels wait for
-the training slice.
+There is no fallback between the two: a CUDA tensor the kernels do not
+take (dtype, head dim, layout) raises. Every head dim and dtype the
+forward takes, the backward takes too: the JAX package's rule that sends
+head_dim % 128 != 0 to the blockwise backward is a TPU lane rule.
 
 Layouts: q/k/v [batch, seq, heads, head_dim]; ``out`` in q's dtype with
 q's layout; ``lse`` [batch, heads, seq_q] float32.
@@ -25,7 +34,7 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
 import torch
 
@@ -33,7 +42,8 @@ BLOCKWISE_BLOCK_K = 128
 _NEG_INF = -1e30
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
-_SOURCES = ("flash_attn_fwd.cu",)
+_SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu")
+_HEADERS = ("flash_attn_common.cuh",)
 # kernel builds land here (listed in .gitignore), keyed by source digest
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -99,6 +109,40 @@ def _blockwise_fwd(q, k, v, causal: bool, sm_scale: float,
     return out.to(q.dtype), lse
 
 
+def _blockwise_bwd(q, k, v, out, lse, dout, causal: bool, sm_scale: float,
+                   block_k: int = BLOCKWISE_BLOCK_K
+                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """dq/dk/dv from the saved lse, one K/V block at a time, in fp32.
+
+    The JAX package's blockwise backward: p is recomputed from lse, delta
+    = rowsum(out * dout), and each block's dk/dv rows are written once
+    (a ragged last block is sliced short, as in the forward)."""
+    sk = k.shape[1]
+    qf, of, dof = (x.float() for x in (q, out, dout))
+    delta = torch.einsum("bqhd,bqhd->bhq", of, dof)  # [B, H, Sq]
+    q_pos = torch.arange(q.shape[1], device=q.device)
+    dq = torch.zeros_like(qf)
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device)
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device)
+    for start in range(0, sk, block_k):
+        k_blk = k[:, start:start + block_k].float()
+        v_blk = v[:, start:start + block_k].float()
+        logits = torch.einsum("bqhd,bkhd->bhqk", qf, k_blk) * sm_scale
+        p = torch.exp(logits - lse[..., None])
+        if causal:
+            k_pos = start + torch.arange(k_blk.shape[1], device=q.device)
+            valid = q_pos[:, None] >= k_pos[None, :]
+            p = torch.where(valid[None, None], p, 0.0)
+        dv[:, start:start + block_k] = torch.einsum("bhqk,bqhd->bkhd", p,
+                                                    dof)
+        dp = torch.einsum("bqhd,bkhd->bhqk", dof, v_blk)
+        ds = p * (dp - delta[..., None]) * sm_scale
+        dq += torch.einsum("bhqk,bkhd->bqhd", ds, k_blk)
+        dk[:, start:start + block_k] = torch.einsum("bhqk,bqhd->bkhd", ds,
+                                                    qf)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 # ===========================================================================
 # The Hopper kernel: build, bind, launch.
 # ===========================================================================
@@ -125,7 +169,9 @@ class LaunchCount:
         return self._n
 
 
-launches = LaunchCount()
+launches = LaunchCount()        # K1, the forward
+dq_launches = LaunchCount()     # K2
+dkdv_launches = LaunchCount()   # K3
 _lib = None
 _build_log = ""
 _lib_lock = threading.Lock()
@@ -150,7 +196,8 @@ def build_kernels() -> str:
             return _build_log
         sources = [_CSRC / name for name in _SOURCES]
         digest = hashlib.sha256(
-            b"".join(p.read_bytes() for p in sources)
+            b"".join(p.read_bytes() for p in
+                     (*sources, *(_CSRC / name for name in _HEADERS)))
             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         so = BUILD_DIR / f"librtt_kernels_{digest}.so"
@@ -171,6 +218,11 @@ def build_kernels() -> str:
         fn.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 6
                        + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
         fn.restype = ctypes.c_int
+        for fn, n_ptrs in ((lib.rtt_flash_attn_bwd_dq, 7),
+                           (lib.rtt_flash_attn_bwd_dkdv, 8)):
+            fn.argtypes = ([ctypes.c_void_p] * n_ptrs + [ctypes.c_int] * 6
+                           + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+            fn.restype = ctypes.c_int
         _build_log = log.read_text() if log.exists() else ""
         _lib = lib
         return _build_log
@@ -219,23 +271,157 @@ def _kernel_fwd(q, k, v, causal: bool, sm_scale: float
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, h, sq, sk, d, int(bool(causal)),
             float(sm_scale), _DTYPE_CODES[q.dtype], stream)
-    if err != 0:
-        raise RuntimeError(
-            f"flash_attention kernel launch failed: cudaError {err} "
-            f"(q {tuple(q.shape)} {q.dtype}, sk {sk}, causal {causal})")
+    _launch_check(err, "forward", q, sk, causal)
     launches.add()
     return out, lse
 
 
-def flash_attention(q, k, v, causal: bool = True,
-                    sm_scale: Optional[float] = None
-                    ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Attention forward -> (out [B,Sq,H,D] in q's dtype, lse [B,H,Sq]
-    float32). CUDA tensors launch the kernel (or raise); CPU tensors take
-    the plain blockwise path."""
-    scale = sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+def _check_like(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
+    if t.shape != like.shape or t.dtype != like.dtype \
+            or t.device != like.device:
+        raise ValueError(
+            f"{name} must match q: {tuple(like.shape)} {like.dtype} on "
+            f"{like.device}; got {tuple(t.shape)} {t.dtype} on {t.device}")
+    if not t.is_contiguous() or t.data_ptr() % 16:
+        raise ValueError(f"the CUDA flash_attention backward takes "
+                         f"contiguous, 16-byte aligned {name}")
+
+
+def _launch_check(err: int, what: str, q, sk: int, causal: bool) -> None:
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention {what} kernel launch failed: cudaError {err} "
+            f"(q {tuple(q.shape)} {q.dtype}, sk {sk}, causal {causal})")
+
+
+def _bwd_tail(q, k, causal: bool, sm_scale: float) -> tuple:
+    b, sq, h, d = q.shape
+    return (b, h, sq, k.shape[1], d, int(bool(causal)), float(sm_scale),
+            _DTYPE_CODES[q.dtype],
+            torch.cuda.current_stream(q.device).cuda_stream)
+
+
+def _kernel_bwd_dq(q, k, v, dout, lse, delta, causal: bool,
+                   sm_scale: float) -> torch.Tensor:
+    """K2 on the current stream, on inputs ``_kernel_bwd`` checked."""
+    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = _lib.rtt_flash_attn_bwd_dq(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+            *_bwd_tail(q, k, causal, sm_scale))
+    _launch_check(err, "dq", q, k.shape[1], causal)
+    dq_launches.add()
+    return dq
+
+
+def _kernel_bwd_dkdv(q, k, v, dout, lse, delta, causal: bool,
+                     sm_scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K3 on the current stream, on inputs ``_kernel_bwd`` checked."""
+    dk = torch.empty_like(k)
+    dv = torch.empty_like(v)
+    with torch.cuda.device(q.device):
+        err = _lib.rtt_flash_attn_bwd_dkdv(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
+            lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+            *_bwd_tail(q, k, causal, sm_scale))
+    _launch_check(err, "dk/dv", q, k.shape[1], causal)
+    dkdv_launches.add()
+    return dk, dv
+
+
+def _kernel_bwd(q, k, v, out, lse, dout, causal: bool, sm_scale: float
+                ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """K2 (dq) then K3 (dk, dv) on the current stream; delta =
+    rowsum(out * dout) in fp32 is one torch op before them, as the JAX
+    package leaves it to XLA."""
+    _check_kernel_inputs(q, k, v)
+    dout = dout.contiguous()
+    _check_like("dout", dout, q)
+    _check_like("out", out, q)
+    b, sq, h, _ = q.shape
+    if lse.shape != (b, h, sq) or lse.dtype != torch.float32 \
+            or not lse.is_contiguous():
+        raise ValueError(f"lse must be contiguous float32 [{b}, {h}, {sq}]")
+    if _lib is None:
+        build_kernels()
+    delta = torch.einsum("bqhd,bqhd->bhq", out.float(),
+                         dout.float()).contiguous()
+    dq = _kernel_bwd_dq(q, k, v, dout, lse, delta, causal, sm_scale)
+    dk, dv = _kernel_bwd_dkdv(q, k, v, dout, lse, delta, causal, sm_scale)
+    return dq, dk, dv
+
+
+def _scale(q, sm_scale: Optional[float]) -> float:
+    return sm_scale if sm_scale is not None else q.shape[-1] ** -0.5
+
+
+def _fwd_dispatch(q, k, v, causal: bool = True,
+                  sm_scale: Optional[float] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Attention forward without autograd -> (out [B,Sq,H,D] in q's
+    dtype, lse [B,H,Sq] float32). CUDA tensors launch K1 (or raise); CPU
+    tensors take the plain blockwise path."""
     if q.device.type == "cuda":
-        return _kernel_fwd(q, k, v, causal, scale)
+        return _kernel_fwd(q, k, v, causal, _scale(q, sm_scale))
     if q.device.type == "cpu":
-        return _blockwise_fwd(q, k, v, causal, scale)
+        return _blockwise_fwd(q, k, v, causal, _scale(q, sm_scale))
     raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+
+def _bwd_dispatch(q, k, v, out, lse, dout, causal: bool = True,
+                  sm_scale: Optional[float] = None
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(dq, dk, dv) from the forward's residuals. CUDA tensors launch K2
+    and K3 (or raise); CPU tensors take the plain blockwise path."""
+    if q.device.type == "cuda":
+        return _kernel_bwd(q, k, v, out, lse, dout, causal,
+                           _scale(q, sm_scale))
+    if q.device.type == "cpu":
+        return _blockwise_bwd(q, k, v, out, lse, dout, causal,
+                              _scale(q, sm_scale))
+    raise ValueError(f"flash_attention: unsupported device {q.device}")
+
+
+def _attention_op(fwd: Callable, bwd: Callable):
+    """An autograd op over a (fwd -> (out, lse), bwd -> (dq, dk, dv))
+    pair; residuals (q, k, v, out, lse) as the JAX package's
+    ``_flash_fwd`` saves them."""
+
+    class _Attention(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, causal, sm_scale):
+            scale = _scale(q, sm_scale)
+            out, lse = fwd(q, k, v, causal, scale)
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.causal, ctx.scale = causal, scale
+            return out
+
+        @staticmethod
+        def backward(ctx, dout):
+            dq, dk, dv = bwd(*ctx.saved_tensors, dout, ctx.causal,
+                             ctx.scale)
+            return dq, dk, dv, None, None
+
+    return _Attention
+
+
+# the op: kernels on CUDA, blockwise on the CPU
+_FlashAttention = _attention_op(_fwd_dispatch, _bwd_dispatch)
+# the plain versions on any device: the kernels' yardstick on the card
+_BlockwiseAttention = _attention_op(_blockwise_fwd, _blockwise_bwd)
+
+
+def flash_attention(q, k, v, causal: bool = True,
+                    sm_scale: Optional[float] = None) -> torch.Tensor:
+    """Differentiable attention -> out [B,Sq,H,D] in q's dtype. CUDA
+    tensors run K1 forward and K2/K3 backward (or raise); CPU tensors take
+    the plain blockwise paths."""
+    return _FlashAttention.apply(q, k, v, causal, sm_scale)
+
+
+def blockwise_attention(q, k, v, causal: bool = True,
+                        sm_scale: Optional[float] = None) -> torch.Tensor:
+    """``flash_attention`` on the plain blockwise versions, on any device
+    (the reference a run holds the kernels against)."""
+    return _BlockwiseAttention.apply(q, k, v, causal, sm_scale)

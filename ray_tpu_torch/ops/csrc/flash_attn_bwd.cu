@@ -1,0 +1,784 @@
+// Flash-attention backward for Hopper (sm_90a), plain CUDA C++: two
+// kernels, the flash-attention-2 split of the JAX package's TPU kernels.
+//
+//   dq   (K2) replaces ray_tpu/ops/attention.py::_bwd_dq_kernel
+//        one block per (batch*head, 64-row q tile); a loop over the k
+//        tiles up to the causal diagonal accumulates dq = sum_k ds.K in
+//        fp32 registers;
+//   dkdv (K3) replaces ray_tpu/ops/attention.py::_bwd_dkdv_kernel
+//        one block per (batch*head, 64-key tile); a loop over the q tiles
+//        from the first one at or below the diagonal to the end
+//        accumulates dv = sum_q p^T.dO and dk = sum_q ds^T.Q.
+//
+// Both launched by _pallas_bwd on the TPU. Each block owns its output
+// tile, so there are no atomics and the result is deterministic. Both
+// recompute p = exp(q.k * scale - lse) from the forward's saved lse
+// (the [S, S] matrix never reaches device memory); delta = rowsum(O*dO)
+// comes in precomputed, as on the TPU.
+//
+// Numerics as in the TPU kernels: p in fp32 from lse, dp = dO.V^T
+// accumulated in fp32 from native-dtype operands, ds = p*(dp - delta)*
+// scale in fp32; ds (and p, for dv) rounded to the input dtype before the
+// product that consumes them; dq/dk/dv accumulated in fp32 and rounded
+// once at the end.
+//
+// What bounds them on an H100: at the b1 train shape (B8 S2048 H16 D128,
+// causal) K2 does ~206 GFLOP against ~338 MB, K3 ~275 GFLOP against
+// ~405 MB: ~600-700 FLOP/byte, above the card's ~295 FLOP/byte ridge, so
+// both are bound by arithmetic and the bf16 path runs on the tensor
+// cores (mma.sync.m16n8k16, bf16 operands, fp32 accumulators, ldmatrix
+// fragment loads from 16-byte padded rows, cp.async double buffering of
+// the streamed tiles). wgmma, TMA and warp specialisation are later work.
+//   - K2, bf16: 4 warps of 16 q rows; S = Q K^T and dP = dO V^T share one
+//     pass over head_dim; ds leaves the accumulators already in the A
+//     layout of ds.K (as P does in the forward).
+//   - K3, bf16: 4 warps of 16 keys; the transposed tiles S^T = K Q^T and
+//     dP^T = V dO^T are computed, so p^T and ds^T leave the accumulators
+//     in the A layout of p^T.dO and ds^T.Q; lse and delta are indexed by
+//     column. At head_dim 128 the two fp32 [16, 128] accumulators of a
+//     warp cost 128 registers a thread, so the q tile is consumed in
+//     32-query register chunks to keep S^T/dP^T small.
+//   - fp32: exact FMAs on the CUDA cores (the tensor cores would round to
+//     tf32), 8 warps of 8 rows, the forward's fp32 layout.
+// Causal tiles are skipped by the loop bounds; ragged edges are masked
+// in the kernels (rows past the sequence load as zeros and are never
+// written), Sq != Sk takes top-left causal alignment as the forward does.
+//
+// Plain C interface, loaded with ctypes: the caller allocates the outputs,
+// passes the current stream and raises on a non-zero return.
+
+#include <type_traits>
+
+#include "flash_attn_common.cuh"
+
+namespace {
+
+using bf16 = __nv_bfloat16;
+
+// ---------------------------------------------------------------------------
+// bf16: tensor cores.
+// ---------------------------------------------------------------------------
+
+constexpr int MMA_WARPS = 4;
+constexpr int MMA_THREADS = MMA_WARPS * 32;
+constexpr int TILE = 64;     // rows of every q and k tile
+constexpr int Q_CHUNK = 32;  // K3: queries per register chunk
+
+// A-operand fragment of rows [row0, row0+16) x cols [col0, col0+16) of a
+// row-major bf16 tile in shared memory (matrices: rows lo/hi x cols lo/hi)
+__device__ __forceinline__ void load_a(uint32_t (&a)[4], const bf16* tile,
+                                       int ld, int row0, int col0,
+                                       int lane) {
+  ldmatrix_x4(a, tile + (row0 + (lane & 15)) * ld + col0 + (lane >> 4) * 8);
+}
+
+// rows [r0, r0+TILE) of a [S, H, D] slab -> shared memory via cp.async;
+// rows past S read as zeros
+template <int D>
+__device__ __forceinline__ void copy_rows(bf16* dst, const bf16* src,
+                                          long row_stride, int r0, int S,
+                                          int tid) {
+  constexpr int LD = D + MMA_PAD;
+  constexpr int CH = D / 8;
+  for (int i = tid; i < TILE * CH; i += MMA_THREADS) {
+    const int r = i / CH, c = (i % CH) * 8;
+    const bool ok = r0 + r < S;
+    cp_async16(dst + r * LD + c, src + (ok ? (r0 + r) * row_stride + c : 0),
+               ok);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+bwd_dq_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                  const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, bf16* __restrict__ dq,
+                  int H, int Sq, int Sk, int causal, float scale) {
+  constexpr int LD = D + MMA_PAD;
+  constexpr int KD = D / 16;    // k-steps over head_dim
+  constexpr int NT = TILE / 8;  // 8-key n-tiles of S
+  constexpr int DT = D / 8;     // 8-wide n-tiles of dq
+
+  // Q tile, dO tile, then two stages of (K tile, V tile)
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Qs = reinterpret_cast<bf16*>(smem_raw);
+  bf16* dOs = Qs + TILE * LD;
+  bf16* KVs = dOs + TILE * LD;
+  constexpr int STAGE = 2 * TILE * LD;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TILE;  // longest first
+  const long row_stride = (long)H * D;
+  const long q_off = ((long)b * Sq * H + h) * D;
+  const long k_off = ((long)b * Sk * H + h) * D;
+
+  copy_rows<D>(Qs, q + q_off, row_stride, q0, Sq, tid);
+  copy_rows<D>(dOs, dout + q_off, row_stride, q0, Sq, tid);
+  cp_async_commit();
+
+  const int wr = warp * 16;
+  const int qp[2] = {q0 + wr + g, q0 + wr + g + 8};
+  float lse_r[2], delta_r[2];
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    const long i = (long)bh * Sq + qp[row];
+    lse_r[row] = qp[row] < Sq ? lse[i] : 0.f;
+    delta_r[row] = qp[row] < Sq ? delta[i] : 0.f;
+  }
+  float acc[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j)
+    acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+
+  const int q_last = min(q0 + TILE, Sq) - 1;
+  const int kv_len = causal ? min(Sk, q_last + 1) : Sk;
+  const int n_tiles = (kv_len + TILE - 1) / TILE;
+  const int lm_row = lane & 7;
+  const int lm_mat = lane >> 3;
+
+  auto load_tile = [&](int tile) {
+    bf16* Kd = KVs + (tile & 1) * STAGE;
+    copy_rows<D>(Kd, k + k_off, row_stride, tile * TILE, Sk, tid);
+    copy_rows<D>(Kd + TILE * LD, v + k_off, row_stride, tile * TILE, Sk,
+                 tid);
+    cp_async_commit();
+  };
+  if (n_tiles > 0) load_tile(0);
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int k0 = tile * TILE;
+    if (tile + 1 < n_tiles) {
+      load_tile(tile + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const bf16* Ks = KVs + (tile & 1) * STAGE;
+    const bf16* Vs = Ks + TILE * LD;
+
+    // S = Q K^T and dP = dO V^T: s[n]/dp[n] hold rows (g, g+8) x keys
+    // (n*8 + 2t, +1); one ldmatrix x4 of K (or V) rows gives the B
+    // fragments of two k-steps
+    float s[NT][4], dp[NT][4];
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = dp[n][e] = 0.f;
+    }
+#pragma unroll
+    for (int kk = 0; kk < KD; kk += 2) {
+      uint32_t qa0[4], qa1[4], da0[4], da1[4];
+      load_a(qa0, Qs, LD, wr, kk * 16, lane);
+      load_a(qa1, Qs, LD, wr, kk * 16 + 16, lane);
+      load_a(da0, dOs, LD, wr, kk * 16, lane);
+      load_a(da1, dOs, LD, wr, kk * 16 + 16, lane);
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+        const int off = (n * 8 + lm_row) * LD + kk * 16 + lm_mat * 8;
+        uint32_t bk[4], bv[4];
+        ldmatrix_x4(bk, Ks + off);
+        ldmatrix_x4(bv, Vs + off);
+        mma_bf16(s[n], qa0[0], qa0[1], qa0[2], qa0[3], bk[0], bk[1]);
+        mma_bf16(s[n], qa1[0], qa1[1], qa1[2], qa1[3], bk[2], bk[3]);
+        mma_bf16(dp[n], da0[0], da0[1], da0[2], da0[3], bv[0], bv[1]);
+        mma_bf16(dp[n], da1[0], da1[1], da1[2], da1[3], bv[2], bv[3]);
+      }
+    }
+
+    // p from lse, then ds (kept in s)
+#pragma unroll
+    for (int n = 0; n < NT; ++n) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kp = k0 + n * 8 + 2 * t + (e & 1);
+        const int row = e >> 1;
+        const bool ok = kp < Sk && qp[row] < Sq && (!causal || qp[row] >= kp);
+        const float p = ok ? expf(s[n][e] * scale - lse_r[row]) : 0.f;
+        s[n][e] = p * (dp[n][e] - delta_r[row]) * scale;
+      }
+    }
+
+    // dq += ds K over 16-key steps; ds in bf16 as the A operand, K's B
+    // fragments by transposing ldmatrix (as V in the forward's P.V)
+#pragma unroll
+    for (int kc = 0; kc < TILE / 16; ++kc) {
+      const uint32_t a0 = pack_bf16(s[2 * kc][0], s[2 * kc][1]);
+      const uint32_t a1 = pack_bf16(s[2 * kc][2], s[2 * kc][3]);
+      const uint32_t a2 = pack_bf16(s[2 * kc + 1][0], s[2 * kc + 1][1]);
+      const uint32_t a3 = pack_bf16(s[2 * kc + 1][2], s[2 * kc + 1][3]);
+      const bf16* kp =
+          Ks + (kc * 16 + (lm_mat & 1) * 8 + lm_row) * LD + (lm_mat >> 1) * 8;
+#pragma unroll
+      for (int j = 0; j < DT; j += 2) {
+        uint32_t bk[4];
+        ldmatrix_x4_trans(bk, kp + j * 8);
+        mma_bf16(acc[j], a0, a1, a2, a3, bk[0], bk[1]);
+        mma_bf16(acc[j + 1], a0, a1, a2, a3, bk[2], bk[3]);
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+  cp_async_wait<0>();  // no tile at all: the Q/dO group is still open
+
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    if (qp[row] >= Sq) continue;
+    bf16* out = dq + q_off + (long)qp[row] * row_stride;
+#pragma unroll
+    for (int j = 0; j < DT; ++j)
+      *reinterpret_cast<uint32_t*>(out + j * 8 + 2 * t) =
+          pack_bf16(acc[j][2 * row], acc[j][2 * row + 1]);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(MMA_THREADS)
+bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
+                    const bf16* __restrict__ v, const bf16* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, int H, int Sq, int Sk, int causal,
+                    float scale) {
+  constexpr int LD = D + MMA_PAD;
+  constexpr int KD = D / 16;
+  constexpr int NT = Q_CHUNK / 8;  // 8-query n-tiles of a chunk
+  constexpr int DT = D / 8;
+
+  // K tile, V tile, then two stages of (Q tile, dO tile), then two
+  // stages of (lse, delta) rows
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  bf16* Ks = reinterpret_cast<bf16*>(smem_raw);
+  bf16* Vs = Ks + TILE * LD;
+  bf16* QDs = Vs + TILE * LD;
+  constexpr int STAGE = 2 * TILE * LD;
+  float* rows_s = reinterpret_cast<float*>(QDs + 2 * STAGE);
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int g = lane >> 2;
+  const int t = lane & 3;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int k0 = blockIdx.x * TILE;
+  const long row_stride = (long)H * D;
+  const long q_off = ((long)b * Sq * H + h) * D;
+  const long k_off = ((long)b * Sk * H + h) * D;
+
+  copy_rows<D>(Ks, k + k_off, row_stride, k0, Sk, tid);
+  copy_rows<D>(Vs, v + k_off, row_stride, k0, Sk, tid);
+  cp_async_commit();
+
+  const int wr = warp * 16;
+  const int kp[2] = {k0 + wr + g, k0 + wr + g + 8};  // rows g, g+8
+  float dka[DT][4], dva[DT][4];
+#pragma unroll
+  for (int j = 0; j < DT; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) dka[j][e] = dva[j][e] = 0.f;
+  }
+
+  // causal: queries before k0 never see this tile's keys
+  const int qt_first = causal ? k0 / TILE : 0;
+  const int n_qt = (Sq + TILE - 1) / TILE;
+  const int lm_row = lane & 7;
+  const int lm_mat = lane >> 3;
+
+  auto load_qtile = [&](int qt) {
+    const int st = (qt - qt_first) & 1;
+    bf16* Qd = QDs + st * STAGE;
+    copy_rows<D>(Qd, q + q_off, row_stride, qt * TILE, Sq, tid);
+    copy_rows<D>(Qd + TILE * LD, dout + q_off, row_stride, qt * TILE, Sq,
+                 tid);
+    cp_async_commit();
+    // this stage's rows were last read before the previous trailing
+    // barrier; the next leading barrier publishes them
+    if (tid < TILE) {
+      const int qpos = qt * TILE + tid;
+      const long i = (long)bh * Sq + qpos;
+      rows_s[st * 2 * TILE + tid] = qpos < Sq ? lse[i] : 0.f;
+      rows_s[st * 2 * TILE + TILE + tid] = qpos < Sq ? delta[i] : 0.f;
+    }
+  };
+  if (qt_first < n_qt) load_qtile(qt_first);
+
+  for (int qt = qt_first; qt < n_qt; ++qt) {
+    const int q0 = qt * TILE;
+    if (qt + 1 < n_qt) {
+      load_qtile(qt + 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int st = (qt - qt_first) & 1;
+    const bf16* Qs = QDs + st * STAGE;
+    const bf16* dOs = Qs + TILE * LD;
+    const float* lse_s = rows_s + st * 2 * TILE;
+    const float* delta_s = lse_s + TILE;
+
+    for (int c = 0; c < TILE; c += Q_CHUNK) {
+      // S^T = K Q^T and dP^T = V dO^T for queries [c, c + Q_CHUNK):
+      // sT[n]/dpT[n] hold keys (g, g+8) x queries (c + n*8 + 2t, +1)
+      float sT[NT][4], dpT[NT][4];
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) sT[n][e] = dpT[n][e] = 0.f;
+      }
+#pragma unroll
+      for (int kk = 0; kk < KD; kk += 2) {
+        uint32_t ka0[4], ka1[4], va0[4], va1[4];
+        load_a(ka0, Ks, LD, wr, kk * 16, lane);
+        load_a(ka1, Ks, LD, wr, kk * 16 + 16, lane);
+        load_a(va0, Vs, LD, wr, kk * 16, lane);
+        load_a(va1, Vs, LD, wr, kk * 16 + 16, lane);
+#pragma unroll
+        for (int n = 0; n < NT; ++n) {
+          const int off = (c + n * 8 + lm_row) * LD + kk * 16 + lm_mat * 8;
+          uint32_t bq[4], bd[4];
+          ldmatrix_x4(bq, Qs + off);
+          ldmatrix_x4(bd, dOs + off);
+          mma_bf16(sT[n], ka0[0], ka0[1], ka0[2], ka0[3], bq[0], bq[1]);
+          mma_bf16(sT[n], ka1[0], ka1[1], ka1[2], ka1[3], bq[2], bq[3]);
+          mma_bf16(dpT[n], va0[0], va0[1], va0[2], va0[3], bd[0], bd[1]);
+          mma_bf16(dpT[n], va1[0], va1[1], va1[2], va1[3], bd[2], bd[3]);
+        }
+      }
+
+      // p^T (kept in sT) and ds^T (kept in dpT); lse/delta by column
+#pragma unroll
+      for (int n = 0; n < NT; ++n) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int qi = c + n * 8 + 2 * t + (e & 1);
+          const int qpos = q0 + qi;
+          const int key = kp[e >> 1];
+          const bool ok = qpos < Sq && key < Sk && (!causal || qpos >= key);
+          const float p = ok ? expf(sT[n][e] * scale - lse_s[qi]) : 0.f;
+          sT[n][e] = p;
+          dpT[n][e] = p * (dpT[n][e] - delta_s[qi]) * scale;
+        }
+      }
+
+      // dv += p^T dO and dk += ds^T Q over 16-query steps; dO's and Q's
+      // B fragments by transposing ldmatrix
+#pragma unroll
+      for (int kc = 0; kc < Q_CHUNK / 16; ++kc) {
+        const uint32_t p0 = pack_bf16(sT[2 * kc][0], sT[2 * kc][1]);
+        const uint32_t p1 = pack_bf16(sT[2 * kc][2], sT[2 * kc][3]);
+        const uint32_t p2 = pack_bf16(sT[2 * kc + 1][0], sT[2 * kc + 1][1]);
+        const uint32_t p3 = pack_bf16(sT[2 * kc + 1][2], sT[2 * kc + 1][3]);
+        const uint32_t d0 = pack_bf16(dpT[2 * kc][0], dpT[2 * kc][1]);
+        const uint32_t d1 = pack_bf16(dpT[2 * kc][2], dpT[2 * kc][3]);
+        const uint32_t d2 = pack_bf16(dpT[2 * kc + 1][0], dpT[2 * kc + 1][1]);
+        const uint32_t d3 = pack_bf16(dpT[2 * kc + 1][2], dpT[2 * kc + 1][3]);
+        const int off = (c + kc * 16 + (lm_mat & 1) * 8 + lm_row) * LD +
+                        (lm_mat >> 1) * 8;
+#pragma unroll
+        for (int j = 0; j < DT; j += 2) {
+          uint32_t bd[4], bq[4];
+          ldmatrix_x4_trans(bd, dOs + off + j * 8);
+          mma_bf16(dva[j], p0, p1, p2, p3, bd[0], bd[1]);
+          mma_bf16(dva[j + 1], p0, p1, p2, p3, bd[2], bd[3]);
+          ldmatrix_x4_trans(bq, Qs + off + j * 8);
+          mma_bf16(dka[j], d0, d1, d2, d3, bq[0], bq[1]);
+          mma_bf16(dka[j + 1], d0, d1, d2, d3, bq[2], bq[3]);
+        }
+      }
+    }
+    __syncthreads();  // every warp is done with this stage
+  }
+  cp_async_wait<0>();  // no q tile at all: the K/V group is still open
+
+#pragma unroll
+  for (int row = 0; row < 2; ++row) {
+    if (kp[row] >= Sk) continue;
+    const long o = k_off + (long)kp[row] * row_stride;
+#pragma unroll
+    for (int j = 0; j < DT; ++j) {
+      *reinterpret_cast<uint32_t*>(dk + o + j * 8 + 2 * t) =
+          pack_bf16(dka[j][2 * row], dka[j][2 * row + 1]);
+      *reinterpret_cast<uint32_t*>(dv + o + j * 8 + 2 * t) =
+          pack_bf16(dva[j][2 * row], dva[j][2 * row + 1]);
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// fp32: FMAs on the CUDA cores, the forward's fp32 layout (8 warps of 8
+// rows; a lane owns two columns of a 64-wide tile for the row products
+// and D/32 head dims for the tile products).
+// ---------------------------------------------------------------------------
+
+constexpr int NWARPS = 8;
+constexpr int NTHREADS = NWARPS * 32;
+constexpr int ROWS_PER_WARP = TILE / NWARPS;
+
+// rows [r0, r0+TILE) of a [S, H, D] fp32 slab -> shared memory; rows past
+// S are zeros
+template <int D>
+__device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
+                                              long row_stride, int r0, int S,
+                                              int tid) {
+  constexpr int LD = D + PAD;
+  constexpr int CH = D / 4;
+  for (int i = tid; i < TILE * CH; i += NTHREADS) {
+    const int r = i / CH, c = (i % CH) * 4;
+    float4 x = {};
+    if (r0 + r < S) x = ld4(src + (r0 + r) * row_stride + c);
+    *reinterpret_cast<float4*>(dst + r * LD + c) = x;
+  }
+}
+
+// rows x (lane, lane+32) dot products of two row sets sharing head_dim:
+// out[r][j] = A[r0 + r] . B[lane + 32 j]
+template <int D>
+__device__ __forceinline__ void row_dots(float (&out)[ROWS_PER_WARP][2],
+                                         const float* A, int r0,
+                                         const float* B, int lane) {
+  constexpr int LD = D + PAD;
+  const float* b_lo = B + lane * LD;
+  const float* b_hi = B + (lane + 32) * LD;
+#pragma unroll 4
+  for (int c = 0; c < D; c += 4) {
+    const float4 lo = ld4(b_lo + c);
+    const float4 hi = ld4(b_hi + c);
+#pragma unroll
+    for (int r = 0; r < ROWS_PER_WARP; ++r) {
+      const float4 x = ld4(A + (r0 + r) * LD + c);
+      out[r][0] = fmaf(x.x, lo.x, out[r][0]);
+      out[r][0] = fmaf(x.y, lo.y, out[r][0]);
+      out[r][0] = fmaf(x.z, lo.z, out[r][0]);
+      out[r][0] = fmaf(x.w, lo.w, out[r][0]);
+      out[r][1] = fmaf(x.x, hi.x, out[r][1]);
+      out[r][1] = fmaf(x.y, hi.y, out[r][1]);
+      out[r][1] = fmaf(x.z, hi.z, out[r][1]);
+      out[r][1] = fmaf(x.w, hi.w, out[r][1]);
+    }
+  }
+}
+
+// acc[r][i] += sum_j W[r][j] * X[j][lane*DPL + i] over a TILE-wide slab W
+// (this warp's rows) and a row set X
+template <int D>
+__device__ __forceinline__ void slab_product(float (&acc)[ROWS_PER_WARP][D / 32],
+                                             const float* W, const float* X,
+                                             int lane) {
+  constexpr int LD = D + PAD;
+  constexpr int DPL = D / 32;
+#pragma unroll 2
+  for (int j = 0; j < TILE; ++j) {
+    const float* x = X + j * LD + lane * DPL;
+    float xv[DPL];
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) xv[i] = x[i];
+#pragma unroll
+    for (int r = 0; r < ROWS_PER_WARP; ++r) {
+      const float w = W[r * TILE + j];
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) acc[r][i] = fmaf(w, xv[i], acc[r][i]);
+    }
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+bwd_dq_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, const float* __restrict__ dout,
+                  const float* __restrict__ lse,
+                  const float* __restrict__ delta, float* __restrict__ dq,
+                  int H, int Sq, int Sk, int causal, float scale) {
+  constexpr int LD = D + PAD;
+  constexpr int DPL = D / 32;
+
+  // Q, dO, K tile, V tile, then the ds slab [TILE q rows][TILE keys]
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Qs = reinterpret_cast<float*>(smem_raw);
+  float* dOs = Qs + TILE * LD;
+  float* Ks = dOs + TILE * LD;
+  float* Vs = Ks + TILE * LD;
+  float* DSs = Vs + TILE * LD;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * TILE;
+  const long row_stride = (long)H * D;
+  const long q_off = ((long)b * Sq * H + h) * D;
+  const long k_off = ((long)b * Sk * H + h) * D;
+
+  load_rows_f32<D>(Qs, q + q_off, row_stride, q0, Sq, tid);
+  load_rows_f32<D>(dOs, dout + q_off, row_stride, q0, Sq, tid);
+
+  const int r0 = warp * ROWS_PER_WARP;
+  float* DSw = DSs + r0 * TILE;
+  float lse_r[ROWS_PER_WARP], delta_r[ROWS_PER_WARP];
+  float acc[ROWS_PER_WARP][DPL];
+#pragma unroll
+  for (int r = 0; r < ROWS_PER_WARP; ++r) {
+    const int qp = q0 + r0 + r;
+    lse_r[r] = qp < Sq ? lse[(long)bh * Sq + qp] : 0.f;
+    delta_r[r] = qp < Sq ? delta[(long)bh * Sq + qp] : 0.f;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) acc[r][i] = 0.f;
+  }
+
+  const int q_last = min(q0 + TILE, Sq) - 1;
+  const int kv_len = causal ? min(Sk, q_last + 1) : Sk;
+  const int n_tiles = (kv_len + TILE - 1) / TILE;
+
+  for (int tile = 0; tile < n_tiles; ++tile) {
+    const int k0 = tile * TILE;
+    __syncthreads();  // the previous tile's readers are done
+    load_rows_f32<D>(Ks, k + k_off, row_stride, k0, Sk, tid);
+    load_rows_f32<D>(Vs, v + k_off, row_stride, k0, Sk, tid);
+    __syncthreads();
+
+    float s[ROWS_PER_WARP][2] = {}, dp[ROWS_PER_WARP][2] = {};
+    row_dots<D>(s, Qs, r0, Ks, lane);
+    row_dots<D>(dp, dOs, r0, Vs, lane);
+#pragma unroll
+    for (int r = 0; r < ROWS_PER_WARP; ++r) {
+      const int qp = q0 + r0 + r;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int kp = k0 + lane + 32 * j;
+        const bool ok = kp < Sk && qp < Sq && (!causal || qp >= kp);
+        const float p = ok ? expf(s[r][j] * scale - lse_r[r]) : 0.f;
+        DSw[r * TILE + lane + 32 * j] = p * (dp[r][j] - delta_r[r]) * scale;
+      }
+    }
+    __syncwarp();
+    slab_product<D>(acc, DSw, Ks, lane);
+    __syncwarp();
+  }
+
+#pragma unroll
+  for (int r = 0; r < ROWS_PER_WARP; ++r) {
+    const int qp = q0 + r0 + r;
+    if (qp >= Sq) continue;
+    float* o = dq + q_off + (long)qp * row_stride + lane * DPL;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) o[i] = acc[r][i];
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(NTHREADS)
+bwd_dkdv_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v,
+                    const float* __restrict__ dout,
+                    const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dk,
+                    float* __restrict__ dv, int H, int Sq, int Sk, int causal,
+                    float scale) {
+  constexpr int LD = D + PAD;
+  constexpr int DPL = D / 32;
+
+  // K tile, V tile, Q tile, dO tile, the p and ds slabs [TILE keys][TILE
+  // queries], then the q tile's lse and delta
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  float* Ks = reinterpret_cast<float*>(smem_raw);
+  float* Vs = Ks + TILE * LD;
+  float* Qs = Vs + TILE * LD;
+  float* dOs = Qs + TILE * LD;
+  float* Ps = dOs + TILE * LD;
+  float* DSs = Ps + TILE * TILE;
+  float* lse_s = DSs + TILE * TILE;
+  float* delta_s = lse_s + TILE;
+
+  const int tid = threadIdx.x;
+  const int lane = tid & 31;
+  const int warp = tid >> 5;
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int k0 = blockIdx.x * TILE;
+  const long row_stride = (long)H * D;
+  const long q_off = ((long)b * Sq * H + h) * D;
+  const long k_off = ((long)b * Sk * H + h) * D;
+
+  load_rows_f32<D>(Ks, k + k_off, row_stride, k0, Sk, tid);
+  load_rows_f32<D>(Vs, v + k_off, row_stride, k0, Sk, tid);
+
+  const int r0 = warp * ROWS_PER_WARP;  // this warp's keys
+  float* Pw = Ps + r0 * TILE;
+  float* DSw = DSs + r0 * TILE;
+  float dka[ROWS_PER_WARP][DPL], dva[ROWS_PER_WARP][DPL];
+#pragma unroll
+  for (int r = 0; r < ROWS_PER_WARP; ++r) {
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) dka[r][i] = dva[r][i] = 0.f;
+  }
+
+  const int qt_first = causal ? k0 / TILE : 0;
+  const int n_qt = (Sq + TILE - 1) / TILE;
+
+  for (int qt = qt_first; qt < n_qt; ++qt) {
+    const int q0 = qt * TILE;
+    __syncthreads();  // the previous tile's readers are done
+    load_rows_f32<D>(Qs, q + q_off, row_stride, q0, Sq, tid);
+    load_rows_f32<D>(dOs, dout + q_off, row_stride, q0, Sq, tid);
+    if (tid < TILE) {
+      const int qpos = q0 + tid;
+      lse_s[tid] = qpos < Sq ? lse[(long)bh * Sq + qpos] : 0.f;
+      delta_s[tid] = qpos < Sq ? delta[(long)bh * Sq + qpos] : 0.f;
+    }
+    __syncthreads();
+
+    // S^T and dP^T for this warp's keys x queries (lane, lane+32)
+    float sT[ROWS_PER_WARP][2] = {}, dpT[ROWS_PER_WARP][2] = {};
+    row_dots<D>(sT, Ks, r0, Qs, lane);
+    row_dots<D>(dpT, Vs, r0, dOs, lane);
+#pragma unroll
+    for (int r = 0; r < ROWS_PER_WARP; ++r) {
+      const int key = k0 + r0 + r;
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        const int qi = lane + 32 * j;
+        const int qpos = q0 + qi;
+        const bool ok = qpos < Sq && key < Sk && (!causal || qpos >= key);
+        const float p = ok ? expf(sT[r][j] * scale - lse_s[qi]) : 0.f;
+        Pw[r * TILE + qi] = p;
+        DSw[r * TILE + qi] = p * (dpT[r][j] - delta_s[qi]) * scale;
+      }
+    }
+    __syncwarp();
+    slab_product<D>(dva, Pw, dOs, lane);
+    slab_product<D>(dka, DSw, Qs, lane);
+    __syncwarp();
+  }
+
+#pragma unroll
+  for (int r = 0; r < ROWS_PER_WARP; ++r) {
+    const int key = k0 + r0 + r;
+    if (key >= Sk) continue;
+    const long o = k_off + (long)key * row_stride + lane * DPL;
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) {
+      dk[o + i] = dka[r][i];
+      dv[o + i] = dva[r][i];
+    }
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Launch.
+// ---------------------------------------------------------------------------
+
+template <typename... Params, typename... Args>
+cudaError_t launch(void (*kernel)(Params...), int Sgrid, int BH, int threads,
+                   size_t smem, cudaStream_t stream, Args... args) {
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sgrid + TILE - 1) / TILE, BH);
+  kernel<<<grid, threads, smem, stream>>>(args...);
+  return cudaGetLastError();
+}
+
+template <class F>
+cudaError_t with_head_dim(int D, F&& f) {
+  switch (D) {
+    case 32:
+      return f(std::integral_constant<int, 32>{});
+    case 64:
+      return f(std::integral_constant<int, 64>{});
+    case 128:
+      return f(std::integral_constant<int, 128>{});
+    default:
+      return cudaErrorInvalidValue;
+  }
+}
+
+template <int D>
+size_t mma_smem() {  // four bf16 tiles of the loop + two resident ones
+  return (size_t)6 * TILE * (D + MMA_PAD) * sizeof(bf16);
+}
+
+template <int D>
+size_t f32_smem(bool dkdv) {  // four row tiles + one or two slabs (+rows)
+  return (size_t)4 * TILE * (D + PAD) * sizeof(float) +
+         (size_t)(dkdv ? 2 : 1) * TILE * TILE * sizeof(float) +
+         (dkdv ? 2 * TILE * sizeof(float) : 0);
+}
+
+}  // namespace
+
+// dtype: 0 = float32, 1 = bfloat16. q/dout/dq [B,Sq,H,D], k/v [B,Sk,H,D],
+// all contiguous, 16-byte aligned and of one dtype; lse and delta
+// [B,H,Sq] float32. Returns a cudaError_t (0 on success).
+extern "C" int rtt_flash_attn_bwd_dq(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const void* lse, const void* delta,
+                                     void* dq, int B, int H, int Sq, int Sk,
+                                     int D, int causal, float scale,
+                                     int dtype, void* stream) {
+  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  return with_head_dim(D, [&](auto dim) -> cudaError_t {
+    constexpr int kD = decltype(dim)::value;
+    if (dtype == 1)
+      return launch(bwd_dq_mma_kernel<kD>, Sq, B * H, MMA_THREADS,
+                    mma_smem<kD>(), s, static_cast<const bf16*>(q),
+                    static_cast<const bf16*>(k), static_cast<const bf16*>(v),
+                    static_cast<const bf16*>(dout), l, dl,
+                    static_cast<bf16*>(dq), H, Sq, Sk, causal, scale);
+    if (dtype == 0)
+      return launch(bwd_dq_f32_kernel<kD>, Sq, B * H, NTHREADS,
+                    f32_smem<kD>(false), s, static_cast<const float*>(q),
+                    static_cast<const float*>(k),
+                    static_cast<const float*>(v),
+                    static_cast<const float*>(dout), l, dl,
+                    static_cast<float*>(dq), H, Sq, Sk, causal, scale);
+    return cudaErrorInvalidValue;
+  });
+}
+
+extern "C" int rtt_flash_attn_bwd_dkdv(const void* q, const void* k,
+                                       const void* v, const void* dout,
+                                       const void* lse, const void* delta,
+                                       void* dk, void* dv, int B, int H,
+                                       int Sq, int Sk, int D, int causal,
+                                       float scale, int dtype, void* stream) {
+  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* l = static_cast<const float*>(lse);
+  const float* dl = static_cast<const float*>(delta);
+  return with_head_dim(D, [&](auto dim) -> cudaError_t {
+    constexpr int kD = decltype(dim)::value;
+    if (dtype == 1)
+      return launch(bwd_dkdv_mma_kernel<kD>, Sk, B * H, MMA_THREADS,
+                    mma_smem<kD>() + 4 * TILE * sizeof(float), s,
+                    static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+                    static_cast<const bf16*>(v),
+                    static_cast<const bf16*>(dout), l, dl,
+                    static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Sq, Sk,
+                    causal, scale);
+    if (dtype == 0)
+      return launch(bwd_dkdv_f32_kernel<kD>, Sk, B * H, NTHREADS,
+                    f32_smem<kD>(true), s, static_cast<const float*>(q),
+                    static_cast<const float*>(k),
+                    static_cast<const float*>(v),
+                    static_cast<const float*>(dout), l, dl,
+                    static_cast<float*>(dk), static_cast<float*>(dv), H, Sq,
+                    Sk, causal, scale);
+    return cudaErrorInvalidValue;
+  });
+}

@@ -1,14 +1,17 @@
-"""The port's attention forward against the JAX package's, on the CPU.
+"""The port's attention, forward and backward, against the JAX
+package's, on the CPU.
 
-``ray_tpu_torch.ops.attention.flash_attention`` takes its plain
-blockwise path for CPU tensors; the JAX side runs its blockwise path and
-its Pallas forward kernel in interpret mode. Inputs are made with numpy
-from fixed seeds and handed to both. Everything is float32, and the
-tolerance is the JAX package's own forward tolerance (atol = rtol =
-2e-5, tests/test_model.py): the two sum in different orders, which moves
-fp32 results in the last digits only.
+``ray_tpu_torch.ops.attention`` takes its plain blockwise paths for CPU
+tensors; the JAX side runs its blockwise paths and its Pallas kernels in
+interpret mode. Inputs are made with numpy from fixed seeds and handed
+to both. Everything is float32. Tolerances are the JAX package's own
+(tests/test_model.py): 2e-5 for the forward; 1e-4 for gradients, which
+chain three products and a difference (dp - delta) and so carry more
+rounding; 2e-4 against the Pallas backward kernels, which round at their
+own block boundaries (128 x 128 here, vs the blockwise path's 128-key
+blocks).
 
-The CUDA kernel itself runs only on a card: chip_smoke.py holds it
+The CUDA kernels themselves run only on a card: chip_smoke.py holds them
 against these plain versions there.
 """
 
@@ -21,6 +24,8 @@ from ray_tpu.ops import attention as A
 from ray_tpu_torch.ops import attention as T
 
 TOL = dict(atol=2e-5, rtol=2e-5)
+GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
+PALLAS_GRAD_TOL = dict(atol=2e-4, rtol=2e-4)
 
 
 @pytest.fixture(autouse=True)
@@ -57,7 +62,7 @@ def test_plain_path_matches_jax(causal, shape):
     b, sq, sk, h, d = shape
     q, k, v = _qkv(sum(shape) + causal, b, sq, sk, h, d)
     scale = d ** -0.5
-    out, lse = T.flash_attention(*_torch(q, k, v), causal=causal)
+    out, lse = T._fwd_dispatch(*_torch(q, k, v), causal=causal)
     j_out = np.asarray(A.flash_attention(
         jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), causal))
     _, j_lse = A._blockwise_fwd(jnp.asarray(q), jnp.asarray(k),
@@ -69,6 +74,8 @@ def test_plain_path_matches_jax(causal, shape):
     np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse), **TOL)
     ref = T.attention_reference(*_torch(q, k, v), causal=causal)
     np.testing.assert_allclose(out.numpy(), ref.numpy(), **TOL)
+    public = T.flash_attention(*_torch(q, k, v), causal=causal)
+    assert torch.equal(public, out)
 
 
 @pytest.mark.parametrize("causal", [False, True])
@@ -84,8 +91,8 @@ def test_plain_path_matches_pallas_kernel_interpret(causal):
                                      128)
     finally:
         A._FORCE_INTERPRET = False
-    out, lse = T.flash_attention(*_torch(q, k, v), causal=causal,
-                                 sm_scale=scale)
+    out, lse = T._fwd_dispatch(*_torch(q, k, v), causal=causal,
+                               sm_scale=scale)
     np.testing.assert_allclose(out.numpy(), np.asarray(j_out), **TOL)
     np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse), **TOL)
 
@@ -99,11 +106,100 @@ def test_attention_reference_matches_jax():
         np.testing.assert_allclose(out.numpy(), np.asarray(ref), **TOL)
 
 
+def _residuals(seed, b, sq, sk, h, d, causal):
+    """q, k, v, dout (numpy) and the JAX forward's out and lse."""
+    q, k, v = _qkv(seed, b, sq, sk, h, d)
+    dout = np.random.default_rng(seed + 1).standard_normal(
+        (b, sq, h, d)).astype(np.float32)
+    out, lse = A._blockwise_fwd(jnp.asarray(q), jnp.asarray(k),
+                                jnp.asarray(v), causal, d ** -0.5,
+                                A.BLOCKWISE_BLOCK_K)
+    return q, k, v, dout, np.array(out), np.array(lse)  # writable
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [
+    (2, 64, 64, 4, 16),     # aligned
+    (1, 200, 200, 2, 32),   # ragged: 200 is no multiple of the 128 block
+    (2, 37, 300, 3, 8),     # Sq < Sk (top-left causal), ragged both
+    (1, 300, 37, 2, 8),     # Sq > Sk
+])
+def test_blockwise_bwd_matches_jax(causal, shape):
+    b, sq, sk, h, d = shape
+    res = _residuals(sum(shape) + causal, b, sq, sk, h, d, causal)
+    scale = d ** -0.5
+    got = T._blockwise_bwd(*_torch(*res[:3]), *_torch(*res[4:]),
+                           torch.from_numpy(res[3]), causal, scale)
+    want = A._blockwise_bwd(*(jnp.asarray(x) for x in res[:3]),
+                            jnp.asarray(res[4]), jnp.asarray(res[5]),
+                            jnp.asarray(res[3]), causal, scale,
+                            A.BLOCKWISE_BLOCK_K)
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("d", [64, 128])
+def test_bwd_matches_pallas_kernels_interpret(causal, d):
+    """Against the TPU dq and dk/dv kernels themselves, through Pallas's
+    interpreter, at S divisible by their blocks."""
+    q, k, v, dout, out, lse = _residuals(21 + d + causal, 1, 256, 256, 2,
+                                         d, causal)
+    scale = d ** -0.5
+    A._FORCE_INTERPRET = True
+    try:
+        want = A._pallas_bwd(*(jnp.asarray(x) for x in (q, k, v, out, lse,
+                                                        dout)),
+                             causal, scale, 128, 128)
+    finally:
+        A._FORCE_INTERPRET = False
+    got = T._bwd_dispatch(*_torch(q, k, v, out, lse, dout), causal, scale)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w),
+                                   **PALLAS_GRAD_TOL)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("shape", [(2, 48, 48, 2, 16), (1, 30, 70, 3, 8),
+                                   (1, 70, 30, 2, 8)])
+def test_flash_attention_grads_match_reference_autograd(causal, shape):
+    """flash_attention is differentiable, and its backward (the plain
+    blockwise one on the CPU) agrees with autograd through the O(S^2)
+    reference."""
+    b, sq, sk, h, d = shape
+    q, k, v = _qkv(40 + sum(shape), b, sq, sk, h, d)
+    dout = torch.from_numpy(np.random.default_rng(sq).standard_normal(
+        (b, sq, h, d)).astype(np.float32))
+    grads = []
+    for fn in (T.flash_attention, T.attention_reference):
+        args = [x.requires_grad_() for x in _torch(q, k, v)]
+        out = fn(*args, causal=causal)
+        grads.append(torch.autograd.grad(out, args, dout))
+    for g, w in zip(*grads):
+        np.testing.assert_allclose(g.numpy(), w.numpy(), **GRAD_TOL)
+
+
+def test_blockwise_attention_is_the_cpu_path():
+    """blockwise_attention (the plain versions as an op, the kernels'
+    yardstick on the card) is what flash_attention runs on the CPU."""
+    q, k, v = _qkv(8, 1, 40, 40, 2, 16)
+    grads = []
+    for fn in (T.flash_attention, T.blockwise_attention):
+        args = [x.requires_grad_() for x in _torch(q, k, v)]
+        out = fn(*args)
+        grads.append((out, *torch.autograd.grad(out.square().sum(), args)))
+    for a, b in zip(*grads):
+        assert torch.equal(a, b)
+
+
 def test_kernel_wrapper_needs_no_nvcc_to_import():
-    """The module imports, and its plain path runs, on a host with no
-    nvcc and no card: the kernel is built only when a CUDA tensor
-    reaches it. Nothing counted a launch here."""
-    q, k, v = _torch(*_qkv(3, 1, 8, 8, 1, 32))
-    T.flash_attention(q, k, v)
-    assert T.launches.count == 0
+    """The module imports, and its plain paths run forward and backward,
+    on a host with no nvcc and no card: the kernels are built only when a
+    CUDA tensor reaches them. Nothing counted a launch here."""
+    q, k, v = (x.requires_grad_() for x in _torch(*_qkv(3, 1, 8, 8, 1, 32)))
+    T.flash_attention(q, k, v).sum().backward()
+    assert q.grad is not None and k.grad is not None and v.grad is not None
+    assert (T.launches.count, T.dq_launches.count,
+            T.dkdv_launches.count) == (0, 0, 0)
     assert T._lib is None

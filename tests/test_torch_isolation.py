@@ -1,5 +1,6 @@
 """The port stands alone: no module of ray_tpu_torch, and not
-chip_smoke.py, imports jax or ray_tpu; and its entry points run on CUDA
+chip_smoke.py, imports jax or ray_tpu; and its entry points (the runtime,
+the model constructors, the train step and the Trainer) run on CUDA
 unless the caller asks for the CPU, so on a host without CUDA they
 raise instead of running on the CPU."""
 
@@ -56,18 +57,23 @@ def test_init_without_device_raises_without_cuda():
 
 
 @pytest.mark.parametrize("entry", ["init_params", "build_forward",
+                                   "build_train_step", "trainer",
                                    "cluster_state", "params_from_jax"])
 def test_model_entry_points_raise_without_cuda(entry):
     from ray_tpu_torch.core.raylet import ClusterState
     from ray_tpu_torch.models import transformer as tfm
     from ray_tpu_torch.models.convert import params_from_jax
-    from ray_tpu_torch.models.training import build_forward
+    from ray_tpu_torch.models.training import build_forward, build_train_step
+    from ray_tpu_torch.train import Trainer
 
     _needs_no_cuda()
     cfg = tfm.ModelConfig.debug()
     calls = {
         "init_params": lambda: tfm.init_params(cfg),
         "build_forward": lambda: build_forward(cfg),
+        "build_train_step": lambda: build_train_step(cfg),
+        # a Trainer with no runtime brings one up, on CUDA by default
+        "trainer": lambda: Trainer(num_workers=1),
         "cluster_state": lambda: ClusterState(),
         "params_from_jax": lambda: params_from_jax({"layers": {}}, cfg),
     }
@@ -89,3 +95,20 @@ def test_kernel_wrapper_raises_for_unsupported_cuda_input():
     with pytest.raises(ValueError, match="contiguous"):
         t = torch.zeros((1, 2, 8, 32)).transpose(1, 2)
         T._check_kernel_inputs(t, t, t)
+
+
+def test_backward_wrapper_raises_for_unsupported_cuda_input():
+    """The backward's input checks run before any build or launch, with
+    the forward's rules for q/k/v and the same for out and dout."""
+    from ray_tpu_torch.ops import attention as T
+
+    q = torch.zeros((1, 8, 2, 32))
+    lse = torch.zeros((1, 2, 8))
+    with pytest.raises(ValueError, match="head_dim"):
+        w = torch.zeros((1, 8, 2, 48))
+        T._kernel_bwd(w, w, w, w, lse, w, True, 1.0)
+    with pytest.raises(ValueError, match="dout must match q"):
+        T._kernel_bwd(q, q, q, q, lse, q.double(), True, 1.0)
+    with pytest.raises(ValueError, match="lse"):
+        T._kernel_bwd(q, q, q, q, lse.transpose(1, 2), q, True, 1.0)
+    assert T._lib is None

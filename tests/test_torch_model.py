@@ -133,3 +133,119 @@ def test_init_params_shapes_follow_jax():
         assert tuple(got[name].shape) == want[name].shape
     for name, spec in want["layers"].items():
         assert tuple(got["layers"][name].shape) == spec.shape, name
+
+
+# -- loss and gradients --------------------------------------------------------
+#
+# Loss values within 1e-5 relative and gradients within 1e-4 absolute and
+# relative (the JAX package's gradient tolerance, tests/test_model.py):
+# the backward chains the whole stack's products in the reverse order, so
+# fp32 rounding compounds further than in the forward logits.
+
+LOSS_RTOL = 1e-5
+GRAD_TOL = dict(atol=1e-4, rtol=1e-4)
+
+
+def _leaf_items(tree, prefix=""):
+    if isinstance(tree, dict):
+        return [item for k, v in tree.items()
+                for item in _leaf_items(v, f"{prefix}{k}.")]
+    return [(prefix[:-1], tree)]
+
+
+def _port_loss_and_grads(params, tokens, cfg):
+    leaves = [p.requires_grad_() for _, p in _leaf_items(params)]
+    loss = ttfm.loss_fn(params, torch.from_numpy(tokens).long(), cfg)
+    grads = torch.autograd.grad(loss, leaves)
+    names = [name for name, _ in _leaf_items(params)]
+    return loss.item(), dict(zip(names, grads))
+
+
+def test_loss_fn_value_and_grads_match_jax():
+    """ModelConfig.debug() (GQA, remat on in both): the port's loss_fn
+    and its autograd gradients against jax.grad(tfm.loss_fn) on the
+    same weights and tokens."""
+    jcfg = jtfm.ModelConfig.debug()
+    tcfg = ttfm.ModelConfig.debug()
+    params = jtfm.init_params(jcfg, jax.random.PRNGKey(4))
+    tokens = np.random.default_rng(4).integers(
+        0, jcfg.vocab_size, size=(2, 65)).astype(np.int32)
+    j_loss, j_grads = jax.value_and_grad(
+        lambda p: jtfm.loss_fn(p, jnp.asarray(tokens), jcfg))(params)
+    port = params_from_jax(jax.tree.map(np.asarray, params), tcfg,
+                           device="cpu")
+    loss, grads = _port_loss_and_grads(port, tokens, tcfg)
+    np.testing.assert_allclose(loss, float(j_loss), rtol=LOSS_RTOL)
+    want = dict(_leaf_items(jax.tree.map(np.asarray, j_grads)))
+    assert set(grads) == set(want)
+    for name, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), want[name], err_msg=name,
+                                   **GRAD_TOL)
+
+
+def _small(**kw):
+    """The JAX twin tests' model (test_models_extra.py), fp32."""
+    base = dict(vocab_size=128, hidden=64, layers=2, heads=4, kv_heads=4,
+                intermediate=128, max_seq=64, dtype=torch.float32)
+    base.update(kw)
+    return ttfm.ModelConfig(**base)
+
+
+def _small_params_and_tokens(batch):
+    jcfg = jtfm.ModelConfig(vocab_size=128, hidden=64, layers=2, heads=4,
+                            kv_heads=4, intermediate=128, max_seq=64,
+                            dtype=jnp.float32)
+    params = jax.tree.map(
+        np.asarray, jtfm.init_params(jcfg, jax.random.PRNGKey(0)))
+    tokens = np.random.default_rng(batch).integers(0, 128, size=(batch, 33))
+    return params, tokens
+
+
+@pytest.mark.parametrize("policy", ["full", "dots", "off"])
+def test_remat_policies_give_equal_grads(policy):
+    """Remat is a scheduling choice only: "full", "dots" and no remat
+    give the same loss and gradients (the port's twin of
+    test_models_extra.py::test_dots_remat_policy_matches_full_remat)."""
+    params, tokens = _small_params_and_tokens(2)
+    base = _small(remat=False, logits_chunk=8)
+    cfg = base if policy == "off" else _small(remat=True,
+                                              remat_policy=policy,
+                                              logits_chunk=8)
+    l_ref, g_ref = _port_loss_and_grads(
+        params_from_jax(params, base, device="cpu"), tokens, base)
+    loss, grads = _port_loss_and_grads(
+        params_from_jax(params, cfg, device="cpu"), tokens, cfg)
+    np.testing.assert_allclose(loss, l_ref, rtol=1e-6)
+    for name, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), g_ref[name].numpy(),
+                                   atol=1e-5, rtol=1e-4, err_msg=name)
+
+
+def test_remat_policy_is_checked():
+    with pytest.raises(ValueError, match="remat_policy"):
+        ttfm.ModelConfig.debug(remat_policy="dot")
+
+
+def test_chunked_cross_entropy_matches_plain(caplog):
+    """logits_chunk runs the vocab projection per sequence chunk under
+    checkpoint; value and gradients match the unchunked loss, and a chunk
+    that does not divide the sequence warns and falls back (the port's
+    twin of test_models_extra.py::test_chunked_cross_entropy_matches_plain).
+    """
+    params, tokens = _small_params_and_tokens(3)
+    plain, chunked = _small(remat=False), _small(remat=False,
+                                                 logits_chunk=8)
+    l1, g1 = _port_loss_and_grads(
+        params_from_jax(params, plain, device="cpu"), tokens, plain)
+    l2, g2 = _port_loss_and_grads(
+        params_from_jax(params, chunked, device="cpu"), tokens, chunked)
+    np.testing.assert_allclose(l1, l2, rtol=1e-6)
+    for name, g in g2.items():
+        np.testing.assert_allclose(g.numpy(), g1[name].numpy(), atol=1e-5,
+                                   rtol=1e-4, err_msg=name)
+    odd = _small(remat=False, logits_chunk=7)
+    with caplog.at_level("WARNING"):
+        l3, _ = _port_loss_and_grads(
+            params_from_jax(params, odd, device="cpu"), tokens, odd)
+    np.testing.assert_allclose(l3, l1, rtol=1e-6)
+    assert "does not divide" in caplog.text
