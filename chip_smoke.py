@@ -11,9 +11,12 @@ failure raises and the script exits non-zero. Phases:
   2. kernel — hold the flash-attention forward kernel (K1) and the
               backward kernels (K2 dq, K3 dk/dv) against their plain
               torch versions (``_blockwise_fwd``, ``_blockwise_bwd``) on
-              the card at the main paths' shapes, and time each kernel,
-              its plain version, its bound and one PyTorch library call
-              (a yardstick only);
+              the card at the main paths' shapes and at ragged, Sq != Sk
+              and head_dim-64 shapes that reach the edges of K1's and
+              K3's TMA tiles, and time each kernel, its plain version,
+              its bound and one PyTorch library call (a yardstick only);
+              each row names the route (``attention.kernel_route``) it
+              took;
   3. sched  — drain 256 nodes x 100k tasks x 32 classes through the live
               raylet tick with the placement solve on CUDA: the
               single-buffered tick must place every task where the numpy
@@ -23,21 +26,24 @@ failure raises and the script exits non-zero. Phases:
               actor holds ModelConfig.b1 at full width and depth (random
               weights from a seed) and answers forward.remote(tokens)
               requests; the kernel's launch count over those requests
-              must be 24 per request, and one request's logits must
-              agree with the same model on the plain attention;
+              must be 24 per request, all on the wgmma route, and one
+              request's logits must agree with the same model on the
+              plain attention;
   5. train  — a Cluster with one GPU node; ray_tpu_torch.train.Trainer
               with one GPU worker runs a train function that builds
               ModelConfig.b1 at full width and depth (random weights from
               a seed, remat "full") and takes 4 optimizer steps on one
               seeded [8, 2049] token batch. Losses must be finite and
               falling, K1 must launch 2 x 24 x 4 times (forward and remat
-              recompute) and K2 and K3 24 x 4 times each, and one step's
-              gradients must agree with the same step on the plain
-              attention, leaf by leaf.
+              recompute) and K2 and K3 24 x 4 times each, K1 and K3 on
+              the wgmma route, and one step's gradients must agree with
+              the same step on the plain attention, leaf by leaf.
 
 The line before the last is the card's name and power limit as
 nvidia-smi prints them; above it, one JSON line with the kernel table
-(``launches`` from the train phase, per path in ``launches_by_path``).
+(``launches`` from the train phase, per path in ``launches_by_path``,
+per route in ``launches_by_route``; ``kernel_route`` is the route at the
+train shape).
 The last line is {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json. Without CUDA the script exits 2 and
 prints no result.
@@ -81,20 +87,29 @@ SERVE_REL_L2_TOL = 3e-2
 
 KERNEL_SHAPES = [
     # name, B, S, H, D, causal, dtype — b1's served shape, b1's train
-    # shape, entry()'s shape after the GQA repeat, and a ragged fp32 one
+    # shape, entry()'s shape after the GQA repeat, a ragged fp32 one, and
+    # for the wgmma route: a ragged length (a last q tile and K/V tile
+    # that TMA fills past S with zeros), causal and not, and head_dim 64
     ("b1", 2, 2048, 16, 128, True, "bfloat16"),
     ("train", 8, 2048, 16, 128, True, "bfloat16"),
     ("entry", 2, 128, 8, 32, True, "bfloat16"),
     ("ragged", 1, 1000, 4, 64, False, "float32"),
+    ("ragged_causal_bf16", 1, 1000, 4, 128, True, "bfloat16"),
+    ("ragged_bf16", 1, 1000, 4, 128, False, "bfloat16"),
+    ("d64", 2, 2048, 16, 64, True, "bfloat16"),
 ]
 
 BWD_SHAPES = [
     # name, B, Sq, Sk, H, D, causal, dtype — the b1 train step's shape
-    # (8 x 2048 tokens), entry()'s shape, and a ragged fp32 one with
-    # Sq != Sk
+    # (8 x 2048 tokens), entry()'s shape, a ragged fp32 one with Sq != Sk,
+    # and for K3's wgmma route: Sq > Sk at head_dim 64 and Sq < Sk at 128
+    # (causal, top-left aligned: the last key tiles see no query and
+    # write zeros), both ragged
     ("train", 8, 2048, 2048, 16, 128, True, "bfloat16"),
     ("entry", 2, 128, 128, 8, 32, True, "bfloat16"),
     ("ragged", 1, 1000, 700, 4, 64, False, "float32"),
+    ("ragged_bf16", 1, 1000, 700, 4, 64, True, "bfloat16"),
+    ("sq_lt_sk_bf16", 1, 700, 1000, 4, 128, True, "bfloat16"),
 ]
 
 SCHED = dict(nodes=256, tasks=100_000, classes=32)
@@ -135,17 +150,41 @@ def cuda_ms(fn, iters: int, warmup: int = 2) -> float:
 # --------------------------------------------------------------- phase 1
 
 
+def ptxas_report(log: str) -> list:
+    """One row per compiled kernel of ``nvcc -Xptxas=-v``'s report: its
+    name, registers, spill bytes and any performance note."""
+    rows, notes = [], {}
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            rows.append({"kernel": ln.split("'")[1], "notes": []})
+        elif "Potential Performance Loss" in ln:
+            # names its function, and may come before that function's rows
+            notes.setdefault(ln.split("'")[1], []).append(
+                ln.split("Loss:")[1].split(" for ")[0].strip())
+        elif rows and "spill stores" in ln:
+            rows[-1]["spill"] = ln.split(":")[-1].strip()
+        elif rows and "Used" in ln and "registers" in ln:
+            rows[-1]["registers"] = int(ln.split("Used")[1].split()[0])
+    for row in rows:
+        row["notes"] = notes.get(row["kernel"], [])
+    return rows
+
+
 def phase_build(report: dict) -> None:
     from ray_tpu_torch.ops import attention
 
     t0 = time.monotonic()
     log = attention.build_kernels()
     report["build_s"] = time.monotonic() - t0
-    report["ptxas"] = [ln.strip() for ln in log.splitlines()
-                       if "registers" in ln or "spill" in ln]
+    report["ptxas"] = ptxas_report(log)
     report["card"] = card_line()
     print(f"build: kernels built in {report['build_s']:.1f} s on "
           f"{report['card']}", flush=True)
+    for row in report["ptxas"]:
+        if "_ws_kernel" in row["kernel"]:
+            print(f"build: ptxas {row['kernel'][-60:]}: "
+                  f"{row.get('registers')} registers at entry, "
+                  f"{row.get('spill')} {row['notes']}", flush=True)
 
 
 # --------------------------------------------------------------- phase 2
@@ -218,14 +257,16 @@ def phase_kernel(report: dict) -> None:
             qt, kt, vt, is_causal=causal), 20)
         bound_ms, bound_by = _attention_work("fwd", b, s, s, h, d, causal,
                                              dtype)
+        route = attention.kernel_route("fwd", dt, d)
         row = {"shape": name, "B": b, "S": s, "H": h, "D": d,
-               "causal": causal, "dtype": dtype, "max_abs_err": err_out,
+               "causal": causal, "dtype": dtype, "route": route,
+               "max_abs_err": err_out,
                "max_abs_err_lse": err_lse, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
                "library_ms": library_ms}
         rows.append(row)
         print(f"kernel: {name} B{b} S{s} H{h} D{d} causal={causal} "
-              f"{dtype}: err out {err_out:.3g} lse {err_lse:.3g}; "
+              f"{dtype} [{route}]: err out {err_out:.3g} lse {err_lse:.3g}; "
               f"ms {ms:.4f} plain {plain_ms:.4f} bound {bound_ms:.4f} "
               f"({bound_by}) sdpa {library_ms:.4f}", flush=True)
         del q, k, v, out, lse, p_out, p_lse
@@ -277,8 +318,10 @@ def _bwd_row(name, b, sq, sk, h, d, causal, dtype):
     dot = do.transpose(1, 2)
     library_ms = cuda_ms(lambda: torch.autograd.grad(
         lib_out, (qt, kt, vt), dot, retain_graph=True), 20)
+    routes = {kernel: attention.kernel_route(kernel, dt, d)
+              for kernel in ("dq", "dkdv")}
     row = {"shape": name, "B": b, "Sq": sq, "Sk": sk, "H": h, "D": d,
-           "causal": causal, "dtype": dtype,
+           "causal": causal, "dtype": dtype, "routes": routes,
            "max_abs_err": errs, "dq_ms": dq_ms, "dkdv_ms": dkdv_ms,
            "plain_ms": plain_ms, "library_ms": library_ms}
     for kernel in ("dq", "dkdv"):
@@ -287,7 +330,7 @@ def _bwd_row(name, b, sq, sk, h, d, causal, dtype):
         row[f"{kernel}_bound_ms"] = bound_ms
         row[f"{kernel}_bound_by"] = bound_by
     print(f"kernel: bwd {name} B{b} Sq{sq} Sk{sk} H{h} D{d} "
-          f"causal={causal} {dtype}: err dq {errs['dq']:.3g} dk "
+          f"causal={causal} {dtype} {routes}: err dq {errs['dq']:.3g} dk "
           f"{errs['dk']:.3g} dv {errs['dv']:.3g}; ms dq {dq_ms:.4f} "
           f"(bound {row['dq_bound_ms']:.4f}) dk/dv {dkdv_ms:.4f} (bound "
           f"{row['dkdv_bound_ms']:.4f}) plain {plain_ms:.4f} sdpa-bwd "
@@ -309,6 +352,24 @@ def _read_counts() -> dict:
     return {"fwd": attention.launches.count,
             "dq": attention.dq_launches.count,
             "dkdv": attention.dkdv_launches.count}
+
+
+def _read_routes() -> dict:
+    from ray_tpu_torch.ops import attention
+
+    return {"fwd": attention.launches.by_route,
+            "dq": attention.dq_launches.by_route,
+            "dkdv": attention.dkdv_launches.by_route}
+
+
+def _main_path_routes(dtype: str, head_dim: int) -> dict:
+    """The route each kernel must take on a main path of b1."""
+    import torch
+
+    from ray_tpu_torch.ops import attention
+
+    return {k: attention.kernel_route(k, getattr(torch, dtype), head_dim)
+            for k in ("fwd", "dq", "dkdv")}
 
 
 # --------------------------------------------------------------- phase 3
@@ -528,6 +589,7 @@ def phase_serve(report: dict) -> None:
                 first = logits
             del logits
         counts = _read_counts()
+        routes = _read_routes()
         launches = counts["fwd"]
         if launches != cfg.layers * SERVE_REQUESTS or counts["dq"] or \
                 counts["dkdv"]:
@@ -535,6 +597,11 @@ def phase_serve(report: dict) -> None:
                 f"attention kernels launched {counts} for "
                 f"{SERVE_REQUESTS} requests; expected {cfg.layers} "
                 f"forward launches each and no backward")
+        want_route = _main_path_routes("bfloat16", cfg.head_dim)["fwd"]
+        if routes["fwd"] != {want_route: launches}:
+            raise AssertionError(f"served forward launches by route "
+                                 f"{routes['fwd']}; expected all on "
+                                 f"{want_route}")
         plain = ray_tpu_torch.get(server.forward_plain.remote(batches[0]))
         if first.shape != (*SERVE_TOKENS, cfg.vocab_size) or \
                 not torch.isfinite(first).all():
@@ -551,7 +618,9 @@ def phase_serve(report: dict) -> None:
                      "d 128, inter 5632, vocab 32000, bf16)",
             "requests": SERVE_REQUESTS, "tokens": list(SERVE_TOKENS),
             "setup_s": setup_s, "latency_s": latencies,
-            "kernel_launches": launches, "logits_rel_l2_vs_plain": rel,
+            "kernel_launches": launches,
+            "kernel_launches_by_route": routes["fwd"],
+            "logits_rel_l2_vs_plain": rel,
             "logits_max_abs_vs_plain": max_abs,
             "argmax_agreement_vs_plain": agree,
             "logits_abs_max": first.abs().max().item(),
@@ -559,12 +628,12 @@ def phase_serve(report: dict) -> None:
         print(f"serve: b1 actor answered {SERVE_REQUESTS} requests of "
               f"{SERVE_TOKENS[0]}x{SERVE_TOKENS[1]} tokens, latency s "
               f"{[round(x, 4) for x in latencies]}; kernel launches "
-              f"{launches}; logits vs plain attention rel L2 {rel:.3g}, "
+              f"{routes['fwd']}; logits vs plain attention rel L2 {rel:.3g}, "
               f"argmax agreement {agree:.4f}", flush=True)
         del first, plain
     finally:
         cluster.shutdown()
-    return launches
+    return routes["fwd"]
 
 
 # --------------------------------------------------------------- phase 5
@@ -653,6 +722,7 @@ def phase_train(report: dict) -> dict:
         trainer.run(train_b1, callbacks=[Collect()])
         run_s = time.monotonic() - t0
         counts = _read_counts()
+        routes = _read_routes()
         trainer.shutdown()
     finally:
         cluster.shutdown()
@@ -663,6 +733,12 @@ def phase_train(report: dict) -> dict:
         raise AssertionError(
             f"attention kernels launched {counts} over {TRAIN_STEPS} "
             f"train steps; expected {want}")
+    want_routes = _main_path_routes("bfloat16", cfg.head_dim)
+    for kernel, route in want_routes.items():
+        if routes[kernel] != {route: want[kernel]}:
+            raise AssertionError(
+                f"{kernel} launches by route {routes[kernel]} over the "
+                f"train steps; expected all {want[kernel]} on {route}")
     losses = [r["loss"] for r in rows]
     if len(rows) != TRAIN_STEPS or not all(
             math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
@@ -697,7 +773,8 @@ def phase_train(report: dict) -> dict:
         "model": "ModelConfig.b1 (hidden 2048, 24 layers, 16 heads, d 128, "
                  "inter 5632, vocab 32000, bf16, remat full)",
         "tokens": list(TRAIN_TOKENS), "steps": rows, "run_s": run_s,
-        "kernel_launches": counts, "step_s_steady": step_s,
+        "kernel_launches": counts, "kernel_launches_by_route": routes,
+        "step_s_steady": step_s,
         "tokens_per_s": tokens / step_s,
         "kernel_share_of_step_est": share,
         "grad_rel_l2_vs_plain": rel, "loss_kernels": loss_k,
@@ -709,12 +786,12 @@ def phase_train(report: dict) -> dict:
           f"{[round(r['grad_norm'], 4) for r in rows]}, step s "
           f"{[round(r['step_s'], 4) for r in rows]}; steady {step_s:.4f} "
           f"s/step, {tokens / step_s:.0f} tokens/s, peak "
-          f"{rows[-1]['peak_gib']:.1f} GiB; launches {counts}; kernel "
+          f"{rows[-1]['peak_gib']:.1f} GiB; launches {routes}; kernel "
           f"share of a step (launches x kernel-phase ms) "
           f"{ {k: round(v, 4) for k, v in share.items()} }; grads vs "
           f"plain attention: worst rel L2 {rel[worst]:.3g} ({worst}), "
           f"loss {loss_k:.5f} vs {loss_p:.5f}", flush=True)
-    return counts
+    return counts, routes
 
 
 # ------------------------------------------------------------------ main
@@ -732,19 +809,22 @@ def main() -> int:
     phase_build(report)
     phase_kernel(report)
     phase_sched(report)
-    serve_launches = phase_serve(report)
-    counts = phase_train(report)
+    serve_routes = phase_serve(report)
+    counts, routes = phase_train(report)
     fwd = next(r for r in report["kernel_shapes"] if r["shape"] == "train")
     bwd = next(r for r in report["bwd_shapes"] if r["shape"] == "train")
     shape = "B8 S2048 H16 D128 causal bfloat16 (the b1 train step)"
     csrc = "ray_tpu_torch/ops/csrc/"
     kernels = [{
         "name": "flash_attention_fwd", "route": "cuda",
+        "kernel_route": fwd["route"],
         "source": csrc + "flash_attn_fwd.cu",
         "replaces": "ray_tpu/ops/attention.py:202",
         "launches": counts["fwd"],
-        "launches_by_path": {"serve": serve_launches,
+        "launches_by_path": {"serve": sum(serve_routes.values()),
                              "train": counts["fwd"]},
+        "launches_by_route": {"serve": serve_routes,
+                              "train": routes["fwd"]},
         "max_abs_err": max(r["max_abs_err"]
                            for r in report["kernel_shapes"]),
         "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
@@ -756,10 +836,12 @@ def main() -> int:
             ("flash_attention_bwd_dkdv", "dkdv", 404, ("dk", "dv"))):
         kernels.append({
             "name": name, "route": "cuda",
+            "kernel_route": bwd["routes"][kernel],
             "source": csrc + "flash_attn_bwd.cu",
             "replaces": f"ray_tpu/ops/attention.py:{line}",
             "launches": counts[kernel],
             "launches_by_path": {"serve": 0, "train": counts[kernel]},
+            "launches_by_route": {"serve": {}, "train": routes[kernel]},
             "max_abs_err": max(r["max_abs_err"][e]
                                for r in report["bwd_shapes"] for e in errs),
             "ms": bwd[f"{kernel}_ms"],

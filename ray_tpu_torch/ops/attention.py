@@ -11,6 +11,7 @@ Port of ``ray_tpu/ops/attention.py``:
        K1 ``flash_attn_fwd.cu`` (port of the TPU kernel ``_flash_kernel``)
        for the forward, K2 and K3 ``flash_attn_bwd.cu`` (ports of
        ``_bwd_dq_kernel`` and ``_bwd_dkdv_kernel``) for the backward;
+       ``kernel_route`` names the kernel each (dtype, head dim) takes;
     -> CPU tensors: ``_blockwise_fwd`` / ``_blockwise_bwd``, the plain
        blockwise versions.
   _fwd_dispatch(q, k, v, causal, sm_scale) -> (out, lse), the forward
@@ -43,7 +44,7 @@ _NEG_INF = -1e30
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 _SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu")
-_HEADERS = ("flash_attn_common.cuh",)
+_HEADERS = ("flash_attn_common.cuh", "hopper_common.cuh")
 # kernel builds land here (listed in .gitignore), keyed by source digest
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -51,6 +52,42 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+
+# The kernel each launch takes, as the C launchers dispatch it:
+#   WGMMA: bf16 K1 and K3 at head_dim 64 and 128 -- wgmma on TMA-fed
+#          shared-memory rings, a producer warpgroup and two consumer
+#          warpgroups (a head_dim-32 row is 64 bytes, under the 128-byte
+#          swizzle box those kernels are built on);
+#   MMA_SYNC: bf16 K2, and bf16 K1/K3 at head_dim 32 -- mma.sync tiles;
+#   FMA: float32, all three -- exact FMAs on the CUDA cores.
+WGMMA = "wgmma_tma_ws"
+MMA_SYNC = "mma_sync"
+FMA = "fma_f32"
+_KERNELS = ("fwd", "dq", "dkdv")
+# the flat lse/delta rows K3's tensor map walks are indexed in int32
+_MAX_ROWS = 2**31 - 1
+# a C launcher returns this + cuTensorMapEncodeTiled's CUresult when it
+# cannot make a tensor map (TENSOR_MAP_ERROR in csrc/hopper_common.cuh)
+_TENSOR_MAP_ERROR = 1000
+
+
+def kernel_route(kernel: str, dtype: torch.dtype, head_dim: int) -> str:
+    """The hand-written kernel that serves ``kernel`` ("fwd", "dq" or
+    "dkdv") for q/k/v of ``dtype`` and ``head_dim`` on the card; raises
+    for what no kernel takes."""
+    if kernel not in _KERNELS:
+        raise ValueError(f"kernel must be one of {_KERNELS}; got {kernel!r}")
+    if dtype not in _DTYPE_CODES:
+        raise TypeError(f"the CUDA flash_attention kernels take bfloat16 or "
+                        f"float32; got {dtype}")
+    if head_dim not in _HEAD_DIMS:
+        raise ValueError(f"the CUDA flash_attention kernels take head_dim "
+                         f"in {_HEAD_DIMS}; got {head_dim}")
+    if dtype == torch.float32:
+        return FMA
+    if kernel != "dq" and head_dim >= 64:
+        return WGMMA
+    return MMA_SYNC
 
 
 # ===========================================================================
@@ -150,23 +187,32 @@ def _blockwise_bwd(q, k, v, out, lse, dout, causal: bool, sm_scale: float,
 
 class LaunchCount:
     """Launches of one kernel, counted by its wrapper where it launches
-    and nowhere else (a run reads it to show the kernel served it)."""
+    and nowhere else (a run reads it to show the kernel served it), in
+    all and by the route (``kernel_route``) each launch took."""
 
     def __init__(self):
         self._lock = threading.Lock()
         self._n = 0
+        self._by_route: dict = {}
 
-    def add(self) -> None:
+    def add(self, route: str) -> None:
         with self._lock:
             self._n += 1
+            self._by_route[route] = self._by_route.get(route, 0) + 1
 
     def reset(self) -> None:
         with self._lock:
             self._n = 0
+            self._by_route = {}
 
     @property
     def count(self) -> int:
         return self._n
+
+    @property
+    def by_route(self) -> dict:
+        with self._lock:
+            return dict(self._by_route)
 
 
 launches = LaunchCount()        # K1, the forward
@@ -271,8 +317,8 @@ def _kernel_fwd(q, k, v, causal: bool, sm_scale: float
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             lse.data_ptr(), b, h, sq, sk, d, int(bool(causal)),
             float(sm_scale), _DTYPE_CODES[q.dtype], stream)
-    _launch_check(err, "forward", q, sk, causal)
-    launches.add()
+    _launch_check(err, "fwd", q, sk, causal)
+    launches.add(kernel_route("fwd", q.dtype, d))
     return out, lse
 
 
@@ -287,11 +333,19 @@ def _check_like(name: str, t: torch.Tensor, like: torch.Tensor) -> None:
                          f"contiguous, 16-byte aligned {name}")
 
 
-def _launch_check(err: int, what: str, q, sk: int, causal: bool) -> None:
-    if err != 0:
-        raise RuntimeError(
-            f"flash_attention {what} kernel launch failed: cudaError {err} "
-            f"(q {tuple(q.shape)} {q.dtype}, sk {sk}, causal {causal})")
+def _launch_check(err: int, kernel: str, q, sk: int, causal: bool) -> None:
+    """Raises for a non-zero return of a C launcher: a cudaError_t, or
+    ``_TENSOR_MAP_ERROR`` + the encoder's CUresult when a TMA tensor map
+    could not be made (so the kernel never launched)."""
+    if err == 0:
+        return
+    cause = (f"cuTensorMapEncodeTiled returned CUresult "
+             f"{err - _TENSOR_MAP_ERROR}" if err >= _TENSOR_MAP_ERROR
+             else f"cudaError {err}")
+    raise RuntimeError(
+        f"flash_attention {kernel} kernel launch failed: {cause} (route "
+        f"{kernel_route(kernel, q.dtype, q.shape[-1])}, q "
+        f"{tuple(q.shape)} {q.dtype}, sk {sk}, causal {causal})")
 
 
 def _bwd_tail(q, k, causal: bool, sm_scale: float) -> tuple:
@@ -311,7 +365,7 @@ def _kernel_bwd_dq(q, k, v, dout, lse, delta, causal: bool,
             lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
             *_bwd_tail(q, k, causal, sm_scale))
     _launch_check(err, "dq", q, k.shape[1], causal)
-    dq_launches.add()
+    dq_launches.add(kernel_route("dq", q.dtype, q.shape[-1]))
     return dq
 
 
@@ -325,8 +379,8 @@ def _kernel_bwd_dkdv(q, k, v, dout, lse, delta, causal: bool,
             q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(),
             lse.data_ptr(), delta.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             *_bwd_tail(q, k, causal, sm_scale))
-    _launch_check(err, "dk/dv", q, k.shape[1], causal)
-    dkdv_launches.add()
+    _launch_check(err, "dkdv", q, k.shape[1], causal)
+    dkdv_launches.add(kernel_route("dkdv", q.dtype, q.shape[-1]))
     return dk, dv
 
 
@@ -341,8 +395,15 @@ def _kernel_bwd(q, k, v, out, lse, dout, causal: bool, sm_scale: float
     _check_like("out", out, q)
     b, sq, h, _ = q.shape
     if lse.shape != (b, h, sq) or lse.dtype != torch.float32 \
-            or not lse.is_contiguous():
-        raise ValueError(f"lse must be contiguous float32 [{b}, {h}, {sq}]")
+            or not lse.is_contiguous() or lse.device != q.device:
+        raise ValueError(f"lse must be contiguous float32 [{b}, {h}, {sq}] "
+                         f"on q's device")
+    if lse.data_ptr() % 16:
+        raise ValueError("the CUDA flash_attention backward takes a 16-byte "
+                         "aligned lse (its rows are copied by TMA)")
+    if b * h * sq > _MAX_ROWS:
+        raise ValueError(f"the CUDA flash_attention backward takes at most "
+                         f"{_MAX_ROWS} lse rows; got {b * h * sq}")
     if _lib is None:
         build_kernels()
     delta = torch.einsum("bqhd,bqhd->bhq", out.float(),

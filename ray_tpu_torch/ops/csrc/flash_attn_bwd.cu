@@ -6,9 +6,10 @@
 //        tiles up to the causal diagonal accumulates dq = sum_k ds.K in
 //        fp32 registers;
 //   dkdv (K3) replaces ray_tpu/ops/attention.py::_bwd_dkdv_kernel
-//        one block per (batch*head, 64-key tile); a loop over the q tiles
-//        from the first one at or below the diagonal to the end
-//        accumulates dv = sum_q p^T.dO and dk = sum_q ds^T.Q.
+//        one block per (batch*head, key tile: 128 keys on the wgmma
+//        route, 64 on the others); a loop over the q tiles from the first
+//        one at or below the diagonal to the end accumulates
+//        dv = sum_q p^T.dO and dk = sum_q ds^T.Q.
 //
 // Both launched by _pallas_bwd on the TPU. Each block owns its output
 // tile, so there are no atomics and the result is deterministic. Both
@@ -25,19 +26,39 @@
 // What bounds them on an H100: at the b1 train shape (B8 S2048 H16 D128,
 // causal) K2 does ~206 GFLOP against ~338 MB, K3 ~275 GFLOP against
 // ~405 MB: ~600-700 FLOP/byte, above the card's ~295 FLOP/byte ridge, so
-// both are bound by arithmetic and the bf16 path runs on the tensor
-// cores (mma.sync.m16n8k16, bf16 operands, fp32 accumulators, ldmatrix
-// fragment loads from 16-byte padded rows, cp.async double buffering of
-// the streamed tiles). wgmma, TMA and warp specialisation are later work.
-//   - K2, bf16: 4 warps of 16 q rows; S = Q K^T and dP = dO V^T share one
-//     pass over head_dim; ds leaves the accumulators already in the A
-//     layout of ds.K (as P does in the forward).
-//   - K3, bf16: 4 warps of 16 keys; the transposed tiles S^T = K Q^T and
-//     dP^T = V dO^T are computed, so p^T and ds^T leave the accumulators
-//     in the A layout of p^T.dO and ds^T.Q; lse and delta are indexed by
-//     column. At head_dim 128 the two fp32 [16, 128] accumulators of a
-//     warp cost 128 registers a thread, so the q tile is consumed in
-//     32-query register chunks to keep S^T/dP^T small.
+// both are bound by operations and the bf16 path runs on the tensor
+// cores. attention.py::kernel_route names the kernel each launch takes:
+//   - K3, bf16, head_dim 64 and 128: bwd_dkdv_ws_kernel, wgmma on a
+//     TMA-fed ring with warp specialisation. One block per (batch*head,
+//     128-key tile); a producer warpgroup (setmaxnreg.dec to 24, one
+//     thread issuing every TMA load) and two consumer warpgroups
+//     (setmaxnreg.inc to 240), each owning 64 keys and holding its fp32
+//     dK and dV [64, D] in registers for the whole loop (128 registers a
+//     thread at D 128), so no atomics and a deterministic result. K and V
+//     stay resident; Q and dO tiles of 64 queries, with the tile's lse and
+//     delta rows (1-D TMA copies), go round a two-stage ring, and each
+//     Q/dO tile fetched serves 128 keys. S^T = K Q^T and dP^T = V dO^T
+//     are wgmma m64n64k16 with both operands in shared memory
+//     (K-major); p^T and ds^T are computed in fp32 one 8-query column
+//     block at a time and packed to bf16 as the register A operands of
+//     dV += p^T dO and dK += ds^T Q (dO and Q MN-major through the
+//     transpose bit). ptxas (sm_90a, CUDA 12.9, on the H100 host): 168
+//     registers at entry, the consumers run in up to 240; at D 64 no
+//     spills; at D 128 272 bytes of spills and the note that the wgmmas
+//     are serialised for want of registers: that is what holds it back
+//     (each wgmma waits for the last, so the products of one warpgroup
+//     do not overlap its own elementwise work).
+//   - K2, and K3 at head_dim 32 (a 64-byte row is under the 128-byte
+//     swizzle box of the wgmma route): mma.sync.m16n8k16, bf16 operands,
+//     fp32 accumulators, ldmatrix fragment loads from 16-byte padded
+//     rows, cp.async double buffering of the streamed tiles.
+//     K2: 4 warps of 16 q rows; S = Q K^T and dP = dO V^T share one pass
+//     over head_dim; ds leaves the accumulators already in the A layout
+//     of ds.K (as P does in the forward). K3: 4 warps of 16 keys; the
+//     transposed tiles S^T = K Q^T and dP^T = V dO^T are computed, so
+//     p^T and ds^T leave the accumulators in the A layout of p^T.dO and
+//     ds^T.Q; lse and delta are indexed by column; the q tile is
+//     consumed in 32-query register chunks.
 //   - fp32: exact FMAs on the CUDA cores (the tensor cores would round to
 //     tf32), 8 warps of 8 rows, the forward's fp32 layout.
 // Causal tiles are skipped by the loop bounds; ragged edges are masked
@@ -50,6 +71,7 @@
 #include <type_traits>
 
 #include "flash_attn_common.cuh"
+#include "hopper_common.cuh"
 
 namespace {
 
@@ -416,6 +438,265 @@ bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
+// K3, bf16, head_dim 64 and 128: wgmma on a TMA-fed ring, warp-specialised.
+// One block per (batch*head, 128-key tile); warpgroups 0 and 1 each own 64
+// keys and hold their dK and dV accumulators [64, D] in registers for the
+// whole loop; warpgroup 2 is the producer. K and V are loaded once and
+// stay; Q and dO tiles of 64 queries, with the tile's lse and delta rows,
+// go round a two-stage ring (full: TMA bytes landed; empty: all 256
+// consumer threads done reading).
+// ---------------------------------------------------------------------------
+
+constexpr int WS_BK = 128;  // keys per block
+constexpr int WS_BQ = 64;   // queries per streamed tile
+constexpr int WS_STAGES = 2;
+constexpr int WS_THREADS = 384;  // two consumer warpgroups + the producer
+constexpr int WS_CONSUMERS = 256;
+
+template <int D>
+struct WsDkdvSmem {
+  static constexpr int KV_BYTES = WS_BK * D * 2;  // K or V, resident
+  static constexpr int QT_BYTES = WS_BQ * D * 2;  // one Q or dO tile
+  static constexpr int KV_BOX = WS_BK * SWIZZLE_ROW_BYTES;  // bytes a box
+  static constexpr int QT_BOX = WS_BQ * SWIZZLE_ROW_BYTES;
+  static constexpr int ROW_BYTES = WS_BQ * 4;  // the tile's lse or delta
+  // one stage: Q, dO, lse, delta; padded to the 1024-byte swizzle grid
+  static constexpr int STAGE = 2 * QT_BYTES + 1024;
+  static constexpr int V_OFF = KV_BYTES;
+  static constexpr int RING_OFF = 2 * KV_BYTES;
+  static constexpr int BAR_OFF = RING_OFF + WS_STAGES * STAGE;
+  // kv_full, then per stage full, empty
+  static constexpr int BYTES = BAR_OFF + (1 + 2 * WS_STAGES) * 8;
+  static constexpr int ALLOC = BYTES + 1024;  // room to align to 1024
+};
+
+template <int D>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+bwd_dkdv_ws_kernel(const __grid_constant__ CUtensorMap tm_q,
+                   const __grid_constant__ CUtensorMap tm_k,
+                   const __grid_constant__ CUtensorMap tm_v,
+                   const __grid_constant__ CUtensorMap tm_do,
+                   const __grid_constant__ CUtensorMap tm_lse,
+                   const __grid_constant__ CUtensorMap tm_delta,
+                   bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
+                   int Sq, int Sk, int causal, float scale) {
+  using L = WsDkdvSmem<D>;
+  constexpr int BOXES = D / BOX_COLS;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  unsigned char* base_ptr = smem_raw + (base - smem_u32(smem_raw));
+  const uint32_t kv_full = base + L::BAR_OFF;
+  auto full = [&](int s) { return kv_full + 8 * (1 + s); };
+  auto empty = [&](int s) { return kv_full + 8 * (1 + WS_STAGES + s); };
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int k0 = blockIdx.x * WS_BK;  // the first tiles have the most work
+  // causal: queries before k0 never see this tile's keys
+  const int qt_first = causal ? k0 / WS_BQ : 0;
+  const int n_iter = max(0, (Sq + WS_BQ - 1) / WS_BQ - qt_first);
+  const int wg = warpgroup_index();
+
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < WS_STAGES; ++s) {
+      mbar_init(full(s), 1);
+      mbar_init(empty(s), WS_CONSUMERS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256 && n_iter > 0) {
+      prefetch_tensor_map(&tm_q);
+      prefetch_tensor_map(&tm_do);
+      mbar_expect_tx(kv_full, 2 * L::KV_BYTES);
+      for (int x = 0; x < BOXES; ++x) {
+        tma_load_4d(base + x * L::KV_BOX, &tm_k, kv_full, x * BOX_COLS, h,
+                    k0, b);
+        tma_load_4d(base + L::V_OFF + x * L::KV_BOX, &tm_v, kv_full,
+                    x * BOX_COLS, h, k0, b);
+      }
+      for (int it = 0; it < n_iter; ++it) {
+        const int s = it % WS_STAGES;
+        const int q0 = (qt_first + it) * WS_BQ;
+        const uint32_t st = base + L::RING_OFF + s * L::STAGE;
+        mbar_wait(empty(s), ((it / WS_STAGES) & 1) ^ 1);
+        mbar_expect_tx(full(s), 2 * L::QT_BYTES + 2 * L::ROW_BYTES);
+        for (int x = 0; x < BOXES; ++x) {
+          tma_load_4d(st + x * L::QT_BOX, &tm_q, full(s), x * BOX_COLS, h, q0,
+                      b);
+          tma_load_4d(st + L::QT_BYTES + x * L::QT_BOX, &tm_do, full(s),
+                      x * BOX_COLS, h, q0, b);
+        }
+        // lse/delta as one flat array: a tile past Sq reads the next
+        // head's rows (or zeros past the end), masked below
+        const int row0 = bh * Sq + q0;
+        tma_load_1d(st + 2 * L::QT_BYTES, &tm_lse, full(s), row0);
+        tma_load_1d(st + 2 * L::QT_BYTES + L::ROW_BYTES, &tm_delta, full(s),
+                    row0);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns keys [k0 + 64 wg, +64)
+    setmaxnreg_inc<240>();
+    const int warp = (threadIdx.x % 128) / 32;
+    const int lane = threadIdx.x % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int wg_key = k0 + wg * 64;
+    const int kp[2] = {wg_key + warp * 16 + g, wg_key + warp * 16 + g + 8};
+    const float scale_log2 = scale * LOG2E;
+
+    float dka[D / 2], dva[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
+    const uint32_t k_rows = base + wg * 64 * SWIZZLE_ROW_BYTES;
+    const uint32_t v_rows = k_rows + L::V_OFF;
+    if (n_iter > 0) mbar_wait(kv_full, 0);
+
+    for (int it = 0; it < n_iter; ++it) {
+      const int s = it % WS_STAGES;
+      const int q0 = (qt_first + it) * WS_BQ;
+      const uint32_t q_tile = base + L::RING_OFF + s * L::STAGE;
+      const uint32_t do_tile = q_tile + L::QT_BYTES;
+      const float* lse_s = reinterpret_cast<const float*>(
+          base_ptr + L::RING_OFF + s * L::STAGE + 2 * L::QT_BYTES);
+      const float* delta_s = lse_s + WS_BQ;
+      mbar_wait(full(s), (it / WS_STAGES) & 1);
+
+      // S^T = K Q^T and dP^T = V dO^T: [64 keys, 64 queries], K-major;
+      // two groups, so p^T is computed while dP^T is still in flight
+      float sT[32], dpT[32];
+      const uint32_t k_at = opaque(k_rows), v_at = opaque(v_rows);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t in_box = (kk & 3) * 32;
+        wgmma_ss_n64<0>(
+            sT, sw128_desc(k_at + (kk >> 2) * L::KV_BOX + in_box, 16, 1024),
+            sw128_desc(q_tile + (kk >> 2) * L::QT_BOX + in_box, 16, 1024),
+            kk > 0);
+      }
+      wgmma_commit();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t in_box = (kk & 3) * 32;
+        wgmma_ss_n64<0>(
+            dpT, sw128_desc(v_at + (kk >> 2) * L::KV_BOX + in_box, 16, 1024),
+            sw128_desc(do_tile + (kk >> 2) * L::QT_BOX + in_box, 16, 1024),
+            kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(sT);
+      fence_operand(dpT);
+
+      // One 8-query column block j at a time: p^T = exp(S^T scale -
+      // lse[col]) and ds^T = p^T (dP^T - delta[col]) scale in fp32, the
+      // mask only where the tile needs it (the causal diagonal, the
+      // ragged ends), both packed to bf16 as the register A operands of
+      // dV += p^T dO and dK += ds^T Q. The empty asm keeps each block's
+      // lse/delta loads at the block, so the accumulators of S^T and dP^T
+      // die as the packed operands fill and nothing is held beside them.
+      const bool edge = (causal && q0 < wg_key + 63) || q0 + WS_BQ > Sq ||
+                        wg_key + 64 > Sk;
+      uint32_t pa[WS_BQ / 16][4], da[WS_BQ / 16][4];
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        asm volatile("" ::: "memory");
+        const int qi = 8 * j + 2 * t;
+        const float2 lr = *reinterpret_cast<const float2*>(lse_s + qi);
+        const float2 dr = *reinterpret_cast<const float2*>(delta_s + qi);
+        float p[4], ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * j + e;
+          const float lse_c = (e & 1) ? lr.y : lr.x;
+          p[e] = ex2(fmaf(sT[i], scale_log2, -lse_c * LOG2E));
+          if (edge) {
+            const int qpos = q0 + qi + (e & 1);
+            const int key = kp[e >> 1];
+            const bool ok =
+                qpos < Sq && key < Sk && (!causal || qpos >= key);
+            p[e] = ok ? p[e] : 0.f;
+          }
+          ds[e] = p[e] * (dpT[i] - ((e & 1) ? dr.y : dr.x)) * scale;
+        }
+        // column block j holds A-fragment pairs x = 2 (j & 1), +1 of
+        // 16-query step j / 2
+        pa[j >> 1][2 * (j & 1)] = pack_bf16(p[0], p[1]);
+        pa[j >> 1][2 * (j & 1) + 1] = pack_bf16(p[2], p[3]);
+        da[j >> 1][2 * (j & 1)] = pack_bf16(ds[0], ds[1]);
+        da[j >> 1][2 * (j & 1) + 1] = pack_bf16(ds[2], ds[3]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < WS_BQ / 16; ++kc) {
+        const uint32_t step = kc * 16 * SWIZZLE_ROW_BYTES;
+        const uint64_t d_do = sw128_desc(do_tile + step, L::QT_BOX, 1024);
+        const uint64_t d_q = sw128_desc(q_tile + step, L::QT_BOX, 1024);
+        if constexpr (D == 128) {
+          wgmma_rs_n128<1>(dva, pa[kc], d_do, 1);
+          wgmma_rs_n128<1>(dka, da[kc], d_q, 1);
+        } else {
+          wgmma_rs_n64<1>(dva, pa[kc], d_do, 1);
+          wgmma_rs_n64<1>(dka, da[kc], d_q, 1);
+        }
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(dva);
+      fence_operand(dka);
+      mbar_arrive(empty(s));
+    }
+
+    // rows past Sk are never written; a tile no query reaches writes zeros
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (kp[r] >= Sk) continue;
+      const long o = (((long)b * Sk + kp[r]) * H + h) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        *reinterpret_cast<uint32_t*>(dk + o + j * 8 + 2 * t) =
+            pack_bf16(dka[4 * j + 2 * r], dka[4 * j + 2 * r + 1]);
+        *reinterpret_cast<uint32_t*>(dv + o + j * 8 + 2 * t) =
+            pack_bf16(dva[4 * j + 2 * r], dva[4 * j + 2 * r + 1]);
+      }
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dkdv_ws(const bf16* q, const bf16* k, const bf16* v,
+                           const bf16* dout, const float* lse,
+                           const float* delta, bf16* dk, bf16* dv, int B,
+                           int H, int Sq, int Sk, int causal, float scale,
+                           cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo, tl, td;
+  int err = encode_bshd(&tq, q, B, Sq, H, D, WS_BQ);
+  if (!err) err = encode_bshd(&tdo, dout, B, Sq, H, D, WS_BQ);
+  if (!err) err = encode_bshd(&tk, k, B, Sk, H, D, WS_BK);
+  if (!err) err = encode_bshd(&tv, v, B, Sk, H, D, WS_BK);
+  if (!err) err = encode_rows(&tl, lse, (long)B * H * Sq, WS_BQ);
+  if (!err) err = encode_rows(&td, delta, (long)B * H * Sq, WS_BQ);
+  if (err) return static_cast<cudaError_t>(err);
+  constexpr int smem = WsDkdvSmem<D>::ALLOC;
+  cudaError_t cerr = cudaFuncSetAttribute(
+      bwd_dkdv_ws_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (cerr != cudaSuccess) return cerr;
+  const dim3 grid((Sk + WS_BK - 1) / WS_BK, B * H);
+  bwd_dkdv_ws_kernel<D><<<grid, WS_THREADS, smem, stream>>>(
+      tq, tk, tv, tdo, tl, td, dk, dv, H, Sq, Sk, causal, scale);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // fp32: FMAs on the CUDA cores, the forward's fp32 layout (8 warps of 8
 // rows; a lane owns two columns of a 64-wide tile for the row products
 // and D/32 head dims for the tile products).
@@ -763,14 +1044,25 @@ extern "C" int rtt_flash_attn_bwd_dkdv(const void* q, const void* k,
   const float* dl = static_cast<const float*>(delta);
   return with_head_dim(D, [&](auto dim) -> cudaError_t {
     constexpr int kD = decltype(dim)::value;
-    if (dtype == 1)
-      return launch(bwd_dkdv_mma_kernel<kD>, Sk, B * H, MMA_THREADS,
-                    mma_smem<kD>() + 4 * TILE * sizeof(float), s,
-                    static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                    static_cast<const bf16*>(v),
-                    static_cast<const bf16*>(dout), l, dl,
-                    static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Sq, Sk,
-                    causal, scale);
+    if (dtype == 1) {
+      // head_dim 64 and 128: the wgmma kernel; 32 (one 64-byte row, no
+      // 128-byte swizzle box) stays on mma.sync
+      if constexpr (kD >= 64)
+        return launch_dkdv_ws<kD>(
+            static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+            static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l,
+            dl, static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, H, Sq, Sk,
+            causal, scale, s);
+      else
+        return launch(bwd_dkdv_mma_kernel<kD>, Sk, B * H, MMA_THREADS,
+                      mma_smem<kD>() + 4 * TILE * sizeof(float), s,
+                      static_cast<const bf16*>(q),
+                      static_cast<const bf16*>(k),
+                      static_cast<const bf16*>(v),
+                      static_cast<const bf16*>(dout), l, dl,
+                      static_cast<bf16*>(dk), static_cast<bf16*>(dv), H, Sq,
+                      Sk, causal, scale);
+    }
     if (dtype == 0)
       return launch(bwd_dkdv_f32_kernel<kD>, Sk, B * H, NTHREADS,
                     f32_smem<kD>(true), s, static_cast<const float*>(q),
