@@ -12,9 +12,11 @@ failure raises and the script exits non-zero. Phases:
               backward kernels (K2 dq, K3 dk/dv) against their plain
               torch versions (``_blockwise_fwd``, ``_blockwise_bwd``) on
               the card at the main paths' shapes and at ragged, Sq != Sk
-              and head_dim-64 shapes that reach the edges of K1's and
-              K3's TMA tiles, and time each kernel, its plain version,
-              its bound and one PyTorch library call (a yardstick only);
+              and head_dim-64 shapes that reach the edges of the TMA
+              tiles of K1, K2 and K3 (all three take the wgmma route in
+              bf16 at head_dim 64 and 128), and time each kernel, its
+              plain version, its bound and one PyTorch library call (a
+              yardstick only);
               each row names the route (``attention.kernel_route``) it
               took;
   3. sched  — drain 256 nodes x 100k tasks x 32 classes through the live
@@ -35,7 +37,7 @@ failure raises and the script exits non-zero. Phases:
               a seed, remat "full") and takes 4 optimizer steps on one
               seeded [8, 2049] token batch. Losses must be finite and
               falling, K1 must launch 2 x 24 x 4 times (forward and remat
-              recompute) and K2 and K3 24 x 4 times each, K1 and K3 on
+              recompute) and K2 and K3 24 x 4 times each, all three on
               the wgmma route, and one step's gradients must agree with
               the same step on the plain attention, leaf by leaf.
 
@@ -102,14 +104,16 @@ KERNEL_SHAPES = [
 BWD_SHAPES = [
     # name, B, Sq, Sk, H, D, causal, dtype — the b1 train step's shape
     # (8 x 2048 tokens), entry()'s shape, a ragged fp32 one with Sq != Sk,
-    # and for K3's wgmma route: Sq > Sk at head_dim 64 and Sq < Sk at 128
-    # (causal, top-left aligned: the last key tiles see no query and
-    # write zeros), both ragged
+    # and for the wgmma route of K2 and K3: Sq > Sk at head_dim 64 and
+    # Sq < Sk at 128 (causal, top-left aligned: the last key tiles see no
+    # query and write zeros), both ragged, and a ragged non-causal one
+    # (K2's mask of the keys past Sk without the causal bound)
     ("train", 8, 2048, 2048, 16, 128, True, "bfloat16"),
     ("entry", 2, 128, 128, 8, 32, True, "bfloat16"),
     ("ragged", 1, 1000, 700, 4, 64, False, "float32"),
     ("ragged_bf16", 1, 1000, 700, 4, 64, True, "bfloat16"),
     ("sq_lt_sk_bf16", 1, 700, 1000, 4, 128, True, "bfloat16"),
+    ("ragged_noncausal_bf16", 1, 1000, 1000, 4, 128, False, "bfloat16"),
 ]
 
 SCHED = dict(nodes=256, tasks=100_000, classes=32)

@@ -54,11 +54,11 @@ _HEAD_DIMS = (32, 64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # The kernel each launch takes, as the C launchers dispatch it:
-#   WGMMA: bf16 K1 and K3 at head_dim 64 and 128 -- wgmma on TMA-fed
+#   WGMMA: bf16, all three, at head_dim 64 and 128 -- wgmma on TMA-fed
 #          shared-memory rings, a producer warpgroup and two consumer
 #          warpgroups (a head_dim-32 row is 64 bytes, under the 128-byte
 #          swizzle box those kernels are built on);
-#   MMA_SYNC: bf16 K2, and bf16 K1/K3 at head_dim 32 -- mma.sync tiles;
+#   MMA_SYNC: bf16, all three, at head_dim 32 -- mma.sync tiles;
 #   FMA: float32, all three -- exact FMAs on the CUDA cores.
 WGMMA = "wgmma_tma_ws"
 MMA_SYNC = "mma_sync"
@@ -85,7 +85,7 @@ def kernel_route(kernel: str, dtype: torch.dtype, head_dim: int) -> str:
                          f"in {_HEAD_DIMS}; got {head_dim}")
     if dtype == torch.float32:
         return FMA
-    if kernel != "dq" and head_dim >= 64:
+    if head_dim >= 64:
         return WGMMA
     return MMA_SYNC
 

@@ -2,9 +2,9 @@
 // kernels, the flash-attention-2 split of the JAX package's TPU kernels.
 //
 //   dq   (K2) replaces ray_tpu/ops/attention.py::_bwd_dq_kernel
-//        one block per (batch*head, 64-row q tile); a loop over the k
-//        tiles up to the causal diagonal accumulates dq = sum_k ds.K in
-//        fp32 registers;
+//        one block per (batch*head, q tile: 128 rows on the wgmma route,
+//        64 on the others); a loop over the key tiles up to the causal
+//        diagonal accumulates dq = sum_k ds.K in fp32 registers;
 //   dkdv (K3) replaces ray_tpu/ops/attention.py::_bwd_dkdv_kernel
 //        one block per (batch*head, key tile: 128 keys on the wgmma
 //        route, 64 on the others); a loop over the q tiles from the first
@@ -28,6 +28,32 @@
 // ~405 MB: ~600-700 FLOP/byte, above the card's ~295 FLOP/byte ridge, so
 // both are bound by operations and the bf16 path runs on the tensor
 // cores. attention.py::kernel_route names the kernel each launch takes:
+//   - K2, bf16, head_dim 64 and 128: bwd_dq_ws_kernel, wgmma on a
+//     TMA-fed ring with warp specialisation. One block per (batch*head,
+//     128-row q tile), longest causal tiles first; a producer warpgroup
+//     (setmaxnreg.dec to 24, one thread issuing every TMA load) and two
+//     consumer warpgroups (setmaxnreg.inc to 240), each owning 64 q rows
+//     and holding its fp32 dq [64, D] in registers for the whole loop (64
+//     registers a thread at D 128). Q and dO stay resident; K and V
+//     tiles of 64 keys go round a two-stage ring with separate full and
+//     empty barriers for K and for V, so V's stage is refilled as soon as
+//     dP has been read while K's waits for ds.K; each K/V tile fetched
+//     serves 128 q rows. S = Q K^T and dP = dO V^T are wgmma m64n64k16
+//     with both operands in shared memory (K-major), issued as two
+//     groups so that p = exp2(S scale log2e - lse log2e) is computed
+//     while dP is in flight; ds = p (dP - delta) scale is computed in
+//     fp32 one 8-key column block at a time and packed to bf16 as the
+//     register A operand of dq += ds K, whose B is the same K tile read
+//     MN-major (the transpose bit). At 64 keys a tile S and dP are 32
+//     registers each, so S, dP, dq and the packed ds fit a consumer's
+//     240 beside its addresses. The upper warpgroup's rows end 64 before
+//     the lower one's: at the causal diagonal it skips the last tile's
+//     products but still releases its stages. ptxas (sm_90a, on the H100
+//     host): 168 registers at entry, the consumers run in up to 240; no
+//     spills and no serialised wgmmas at D 64 or 128. Leaving ds.K in
+//     flight across the next tile's S and dP made ptxas serialise the
+//     wgmmas (0.76x); a third ring stage and one elementwise pass after
+//     both products each changed the time by under 1 % (PERF.md).
 //   - K3, bf16, head_dim 64 and 128: bwd_dkdv_ws_kernel, wgmma on a
 //     TMA-fed ring with warp specialisation. One block per (batch*head,
 //     128-key tile); a producer warpgroup (setmaxnreg.dec to 24, one
@@ -48,7 +74,7 @@
 //     are serialised for want of registers: that is what holds it back
 //     (each wgmma waits for the last, so the products of one warpgroup
 //     do not overlap its own elementwise work).
-//   - K2, and K3 at head_dim 32 (a 64-byte row is under the 128-byte
+//   - K2 and K3 at head_dim 32 (a 64-byte row is under the 128-byte
 //     swizzle box of the wgmma route): mma.sync.m16n8k16, bf16 operands,
 //     fp32 accumulators, ldmatrix fragment loads from 16-byte padded
 //     rows, cp.async double buffering of the streamed tiles.
@@ -697,6 +723,274 @@ cudaError_t launch_dkdv_ws(const bf16* q, const bf16* k, const bf16* v,
 }
 
 // ---------------------------------------------------------------------------
+// K2, bf16, head_dim 64 and 128: wgmma on a TMA-fed ring, warp-specialised.
+// One block per (batch*head, 128-row q tile); warpgroups 0 and 1 each own
+// 64 q rows and hold their dq accumulator [64, D] in registers for the
+// whole loop; warpgroup 2 is the producer. Q and dO are loaded once and
+// stay; K and V tiles of 64 keys go round a two-stage ring, each stage
+// with its own full and empty barrier for K and for V: V is last read by
+// dP, K by ds.K, so V's stage is released (and refilled) first.
+// ---------------------------------------------------------------------------
+
+constexpr int DQ_BM = 128;  // q rows per block
+constexpr int DQ_BN = 64;   // keys per K/V tile
+
+template <int D>
+struct WsDqSmem {
+  static constexpr int Q_BYTES = DQ_BM * D * 2;   // Q or dO, resident
+  static constexpr int KV_BYTES = DQ_BN * D * 2;  // one K or one V tile
+  static constexpr int Q_BOX = DQ_BM * SWIZZLE_ROW_BYTES;  // bytes a box
+  static constexpr int KV_BOX = DQ_BN * SWIZZLE_ROW_BYTES;
+  static constexpr int DO_OFF = Q_BYTES;
+  static constexpr int K_OFF = 2 * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + WS_STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + WS_STAGES * KV_BYTES;
+  // qdo_full, then per stage k_full, v_full, k_empty, v_empty
+  static constexpr int BYTES = BAR_OFF + (1 + 4 * WS_STAGES) * 8;
+  static constexpr int ALLOC = BYTES + 1024;  // room to align to 1024
+};
+
+template <int D>
+__global__ void __launch_bounds__(WS_THREADS, 1)
+bwd_dq_ws_kernel(const __grid_constant__ CUtensorMap tm_q,
+                 const __grid_constant__ CUtensorMap tm_k,
+                 const __grid_constant__ CUtensorMap tm_v,
+                 const __grid_constant__ CUtensorMap tm_do,
+                 const float* __restrict__ lse,
+                 const float* __restrict__ delta, bf16* __restrict__ dq,
+                 int H, int Sq, int Sk, int causal, float scale) {
+  using L = WsDqSmem<D>;
+  constexpr int BOXES = D / BOX_COLS;
+  extern __shared__ unsigned char smem_raw[];
+  // 128-byte swizzle repeats every 1024 bytes: tiles start on that grid
+  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
+  const uint32_t qdo_full = base + L::BAR_OFF;
+  auto k_full = [&](int s) { return qdo_full + 8 * (1 + s); };
+  auto v_full = [&](int s) { return qdo_full + 8 * (1 + WS_STAGES + s); };
+  auto k_empty = [&](int s) {
+    return qdo_full + 8 * (1 + 2 * WS_STAGES + s);
+  };
+  auto v_empty = [&](int s) {
+    return qdo_full + 8 * (1 + 3 * WS_STAGES + s);
+  };
+
+  const int bh = blockIdx.y;
+  const int b = bh / H;
+  const int h = bh % H;
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * DQ_BM;  // longest first
+  // causal: keys past this tile's last row are never needed
+  const int q_last = min(q0 + DQ_BM, Sq) - 1;
+  const int kv_len = causal ? min(Sk, q_last + 1) : Sk;
+  const int n_tiles = (kv_len + DQ_BN - 1) / DQ_BN;
+  const int wg = warpgroup_index();
+
+  if (threadIdx.x == 0) {
+    mbar_init(qdo_full, 1);
+    for (int s = 0; s < WS_STAGES; ++s) {
+      mbar_init(k_full(s), 1);
+      mbar_init(v_full(s), 1);
+      mbar_init(k_empty(s), WS_CONSUMERS);
+      mbar_init(v_empty(s), WS_CONSUMERS);
+    }
+    fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (wg == 2) {
+    // ---- producer: every warp lowers its register limit, one thread
+    // keeps the ring full
+    setmaxnreg_dec<24>();
+    if (threadIdx.x == 256) {
+      prefetch_tensor_map(&tm_k);
+      prefetch_tensor_map(&tm_v);
+      mbar_expect_tx(qdo_full, 2 * L::Q_BYTES);
+      for (int x = 0; x < BOXES; ++x) {
+        tma_load_4d(base + x * L::Q_BOX, &tm_q, qdo_full, x * BOX_COLS, h,
+                    q0, b);
+        tma_load_4d(base + L::DO_OFF + x * L::Q_BOX, &tm_do, qdo_full,
+                    x * BOX_COLS, h, q0, b);
+      }
+      for (int j = 0; j < n_tiles; ++j) {
+        const int s = j % WS_STAGES;
+        const uint32_t free_parity = ((j / WS_STAGES) & 1) ^ 1;
+        mbar_wait(k_empty(s), free_parity);
+        mbar_expect_tx(k_full(s), L::KV_BYTES);
+        for (int x = 0; x < BOXES; ++x)
+          tma_load_4d(base + L::K_OFF + s * L::KV_BYTES + x * L::KV_BOX,
+                      &tm_k, k_full(s), x * BOX_COLS, h, j * DQ_BN, b);
+        mbar_wait(v_empty(s), free_parity);
+        mbar_expect_tx(v_full(s), L::KV_BYTES);
+        for (int x = 0; x < BOXES; ++x)
+          tma_load_4d(base + L::V_OFF + s * L::KV_BYTES + x * L::KV_BOX,
+                      &tm_v, v_full(s), x * BOX_COLS, h, j * DQ_BN, b);
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup wg owns q rows [q0 + 64 wg, +64)
+    setmaxnreg_inc<240>();
+    const int warp = (threadIdx.x % 128) / 32;
+    const int lane = threadIdx.x % 32;
+    const int g = lane >> 2;
+    const int t = lane & 3;
+    const int wg_row = q0 + wg * 64;
+    const int qp[2] = {wg_row + warp * 16 + g, wg_row + warp * 16 + g + 8};
+    const float scale_log2 = scale * LOG2E;
+    // this thread's two rows: lse in the log2 domain, delta; rows past Sq
+    // take 0 and are never written
+    float lse_l2[2], delta_r[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const long i = (long)bh * Sq + qp[r];
+      lse_l2[r] = qp[r] < Sq ? lse[i] * LOG2E : 0.f;
+      delta_r[r] = qp[r] < Sq ? delta[i] : 0.f;
+    }
+    // the tiles this warpgroup's rows reach: at the causal diagonal the
+    // upper warpgroup (rows ending 64 before the lower one's) skips the
+    // block's last tile, and a warpgroup wholly past Sq skips them all;
+    // a skipped tile's stages are still released
+    const int wg_kv = causal ? min(Sk, min(wg_row + 64, Sq)) : Sk;
+    const int wg_tiles = wg_row < Sq ? (wg_kv + DQ_BN - 1) / DQ_BN : 0;
+
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    const uint32_t q_rows = base + wg * 64 * SWIZZLE_ROW_BYTES;
+    const uint32_t do_rows = q_rows + L::DO_OFF;
+    mbar_wait(qdo_full, 0);
+
+    for (int j = 0; j < n_tiles; ++j) {
+      const int s = j % WS_STAGES;
+      const uint32_t parity = (j / WS_STAGES) & 1;
+      const uint32_t k_tile = base + L::K_OFF + s * L::KV_BYTES;
+      const uint32_t v_tile = base + L::V_OFF + s * L::KV_BYTES;
+      if (j >= wg_tiles) {
+        // a full barrier's phase completes only after every consumer
+        // released this stage's previous fill: arriving before it could
+        // count toward that release
+        mbar_wait(k_full(s), parity);
+        mbar_arrive(k_empty(s));
+        mbar_wait(v_full(s), parity);
+        mbar_arrive(v_empty(s));
+        continue;
+      }
+      const int k0 = j * DQ_BN;
+
+      // S = Q K^T and dP = dO V^T: [64 rows, 64 keys], both operands
+      // K-major; two groups, so p is computed while dP is in flight
+      float sc[32], dp[32];
+      const uint32_t q_at = opaque(q_rows), do_at = opaque(do_rows);
+      mbar_wait(k_full(s), parity);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t in_box = (kk & 3) * 32;
+        wgmma_ss_n64<0>(
+            sc, sw128_desc(q_at + (kk >> 2) * L::Q_BOX + in_box, 16, 1024),
+            sw128_desc(k_tile + (kk >> 2) * L::KV_BOX + in_box, 16, 1024),
+            kk > 0);
+      }
+      wgmma_commit();
+      mbar_wait(v_full(s), parity);
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t in_box = (kk & 3) * 32;
+        wgmma_ss_n64<0>(
+            dp, sw128_desc(do_at + (kk >> 2) * L::Q_BOX + in_box, 16, 1024),
+            sw128_desc(v_tile + (kk >> 2) * L::KV_BOX + in_box, 16, 1024),
+            kk > 0);
+      }
+      wgmma_commit();
+
+      // p = exp(S scale - lse) as exp2 of one FMA, in place; the mask
+      // only where the tile needs it: the causal diagonal, and keys past
+      // Sk (TMA reads them as zeros: S = 0 there, p = exp(-lse) != 0)
+      wgmma_wait<1>();
+      fence_operand(sc);
+      const bool edge =
+          (causal && k0 + DQ_BN - 1 > wg_row) || k0 + DQ_BN > Sk;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int r = (i >> 1) & 1;
+        float p = ex2(fmaf(sc[i], scale_log2, -lse_l2[r]));
+        if (edge) {
+          const int kp = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
+          p = (kp < Sk && (!causal || kp <= qp[r])) ? p : 0.f;
+        }
+        sc[i] = p;
+      }
+      wgmma_wait<0>();
+      fence_operand(dp);
+      mbar_arrive(v_empty(s));  // V is done with
+
+      // ds = p (dP - delta) scale in fp32, packed to bf16 as the register
+      // A operand of dq += ds K: the accumulator pair {d[8kc + 2x],
+      // d[8kc + 2x + 1]} is A register x of 16-key step kc (row g for
+      // even x, g + 8 for odd)
+      uint32_t da[DQ_BN / 16][4];
+#pragma unroll
+      for (int kc = 0; kc < DQ_BN / 16; ++kc) {
+#pragma unroll
+        for (int x = 0; x < 4; ++x) {
+          const int i = 8 * kc + 2 * x;
+          const float d = delta_r[x & 1];
+          da[kc][x] = pack_bf16(sc[i] * (dp[i] - d) * scale,
+                                sc[i + 1] * (dp[i + 1] - d) * scale);
+        }
+      }
+      // dq += ds K over 16-key steps: K is MN-major here (head_dim
+      // contiguous), so B is transposed
+      wgmma_fence();
+#pragma unroll
+      for (int kc = 0; kc < DQ_BN / 16; ++kc) {
+        const uint64_t dk =
+            sw128_desc(k_tile + kc * 16 * SWIZZLE_ROW_BYTES, L::KV_BOX, 1024);
+        if constexpr (D == 128)
+          wgmma_rs_n128<1>(acc, da[kc], dk, 1);
+        else
+          wgmma_rs_n64<1>(acc, da[kc], dk, 1);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_operand(acc);
+      mbar_arrive(k_empty(s));  // K is done with
+    }
+
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      if (qp[r] >= Sq) continue;
+      bf16* out = dq + (((long)b * Sq + qp[r]) * H + h) * D;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(out + j * 8 + 2 * t) =
+            pack_bf16(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_dq_ws(const bf16* q, const bf16* k, const bf16* v,
+                         const bf16* dout, const float* lse,
+                         const float* delta, bf16* dq, int B, int H, int Sq,
+                         int Sk, int causal, float scale,
+                         cudaStream_t stream) {
+  CUtensorMap tq, tk, tv, tdo;
+  int err = encode_bshd(&tq, q, B, Sq, H, D, DQ_BM);
+  if (!err) err = encode_bshd(&tdo, dout, B, Sq, H, D, DQ_BM);
+  if (!err) err = encode_bshd(&tk, k, B, Sk, H, D, DQ_BN);
+  if (!err) err = encode_bshd(&tv, v, B, Sk, H, D, DQ_BN);
+  if (err) return static_cast<cudaError_t>(err);
+  constexpr int smem = WsDqSmem<D>::ALLOC;
+  cudaError_t cerr = cudaFuncSetAttribute(
+      bwd_dq_ws_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (cerr != cudaSuccess) return cerr;
+  const dim3 grid((Sq + DQ_BM - 1) / DQ_BM, B * H);
+  bwd_dq_ws_kernel<D><<<grid, WS_THREADS, smem, stream>>>(
+      tq, tk, tv, tdo, lse, delta, dq, H, Sq, Sk, causal, scale);
+  return cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
 // fp32: FMAs on the CUDA cores, the forward's fp32 layout (8 warps of 8
 // rows; a lane owns two columns of a 64-wide tile for the row products
 // and D/32 head dims for the tile products).
@@ -1015,12 +1309,22 @@ extern "C" int rtt_flash_attn_bwd_dq(const void* q, const void* k,
   const float* dl = static_cast<const float*>(delta);
   return with_head_dim(D, [&](auto dim) -> cudaError_t {
     constexpr int kD = decltype(dim)::value;
-    if (dtype == 1)
-      return launch(bwd_dq_mma_kernel<kD>, Sq, B * H, MMA_THREADS,
-                    mma_smem<kD>(), s, static_cast<const bf16*>(q),
-                    static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-                    static_cast<const bf16*>(dout), l, dl,
-                    static_cast<bf16*>(dq), H, Sq, Sk, causal, scale);
+    if (dtype == 1) {
+      // head_dim 64 and 128: the wgmma kernel; 32 (one 64-byte row, no
+      // 128-byte swizzle box) stays on mma.sync
+      if constexpr (kD >= 64)
+        return launch_dq_ws<kD>(
+            static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+            static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l,
+            dl, static_cast<bf16*>(dq), B, H, Sq, Sk, causal, scale, s);
+      else
+        return launch(bwd_dq_mma_kernel<kD>, Sq, B * H, MMA_THREADS,
+                      mma_smem<kD>(), s, static_cast<const bf16*>(q),
+                      static_cast<const bf16*>(k),
+                      static_cast<const bf16*>(v),
+                      static_cast<const bf16*>(dout), l, dl,
+                      static_cast<bf16*>(dq), H, Sq, Sk, causal, scale);
+    }
     if (dtype == 0)
       return launch(bwd_dq_f32_kernel<kD>, Sq, B * H, NTHREADS,
                     f32_smem<kD>(false), s, static_cast<const float*>(q),

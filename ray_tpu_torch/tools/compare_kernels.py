@@ -9,11 +9,12 @@ trees' ``ray_tpu_torch/ops/attention.py`` are loaded side by side as
 standalone modules; each builds its own kernels from its own sources into
 its own ``_build`` directory. At the b1 shapes (the served forward B2 and
 the train step B8, S2048 H16 D128 causal bf16) the script checks that the
-two trees' outputs agree, then times the forward (K1) and the dk/dv
-backward (K3) with CUDA events in the order baseline, current, current,
-baseline, repeated ``--rounds`` times, and prints one JSON line with every
-timing, the mean of each, the factor baseline/current, and the card's
-name and power limit. Needs CUDA (exits 2 without it).
+two trees' outputs agree, then times the forward (K1), the dq backward
+(K2) and the dk/dv backward (K3) with CUDA events in the order baseline,
+current, current, baseline, repeated ``--rounds`` times, and prints one
+JSON line with every timing, the mean of each, the factor
+baseline/current, and the card's name and power limit. Needs CUDA (exits
+2 without it).
 """
 
 from __future__ import annotations
@@ -28,9 +29,10 @@ from ray_tpu_torch.tools.profile_serving import card_line
 
 SHAPES = [
     # name, kernel, B, S, H, D — b1's served forward, its train step's
-    # forward and dk/dv backward (causal, bf16)
+    # forward, dq and dk/dv backward (causal, bf16)
     ("served_fwd", "fwd", 2, 2048, 16, 128),
     ("train_fwd", "fwd", 8, 2048, 16, 128),
+    ("train_dq", "dq", 8, 2048, 16, 128),
     ("train_dkdv", "dkdv", 8, 2048, 16, 128),
 ]
 ITERS = 20
@@ -59,7 +61,8 @@ def _inputs(b, s, h, d):
 
 
 def _call(mod, kernel, q, k, v, do):
-    """A closure launching ``kernel`` of module ``mod`` once."""
+    """A closure launching ``kernel`` of module ``mod`` once; it returns
+    the kernel's outputs as a tuple."""
     import torch
 
     scale = q.shape[-1] ** -0.5
@@ -68,6 +71,9 @@ def _call(mod, kernel, q, k, v, do):
     out, lse = mod._fwd_dispatch(q, k, v, True)
     delta = torch.einsum("bqhd,bqhd->bhq", out.float(),
                          do.float()).contiguous()
+    if kernel == "dq":
+        return lambda: (mod._kernel_bwd_dq(q, k, v, do, lse, delta, True,
+                                           scale),)
     return lambda: mod._kernel_bwd_dkdv(q, k, v, do, lse, delta, True, scale)
 
 

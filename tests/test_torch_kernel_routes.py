@@ -7,10 +7,15 @@ The kernels themselves run only on a card (chip_smoke.py holds each one
 against its plain version there); nothing here builds or launches one.
 """
 
+import importlib.util
+from pathlib import Path
+
 import pytest
 import torch
 
 from ray_tpu_torch.ops import attention as T
+
+ROOT = Path(__file__).resolve().parents[1]
 
 
 @pytest.mark.parametrize("kernel,dtype,head_dim,route", [
@@ -22,9 +27,9 @@ from ray_tpu_torch.ops import attention as T
     # a head_dim-32 row (64 bytes) is under the 128-byte swizzle box
     ("fwd", torch.bfloat16, 32, T.MMA_SYNC),
     ("dkdv", torch.bfloat16, 32, T.MMA_SYNC),
-    # K2 keeps its mma.sync kernel at every head_dim
-    ("dq", torch.bfloat16, 128, T.MMA_SYNC),
-    ("dq", torch.bfloat16, 64, T.MMA_SYNC),
+    # K2 follows the same rule: wgmma at 64 and 128, mma.sync at 32
+    ("dq", torch.bfloat16, 128, T.WGMMA),
+    ("dq", torch.bfloat16, 64, T.WGMMA),
     ("dq", torch.bfloat16, 32, T.MMA_SYNC),
     # float32: exact FMAs for all three
     ("fwd", torch.float32, 128, T.FMA),
@@ -86,8 +91,8 @@ def test_wgmma_route_inputs_must_be_contiguous_and_aligned():
 
 @pytest.mark.parametrize("bad", ["dout", "lse"])
 def test_backward_checks_raise_before_any_build(bad):
-    """K3 copies dO and the lse rows by TMA: a misaligned dout or lse
-    raises in the wrapper, before a kernel is built or launched."""
+    """K2 and K3 copy dO by TMA, K3 the lse rows too: a misaligned dout
+    or lse raises in the wrapper, before a kernel is built or launched."""
     b, s, h, d = 1, 64, 2, 128
     q = _bf16((b, s, h, d))
     dout = _bf16((b, s, h, d), offset=1) if bad == "dout" else q
@@ -109,3 +114,50 @@ def test_refused_launch_names_its_cause_and_route(err, cause):
         T._launch_check(err, "dkdv", q, 64, True)
     assert cause in str(info.value) and T.WGMMA in str(info.value)
     T._launch_check(0, "fwd", q, 64, True)
+
+
+def _chip_smoke():
+    """chip_smoke.py as a module (it imports torch and the port lazily,
+    so loading it builds and launches nothing)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", ROOT / "chip_smoke.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+@pytest.mark.parametrize("kernel,bound_ms", [
+    # b1's train step, B8 S2048 H16 D128 causal bf16: 2,098,176 kept
+    # pairs a head, 2*d FLOPs a pair and product (fwd 2, dq 3, dk/dv 4
+    # products) over 989 TFLOP/s, far above bytes over 3.35 TB/s
+    ("fwd", 0.1390),
+    ("dq", 0.2086),
+    ("dkdv", 0.2781),
+])
+def test_attention_bound_at_the_train_shape(kernel, bound_ms):
+    """The bound chip_smoke.py reports, and PERF.md quotes, for each
+    kernel at the train shape: operations, at these milliseconds."""
+    got, bound_by = _chip_smoke()._attention_work(
+        kernel, 8, 2048, 2048, 16, 128, True, "bfloat16")
+    assert bound_by == "operations"
+    assert got == pytest.approx(bound_ms, abs=5e-5)
+
+
+def test_check_dq_keeps_only_the_named_kernels_ptxas_lines():
+    """tools/check_dq prints ptxas's report of bwd_dq_ws_kernel and of no
+    other function (its name, then its registers and spills)."""
+    from ray_tpu_torch.tools.check_dq import ptxas_rows
+
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_Z18bwd_dq_ws_kernelILi128EEv' for 'sm_90a'",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Compiling entry function "
+        "'_Z20bwd_dkdv_ws_kernelILi128EEv' for 'sm_90a'",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+    ])
+    rows = ptxas_rows(log, "bwd_dq_ws_kernel")
+    assert len(rows) == 3
+    assert "bwd_dq_ws_kernel" in rows[0] and "168 registers" in rows[1]
+    assert ptxas_rows(log, "flash_fwd_ws_kernel") == []
