@@ -3,8 +3,9 @@
 
     python3 chip_smoke.py
 
-Drives the port's main path once and checks it, phase by phase; any
-failure raises and the script exits non-zero. Phases:
+Drives the port's main path once and checks it, phase by phase. Every
+phase runs even when an earlier one failed (its traceback is printed);
+if any failed, the script exits non-zero and prints no result. Phases:
 
   1. build  — compile the port's CUDA kernels from ray_tpu_torch/ops/csrc
               and print the card's name and power limit;
@@ -39,13 +40,33 @@ failure raises and the script exits non-zero. Phases:
               falling, K1 must launch 2 x 24 x 4 times (forward and remat
               recompute) and K2 and K3 24 x 4 times each, all three on
               the wgmma route, and one step's gradients must agree with
-              the same step on the plain attention, leaf by leaf.
+              the same step on the plain attention, leaf by leaf;
+  6. moe    — the bench's sparse model (bench.py's MoE row: hidden 1024,
+              8 layers, 16 heads over 8 kv heads, head_dim 64, inter
+              2816, vocab 32000, top-2 of 8 experts on every second
+              layer, 4096-token groups, remat, logits_chunk 256, bf16) at
+              full width and depth: an actor serves it at [2, 2048]
+              tokens (K1 8 launches a request, logits held against the
+              plain attention); Trainer(num_workers=1, use_gpu=True)
+              takes steps on one seeded [16, 2049] batch (K1 2 x 8, K2
+              and K3 8 a step, all on the wgmma route at head_dim 64),
+              saves (params, opt_state) with models.checkpoint after step
+              2, restores it onto a fresh init (every leaf equal), and
+              goes on from the restored state; losses finite and falling,
+              the aux loss finite and > 0; one step's gradients held
+              against the plain attention;
+  7. vit    — ViTConfig.base() (ViT-B/16, bf16): an actor serves seeded
+              [64, 224, 224, 3] image batches (K1 12 launches a request at
+              S 197, non-causal, logits held against the plain
+              attention); then 3 ClippedAdamW steps at batch 128 through
+              loss_fn and autograd (K1, K2 and K3 12 a step), and one
+              step's gradients held against the plain attention.
 
 The line before the last is the card's name and power limit as
 nvidia-smi prints them; above it, one JSON line with the kernel table
-(``launches`` from the train phase, per path in ``launches_by_path``,
-per route in ``launches_by_route``; ``kernel_route`` is the route at the
-train shape).
+(``launches`` summed over the model paths, per path in
+``launches_by_path``, per route in ``launches_by_route``; ``kernel_route``
+is the route at the b1 train shape).
 The last line is {"ok": true, "device": {...}}. Details go to
 chiprun_out/chip_smoke.json. Without CUDA the script exits 2 and
 prints no result.
@@ -53,12 +74,14 @@ prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import os
 import subprocess
 import sys
 import time
+import traceback
 
 # published peaks of one H100 SXM (NVIDIA data sheet; dense): the bound
 H100_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -99,6 +122,10 @@ KERNEL_SHAPES = [
     ("ragged_causal_bf16", 1, 1000, 4, 128, True, "bfloat16"),
     ("ragged_bf16", 1, 1000, 4, 128, False, "bfloat16"),
     ("d64", 2, 2048, 16, 64, True, "bfloat16"),
+    # the MoE train step's shape (16 heads after the GQA repeat) and the
+    # ViT-B/16 train step's (196 patches + CLS, non-causal)
+    ("moe", 16, 2048, 16, 64, True, "bfloat16"),
+    ("vit", 128, 197, 12, 64, False, "bfloat16"),
 ]
 
 BWD_SHAPES = [
@@ -114,6 +141,8 @@ BWD_SHAPES = [
     ("ragged_bf16", 1, 1000, 700, 4, 64, True, "bfloat16"),
     ("sq_lt_sk_bf16", 1, 700, 1000, 4, 128, True, "bfloat16"),
     ("ragged_noncausal_bf16", 1, 1000, 1000, 4, 128, False, "bfloat16"),
+    ("moe", 16, 2048, 2048, 16, 64, True, "bfloat16"),
+    ("vit", 128, 197, 197, 12, 64, False, "bfloat16"),
 ]
 
 SCHED = dict(nodes=256, tasks=100_000, classes=32)
@@ -121,6 +150,16 @@ SERVE_REQUESTS = 4
 SERVE_TOKENS = (2, 2048)
 TRAIN_STEPS = 4
 TRAIN_TOKENS = (8, 2049)  # [B, S + 1]: next-token targets for S = 2048
+# the bench's MoE batch (RAY_TPU_BENCH_MODEL_MOE_BATCH's default, 16)
+MOE_TRAIN_TOKENS = (16, 2049)
+MOE_TRAIN_STEPS = 4
+MOE_CKPT_STEP = 2  # saved after 2 steps, restored, and trained on from
+# the checkpoint of the moe phase: in the checkout (listed in .gitignore)
+# and removed when the phase ends
+CKPT_DIR = ".chip_smoke_ckpt"
+VIT_SERVE_IMAGES = 64
+VIT_TRAIN_IMAGES = 128
+VIT_TRAIN_STEPS = 3
 # one step's gradients, kernels vs the plain attention, relative L2 per
 # leaf: both run the same bf16 model; the kernels round p and ds to bf16
 # inside attention (the plain version keeps fp32) and that difference
@@ -525,17 +564,87 @@ def phase_sched(report: dict) -> None:
 # --------------------------------------------------------------- phase 4
 
 
-class ModelServer:
-    """Serves ModelConfig.b1 at full width and depth on the card."""
+def _text_config(model: str):
+    """b1, or the bench's MoE model (bench.py's sparse row)."""
+    from ray_tpu_torch.models.transformer import ModelConfig
 
-    def __init__(self, seed: int):
+    return ModelConfig.b1() if model == "b1" else ModelConfig.moe_bench()
+
+
+MODEL_DESC = {
+    "b1": "ModelConfig.b1 (hidden 2048, 24 layers, 16 heads, d 128, inter "
+          "5632, vocab 32000, bf16)",
+    "moe": "bench MoE (hidden 1024, 8 layers, 16 heads over 8 kv heads, d "
+           "64, inter 2816, top-2 of 8 experts every 2nd layer, groups "
+           "4096, vocab 32000, bf16)",
+    "vit": "ViTConfig.base() (ViT-B/16: hidden 768, 12 layers, 12 heads, d "
+           "64, MLP 3072, 224-px images, 16-px patches, S 197, bf16)",
+}
+
+
+class PinnedRouting:
+    """Routes a MoE model's plain-attention run as its kernel run routed.
+
+    The kernels and the plain attention round differently, and where a
+    token's top-2 router scores nearly tie the two runs send it to other
+    experts, or drop it past an expert's capacity; its MoE output then
+    differs by O(1) (on the card: 5.7 % of the served tokens, 2.2 % of a
+    train step's (token, layer) routings; the tokens routed alike agree
+    within 1.6e-2). So the two runs are compared routed alike: the MoE
+    layers choose experts with ``torch.topk``, and inside ``record()``
+    each call's indices are kept; inside ``replay()`` each call takes the
+    indices of the recorded call at its place (values gathered from its
+    own scores, so gradients flow as through top-k), and ``flips`` counts
+    the routings it would have chosen otherwise."""
+
+    def __init__(self):
+        self.indices, self.flips, self.routings = [], 0, 0
+
+    def _topk(self, scores, k, dim=-1, *args, **kwargs):
+        if self._replay is None:
+            out = self._torch_topk(scores, k, dim, *args, **kwargs)
+            self.indices.append(out.indices)
+            return out
+        idx = self.indices[self._replay]
+        self._replay += 1
+        own = self._torch_topk(scores, k, dim).indices
+        self.flips += int((own.sort(dim).values != idx.sort(dim).values)
+                          .any(dim).sum())
+        self.routings += own.numel() // k
+        return scores.gather(dim, idx), idx
+
+    @contextlib.contextmanager
+    def _patched(self, replay):
+        import torch
+
+        self._torch_topk, self._replay = torch.topk, replay
+        torch.topk = self._topk
+        try:
+            yield self
+        finally:
+            torch.topk = self._torch_topk
+
+    def record(self):
+        self.indices = []
+        return self._patched(None)
+
+    def replay(self):
+        self.flips = self.routings = 0
+        return self._patched(0)
+
+
+class ModelServer:
+    """Serves a text model (``b1`` or ``moe``) at full width and depth on
+    the card."""
+
+    def __init__(self, seed: int, model: str = "b1"):
         import torch
 
         from ray_tpu_torch.models import transformer as tfm
         from ray_tpu_torch.models.training import build_forward
         from ray_tpu_torch.ops.attention import blockwise_attention
 
-        self.cfg = tfm.ModelConfig.b1()
+        self.cfg = _text_config(model)
         gen = torch.Generator(device="cuda").manual_seed(seed)
         self.params = tfm.init_params(self.cfg, gen, device="cuda")
         self.fwd = build_forward(self.cfg, device="cuda")
@@ -549,23 +658,101 @@ class ModelServer:
         torch.cuda.current_stream().synchronize()
         return logits
 
-    def forward_plain(self, tokens):
+    def forward_plain(self, tokens, pinned: bool = True):
+        """The plain-attention model's logits; a MoE model routed as the
+        kernel model routes these tokens (PinnedRouting) unless
+        ``pinned`` is false."""
         import torch
 
-        logits = self.fwd_plain(self.params, tokens)
+        if not (self.cfg.num_experts and pinned):
+            logits = self.fwd_plain(self.params, tokens)
+        else:
+            pin = PinnedRouting()
+            with pin.record():
+                self.fwd(self.params, tokens)
+            with pin.replay():
+                logits = self.fwd_plain(self.params, tokens)
+            self.flip_share = pin.flips / pin.routings
         torch.cuda.current_stream().synchronize()
         return logits
 
+    def routing_flip_share(self):
+        return getattr(self, "flip_share", None)
 
-def phase_serve(report: dict) -> None:
+
+class VitServer:
+    """Serves ViTConfig.base() on the card: images in, logits out."""
+
+    def __init__(self, seed: int, model: str = "vit"):
+        import torch
+
+        from ray_tpu_torch.models import vision
+
+        self.cfg = vision.ViTConfig.base()
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        self.params = vision.init_params(self.cfg, gen, device="cuda")
+
+    def _run(self, images, attention_fn):
+        import torch
+
+        from ray_tpu_torch.models import vision
+
+        with torch.no_grad():
+            logits = vision.forward(self.params, images, self.cfg,
+                                    attention_fn)
+        torch.cuda.current_stream().synchronize()
+        return logits
+
+    def forward(self, images):
+        return self._run(images, None)
+
+    def forward_plain(self, images):
+        import functools
+
+        from ray_tpu_torch.ops.attention import blockwise_attention
+
+        return self._run(images, functools.partial(blockwise_attention,
+                                                   causal=False))
+
+
+def _vit_batch(n: int, seed: int):
+    """Seeded images [n, 224, 224, 3] float32 and labels [n] in numpy."""
+    import numpy as np
+
+    from ray_tpu_torch.models.vision import ViTConfig
+
+    cfg = ViTConfig.base()
+    rng = np.random.default_rng(seed)
+    images = rng.standard_normal(
+        (n, cfg.image_size, cfg.image_size, cfg.channels), dtype=np.float32)
+    return images, rng.integers(0, cfg.num_classes, size=n)
+
+
+def phase_serve(report: dict, model: str = "b1") -> dict:
+    """An actor serves ``model`` (b1, moe or vit) for SERVE_REQUESTS
+    requests; returns the kernels' launches by route over them."""
     import numpy as np
     import torch
 
     import ray_tpu_torch
     from ray_tpu_torch.cluster_utils import Cluster
-    from ray_tpu_torch.models.transformer import ModelConfig
 
-    cfg = ModelConfig.b1()
+    if model == "vit":
+        from ray_tpu_torch.models.vision import ViTConfig
+
+        layers, head_dim = ViTConfig.base().layers, ViTConfig.base().head_dim
+        batches = [_vit_batch(VIT_SERVE_IMAGES, i)[0]
+                   for i in range(SERVE_REQUESTS)]
+        probe, server_cls, out_shape = batches[0][:1], VitServer, (
+            VIT_SERVE_IMAGES, ViTConfig.base().num_classes)
+    else:
+        cfg = _text_config(model)
+        layers, head_dim = cfg.layers, cfg.head_dim
+        rng = np.random.default_rng(0)
+        batches = [rng.integers(0, cfg.vocab_size, size=SERVE_TOKENS)
+                   for _ in range(SERVE_REQUESTS)]
+        probe, server_cls, out_shape = batches[0][:, :16], ModelServer, (
+            *SERVE_TOKENS, cfg.vocab_size)
     cluster = Cluster(head_node_args={
         "num_cpus": 4, "device": "cuda",
         # logits stay on the card; keep them out of the spill path
@@ -574,20 +761,17 @@ def phase_serve(report: dict) -> None:
         for _ in range(2):
             cluster.add_node(num_cpus=4)
         cluster.add_node(num_cpus=4, num_gpus=1)
-        server_cls = ray_tpu_torch.remote(num_gpus=1)(ModelServer)
         t0 = time.monotonic()
-        server = server_cls.remote(0)
-        rng = np.random.default_rng(0)
-        batches = [rng.integers(0, cfg.vocab_size, size=SERVE_TOKENS)
-                   for _ in range(SERVE_REQUESTS)]
+        server = ray_tpu_torch.remote(num_gpus=1)(server_cls).remote(
+            0, model)
         # the first call includes construction (weights drawn on the card)
-        ray_tpu_torch.get(server.forward.remote(batches[0][:, :16]))
+        ray_tpu_torch.get(server.forward.remote(probe))
         setup_s = time.monotonic() - t0
         _reset_counts()
         latencies, first = [], None
-        for tokens in batches:
+        for inputs in batches:
             t = time.monotonic()
-            logits = ray_tpu_torch.get(server.forward.remote(tokens))
+            logits = ray_tpu_torch.get(server.forward.remote(inputs))
             latencies.append(time.monotonic() - t)
             if first is None:
                 first = logits
@@ -595,61 +779,74 @@ def phase_serve(report: dict) -> None:
         counts = _read_counts()
         routes = _read_routes()
         launches = counts["fwd"]
-        if launches != cfg.layers * SERVE_REQUESTS or counts["dq"] or \
+        if launches != layers * SERVE_REQUESTS or counts["dq"] or \
                 counts["dkdv"]:
             raise AssertionError(
-                f"attention kernels launched {counts} for "
-                f"{SERVE_REQUESTS} requests; expected {cfg.layers} "
-                f"forward launches each and no backward")
-        want_route = _main_path_routes("bfloat16", cfg.head_dim)["fwd"]
+                f"{model}: attention kernels launched {counts} for "
+                f"{SERVE_REQUESTS} requests; expected {layers} forward "
+                f"launches each and no backward")
+        want_route = _main_path_routes("bfloat16", head_dim)["fwd"]
         if routes["fwd"] != {want_route: launches}:
-            raise AssertionError(f"served forward launches by route "
-                                 f"{routes['fwd']}; expected all on "
+            raise AssertionError(f"{model}: served forward launches by "
+                                 f"route {routes['fwd']}; expected all on "
                                  f"{want_route}")
         plain = ray_tpu_torch.get(server.forward_plain.remote(batches[0]))
-        if first.shape != (*SERVE_TOKENS, cfg.vocab_size) or \
+        if tuple(first.shape) != out_shape or \
                 not torch.isfinite(first).all():
-            raise AssertionError("served logits malformed or not finite")
+            raise AssertionError(f"{model}: served logits malformed or not "
+                                 f"finite")
+        flips = free_rel = None
+        if model == "moe":
+            flips = ray_tpu_torch.get(server.routing_flip_share.remote())
+            free = ray_tpu_torch.get(server.forward_plain.remote(
+                batches[0], False))
+            free_rel = ((first - free).norm() / free.norm()).item()
+            del free
         rel = ((first - plain).norm() / plain.norm()).item()
         max_abs = (first - plain).abs().max().item()
         agree = (first.argmax(-1) == plain.argmax(-1)).float().mean().item()
         if not rel <= SERVE_REL_L2_TOL:
             raise AssertionError(
-                f"served logits off the plain-attention model: rel L2 "
-                f"{rel:.3g} > {SERVE_REL_L2_TOL}")
-        report["serve"] = {
-            "model": "ModelConfig.b1 (hidden 2048, 24 layers, 16 heads, "
-                     "d 128, inter 5632, vocab 32000, bf16)",
-            "requests": SERVE_REQUESTS, "tokens": list(SERVE_TOKENS),
-            "setup_s": setup_s, "latency_s": latencies,
+                f"{model}: served logits off the plain-attention model: "
+                f"rel L2 {rel:.3g} > {SERVE_REL_L2_TOL}")
+        shape = list(batches[0].shape)
+        pinned = ("" if flips is None else
+                  f" (routed alike, {flips:.4f} of the routings pinned; "
+                  f"unpinned rel L2 {free_rel:.3g})")
+        report["serve" if model == "b1" else f"{model}_serve"] = {
+            "model": MODEL_DESC[model], "requests": SERVE_REQUESTS,
+            "inputs": shape, "setup_s": setup_s, "latency_s": latencies,
             "kernel_launches": launches,
             "kernel_launches_by_route": routes["fwd"],
             "logits_rel_l2_vs_plain": rel,
+            "routing_flip_share_pinned": flips,
+            # not checked: each side routed by its own scores
+            "logits_rel_l2_vs_plain_unpinned": free_rel,
             "logits_max_abs_vs_plain": max_abs,
             "argmax_agreement_vs_plain": agree,
             "logits_abs_max": first.abs().max().item(),
         }
-        print(f"serve: b1 actor answered {SERVE_REQUESTS} requests of "
-              f"{SERVE_TOKENS[0]}x{SERVE_TOKENS[1]} tokens, latency s "
+        print(f"{'serve' if model == 'b1' else model}: {model} actor "
+              f"answered {SERVE_REQUESTS} requests of {shape}, latency s "
               f"{[round(x, 4) for x in latencies]}; kernel launches "
-              f"{routes['fwd']}; logits vs plain attention rel L2 {rel:.3g}, "
-              f"argmax agreement {agree:.4f}", flush=True)
+              f"{routes['fwd']}; logits vs plain attention{pinned} rel L2 "
+              f"{rel:.3g}, argmax agreement {agree:.4f}", flush=True)
         del first, plain
     finally:
         cluster.shutdown()
-    return routes["fwd"]
+    return routes
 
 
 # --------------------------------------------------------------- phase 5
 
 
-def _b1_train_batch():
+def _train_batch(model: str = "b1"):
     import numpy as np
 
-    from ray_tpu_torch.models.transformer import ModelConfig
-
     rng = np.random.default_rng(0)
-    return rng.integers(0, ModelConfig.b1().vocab_size, size=TRAIN_TOKENS)
+    return rng.integers(0, _text_config(model).vocab_size,
+                        size=TRAIN_TOKENS if model == "b1"
+                        else MOE_TRAIN_TOKENS)
 
 
 def train_b1():
@@ -666,7 +863,7 @@ def train_b1():
     step, init_fn = build_train_step(cfg, device="cuda")
     params, opt_state = init_fn(
         torch.Generator(device="cuda").manual_seed(0))
-    tokens = torch.as_tensor(_b1_train_batch(), device="cuda")
+    tokens = torch.as_tensor(_train_batch("b1"), device="cuda")
     torch.cuda.synchronize()
     for i in range(TRAIN_STEPS):
         t0 = time.monotonic()
@@ -679,37 +876,71 @@ def train_b1():
     return train.world_rank()
 
 
-def _one_step_grads(attention_fn):
-    """Gradients of b1's loss at its seeded initial weights on the train
-    batch, with ``attention_fn`` (None: the kernels)."""
+def _leaf_names(tree, prefix: str = "") -> list:
+    """Dotted names of tree_leaves(tree), in its order."""
+    if isinstance(tree, dict):
+        return [n for k, v in tree.items()
+                for n in _leaf_names(v, f"{prefix}{k}.")]
+    if isinstance(tree, (list, tuple)):
+        return [n for i, v in enumerate(tree)
+                for n in _leaf_names(v, f"{prefix}{i}.")]
+    return [prefix[:-1]]
+
+
+def _loss_and_grads(params, loss_of):
+    """(loss, {leaf name: grad}) of ``loss_of(params)``."""
     import torch
 
-    from ray_tpu_torch.models import transformer as tfm
     from ray_tpu_torch.models.training import tree_leaves
 
-    cfg = tfm.ModelConfig.b1()
-    params = tfm.init_params(
-        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
     leaves = tree_leaves(params)
     for p in leaves:
         p.requires_grad_(True)
-    tokens = torch.as_tensor(_b1_train_batch(), device="cuda").long()
-    loss = tfm.loss_fn(params, tokens, cfg, attention_fn)
+    loss = loss_of(params)
     grads = torch.autograd.grad(loss, leaves)
-    names = [f"layers.{n}" if k == "layers" else k
-             for k, v in params.items()
-             for n in (v if k == "layers" else (None,))]
-    return loss.item(), dict(zip(names, grads))
+    return loss.item(), dict(zip(_leaf_names(params), grads))
 
 
-def phase_train(report: dict) -> dict:
-    import ray_tpu_torch
+def _one_step_grads(model: str, attention_fn):
+    """Gradients of a text model's loss at its seeded initial weights on
+    its train batch, with ``attention_fn`` (None: the kernels)."""
+    import torch
+
+    from ray_tpu_torch.models import transformer as tfm
+
+    cfg = _text_config(model)
+    params = tfm.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    tokens = torch.as_tensor(_train_batch(model), device="cuda").long()
+    return _loss_and_grads(
+        params, lambda p: tfm.loss_fn(p, tokens, cfg, attention_fn))
+
+
+def _grad_rel(grads_k: dict, grads_p: dict):
+    """Relative L2 per leaf, kernels vs plain attention -> (rel by leaf,
+    worst leaf)."""
+    rel = {name: ((grads_k[name].float() - grads_p[name].float()).norm()
+                  / grads_p[name].float().norm()).item()
+           for name in grads_k}
+    return rel, max(rel, key=rel.get)
+
+
+def _check_grads(model: str, rel: dict, worst: str) -> None:
+    """Raises past GRAD_REL_L2_TOL on any leaf."""
+    if not all(math.isfinite(r) for r in rel.values()) or \
+            rel[worst] > GRAD_REL_L2_TOL:
+        raise AssertionError(
+            f"{model}: one step's gradients on the kernels off the plain "
+            f"attention: {worst} rel L2 {rel[worst]:.3g} > "
+            f"{GRAD_REL_L2_TOL}")
+
+
+def _run_trainer(train_fn, config=None):
+    """``train_fn`` through Trainer(num_workers=1, use_gpu=True) on a
+    one-GPU cluster -> (reported rows, run s, launches, by route)."""
     from ray_tpu_torch import train
     from ray_tpu_torch.cluster_utils import Cluster
-    from ray_tpu_torch.models.transformer import ModelConfig
-    from ray_tpu_torch.ops.attention import blockwise_attention
 
-    cfg = ModelConfig.b1()
     rows = []
 
     class Collect(train.TrainingCallback):
@@ -723,43 +954,48 @@ def phase_train(report: dict) -> dict:
         trainer.start()
         _reset_counts()
         t0 = time.monotonic()
-        trainer.run(train_b1, callbacks=[Collect()])
+        trainer.run(train_fn, config=config, callbacks=[Collect()])
         run_s = time.monotonic() - t0
         counts = _read_counts()
         routes = _read_routes()
         trainer.shutdown()
     finally:
         cluster.shutdown()
+    return rows, run_s, counts, routes
+
+
+def _check_launches(model: str, counts: dict, routes: dict, want: dict,
+                    head_dim: int) -> None:
+    if counts != want:
+        raise AssertionError(f"{model}: attention kernels launched "
+                             f"{counts}; expected {want}")
+    for kernel, route in _main_path_routes("bfloat16", head_dim).items():
+        if routes[kernel] != {route: want[kernel]}:
+            raise AssertionError(
+                f"{model}: {kernel} launches by route {routes[kernel]}; "
+                f"expected all {want[kernel]} on {route}")
+
+
+def phase_train(report: dict) -> dict:
+    from ray_tpu_torch.models.transformer import ModelConfig
+    from ray_tpu_torch.ops.attention import blockwise_attention
+
+    cfg = ModelConfig.b1()
+    rows, run_s, counts, routes = _run_trainer(train_b1)
     want = {"fwd": 2 * cfg.layers * TRAIN_STEPS,
             "dq": cfg.layers * TRAIN_STEPS,
             "dkdv": cfg.layers * TRAIN_STEPS}
-    if counts != want:
-        raise AssertionError(
-            f"attention kernels launched {counts} over {TRAIN_STEPS} "
-            f"train steps; expected {want}")
-    want_routes = _main_path_routes("bfloat16", cfg.head_dim)
-    for kernel, route in want_routes.items():
-        if routes[kernel] != {route: want[kernel]}:
-            raise AssertionError(
-                f"{kernel} launches by route {routes[kernel]} over the "
-                f"train steps; expected all {want[kernel]} on {route}")
+    _check_launches("b1 train", counts, routes, want, cfg.head_dim)
     losses = [r["loss"] for r in rows]
     if len(rows) != TRAIN_STEPS or not all(
             math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
         raise AssertionError(f"b1 train losses not finite and falling: "
                              f"{losses}")
 
-    loss_k, grads_k = _one_step_grads(None)
-    loss_p, grads_p = _one_step_grads(blockwise_attention)
-    rel = {name: ((grads_k[name].float() - grads_p[name].float()).norm()
-                  / grads_p[name].float().norm()).item()
-           for name in grads_k}
-    worst = max(rel, key=rel.get)
-    if not all(math.isfinite(r) for r in rel.values()) or \
-            rel[worst] > GRAD_REL_L2_TOL:
-        raise AssertionError(
-            f"one step's gradients on the kernels off the plain attention:"
-            f" {worst} rel L2 {rel[worst]:.3g} > {GRAD_REL_L2_TOL}")
+    loss_k, grads_k = _one_step_grads("b1", None)
+    loss_p, grads_p = _one_step_grads("b1", blockwise_attention)
+    rel, worst = _grad_rel(grads_k, grads_p)
+    _check_grads("b1", rel, worst)
     if abs(loss_k - losses[0]) > 1e-3 * abs(losses[0]):
         raise AssertionError(f"the replayed first step's loss {loss_k} is "
                              f"not the train run's {losses[0]}")
@@ -774,8 +1010,7 @@ def phase_train(report: dict) -> dict:
     share = {k: counts[k] / TRAIN_STEPS * kernel_ms[k] / (step_s * 1e3)
              for k in counts}
     report["train"] = {
-        "model": "ModelConfig.b1 (hidden 2048, 24 layers, 16 heads, d 128, "
-                 "inter 5632, vocab 32000, bf16, remat full)",
+        "model": MODEL_DESC["b1"] + ", remat full",
         "tokens": list(TRAIN_TOKENS), "steps": rows, "run_s": run_s,
         "kernel_launches": counts, "kernel_launches_by_route": routes,
         "step_s_steady": step_s,
@@ -795,10 +1030,339 @@ def phase_train(report: dict) -> dict:
           f"{ {k: round(v, 4) for k, v in share.items()} }; grads vs "
           f"plain attention: worst rel L2 {rel[worst]:.3g} ({worst}), "
           f"loss {loss_k:.5f} vs {loss_p:.5f}", flush=True)
-    return counts, routes
+    return routes
+
+
+# --------------------------------------------------------------- phase 6
+
+
+def train_moe(config):
+    """The train function of the moe phase: the bench MoE model on this
+    worker's card, MOE_TRAIN_STEPS steps on one seeded batch. Before step
+    MOE_CKPT_STEP it saves (params, opt_state), restores them onto a
+    fresh init through ``like`` and checks every leaf equal, takes that
+    step once on the state that never stopped (its loss is reported as
+    ``uninterrupted_loss``) and goes on from the restored state."""
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models import transformer as tfm
+    from ray_tpu_torch.models.checkpoint import CheckpointManager
+    from ray_tpu_torch.models.training import build_train_step, tree_leaves
+    from ray_tpu_torch.ops.attention import blockwise_attention
+
+    cfg = _text_config("moe")
+    step, init_fn = build_train_step(cfg, device="cuda")
+    params, opt_state = init_fn(
+        torch.Generator(device="cuda").manual_seed(0))
+    tokens = torch.as_tensor(_train_batch("moe"), device="cuda")
+    ckpt = CheckpointManager(config["ckpt_dir"], max_to_keep=1)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for i in range(MOE_TRAIN_STEPS):
+        extra = {}
+        if i == MOE_CKPT_STEP:
+            t0 = time.monotonic()
+            ckpt.save(i, {"params": params, "opt_state": opt_state})
+            extra["save_s"] = time.monotonic() - t0
+            fresh_p, fresh_o = init_fn(
+                torch.Generator(device="cuda").manual_seed(1))
+            t0 = time.monotonic()
+            restored = ckpt.restore(i, like={"params": fresh_p,
+                                             "opt_state": fresh_o})
+            torch.cuda.synchronize()
+            extra["restore_s"] = time.monotonic() - t0
+            del fresh_p, fresh_o
+            saved = tree_leaves(params) + opt_state["mu"] + opt_state["nu"]
+            got = (tree_leaves(restored["params"])
+                   + restored["opt_state"]["mu"]
+                   + restored["opt_state"]["nu"])
+            unequal = [n for n, (a, b) in enumerate(zip(got, saved))
+                       if not torch.equal(a, b.detach())]
+            if len(got) != len(saved) or unequal or \
+                    restored["opt_state"]["count"] != opt_state["count"]:
+                raise AssertionError(
+                    f"moe: the restored train state differs from the saved "
+                    f"one ({len(got)} vs {len(saved)} leaves, unequal at "
+                    f"{unequal[:5]}, count {restored['opt_state']['count']}"
+                    f" vs {opt_state['count']})")
+            extra["restored_leaves_equal"] = len(got)
+            _, _, metrics = step(params, opt_state, tokens)
+            extra["uninterrupted_loss"] = metrics["loss"].item()
+            params, opt_state = restored["params"], restored["opt_state"]
+            del restored, saved, got, metrics
+        t0 = time.monotonic()
+        params, opt_state, metrics = step(params, opt_state, tokens)
+        loss = metrics["loss"].item()  # waits for the step's kernels
+        step_s = time.monotonic() - t0
+        if i == MOE_TRAIN_STEPS - 1:
+            # the aux loss of the trained weights, on the plain attention
+            # (no kernel launch outside the counted steps)
+            with torch.no_grad():
+                _, aux = tfm.hidden_states(params, tokens[:2, :-1], cfg,
+                                           blockwise_attention)
+            extra["aux"] = aux.item()
+        train.report(step=i, loss=loss,
+                     grad_norm=metrics["grad_norm"].item(), step_s=step_s,
+                     peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+                     **extra)
+    ckpt.close()
+    return train.world_rank()
+
+
+def phase_moe(report: dict) -> dict:
+    """The MoE model's train path (its serve path is phase_serve's)."""
+    import shutil
+
+    import torch
+
+    from ray_tpu_torch.ops.attention import blockwise_attention
+
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 is on: the MoE dispatch and combine "
+                             "must run in fp32")
+    cfg = _text_config("moe")
+    ckpt_dir = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                            CKPT_DIR)
+    shutil.rmtree(ckpt_dir, ignore_errors=True)
+    try:
+        rows, run_s, counts, routes = _run_trainer(
+            train_moe, {"ckpt_dir": ckpt_dir})
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    steps_run = MOE_TRAIN_STEPS + 1  # the uninterrupted step besides
+    want = {"fwd": 2 * cfg.layers * steps_run,
+            "dq": cfg.layers * steps_run, "dkdv": cfg.layers * steps_run}
+    _check_launches("moe train", counts, routes, want, cfg.head_dim)
+    losses = [r["loss"] for r in rows]
+    if len(rows) != MOE_TRAIN_STEPS or not all(
+            math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"moe train losses not finite and falling: "
+                             f"{losses}")
+    aux = rows[-1]["aux"]
+    resumed = rows[MOE_CKPT_STEP]
+    pin = PinnedRouting()
+    with pin.record():
+        loss_k, grads_k = _one_step_grads("moe", None)
+    with pin.replay():
+        loss_p, grads_p = _one_step_grads("moe", blockwise_attention)
+    rel, worst = _grad_rel(grads_k, grads_p)
+    flip_share = pin.flips / pin.routings
+    del grads_p
+    # not checked: the plain run routed by its own scores
+    _, grads_f = _one_step_grads("moe", blockwise_attention)
+    rel_free, worst_free = _grad_rel(grads_k, grads_f)
+    del grads_k, grads_f
+    steady = [r["step_s"] for r in rows[1:]]
+    step_s = sum(steady) / len(steady)
+    tokens = MOE_TRAIN_TOKENS[0] * (MOE_TRAIN_TOKENS[1] - 1)
+    report["moe_train"] = {
+        "model": MODEL_DESC["moe"] + ", remat full, logits_chunk 256",
+        "tokens": list(MOE_TRAIN_TOKENS), "steps": rows, "run_s": run_s,
+        "steps_run": steps_run, "kernel_launches": counts,
+        "kernel_launches_by_route": routes, "step_s_steady": step_s,
+        "tokens_per_s": tokens / step_s, "aux": aux,
+        "checkpoint": {k: resumed[k] for k in (
+            "save_s", "restore_s", "restored_leaves_equal",
+            "uninterrupted_loss")},
+        "grad_rel_l2_vs_plain": rel, "loss_kernels": loss_k,
+        "loss_plain": loss_p, "routing_flip_share_pinned": flip_share,
+        "grad_rel_l2_vs_plain_unpinned": rel_free,
+    }
+    print(f"moe: Trainer(num_workers=1, use_gpu=True), {MOE_TRAIN_STEPS} "
+          f"steps on {MOE_TRAIN_TOKENS[0]}x{MOE_TRAIN_TOKENS[1]} tokens "
+          f"(+1 uninterrupted): losses {[round(x, 4) for x in losses]}, "
+          f"aux {aux:.4f}, step s {[round(r['step_s'], 4) for r in rows]}; "
+          f"steady {step_s:.4f} s/step, {tokens / step_s:.0f} tokens/s, "
+          f"peak {rows[-1]['peak_gib']:.1f} GiB; checkpoint after step "
+          f"{MOE_CKPT_STEP}: {resumed['restored_leaves_equal']} leaves "
+          f"restored equal (save {resumed['save_s']:.2f} s, restore "
+          f"{resumed['restore_s']:.2f} s), next loss {resumed['loss']:.6f} "
+          f"vs uninterrupted {resumed['uninterrupted_loss']:.6f}; launches "
+          f"{routes}; grads vs plain attention routed alike: worst rel L2 "
+          f"{rel[worst]:.3g} ({worst}), loss {loss_k:.5f} vs {loss_p:.5f}, "
+          f"{flip_share:.4f} of the routings pinned (unpinned worst rel L2 "
+          f"{rel_free[worst_free]:.3g}, {worst_free})", flush=True)
+    torch.cuda.empty_cache()
+    if not (math.isfinite(aux) and aux > 0):
+        raise AssertionError(f"moe aux loss {aux} is not finite and > 0")
+    if abs(resumed["loss"] - resumed["uninterrupted_loss"]) > \
+            1e-3 * abs(resumed["loss"]):
+        raise AssertionError(
+            f"moe: the step after the restore took loss {resumed['loss']}, "
+            f"the uninterrupted run {resumed['uninterrupted_loss']}")
+    _check_grads("moe", rel, worst)
+    if abs(loss_k - losses[0]) > 1e-3 * abs(losses[0]):
+        raise AssertionError(f"moe: the replayed first step's loss {loss_k} "
+                             f"is not the train run's {losses[0]}")
+    return routes
+
+
+def _merge_routes(*parts: dict) -> dict:
+    """Launches by kernel and route, summed over the parts of a path."""
+    merged = {k: {} for k in ("fwd", "dq", "dkdv")}
+    for part in parts:
+        for kernel, by_route in part.items():
+            for route, n in by_route.items():
+                merged[kernel][route] = merged[kernel].get(route, 0) + n
+    return merged
+
+
+# --------------------------------------------------------------- phase 7
+
+
+def phase_vit(report: dict) -> dict:
+    """ViT-B/16's train path (its serve path is phase_serve's)."""
+    import functools
+
+    import torch
+
+    from ray_tpu_torch.models import vision
+    from ray_tpu_torch.models.training import make_optimizer, tree_leaves
+    from ray_tpu_torch.ops.attention import blockwise_attention
+
+    cfg = vision.ViTConfig.base()
+    images, labels = (torch.as_tensor(a, device="cuda")
+                      for a in _vit_batch(VIT_TRAIN_IMAGES, 100))
+    params = vision.init_params(
+        cfg, torch.Generator(device="cuda").manual_seed(0), device="cuda")
+    opt = make_optimizer()
+    state = opt.init(params)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    rows = []
+    for _ in range(VIT_TRAIN_STEPS):
+        t0 = time.monotonic()
+        leaves = tree_leaves(params)
+        for p in leaves:
+            p.requires_grad_(True)
+        loss = vision.loss_fn(params, images, labels, cfg)
+        norm = opt.update(params, torch.autograd.grad(loss, leaves), state)
+        rows.append({"loss": loss.item(), "grad_norm": norm.item(),
+                     "step_s": time.monotonic() - t0})
+    counts = _read_counts()
+    routes = _read_routes()
+    peak_gib = torch.cuda.max_memory_allocated() / 2**30
+    want = {k: cfg.layers * VIT_TRAIN_STEPS for k in ("fwd", "dq", "dkdv")}
+    _check_launches("vit train", counts, routes, want, cfg.head_dim)
+    losses = [r["loss"] for r in rows]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"vit train losses not finite and falling: "
+                             f"{losses}")
+    del params, state
+
+    def vit_grads(attention_fn):
+        params = vision.init_params(
+            cfg, torch.Generator(device="cuda").manual_seed(0),
+            device="cuda")
+        return _loss_and_grads(params, lambda p: vision.loss_fn(
+            p, images, labels, cfg, attention_fn))
+
+    loss_k, grads_k = vit_grads(None)
+    loss_p, grads_p = vit_grads(functools.partial(blockwise_attention,
+                                                  causal=False))
+    rel, worst = _grad_rel(grads_k, grads_p)
+    steady = [r["step_s"] for r in rows[1:]]
+    step_s = sum(steady) / len(steady)
+    report["vit_train"] = {
+        "model": MODEL_DESC["vit"], "images": VIT_TRAIN_IMAGES,
+        "steps": rows, "kernel_launches": counts,
+        "kernel_launches_by_route": routes, "step_s_steady": step_s,
+        "images_per_s": VIT_TRAIN_IMAGES / step_s, "peak_gib": peak_gib,
+        "grad_rel_l2_vs_plain": rel, "loss_kernels": loss_k,
+        "loss_plain": loss_p,
+    }
+    print(f"vit: {VIT_TRAIN_STEPS} ClippedAdamW steps on {VIT_TRAIN_IMAGES} "
+          f"images: losses {[round(x, 4) for x in losses]}, step s "
+          f"{[round(r['step_s'], 4) for r in rows]}; steady {step_s:.4f} "
+          f"s/step, {VIT_TRAIN_IMAGES / step_s:.0f} images/s, peak "
+          f"{peak_gib:.1f} GiB; launches {routes}; grads vs plain "
+          f"attention: worst rel L2 {rel[worst]:.3g} ({worst}), loss "
+          f"{loss_k:.5f} vs {loss_p:.5f}", flush=True)
+    del grads_k, grads_p
+    torch.cuda.empty_cache()
+    _check_grads("vit", rel, worst)
+    if abs(loss_k - losses[0]) > 1e-3 * abs(losses[0]):
+        raise AssertionError(f"vit: the replayed first step's loss {loss_k} "
+                             f"is not the train run's {losses[0]}")
+    return routes
 
 
 # ------------------------------------------------------------------ main
+
+
+def _at_shapes(report: dict, kernel: str) -> dict:
+    """The kernel's time, bound, plain and library times at the moe and
+    vit train shapes (kernel phase rows)."""
+    out = {}
+    for name in ("moe", "vit"):
+        if kernel == "fwd":
+            r = next(r for r in report["kernel_shapes"] if r["shape"] == name)
+            out[name] = {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
+                                           "bound_by", "library_ms")}
+        else:
+            r = next(r for r in report["bwd_shapes"] if r["shape"] == name)
+            out[name] = {"ms": r[f"{kernel}_ms"], "plain_ms": r["plain_ms"],
+                         "bound_ms": r[f"{kernel}_bound_ms"],
+                         "bound_by": r[f"{kernel}_bound_by"],
+                         "library_ms": r["library_ms"]}
+    return out
+
+
+def _kernel_table(report: dict, paths: dict) -> list:
+    """The kernels JSON line: each kernel at the b1 train shape, its
+    launches per path and route, and its rows at the moe and vit
+    shapes."""
+    for path in ("moe", "vit"):  # serve and train launches of a model
+        paths[path] = _merge_routes(paths.pop(f"{path}_serve"), paths[path])
+    fwd = next(r for r in report["kernel_shapes"] if r["shape"] == "train")
+    bwd = next(r for r in report["bwd_shapes"] if r["shape"] == "train")
+    shape = "B8 S2048 H16 D128 causal bfloat16 (the b1 train step)"
+    csrc = "ray_tpu_torch/ops/csrc/"
+
+    def launches(kernel):
+        by_path = {p: sum(r[kernel].values()) for p, r in paths.items()}
+        return {"launches": sum(by_path.values()),
+                "launches_by_path": by_path,
+                "launches_by_route": {p: r[kernel]
+                                      for p, r in paths.items()}}
+
+    kernels = [{
+        "name": "flash_attention_fwd", "route": "cuda",
+        "kernel_route": fwd["route"],
+        "source": csrc + "flash_attn_fwd.cu",
+        "replaces": "ray_tpu/ops/attention.py:202",
+        **launches("fwd"),
+        "max_abs_err": max(r["max_abs_err"]
+                           for r in report["kernel_shapes"]),
+        "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
+        "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
+        "library_ms": fwd["library_ms"], "shape": shape,
+        "at_shapes": _at_shapes(report, "fwd"),
+    }]
+    for name, kernel, line, errs in (
+            ("flash_attention_bwd_dq", "dq", 356, ("dq",)),
+            ("flash_attention_bwd_dkdv", "dkdv", 404, ("dk", "dv"))):
+        kernels.append({
+            "name": name, "route": "cuda",
+            "kernel_route": bwd["routes"][kernel],
+            "source": csrc + "flash_attn_bwd.cu",
+            "replaces": f"ray_tpu/ops/attention.py:{line}",
+            **launches(kernel),
+            "max_abs_err": max(r["max_abs_err"][e]
+                               for r in report["bwd_shapes"] for e in errs),
+            "ms": bwd[f"{kernel}_ms"],
+            # the plain backward and SDPA's backward compute dq, dk and
+            # dv in one call: the same time stands in both rows
+            "plain_ms": bwd["plain_ms"],
+            "bound_ms": bwd[f"{kernel}_bound_ms"],
+            "bound_by": bwd[f"{kernel}_bound_by"],
+            "library_ms": bwd["library_ms"], "shape": shape,
+            "at_shapes": _at_shapes(report, kernel),
+        })
+    return kernels
 
 
 def main() -> int:
@@ -809,58 +1373,44 @@ def main() -> int:
         return 2
     import ray_tpu_torch  # noqa: F401 — a bare directory fails here
 
-    report: dict = {}
-    phase_build(report)
-    phase_kernel(report)
-    phase_sched(report)
-    serve_routes = phase_serve(report)
-    counts, routes = phase_train(report)
-    fwd = next(r for r in report["kernel_shapes"] if r["shape"] == "train")
-    bwd = next(r for r in report["bwd_shapes"] if r["shape"] == "train")
-    shape = "B8 S2048 H16 D128 causal bfloat16 (the b1 train step)"
-    csrc = "ray_tpu_torch/ops/csrc/"
-    kernels = [{
-        "name": "flash_attention_fwd", "route": "cuda",
-        "kernel_route": fwd["route"],
-        "source": csrc + "flash_attn_fwd.cu",
-        "replaces": "ray_tpu/ops/attention.py:202",
-        "launches": counts["fwd"],
-        "launches_by_path": {"serve": sum(serve_routes.values()),
-                             "train": counts["fwd"]},
-        "launches_by_route": {"serve": serve_routes,
-                              "train": routes["fwd"]},
-        "max_abs_err": max(r["max_abs_err"]
-                           for r in report["kernel_shapes"]),
-        "ms": fwd["ms"], "plain_ms": fwd["plain_ms"],
-        "bound_ms": fwd["bound_ms"], "bound_by": fwd["bound_by"],
-        "library_ms": fwd["library_ms"], "shape": shape,
-    }]
-    for name, kernel, line, errs in (
-            ("flash_attention_bwd_dq", "dq", 356, ("dq",)),
-            ("flash_attention_bwd_dkdv", "dkdv", 404, ("dk", "dv"))):
-        kernels.append({
-            "name": name, "route": "cuda",
-            "kernel_route": bwd["routes"][kernel],
-            "source": csrc + "flash_attn_bwd.cu",
-            "replaces": f"ray_tpu/ops/attention.py:{line}",
-            "launches": counts[kernel],
-            "launches_by_path": {"serve": 0, "train": counts[kernel]},
-            "launches_by_route": {"serve": {}, "train": routes[kernel]},
-            "max_abs_err": max(r["max_abs_err"][e]
-                               for r in report["bwd_shapes"] for e in errs),
-            "ms": bwd[f"{kernel}_ms"],
-            # the plain backward and SDPA's backward compute dq, dk and
-            # dv in one call: the same time stands in both rows
-            "plain_ms": bwd["plain_ms"],
-            "bound_ms": bwd[f"{kernel}_bound_ms"],
-            "bound_by": bwd[f"{kernel}_bound_by"],
-            "library_ms": bwd["library_ms"], "shape": shape,
-        })
-    report["kernels"] = kernels
+    report: dict = {"phase_s": {}}
+    paths, failed = {}, []
+    t_start = time.monotonic()
+    for name, phase in (
+            ("build", phase_build), ("kernel", phase_kernel),
+            ("sched", phase_sched), ("serve", phase_serve),
+            ("train", phase_train),
+            ("moe_serve", lambda r: phase_serve(r, "moe")),
+            ("moe", phase_moe),
+            ("vit_serve", lambda r: phase_serve(r, "vit")),
+            ("vit", phase_vit)):
+        t0 = time.monotonic()
+        try:
+            routes = phase(report)
+        except Exception as exc:  # the later phases still run and report;
+            # the script fails below, with no result line
+            traceback.print_exc()
+            failed.append(f"{name}: {exc!r}"[:500])
+            continue
+        finally:
+            report["phase_s"][name] = time.monotonic() - t0
+        if routes is not None:
+            paths[name] = routes
+    report["total_s"] = time.monotonic() - t_start
+    print(f"phases s {({k: round(v, 1) for k, v in report['phase_s'].items()})}"
+          f", total {report['total_s']:.1f}", flush=True)
+    if failed:
+        report["failed"] = failed
+    else:
+        report["kernels"] = _kernel_table(report, paths)
     os.makedirs("chiprun_out", exist_ok=True)
     with open(os.path.join("chiprun_out", "chip_smoke.json"), "w") as f:
         json.dump(report, f, indent=1, default=str)
-    print(json.dumps({"kernels": kernels}))
+    if failed:
+        print("chip_smoke: failed phases:\n  " + "\n  ".join(failed),
+              file=sys.stderr)
+        return 1
+    print(json.dumps({"kernels": report["kernels"]}))
     print(report["card"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,11 +1,13 @@
-"""Weights of the JAX package's model, as the port's parameters.
+"""Weights of the JAX package's models, as the port's parameters.
 
 ``params_from_jax`` takes the pytree ``ray_tpu.models.transformer.
 init_params`` returns, with its leaves already turned into numpy arrays
-(layers stacked on axis 0), and returns the port's parameter dict: same
-keys, same shapes, same values, on ``device``. Given the same weights
-both packages compute the same function, which is what the parity tests
-hold them to. bfloat16 leaves are carried bit for bit.
+(layers stacked on axis 0, the MoE weights nested under ``layers.moe``),
+and returns the port's parameter dict: same keys, same shapes, same
+values, on ``device``. ``vit_params_from_jax`` does the same for
+``ray_tpu.models.vision.init_params`` (blocks a list of dicts). Given the
+same weights both packages compute the same function, which is what the
+parity tests hold them to. bfloat16 leaves are carried bit for bit.
 """
 
 from __future__ import annotations
@@ -17,8 +19,10 @@ import torch
 
 from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.models.transformer import ModelConfig
+from ray_tpu_torch.models.vision import ViTConfig
 
-_NORMS = ("final_norm", "attn_norm", "mlp_norm")
+# leaves the transformer keeps in float32 whatever cfg.dtype is
+_FP32 = ("final_norm", "attn_norm", "mlp_norm", "router")
 
 
 def _tensor(array, dtype: torch.dtype, device) -> torch.Tensor:
@@ -35,18 +39,25 @@ def params_from_jax(params_np: Dict[str, Any], cfg: ModelConfig,
                     device=None) -> Dict[str, Any]:
     """JAX pytree of numpy leaves -> the port's params on ``device``."""
     device = resolve_device(device)
-    layers_np = params_np["layers"]
-    if "moe" in layers_np:
-        raise NotImplementedError(
-            "MoE layers are not ported to ray_tpu_torch yet")
 
-    def conv(name, array):
-        dtype = torch.float32 if name in _NORMS else cfg.dtype
-        return _tensor(array, dtype, device)
+    def conv(tree):
+        return {name: conv(value) if isinstance(value, dict)
+                else _tensor(value, torch.float32 if name in _FP32
+                             else cfg.dtype, device)
+                for name, value in tree.items()}
 
+    return conv(params_np)
+
+
+def vit_params_from_jax(params_np: Dict[str, Any], cfg: ViTConfig,
+                        device=None) -> Dict[str, Any]:
+    """JAX ViT pytree of numpy leaves -> the port's ViT params on
+    ``device``; every leaf, norms included, in ``cfg.dtype``."""
+    device = resolve_device(device)
     params: Dict[str, Any] = {
-        name: conv(name, arr) for name, arr in params_np.items()
-        if name != "layers"}
-    params["layers"] = {name: conv(name, arr)
-                        for name, arr in layers_np.items()}
+        name: _tensor(value, cfg.dtype, device)
+        for name, value in params_np.items() if name != "blocks"}
+    params["blocks"] = [{name: _tensor(value, cfg.dtype, device)
+                         for name, value in block.items()}
+                        for block in params_np["blocks"]]
     return params

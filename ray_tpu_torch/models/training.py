@@ -28,9 +28,11 @@ ADAM_EPS = 1e-8  # optax.adamw's default, which make_optimizer keeps
 
 
 def tree_leaves(tree) -> List[torch.Tensor]:
-    """Leaves of a nested dict of tensors, in insertion order."""
+    """Leaves of nested dicts and lists of tensors, in insertion order."""
     if isinstance(tree, dict):
         return [leaf for v in tree.values() for leaf in tree_leaves(v)]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for v in tree for leaf in tree_leaves(v)]
     return [tree]
 
 
@@ -121,7 +123,11 @@ def build_train_step(cfg: tfm.ModelConfig, device=None,
         for p in leaves:
             p.requires_grad_(True)
         loss = tfm.loss_fn(params, tokens, cfg)
-        grads = torch.autograd.grad(loss, leaves)
+        # a weight no layer uses gets zeros, as lax.cond gives in the JAX
+        # step (e.g. the dense MLP when every layer is a MoE layer)
+        grads = [torch.zeros_like(p) if g is None else g
+                 for p, g in zip(leaves, torch.autograd.grad(
+                     loss, leaves, allow_unused=True))]
         grad_norm = optimizer.update(params, grads, opt_state)
         return params, opt_state, {"loss": loss.detach(),
                                    "grad_norm": grad_norm}

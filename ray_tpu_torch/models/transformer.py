@@ -1,4 +1,4 @@
-"""Flagship model family: decoder-only transformer, dense path.
+"""Flagship model family: decoder-only transformer (dense + MoE).
 
 Port of ``ray_tpu/models/transformer.py`` to plain functions on torch
 tensors. Parameters keep the JAX package's pytree layout — a dict with
@@ -8,9 +8,11 @@ where the JAX package scans.
 
 Architecture: RMSNorm, rotary embeddings, GQA attention via
 ``ops.flash_attention`` (the hand-written Hopper kernels on CUDA, forward
-and backward), SwiGLU MLP; ``loss_fn`` with optional chunked cross
-entropy, and remat of each layer through ``torch.utils.checkpoint``. Not
-ported yet (a later slice): MoE layers.
+and backward), SwiGLU MLP, optional top-k MoE layers (GShard-style
+capacity-bounded einsum dispatch, optionally in checkpointed token
+groups); ``loss_fn`` with optional chunked cross entropy and the MoE
+auxiliary loss, and remat of each layer through
+``torch.utils.checkpoint``.
 """
 
 from __future__ import annotations
@@ -18,9 +20,10 @@ from __future__ import annotations
 import dataclasses
 import functools
 import logging
-from typing import Any, Callable, Dict, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch.utils.checkpoint import (
     checkpoint,
     create_selective_checkpoint_contexts,
@@ -48,6 +51,17 @@ class ModelConfig:
     rope_theta: float = 10000.0
     norm_eps: float = 1e-6
     dtype: torch.dtype = torch.bfloat16
+    # MoE: every `moe_every`-th layer is sparse when num_experts > 0
+    num_experts: int = 0
+    experts_per_token: int = 2
+    moe_every: int = 2
+    capacity_factor: float = 1.25
+    # grouped dispatch: when >0 and it divides B*S, tokens route in
+    # independent groups of this size with per-group capacity, each under
+    # checkpoint, so the [tokens, experts, capacity] dispatch and combine
+    # tensors scale with the group, not the batch (per-group capacity is
+    # GShard's local-group semantics)
+    moe_group_size: int = 0
     remat: bool = True
     # remat granularity when ``remat`` is on: "full" recomputes the whole
     # layer in the backward (lowest memory); "dots" saves the weight
@@ -66,6 +80,10 @@ class ModelConfig:
             raise ValueError(
                 f"remat_policy must be 'full' or 'dots', "
                 f"got {self.remat_policy!r}")
+        if self.moe_group_size < 0:
+            raise ValueError(
+                f"moe_group_size must be >= 0, "
+                f"got {self.moe_group_size}")
 
     @property
     def head_dim(self) -> int:
@@ -77,10 +95,25 @@ class ModelConfig:
                    intermediate=128, max_seq=128, dtype=torch.float32, **kw)
 
     @classmethod
+    def tiny_moe(cls, **kw) -> "ModelConfig":
+        return cls(vocab_size=256, hidden=64, layers=2, heads=4, kv_heads=4,
+                   intermediate=128, max_seq=128, num_experts=4,
+                   dtype=torch.float32, **kw)
+
+    @classmethod
     def b1(cls) -> "ModelConfig":
         """~1.2B dense (llama-ish shape)."""
         return cls(vocab_size=32000, hidden=2048, layers=24, heads=16,
                    kv_heads=16, intermediate=5632, max_seq=4096)
+
+    @classmethod
+    def moe_bench(cls) -> "ModelConfig":
+        """bench.py's sparse row (``bench_model``'s ``moe_cfg``): top-2 of
+        8 experts on every second layer, 4096-token groups."""
+        return cls(vocab_size=32000, hidden=1024, layers=8, heads=16,
+                   kv_heads=8, intermediate=2816, max_seq=2048,
+                   logits_chunk=256, num_experts=8, experts_per_token=2,
+                   moe_every=2, moe_group_size=4096)
 
     @classmethod
     def b7(cls) -> "ModelConfig":
@@ -130,7 +163,109 @@ def init_params(cfg: ModelConfig, generator: Optional[torch.Generator] = None,
     }
     if not cfg.tie_embeddings:
         params["unembed"] = normal((h, cfg.vocab_size), scale)
+    if cfg.num_experts > 0:
+        e, inter = cfg.num_experts, cfg.intermediate
+        # drawn for every layer, as the JAX package does, though only
+        # every moe_every-th layer uses them
+        params["layers"]["moe"] = {
+            "router": (torch.randn((nl, h, e), generator=generator,
+                                   device=device) * scale),
+            "w_gate": normal((nl, e, h, inter), scale),
+            "w_up": normal((nl, e, h, inter), scale),
+            "w_down": normal((nl, e, inter, h), inter ** -0.5),
+        }
     return params
+
+
+# -- MoE ---------------------------------------------------------------------
+
+
+def moe_layer(x: torch.Tensor, moe_params: Dict[str, torch.Tensor],
+              cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Top-k capacity-bounded MoE (GShard-style einsum dispatch).
+
+    x: [B, S, H] -> ([B, S, H], aux_loss scalar). With
+    ``cfg.moe_group_size`` set and dividing B*S, tokens route in
+    independent groups, each under ``torch.utils.checkpoint`` when
+    autograd is on (without it the backward would keep every group's
+    [g, E, C] dispatch residuals live at once); the aux loss is averaged
+    over groups."""
+    b, s, h = x.shape
+    t = b * s
+    g = cfg.moe_group_size
+    xt = x.reshape(t, h)
+    if g and t > g:
+        if t % g == 0:
+            grad = torch.is_grad_enabled()
+            aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+            outs = []
+            for xg in xt.split(g):
+                if grad:
+                    out, aux = checkpoint(_moe_tokens, xg, moe_params, cfg,
+                                          use_reentrant=False)
+                else:
+                    out, aux = _moe_tokens(xg, moe_params, cfg)
+                outs.append(out)
+                aux_sum = aux_sum + aux
+            return torch.cat(outs).reshape(b, s, h), aux_sum / (t // g)
+        # dropping the grouping silently would reintroduce the ungrouped
+        # [T, E, capacity] dispatch tensors this option exists to prevent
+        logging.getLogger(__name__).warning(
+            "moe_group_size=%d does not divide token count %d; "
+            "falling back to UNGROUPED routing (dispatch tensors "
+            "scale with the full batch — may OOM at large batch)",
+            g, t)
+    out, aux = _moe_tokens(xt, moe_params, cfg)
+    return out.reshape(b, s, h), aux
+
+
+def _moe_tokens(xt: torch.Tensor, moe_params: Dict[str, torch.Tensor],
+                cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Route one token set [T, H] -> ([T, H], aux). The router, the
+    dispatch and the combine run in fp32, the experts in ``xt``'s
+    dtype."""
+    t, h = xt.shape
+    e = cfg.num_experts
+    k = cfg.experts_per_token
+    cap = max(1, int(cfg.capacity_factor * t * k / e))
+    xf = xt.float()
+    logits = xf @ moe_params["router"]
+    probs = torch.softmax(logits, dim=-1)
+    gate_vals, gate_idx = torch.topk(probs, k, dim=-1)      # [T, k]
+    gate_vals = gate_vals / torch.clamp(
+        gate_vals.sum(-1, keepdim=True), min=1e-9)
+    # load-balancing auxiliary loss (Switch Transformer eq. 4)
+    me = probs.mean(dim=0)
+    ce = torch.zeros(e, dtype=torch.float32, device=xt.device).index_add(
+        0, gate_idx.reshape(-1),
+        torch.full((t * k,), 1.0 / (t * k), device=xt.device))
+    aux = e * torch.sum(me * ce)
+    # position of each (token, choice) within its expert's capacity:
+    # choice 0 of token t counts before its choice 1
+    onehot = F.one_hot(gate_idx, e).float()                 # [T, k, E]
+    flat = onehot.reshape(t * k, e)
+    pos = (torch.cumsum(flat, dim=0) - flat).reshape(t, k, e)
+    within = (pos * onehot).sum(-1)                         # [T, k]
+    keep = within < cap
+    gate_vals = gate_vals * keep
+    pos_onehot = F.one_hot(
+        torch.clamp(within, 0, cap - 1).long(), cap).float()  # [T, k, C]
+    # dispatch and combine [T, E, C]. The JAX package writes the combine
+    # as einsum("tke,tkc,tk->tec"); folding the gate into the one-hot
+    # first is the same product bit for bit (one nonzero term per
+    # (t, e, c): a token's k choices are distinct experts) without the
+    # [T, k, E, C] intermediate a three-operand einsum makes here
+    dispatch = torch.einsum("tke,tkc->tec", onehot * keep[..., None],
+                            pos_onehot)
+    combine = torch.einsum("tke,tkc->tec", onehot * gate_vals[..., None],
+                           pos_onehot)
+    expert_in = torch.einsum("tec,th->ech", dispatch, xf).to(xt.dtype)
+    # SwiGLU per expert: batched over E by the stacked expert weights
+    expert_out = swiglu(expert_in, moe_params["w_gate"],
+                        moe_params["w_up"], moe_params["w_down"])  # [E, C, H]
+    out = torch.einsum("tec,ech->th", combine,
+                       expert_out.float()).to(xt.dtype)
+    return out, aux
 
 
 # -- transformer block -------------------------------------------------------
@@ -155,14 +290,25 @@ def attention_block(x, layer, cfg: ModelConfig, cos, sin,
     return x + attn @ layer["wo"]
 
 
-def mlp_block(x, layer, cfg: ModelConfig) -> torch.Tensor:
+def mlp_block(x, layer, layer_idx: int, cfg: ModelConfig
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (x + MLP(x), aux). Layer ``layer_idx`` is a MoE layer when the
+    config has experts and it is the last of each ``moe_every``; only the
+    branch taken runs (``lax.cond`` in the JAX package)."""
     xn = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
-    return x + swiglu(xn, layer["w_gate"], layer["w_up"], layer["w_down"])
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    if cfg.num_experts > 0 and "moe" in layer and \
+            layer_idx % cfg.moe_every == cfg.moe_every - 1:
+        out, aux = moe_layer(xn, layer["moe"], cfg)
+    else:
+        out = swiglu(xn, layer["w_gate"], layer["w_up"], layer["w_down"])
+    return x + out, aux
 
 
-def _block(x, layer, cfg: ModelConfig, cos, sin, attention_fn):
+def _block(x, layer, layer_idx: int, cfg: ModelConfig, cos, sin,
+           attention_fn):
     x = attention_block(x, layer, cfg, cos, sin, attention_fn)
-    return mlp_block(x, layer, cfg)
+    return mlp_block(x, layer, layer_idx, cfg)
 
 
 # "dots": matmuls without batch dims (x @ W reaches aten.mm), as JAX's
@@ -183,8 +329,8 @@ def hidden_states(params: Dict[str, Any], tokens: torch.Tensor,
                   attention_fn: Optional[Callable] = None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] int -> (final hidden states [B, S, H], aux). ``aux``
-    is the MoE auxiliary loss, always 0 on this dense path. With
-    ``cfg.remat`` and autograd on, each layer runs under
+    is the MoE auxiliary loss summed over the layers (0 without MoE
+    layers). With ``cfg.remat`` and autograd on, each layer runs under
     ``torch.utils.checkpoint`` and its forward is recomputed in the
     backward."""
     if attention_fn is None:
@@ -193,21 +339,32 @@ def hidden_states(params: Dict[str, Any], tokens: torch.Tensor,
     cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                                 device=embed.device)
     x = embed[tokens]
-    names = list(params["layers"])
-    # unbind, not w[i]: its backward stacks the layers' grads once instead
-    # of adding a full-stack zero tensor per layer
-    per_layer = zip(*(params["layers"][n].unbind(0) for n in names))
     remat = cfg.remat and torch.is_grad_enabled()
     kw = _remat_kwargs(cfg) if remat else {}
-    for weights in per_layer:
-        layer = dict(zip(names, weights))
-        if remat:
-            x = checkpoint(_block, x, layer, cfg, cos, sin, attention_fn,
-                           **kw)
-        else:
-            x = _block(x, layer, cfg, cos, sin, attention_fn)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for idx, layer in enumerate(_per_layer(params["layers"], cfg.layers)):
+        if remat:
+            x, layer_aux = checkpoint(_block, x, layer, idx, cfg, cos, sin,
+                                      attention_fn, **kw)
+        else:
+            x, layer_aux = _block(x, layer, idx, cfg, cos, sin,
+                                  attention_fn)
+        aux = aux + layer_aux
     return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+
+
+def _per_layer(stacked: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
+    """The stacked layer dict (nested dicts kept, as ``layers.moe``) as n
+    per-layer dicts. unbind, not w[i]: its backward stacks the layers'
+    grads once instead of adding a full-stack zero tensor per layer, and
+    fills zeros for a layer that leaves a weight unused."""
+    layers: List[Dict[str, Any]] = [{} for _ in range(n)]
+    for name, value in stacked.items():
+        parts = (_per_layer(value, n) if isinstance(value, dict)
+                 else value.unbind(0))
+        for layer, part in zip(layers, parts):
+            layer[name] = part
+    return layers
 
 
 def _unembed(params, cfg: ModelConfig):

@@ -470,7 +470,13 @@ bwd_dkdv_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
 // whole loop; warpgroup 2 is the producer. K and V are loaded once and
 // stay; Q and dO tiles of 64 queries, with the tile's lse and delta rows,
 // go round a two-stage ring (full: TMA bytes landed; empty: all 256
-// consumer threads done reading).
+// consumer threads done reading). A tile's rows start at bh * Sq + q0,
+// on a 16-byte boundary only when Sq % 4 == 0; a 1-D TMA copy that starts
+// off it never completed its barrier on the H100 and the wait trapped
+// (Sq 197, 198 and 199 did, 196 ran; ViT-B/16's S is 197).
+// ROWS_ALIGNED = false copies from the boundary before the
+// first row (4 values more) and reads the rows shifted, one float at a
+// time; it costs registers, so Sq % 4 == 0 keeps the direct copy.
 // ---------------------------------------------------------------------------
 
 constexpr int WS_BK = 128;  // keys per block
@@ -485,7 +491,6 @@ struct WsDkdvSmem {
   static constexpr int QT_BYTES = WS_BQ * D * 2;  // one Q or dO tile
   static constexpr int KV_BOX = WS_BK * SWIZZLE_ROW_BYTES;  // bytes a box
   static constexpr int QT_BOX = WS_BQ * SWIZZLE_ROW_BYTES;
-  static constexpr int ROW_BYTES = WS_BQ * 4;  // the tile's lse or delta
   // one stage: Q, dO, lse, delta; padded to the 1024-byte swizzle grid
   static constexpr int STAGE = 2 * QT_BYTES + 1024;
   static constexpr int V_OFF = KV_BYTES;
@@ -496,7 +501,18 @@ struct WsDkdvSmem {
   static constexpr int ALLOC = BYTES + 1024;  // room to align to 1024
 };
 
-template <int D>
+// the lse or delta rows of a tile in its stage: the tile's own 64, or,
+// copied from the 16-byte boundary before them, 4 more
+template <bool ROWS_ALIGNED>
+struct WsRows {
+  static constexpr int LEN = ROWS_ALIGNED ? WS_BQ : WS_BQ + 4;
+  static constexpr int BYTES = LEN * 4;
+  static constexpr int DELTA_OFF = ROWS_ALIGNED ? BYTES : 512;  // 128-aligned
+  static_assert(DELTA_OFF >= BYTES && DELTA_OFF + BYTES <= 1024,
+                "lse and delta rows must fit the stage's last 1024 bytes");
+};
+
+template <int D, bool ROWS_ALIGNED>
 __global__ void __launch_bounds__(WS_THREADS, 1)
 bwd_dkdv_ws_kernel(const __grid_constant__ CUtensorMap tm_q,
                    const __grid_constant__ CUtensorMap tm_k,
@@ -507,6 +523,7 @@ bwd_dkdv_ws_kernel(const __grid_constant__ CUtensorMap tm_q,
                    bf16* __restrict__ dk, bf16* __restrict__ dv, int H,
                    int Sq, int Sk, int causal, float scale) {
   using L = WsDkdvSmem<D>;
+  using R = WsRows<ROWS_ALIGNED>;
   constexpr int BOXES = D / BOX_COLS;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
@@ -552,7 +569,7 @@ bwd_dkdv_ws_kernel(const __grid_constant__ CUtensorMap tm_q,
         const int q0 = (qt_first + it) * WS_BQ;
         const uint32_t st = base + L::RING_OFF + s * L::STAGE;
         mbar_wait(empty(s), ((it / WS_STAGES) & 1) ^ 1);
-        mbar_expect_tx(full(s), 2 * L::QT_BYTES + 2 * L::ROW_BYTES);
+        mbar_expect_tx(full(s), 2 * L::QT_BYTES + 2 * R::BYTES);
         for (int x = 0; x < BOXES; ++x) {
           tma_load_4d(st + x * L::QT_BOX, &tm_q, full(s), x * BOX_COLS, h, q0,
                       b);
@@ -561,9 +578,9 @@ bwd_dkdv_ws_kernel(const __grid_constant__ CUtensorMap tm_q,
         }
         // lse/delta as one flat array: a tile past Sq reads the next
         // head's rows (or zeros past the end), masked below
-        const int row0 = bh * Sq + q0;
+        const int row0 = ROWS_ALIGNED ? bh * Sq + q0 : (bh * Sq + q0) & ~3;
         tma_load_1d(st + 2 * L::QT_BYTES, &tm_lse, full(s), row0);
-        tma_load_1d(st + 2 * L::QT_BYTES + L::ROW_BYTES, &tm_delta, full(s),
+        tma_load_1d(st + 2 * L::QT_BYTES + R::DELTA_OFF, &tm_delta, full(s),
                     row0);
       }
     }
@@ -590,9 +607,13 @@ bwd_dkdv_ws_kernel(const __grid_constant__ CUtensorMap tm_q,
       const int q0 = (qt_first + it) * WS_BQ;
       const uint32_t q_tile = base + L::RING_OFF + s * L::STAGE;
       const uint32_t do_tile = q_tile + L::QT_BYTES;
-      const float* lse_s = reinterpret_cast<const float*>(
-          base_ptr + L::RING_OFF + s * L::STAGE + 2 * L::QT_BYTES);
-      const float* delta_s = lse_s + WS_BQ;
+      const unsigned char* rows =
+          base_ptr + L::RING_OFF + s * L::STAGE + 2 * L::QT_BYTES;
+      // the tile's first row in the copy
+      const int shift = ROWS_ALIGNED ? 0 : (bh * Sq + q0) & 3;
+      const float* lse_s = reinterpret_cast<const float*>(rows) + shift;
+      const float* delta_s =
+          reinterpret_cast<const float*>(rows + R::DELTA_OFF) + shift;
       mbar_wait(full(s), (it / WS_STAGES) & 1);
 
       // S^T = K Q^T and dP^T = V dO^T: [64 keys, 64 queries], K-major;
@@ -636,8 +657,14 @@ bwd_dkdv_ws_kernel(const __grid_constant__ CUtensorMap tm_q,
       for (int j = 0; j < 8; ++j) {
         asm volatile("" ::: "memory");
         const int qi = 8 * j + 2 * t;
-        const float2 lr = *reinterpret_cast<const float2*>(lse_s + qi);
-        const float2 dr = *reinterpret_cast<const float2*>(delta_s + qi);
+        float2 lr, dr;
+        if constexpr (ROWS_ALIGNED) {
+          lr = *reinterpret_cast<const float2*>(lse_s + qi);
+          dr = *reinterpret_cast<const float2*>(delta_s + qi);
+        } else {  // shifted rows are only 4-byte aligned
+          lr = make_float2(lse_s[qi], lse_s[qi + 1]);
+          dr = make_float2(delta_s[qi], delta_s[qi + 1]);
+        }
         float p[4], ds[4];
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
@@ -697,7 +724,7 @@ bwd_dkdv_ws_kernel(const __grid_constant__ CUtensorMap tm_q,
   }
 }
 
-template <int D>
+template <int D, bool ROWS_ALIGNED>
 cudaError_t launch_dkdv_ws(const bf16* q, const bf16* k, const bf16* v,
                            const bf16* dout, const float* lse,
                            const float* delta, bf16* dk, bf16* dv, int B,
@@ -708,16 +735,17 @@ cudaError_t launch_dkdv_ws(const bf16* q, const bf16* k, const bf16* v,
   if (!err) err = encode_bshd(&tdo, dout, B, Sq, H, D, WS_BQ);
   if (!err) err = encode_bshd(&tk, k, B, Sk, H, D, WS_BK);
   if (!err) err = encode_bshd(&tv, v, B, Sk, H, D, WS_BK);
-  if (!err) err = encode_rows(&tl, lse, (long)B * H * Sq, WS_BQ);
-  if (!err) err = encode_rows(&td, delta, (long)B * H * Sq, WS_BQ);
+  constexpr int row_len = WsRows<ROWS_ALIGNED>::LEN;
+  if (!err) err = encode_rows(&tl, lse, (long)B * H * Sq, row_len);
+  if (!err) err = encode_rows(&td, delta, (long)B * H * Sq, row_len);
   if (err) return static_cast<cudaError_t>(err);
   constexpr int smem = WsDkdvSmem<D>::ALLOC;
   cudaError_t cerr = cudaFuncSetAttribute(
-      bwd_dkdv_ws_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
+      bwd_dkdv_ws_kernel<D, ROWS_ALIGNED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (cerr != cudaSuccess) return cerr;
   const dim3 grid((Sk + WS_BK - 1) / WS_BK, B * H);
-  bwd_dkdv_ws_kernel<D><<<grid, WS_THREADS, smem, stream>>>(
+  bwd_dkdv_ws_kernel<D, ROWS_ALIGNED><<<grid, WS_THREADS, smem, stream>>>(
       tq, tk, tv, tdo, tl, td, dk, dv, H, Sq, Sk, causal, scale);
   return cudaGetLastError();
 }
@@ -1351,13 +1379,15 @@ extern "C" int rtt_flash_attn_bwd_dkdv(const void* q, const void* k,
     if (dtype == 1) {
       // head_dim 64 and 128: the wgmma kernel; 32 (one 64-byte row, no
       // 128-byte swizzle box) stays on mma.sync
-      if constexpr (kD >= 64)
-        return launch_dkdv_ws<kD>(
+      if constexpr (kD >= 64) {
+        const auto launch_ws = Sq % 4 == 0 ? &launch_dkdv_ws<kD, true>
+                                           : &launch_dkdv_ws<kD, false>;
+        return launch_ws(
             static_cast<const bf16*>(q), static_cast<const bf16*>(k),
             static_cast<const bf16*>(v), static_cast<const bf16*>(dout), l,
             dl, static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, H, Sq, Sk,
             causal, scale, s);
-      else
+      } else
         return launch(bwd_dkdv_mma_kernel<kD>, Sk, B * H, MMA_THREADS,
                       mma_smem<kD>() + 4 * TILE * sizeof(float), s,
                       static_cast<const bf16*>(q),

@@ -143,6 +143,36 @@ def test_attention_bound_at_the_train_shape(kernel, bound_ms):
     assert got == pytest.approx(bound_ms, abs=5e-5)
 
 
+@pytest.mark.parametrize("shape,kernel,bound_ms,bound_by", [
+    # the MoE train step, B16 S2048 H16 D64 causal bf16: the same kept
+    # pairs x d as b1's train shape (half the head dim, twice the batch),
+    # so the same operation bounds
+    ("moe", "fwd", 0.1390, "operations"),
+    ("moe", "dq", 0.2086, "operations"),
+    ("moe", "dkdv", 0.2781, "operations"),
+    # ViT-B/16's train step, B128 S197 H12 D64 non-causal bf16: 197^2
+    # pairs a head are too few to outweigh the bytes (each q/k/v/out row
+    # 128 bytes, read or written once) over 3.35 TB/s
+    ("vit", "fwd", 0.04661, "bytes"),
+    ("vit", "dq", 0.05853, "bytes"),
+    ("vit", "dkdv", 0.07009, "bytes"),
+])
+def test_attention_bound_at_the_moe_and_vit_shapes(shape, kernel, bound_ms,
+                                                   bound_by):
+    """The kernel phase's rows at the two new model paths' shapes, and
+    the bound chip_smoke.py reports for each kernel there."""
+    cs = _chip_smoke()
+    fwd = {row[0]: row[1:] for row in cs.KERNEL_SHAPES}
+    bwd = {row[0]: row[1:] for row in cs.BWD_SHAPES}
+    b, s, h, d, causal, dtype = fwd[shape]
+    assert bwd[shape] == (b, s, s, h, d, causal, dtype)
+    assert (h, d, dtype) == ((16, 64, "bfloat16") if shape == "moe"
+                             else (12, 64, "bfloat16"))
+    got, by = cs._attention_work(kernel, b, s, s, h, d, causal, dtype)
+    assert by == bound_by
+    assert got == pytest.approx(bound_ms, abs=5e-5)
+
+
 def test_check_dq_keeps_only_the_named_kernels_ptxas_lines():
     """tools/check_dq prints ptxas's report of bwd_dq_ws_kernel and of no
     other function (its name, then its registers and spills)."""
@@ -161,3 +191,18 @@ def test_check_dq_keeps_only_the_named_kernels_ptxas_lines():
     assert len(rows) == 3
     assert "bwd_dq_ws_kernel" in rows[0] and "168 registers" in rows[1]
     assert ptxas_rows(log, "flash_fwd_ws_kernel") == []
+
+
+def test_check_bwd_rows_covers_every_row_alignment():
+    """tools/check_bwd_rows runs K3 at Sq % 4 of 0, 1, 2 and 3 (the
+    offset of a tile's lse/delta rows off a 16-byte boundary), K2 beside
+    it, and ViT-B/16's train shape; without CUDA it exits 2."""
+    from ray_tpu_torch.tools import check_bwd_rows
+
+    k3 = {s % 4 for kernel, _, s, *_ in check_bwd_rows.CASES
+          if kernel == "dkdv"}
+    assert k3 == {0, 1, 2, 3}
+    assert {c[0] for c in check_bwd_rows.CASES} == {"dq", "dkdv"}
+    assert ("dkdv", 128, 197, 12, 64, False) in check_bwd_rows.CASES
+    if not torch.cuda.is_available():
+        assert check_bwd_rows.main([]) == 2
