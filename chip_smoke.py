@@ -49,6 +49,24 @@ if any failed, the script exits non-zero and prints no result. Phases:
               held against the serve phase's; a plain task in a pool
               worker without the override sees no card, and
               build_forward raises there;
+  4c. cluster — the multi-process cluster (ray_tpu_torch.cluster):
+              the GCS's actor-burst placer (GcsService.
+              _batch_assign_actors, state-only) places 16,384 actors in
+              32 classes over 256 seeded nodes on CUDA, map equal to its
+              numpy route's; a ProcessCluster at its default settings
+              (its GCS on CUDA, which takes its context at start and
+              alone of the servers maps libcuda.so; the raylets'
+              workers given card 0; device threshold 0) takes bursts of
+              32 and 16 {"CPU": 0.25} actors through
+              actor_create_batch: all ALIVE, no node past its CPUs, the
+              GCS's solves on CUDA, every node alive with its longest
+              heartbeat gap under the 0.5 s timeout; an actor in a
+              worker of the GPU raylet serves b1 (24 K1 launches a
+              request on wgmma, counted in its process; last-position
+              logits bit-equal to the serve phase's); a 64 MiB array put
+              on one node is summed by a task on the other; every
+              process the phase started is stopped and its shm segments
+              swept;
   5. train  — a Cluster with one GPU node; ray_tpu_torch.train.Trainer
               with one GPU worker runs a train function that builds
               ModelConfig.b1 at full width and depth (random weights from
@@ -184,6 +202,14 @@ HEAD_DIM_SHAPES = ("debug_f32", "d16_bf16", "d20_ragged", "d160",
                    "d256_ragged")
 
 SCHED = dict(nodes=256, tasks=100_000, classes=32)
+# the cluster phase: the GCS burst placer at the scheduler's verdict
+# scale (256 nodes x 32 classes = 8,192 cells, the device threshold's
+# default), 3 timed bursts a route; the live cluster's burst of
+# {"CPU": 0.25} actors; its cross-node object; each raylet's store
+CLUSTER_PLACER = dict(nodes=256, actors=16_384, classes=32, bursts=3)
+CLUSTER_BURST = 32
+CROSS_NODE_BYTES = 64 << 20
+CLUSTER_STORE_BYTES = 512 << 20
 SERVE_REQUESTS = 4
 SERVE_TOKENS = (2, 2048)
 TRAIN_STEPS = 4
@@ -1644,6 +1670,408 @@ def phase_proc_serve(report: dict) -> dict:
     return routes
 
 
+# -------------------------------------------------------------- phase 4c
+
+
+class BurstActor:
+    """One of the live cluster's {"CPU": 0.25} burst actors."""
+
+    def __init__(self, i):
+        self.i = i
+
+    def ping(self):
+        return self.i
+
+
+def _array_sum(array):
+    return int(array.sum())
+
+
+def _pool_ready(pool: dict) -> bool:
+    return pool["alive"] == pool["size"] and \
+        pool["warm_idle"] >= pool["warm_size"]
+
+
+def _burst(client, n: int, tag: str) -> list:
+    """``n`` {"CPU": 0.25} actors in one actor_create_batch frame; the
+    GCS's views of them once every one is ALIVE."""
+    from ray_tpu_torch.cluster import protocol
+
+    rows = [{"actor_id": f"{tag}{i:03d}",
+             "cls_bytes": protocol.dumps(BurstActor),
+             "args_bytes": protocol.dumps(([("v", protocol.dumps(i))], {})),
+             "resources": {"CPU": 0.25}, "max_restarts": 0, "name": "",
+             "token": f"{tag}-row{i}"} for i in range(n)]
+    client.gcs.call("actor_create_batch", creates=rows, token=tag,
+                    timeout=120.0)
+    deadline = time.monotonic() + 120
+    while True:
+        views = [client.gcs.call("actor_get", actor_id=r["actor_id"])
+                 for r in rows]
+        if all(v["state"] == "ALIVE" for v in views):
+            return views
+        if time.monotonic() > deadline:
+            raise AssertionError(f"cluster: burst actors not ALIVE: "
+                                 f"{sorted({v['state'] for v in views})}")
+        time.sleep(0.1)
+
+
+def _maps_cuda(pid: int) -> bool:
+    with open(f"/proc/{pid}/maps") as f:
+        return "libcuda.so" in f.read()
+
+
+def _descendants(roots) -> set:
+    """Every live process under ``roots`` (the cluster's server pids)."""
+    parent = {}
+    for entry in os.listdir("/proc"):
+        if not entry.isdigit():
+            continue
+        try:
+            with open(f"/proc/{entry}/stat") as f:
+                fields = f.read().rsplit(")", 1)[1].split()
+        except OSError:
+            continue
+        parent[int(entry)] = int(fields[1])
+    out, frontier = set(), set(roots)
+    while frontier:
+        frontier = {p for p, pp in parent.items()
+                    if pp in frontier and p not in out}
+        out |= frontier
+    return out
+
+
+def _reap(pids, timeout: float = 15.0) -> list:
+    """Wait for ``pids`` to exit; SIGKILL the ones still alive after
+    ``timeout``. Returns the pids that had to be killed."""
+    import signal
+
+    def alive(pid):
+        try:
+            os.kill(pid, 0)
+            return True
+        except ProcessLookupError:
+            return False
+
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline and any(alive(p) for p in pids):
+        time.sleep(0.1)
+    killed = [p for p in pids if alive(p)]
+    for p in killed:
+        with contextlib.suppress(ProcessLookupError):
+            os.kill(p, signal.SIGKILL)
+    return killed
+
+
+def _placer_state(gcs_server):
+    """A state-only GcsService (as tests/test_device_scheduler_live.py
+    builds it) over CLUSTER_PLACER["nodes"] seeded nodes, and the burst's
+    CLUSTER_PLACER["classes"] demand classes."""
+    import threading
+
+    import numpy as np
+
+    rng = np.random.default_rng(0)
+    svc = gcs_server.GcsService.__new__(gcs_server.GcsService)
+    svc._lock = threading.RLock()
+    svc._nodes = {}
+    for i in range(CLUSTER_PLACER["nodes"]):
+        res = {"CPU": float(rng.choice([32, 64, 96, 128])),
+               "memory": float(rng.choice([128, 256, 512])) * 2 ** 30}
+        if i % 4 == 0:
+            res["GPU"] = float(rng.choice([1, 2, 4, 8]))
+        rec = gcs_server._NodeRecord(f"node{i:04d}",
+                                     f"10.0.{i // 200}.{i % 200}:7000", res)
+        rec.available = {k: (float(np.floor(v * rng.uniform(0.5, 1.0)))
+                             if k != "memory" else v * rng.uniform(0.5, 1.0))
+                         for k, v in res.items()}
+        svc._nodes[rec.node_id] = rec
+    demands = []
+    for c in range(CLUSTER_PLACER["classes"]):
+        d = {"CPU": float(rng.choice([0.25, 0.5, 1, 2])) + c * 1e-3}
+        if c % 4 == 1:
+            d["GPU"] = float(rng.choice([0.25, 0.5]))
+        if c % 3 == 2:
+            d["memory"] = float(rng.choice([1, 2, 4])) * 2 ** 30
+        demands.append(d)
+    return svc, demands
+
+
+def _placer_bursts() -> dict:
+    """The GCS's actor-burst placer (A3) on the card at the scheduler's
+    verdict scale, against its numpy route on the same state."""
+    from ray_tpu_torch._private.config import Config
+    from ray_tpu_torch.cluster import gcs_server
+    from ray_tpu_torch.scheduler.policy import shared_batched_policy
+
+    knob = "RAY_TPU_scheduler_device_solve_min_cells"
+    svc, demands = _placer_state(gcs_server)
+
+    def burst():
+        return [gcs_server._ActorRecord(f"a{i:05d}", b"", b"",
+                                        demands[i % len(demands)], 0)
+                for i in range(CLUSTER_PLACER["actors"])]
+
+    def timed(n):
+        maps, ms = [], []
+        for _ in range(n):
+            actors = burst()
+            t = time.perf_counter()
+            maps.append(svc._batch_assign_actors(actors))
+            ms.append((time.perf_counter() - t) * 1e3)
+        return maps, ms
+
+    policy = shared_batched_policy("cuda")
+    solves0 = policy.device_solves
+    os.environ.pop(knob, None)  # the default routing: 8,192 cells
+    Config.reset()
+    dev_maps, dev_ms = timed(CLUSTER_PLACER["bursts"] + 1)  # first warms
+    device_solves = policy.device_solves - solves0
+    os.environ[knob] = "-1"  # the numpy route
+    Config.reset()
+    try:
+        np_maps, np_ms = timed(CLUSTER_PLACER["bursts"])
+    finally:
+        os.environ.pop(knob, None)
+        Config.reset()
+    if policy.device_solves - solves0 != device_solves:
+        raise AssertionError("the numpy route launched a device solve")
+    if device_solves != CLUSTER_PLACER["bursts"] + 1:
+        raise AssertionError(f"placer: {device_solves} device solves for "
+                             f"{CLUSTER_PLACER['bursts'] + 1} bursts")
+    want = np_maps[0]
+    if any(m != want for m in dev_maps + np_maps) or not want:
+        raise AssertionError("placer: the device map differs from numpy's")
+    return {"nodes": CLUSTER_PLACER["nodes"],
+            "actors": CLUSTER_PLACER["actors"],
+            "classes": CLUSTER_PLACER["classes"],
+            "placed": len(want), "device_solves": device_solves,
+            "device_ms": dev_ms, "numpy_ms": np_ms,
+            "maps_equal": True}
+
+
+def phase_cluster(report: dict) -> dict:
+    """The multi-process cluster on the card: the GCS burst placer (A3)
+    on CUDA against numpy; a live ProcessCluster at its default settings
+    (the GCS on CUDA, warmed at start; 50 ms heartbeats, 10 missed make
+    a node dead) whose GCS takes bursts through its device solve; b1
+    served from a raylet's worker through K1; one cross-node object."""
+    import numpy as np
+
+    from ray_tpu_torch.cluster import process_cluster as pc
+    from ray_tpu_torch.cluster import protocol
+    from ray_tpu_torch.cluster.byte_store import sweep_stale_segments
+
+    want_last = report.get("_serve_last_logits")
+    if want_last is None:
+        raise AssertionError("cluster needs the serve phase's logits")
+    placer = _placer_bursts()
+    print(f"cluster: on {report.get('card')}: GCS placer "
+          f"{placer['nodes']} nodes x {placer['actors']} actors x "
+          f"{placer['classes']} classes, {placer['placed']} placed, maps "
+          f"equal; ms a burst on CUDA {[round(x, 2) for x in placer['device_ms']]}"
+          f" (the first warms), numpy "
+          f"{[round(x, 2) for x in placer['numpy_ms']]}", flush=True)
+
+    cfg = _text_config("b1")
+    rng = np.random.default_rng(0)  # the serve phase's tokens
+    batches = [rng.integers(0, cfg.vocab_size, size=SERVE_TOKENS)
+               for _ in range(SERVE_REQUESTS)]
+    override = "RAY_TPU_WORKER_CUDA_VISIBLE_DEVICES"
+    os.environ[override] = "0"  # the raylets' workers get card 0
+    cluster = client = None
+    started, out = set(), {"placer": placer}
+    try:
+        t = time.monotonic()
+        cluster = pc.ProcessCluster(
+            gcs_env={"RAY_TPU_scheduler_device_solve_min_cells": "0"})
+        gcs_start_s = time.monotonic() - t
+        cpu_node = cluster.add_node(
+            num_cpus=8, object_store_memory=CLUSTER_STORE_BYTES)
+        gpu_node = cluster.add_node(
+            num_cpus=8, resources={"GPU": 1},
+            object_store_memory=CLUSTER_STORE_BYTES)
+        cluster.wait_for_nodes(2)
+        client = pc.ClusterClient(cluster.gcs_address)
+        gcs_pid = cluster.gcs_proc.pid
+        # the raylets' worker pools booted: the burst meets an idle host
+        deadline = time.monotonic() + 60
+        while not all(
+                _pool_ready(cluster.node_stats(n)["pool"])
+                for n in (cpu_node, gpu_node)):
+            if time.monotonic() > deadline:
+                raise AssertionError("cluster: worker pools not booted")
+            time.sleep(0.1)
+
+        # the GCS took its CUDA context at start (warm_device) and the
+        # raylets, which run no solve, took none
+        cuda_maps = {"gcs": _maps_cuda(gcs_pid),
+                     "raylets": [_maps_cuda(p.pid)
+                                 for p in cluster.raylets.values()]}
+        if not cuda_maps["gcs"] or any(cuda_maps["raylets"]):
+            raise AssertionError(f"cluster: libcuda.so mapped in {cuda_maps}"
+                                 f"; expected the GCS alone")
+        gap0 = {n: v["heartbeat_max_gap_ms"]
+                for n, v in client.cluster_view()["nodes"].items()}
+        # bursts of actors through actor_create_batch
+        t = time.monotonic()
+        first = _burst(client, CLUSTER_BURST, "burst")
+        burst_s = time.monotonic() - t
+        t = time.monotonic()
+        second = _burst(client, CLUSTER_BURST // 2, "again")
+        again_s = time.monotonic() - t
+        view = client.cluster_view()
+        placement = view["actor_placement"]
+        gaps = {n: v["heartbeat_max_gap_ms"] for n, v in view["nodes"].items()}
+        timeout_ms = 50 * 10  # ProcessCluster's defaults
+        alive = [v["alive"] for v in view["nodes"].values()]
+        if not all(alive) or max(gaps.values()) >= timeout_ms:
+            raise AssertionError(f"cluster: a node's heartbeats fell "
+                                 f"behind in the bursts: gaps ms {gaps}, "
+                                 f"alive {alive}")
+        per_node = {}
+        for v in first + second:
+            per_node[v["node_id"]] = per_node.get(v["node_id"], 0) + 1
+        if max(per_node.values()) * 0.25 > 8 or \
+                not set(per_node) <= {cpu_node, gpu_node}:
+            raise AssertionError(f"cluster: burst placed beyond capacity: "
+                                 f"{per_node}")
+        if not str(placement.get("device", "")).startswith("cuda") or \
+                placement.get("device_solves", 0) < 2 or \
+                placement.get("host_solves"):
+            raise AssertionError(f"cluster: the GCS's burst solves did not "
+                                 f"all run on CUDA: {placement}")
+        for v in first + second:
+            client.kill_actor(pc.ClusterActorHandle(client, v["actor_id"]))
+        solves = placement["device_ms"]
+        out["burst"] = {
+            "actors": [CLUSTER_BURST, CLUSTER_BURST // 2],
+            "alive_s": [burst_s, again_s],
+            "per_node": {n[:8]: k for n, k in per_node.items()},
+            "gcs_placement": placement, "gcs_pid": gcs_pid,
+            "gcs_start_s": gcs_start_s, "libcuda_mapped": cuda_maps,
+            "heartbeat_max_gap_ms": {"before": max(gap0.values()),
+                                     "after": max(gaps.values()),
+                                     "timeout": timeout_ms}}
+        print(f"cluster: GCS (pid {gcs_pid}) up in {gcs_start_s:.2f} s, its "
+              f"CUDA solve warmed at start in "
+              f"{placement['warmup_ms']:.1f} ms (libcuda.so mapped in the "
+              f"GCS, in no raylet); bursts of {CLUSTER_BURST} and "
+              f"{CLUSTER_BURST // 2} actors ALIVE in {burst_s:.2f} s and "
+              f"{again_s:.2f} s through actor_create_batch, per node "
+              f"{sorted(per_node.values())}; solved on "
+              f"{placement['device']}, ms (actors) "
+              f"{[(round(m, 2), n) for m, n in solves]}; longest heartbeat "
+              f"gap ms {max(gap0.values()):.1f} before the bursts, "
+              f"{max(gaps.values()):.1f} after (timeout {timeout_ms}), "
+              f"every node alive", flush=True)
+
+        # b1 from a raylet's worker
+        t0 = time.monotonic()
+        server = client.create_actor(ProcServer, (0, "b1"),
+                                     resources={"GPU": 1})
+        pid = server.pid()
+        server.forward_last(batches[0][:, :16])  # the probe
+        startup_s = time.monotonic() - t0
+        host = client.gcs.call("actor_get", actor_id=server.actor_id)
+        if host["node_id"] != gpu_node or pid == os.getpid():
+            raise AssertionError(f"cluster: the b1 actor is not in a "
+                                 f"worker of the GPU node: {host}")
+        server.reset_counts()
+        reply_bytes = []
+        loads = protocol.loads
+
+        def counting_loads(data):
+            if isinstance(data, (bytes, bytearray, memoryview)):
+                reply_bytes.append(len(data))
+            return loads(data)
+
+        latencies, last = [], []
+        protocol.loads = counting_loads
+        try:
+            for tokens in batches:
+                reply_bytes.clear()
+                t = time.monotonic()
+                last.append(server.forward_last(tokens))
+                latencies.append(time.monotonic() - t)
+        finally:
+            protocol.loads = loads
+        counts, routes = server.counts()
+        want_route = _main_path_routes("bfloat16", cfg.head_dim)["fwd"]
+        if counts != {"fwd": cfg.layers * SERVE_REQUESTS, "dq": 0,
+                      "dkdv": 0} or routes["fwd"] != {
+                          want_route: cfg.layers * SERVE_REQUESTS}:
+            raise AssertionError(f"cluster: the actor's kernels launched "
+                                 f"{counts} by route {routes}; expected "
+                                 f"{cfg.layers} forward launches a request "
+                                 f"on {want_route}")
+        bitwise = all(np.array_equal(g, w) for g, w in zip(last, want_last))
+        if not bitwise or not all(
+                g.shape == (SERVE_TOKENS[0], cfg.vocab_size) for g in last):
+            rel = max(float(np.linalg.norm(g - w) / np.linalg.norm(w))
+                      for g, w in zip(last, want_last))
+            raise AssertionError(f"cluster: last-position logits not "
+                                 f"bit-equal to the serve phase's (rel L2 "
+                                 f"{rel:.3g})")
+        server_pid = pid
+        client.kill_actor(server)
+        out["serve"] = {
+            "model": MODEL_DESC["b1"], "requests": SERVE_REQUESTS,
+            "inputs": list(SERVE_TOKENS), "actor_pid": server_pid,
+            "node": "gpu", "startup_s": startup_s, "latency_s": latencies,
+            "thread_tier_latency_s": report["serve"]["latency_s"],
+            "reply": ("inline in the actor_call RPC reply; worker to "
+                      "raylet over the pipe, its buffer in the raylet's "
+                      "shm segment"),
+            "reply_rpc_bytes": reply_bytes[-1] if reply_bytes else None,
+            "kernel_launches": counts, "kernel_launches_by_route": routes,
+            "last_logits_bitwise_equal_serve": bitwise}
+        print(f"cluster: b1 actor in a worker of the GPU raylet (pid "
+              f"{server_pid}) up (first forward included) in "
+              f"{startup_s:.2f} s; {SERVE_REQUESTS} requests of "
+              f"{list(SERVE_TOKENS)}, latency s "
+              f"{[round(x, 4) for x in latencies]} (thread tier "
+              f"{[round(x, 4) for x in report['serve']['latency_s']]}); "
+              f"replies inline in the actor_call RPC, "
+              f"{out['serve']['reply_rpc_bytes']} bytes; launches in the "
+              f"actor {routes}; last-position logits bit-equal to the "
+              f"serve phase's", flush=True)
+
+        # one cross-node object
+        array = np.random.default_rng(1).integers(
+            0, 1 << 20, size=CROSS_NODE_BYTES // 8, dtype=np.int64)
+        ref = client.put(array)
+        reader = cpu_node if ref.node_id == gpu_node else gpu_node
+        t = time.monotonic()
+        total = client.get(client.submit(_array_sum, (ref,),
+                                         node_id=reader), timeout=120.0)
+        cross_s = time.monotonic() - t
+        if total != int(array.sum()):
+            raise AssertionError(f"cluster: cross-node sum {total} != "
+                                 f"{int(array.sum())}")
+        fetches = cluster.node_stats(reader).get("fetches")
+        out["cross_node"] = {"bytes": array.nbytes, "seconds": cross_s,
+                             "reader_fetches": fetches}
+        print(f"cluster: {array.nbytes} B put on one node, summed by a task "
+              f"on the other in {cross_s:.3f} s (reader's fetches "
+              f"{fetches})", flush=True)
+        started = _descendants([gcs_pid, *(p.pid for p in
+                                           cluster.raylets.values())])
+    finally:
+        os.environ.pop(override, None)
+        if client is not None:
+            client.close()
+        if cluster is not None:
+            servers = [cluster.gcs_proc.pid,
+                       *(p.pid for p in cluster.raylets.values())]
+            started |= _descendants(servers)
+            cluster.shutdown()
+            out["killed_after_shutdown"] = _reap(started)
+        out["segments_swept"] = sweep_stale_segments(min_age_s=0.0)
+    report["cluster"] = out
+    return routes
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -1753,6 +2181,7 @@ def main() -> int:
             ("debug", phase_debug),
             ("sched", phase_sched), ("serve", phase_serve),
             ("proc_serve", phase_proc_serve),
+            ("cluster", phase_cluster),
             ("train", phase_train),
             ("moe_serve", lambda r: phase_serve(r, "moe")),
             ("moe", phase_moe),

@@ -4,10 +4,12 @@ Every entry point of the package (``init``, the model constructors,
 ``build_forward``) takes ``device=None`` and passes it through
 :func:`resolve_device`: ``None`` means CUDA, and a missing CUDA is an
 error. Nothing drops to the CPU on its own; a caller that wants the CPU
-(the parity tests) asks for it. The one exception is
-:func:`auto_init_device`, the device of a runtime that starts without
-``init``. ``torch`` is imported on the first call, not with the package
-(see scheduler/policy.py).
+(the parity tests) asks for it. The two exceptions read the device a
+spawner gave its process: :func:`auto_init_device`, the device of a
+runtime that starts without ``init`` (cluster/child_env.py), and
+:func:`control_plane_device`, the device of a GCS process's placement
+solves (cluster/process_cluster.py). ``torch`` is imported on the first
+call, not with the package (see scheduler/policy.py).
 """
 
 from __future__ import annotations
@@ -38,3 +40,21 @@ def auto_init_device():
             os.environ.get("CUDA_VISIBLE_DEVICES") == "":
         return "cpu"
     return None
+
+
+def control_plane_device() -> str:
+    """The device a GCS process runs its placement solves on, read from
+    its own ``CUDA_VISIBLE_DEVICES``, which its spawner set
+    (cluster/process_cluster.py: ``ProcessCluster(gcs_device=...)``).
+
+    The JAX package's spawner gives its control plane the platform that
+    ``RAY_TPU_WORKER_JAX_PLATFORMS`` names, and its GCS runs the fused
+    solve there (ray_tpu/cluster/process_cluster.py:46-52). The
+    counterpart here: a GCS whose ``CUDA_VISIBLE_DEVICES`` is ``""``
+    (the caller asked for the CPU) solves as torch ops on the CPU; any
+    other value means CUDA, as every entry point's ``None`` does, and
+    raises if CUDA cannot reach a card. Whether CUDA is available
+    decides nothing. On the CPU torch is not imported here."""
+    if os.environ.get("CUDA_VISIBLE_DEVICES") == "":
+        return "cpu"
+    return str(resolve_device(None))

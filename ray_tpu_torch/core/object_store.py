@@ -127,7 +127,7 @@ class MemoryStore:
             # pid-less random suffix would be unsweepable — or worse,
             # misparsed)
             self._spill_dir = tempfile.mkdtemp(
-                prefix=f"ray_tpu_spill_{os.getpid()}_")
+                prefix=f"ray_tpu_torch_spill_{os.getpid()}_")
         else:
             os.makedirs(self._spill_dir, exist_ok=True)
         return self._spill_dir

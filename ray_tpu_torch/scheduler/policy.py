@@ -148,16 +148,20 @@ class BatchedHybridPolicy:
         instance is host-only: :meth:`schedule_classes` takes the exact
         numpy solve and :meth:`schedule_tick_fused` raises (the raylet's
         device solves go through :func:`shared_batched_policy` with the
-        runtime's explicit device)."""
-        import torch
+        runtime's explicit device). A host-only instance does not import
+        torch: the GCS builds one for every burst under the device
+        thresholds."""
+        self.device = None
+        self.stream = None
+        if device is not None:
+            import torch
 
-        self.device = None if device is None else torch.device(device)
-        # CUDA solves run on a stream of their own: the serving path's
-        # kernels queue on the default stream, and a tick's counts pull
-        # must not wait behind a model forward
-        self.stream = (torch.cuda.Stream(self.device)
-                       if self.device is not None
-                       and self.device.type == "cuda" else None)
+            self.device = torch.device(device)
+            # CUDA solves run on a stream of their own: the serving
+            # path's kernels queue on the default stream, and a tick's
+            # counts pull must not wait behind a model forward
+            if self.device.type == "cuda":
+                self.stream = torch.cuda.Stream(self.device)
         # device solves launched (schedule_tick_fused + per-class)
         self.device_solves = 0
 
@@ -381,9 +385,9 @@ class BatchedHybridPolicy:
         reduced by earlier classes' placements (host-side fixup loop kept
         cheap because C is small in practice).
         """
-        import torch
-
         if self.device is not None:
+            import torch
+
             out = np.zeros((reqs.shape[0], total.shape[0]), dtype=np.int64)
             avail = available.copy()
             # One device solve per class against committed availability —

@@ -16,12 +16,13 @@ buffers in memory; ``JsonFileExporter`` mirrors the reference's
 setup_local_tmp_tracing hook which exports spans to a local file).
 
 Sampling is head-based: the decision is made once at the trace root —
-from an entropy-seeded stream (the fault plane that seeds it in the
-JAX package is not ported) — and rides the wire with the context, so a trace is
+from the seeded fault-plane RNG so runs replay deterministically
+(raycheck RC03) — and rides the wire with the context, so a trace is
 recorded everywhere or nowhere. Server processes that never called
 ``setup_tracing`` still record handler spans for sampled remote traces
 via :func:`record_remote_span`; those land in the bounded span buffer
-(the flight recorder is not ported).
+and, when the observability plane is on, in the per-process flight
+recorder, which the GCS's ``collect_timeline`` gathers from every node.
 """
 
 from __future__ import annotations
@@ -183,11 +184,8 @@ def _sample() -> bool:
     global _sampler_rng
     with _lock:
         if _sampler_rng is None:
-            # the fault plane (the seeded stream in the JAX package) is
-            # not ported: an entropy-seeded stream, as the reference
-            # uses when no fault plan is active
-            import random
-            _sampler_rng = random.Random()
+            from ray_tpu_torch.cluster import fault_plane
+            _sampler_rng = fault_plane.derive_rng("tracing-sample")
         return _sampler_rng.random() < rate
 
 
@@ -324,7 +322,13 @@ def _export(span: Span) -> None:
             _dropped += 1
         _buffer.append(span)
         exporters = list(_exporters)
-    # the flight recorder of the observability plane is not ported
+    try:
+        from ray_tpu_torch._private.config import Config
+        if Config.instance().observability_plane_enabled:
+            from ray_tpu_torch.observability import flight_recorder
+            flight_recorder.global_recorder.record_span(span.to_dict())
+    except Exception:
+        pass
     for exp in exporters:
         try:
             exp(span)
