@@ -40,6 +40,22 @@ if any failed, the script exits non-zero and prints no result. Phases:
               must be 24 per request, all on the wgmma route, and one
               request's logits must agree with the same model on the
               plain attention;
+  4a. serve_lib — the serving library: ray_tpu_torch.serve deploys b1
+              (full width and depth, weights from seed 0 on the card) as
+              2 replicas sharing card 0 (num_gpus 0.5 each), each
+              batching up to 4 [2048]-token rows with @serve.batch (0.05
+              s) into one forward through K1 inside a ``b1_batch``
+              profile span; 8 client threads send 32 requests through
+              the handle's P2C router, 2 more go through the HTTP proxy,
+              then 8 are in flight while a calm redeploy scales to 1
+              replica (the victim drains first). Every answer, the last
+              position's 32,000 fp32 logits, must agree with its row
+              served alone at batch 1 within SERVE_LIB_REL_TOL, HTTP
+              answers with the handle's; at least one batch > 1, none >
+              4; both replicas served; nothing dropped; K1 24 launches a
+              batch on wgmma; one timeline span a batch. Start-up,
+              latency p50/p95/max, batch sizes and requests/s print
+              beside the card line;
   4b. proc_serve — the process tier: init(worker_mode="process") on
               CUDA; an actor built in its own OS process (given card 0
               by RAY_TPU_WORKER_CUDA_VISIBLE_DEVICES) serves b1 at full
@@ -212,6 +228,17 @@ CROSS_NODE_BYTES = 64 << 20
 CLUSTER_STORE_BYTES = 512 << 20
 SERVE_REQUESTS = 4
 SERVE_TOKENS = (2, 2048)
+# the serve_lib phase: b1 through ray_tpu_torch.serve, two replicas on
+# one card batching up to 4 [2048]-token rows; 8 client threads of 4
+# requests, 2 over HTTP, then 8 in flight across a scale-down to 1
+SERVE_LIB = dict(replicas=2, max_batch=4, wait_s=0.05, max_queries=8,
+                 clients=8, per_client=4, http=2, inflight=8, seq=2048)
+# each answer against the same row served alone (batch 1) on the same
+# weights, relative L2; the HTTP answer's sum against the handle's, over
+# the row's L1 norm. Only cuBLAS's choice of kernel for another batch M
+# can move them (bf16 rounding compounded through 24 layers); a row
+# answered from another row or another batch position moves them by O(1)
+SERVE_LIB_REL_TOL = 2e-2
 TRAIN_STEPS = 4
 TRAIN_TOKENS = (8, 2049)  # [B, S + 1]: next-token targets for S = 2048
 # the bench's MoE batch (RAY_TPU_BENCH_MODEL_MOE_BATCH's default, 16)
@@ -928,6 +955,279 @@ def phase_serve(report: dict, model: str = "b1") -> dict:
         del first, plain
     finally:
         cluster.shutdown()
+    return routes
+
+
+def _b1_deployment():
+    """The class the serve_lib phase deploys: b1 on the card behind
+    ``@serve.batch``. A request is a [2048] token row (through a handle)
+    or ``{"tokens": [...]}`` (HTTP); the reply is the row's last-position
+    logits as 32,000 fp32 values, or their argmax and sum for HTTP."""
+    from ray_tpu_torch import serve
+
+    class B1Deployment:
+        def __init__(self):
+            import torch
+
+            from ray_tpu_torch.models import transformer as tfm
+            from ray_tpu_torch.models.training import build_forward
+
+            self.cfg = tfm.ModelConfig.b1()
+            self.params = tfm.init_params(
+                self.cfg, torch.Generator("cuda").manual_seed(0),
+                device="cuda")
+            self.fwd = build_forward(self.cfg, device="cuda")
+            self.batch_sizes = []
+            # start-up counts the weights drawn on the card, not their
+            # launches
+            torch.cuda.current_stream().synchronize()
+
+        @serve.batch(max_batch_size=SERVE_LIB["max_batch"],
+                     batch_wait_timeout_s=SERVE_LIB["wait_s"])
+        def __call__(self, requests):
+            import numpy as np
+
+            from ray_tpu_torch.observability import profile
+
+            n = len(requests)
+            tokens = np.stack([np.asarray(r["tokens"] if isinstance(r, dict)
+                                          else r) for r in requests])
+            with profile("b1_batch", {"n": n}):
+                last = self.fwd(self.params, tokens)[:, -1].float().cpu()
+            self.batch_sizes.append(n)
+            rows = last.numpy()
+            return [{"argmax": int(row.argmax()), "sum": float(row.sum())}
+                    if isinstance(r, dict) else row
+                    for r, row in zip(requests, rows)]
+
+        def seen(self):
+            return list(self.batch_sizes)
+
+    return B1Deployment
+
+
+def _b1_spans():
+    from ray_tpu_torch.observability import timeline
+
+    return [e for e in timeline() if e["name"] == "b1_batch"]
+
+
+def phase_serve_lib(report: dict) -> dict:
+    """b1 deployed through ray_tpu_torch.serve: two batched replicas on
+    one card, the P2C router, the HTTP proxy and a draining scale-down;
+    every forward through K1. Returns K1's launches by route over the
+    served traffic."""
+    import threading
+    import urllib.request
+
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch import serve
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.observability import global_profiler
+    from ray_tpu_torch.observability.metrics import get_metric
+
+    cfg = _text_config("b1")
+    k = SERVE_LIB
+    n_traffic = k["clients"] * k["per_client"]
+    rows = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(n_traffic + k["inflight"], k["seq"]))
+    answers, latency, errors = [None] * n_traffic, [None] * n_traffic, []
+    want_route = _main_path_routes("bfloat16", cfg.head_dim)["fwd"]
+
+    def drains():
+        return sum(get_metric("ray_tpu_serve_drains_completed")
+                   .series().values())
+
+    os.makedirs("chiprun_out", exist_ok=True)
+    cluster = Cluster(head_node_args={
+        "num_cpus": 4, "device": "cuda",
+        "_system_config": {"object_store_memory": 64 << 30}})
+    serving = False
+    try:
+        for _ in range(2):
+            cluster.add_node(num_cpus=4)
+        cluster.add_node(num_cpus=4, num_gpus=1)
+        serve.start()
+        serving = True
+        deployment = serve.deployment(
+            name="B1Deployment", version="v1",
+            num_replicas=k["replicas"], ray_actor_options={"num_gpus": 0.5},
+            max_concurrent_queries=k["max_queries"],
+            graceful_shutdown_timeout_s=60.0)(_b1_deployment())
+        global_profiler.clear()
+        _reset_counts()
+        t0 = time.monotonic()
+        deployment.deploy()
+        startup_s = time.monotonic() - t0
+        handle = deployment.get_handle()
+
+        def client(c):
+            try:
+                for i in range(c * k["per_client"], (c + 1) * k["per_client"]):
+                    t = time.monotonic()
+                    answers[i] = ray_tpu_torch.get(handle.remote(rows[i]))
+                    latency[i] = time.monotonic() - t
+            except Exception as exc:  # re-raised by the phase below
+                errors.append(exc)
+
+        clients = [threading.Thread(target=client, args=(c,))
+                   for c in range(k["clients"])]
+        t0 = time.monotonic()
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(timeout=300)
+        traffic_s = time.monotonic() - t0
+        if errors or any(t.is_alive() for t in clients):
+            raise AssertionError(f"serve_lib: client threads failed: "
+                                 f"{errors!r}")
+
+        controller = ray_tpu_torch.get_actor("SERVE_CONTROLLER")
+        proxy = serve.start_http_proxy(controller)
+        address = ray_tpu_torch.get(proxy.address.remote())
+        http = []
+        for i in range(k["http"]):
+            request = urllib.request.Request(
+                address + deployment.route_prefix,
+                data=json.dumps({"tokens": rows[i].tolist()}).encode(),
+                headers={"Content-Type": "application/json"})
+            with urllib.request.urlopen(request, timeout=120) as resp:
+                http.append(json.loads(resp.read()))
+        ray_tpu_torch.get(proxy.stop.remote())
+        ray_tpu_torch.kill(proxy)
+
+        _, replicas = ray_tpu_torch.get(
+            controller.get_replicas.remote("B1Deployment"))
+        per_replica = [ray_tpu_torch.get(r.handle_request.remote(
+            "seen", (), {})) for r in replicas]
+        spans_before = _b1_spans()
+
+        # 8 requests in flight, then a calm redeploy to one replica: the
+        # victim leaves routing, drains to zero in flight, then dies
+        drains_before = drains()
+        inflight_refs = [handle.remote(rows[n_traffic + j])
+                         for j in range(k["inflight"])]
+        t0 = time.monotonic()
+        deployment.options(num_replicas=1).deploy()
+        scale_s = time.monotonic() - t0
+        inflight = ray_tpu_torch.get(inflight_refs, timeout=300)
+        _, left = ray_tpu_torch.get(
+            controller.get_replicas.remote("B1Deployment"))
+        drained = drains() - drains_before
+        counts, routes = _read_counts(), _read_routes()
+        spans = _b1_spans()
+        trace_path = ray_tpu_torch.timeline(
+            os.path.join("chiprun_out", "serve_lib_timeline.json"))
+    finally:
+        if serving:
+            serve.shutdown()
+        cluster.shutdown()
+
+    # batches: the replicas' own reports, the timeline, K1's launches
+    sizes = [n for seen in per_replica for n in seen]
+    span_sizes = [e["args"]["n"] for e in spans]
+    batches = len(spans)
+    if sorted(e["args"]["n"] for e in spans_before) != sorted(sizes):
+        raise AssertionError(f"serve_lib: timeline spans "
+                             f"{[e['args']['n'] for e in spans_before]} != "
+                             f"the replicas' batches {per_replica}")
+    with open(trace_path) as f:
+        on_disk = [e for e in json.load(f) if e["name"] == "b1_batch"]
+    if len(on_disk) != batches:
+        raise AssertionError(f"serve_lib: {trace_path} holds {len(on_disk)} "
+                             f"b1_batch spans for {batches} batches")
+    total = n_traffic + k["http"] + k["inflight"]
+    if sum(span_sizes) != total or max(span_sizes) > k["max_batch"] or \
+            max(span_sizes) < 2 or sum(sizes) != n_traffic + k["http"]:
+        raise AssertionError(f"serve_lib: batch sizes {span_sizes} (the "
+                             f"replicas' {per_replica}) for {total} "
+                             f"requests, at most {k['max_batch']}, one > 1")
+    served = [sum(seen) for seen in per_replica]
+    if len(replicas) != k["replicas"] or not all(served):
+        raise AssertionError(f"serve_lib: replicas served {served} "
+                             f"requests in batches {per_replica}")
+    if len(left) != 1 or drained != 1 or len(inflight) != k["inflight"]:
+        raise AssertionError(f"serve_lib: scale-down left {len(left)} "
+                             f"replicas, {drained} drains, "
+                             f"{len(inflight)} of {k['inflight']} answers")
+    if counts["fwd"] != cfg.layers * batches or counts["dq"] or \
+            counts["dkdv"] or routes["fwd"] != {want_route: counts["fwd"]}:
+        raise AssertionError(f"serve_lib: attention launches {counts} by "
+                             f"route {routes['fwd']} for {batches} batches;"
+                             f" expected {cfg.layers} each on {want_route}")
+
+    # each answer against its row served alone through ModelServer
+    served_rows = answers + inflight
+    server = ModelServer(0)
+    _reset_counts()
+    reference = [server.forward(rows[i][None])[0, -1].float().cpu().numpy()
+                 for i in range(len(served_rows))]
+    ref_counts, ref_routes = _read_counts(), _read_routes()
+    del server
+    if ref_counts["fwd"] != cfg.layers * len(reference) or \
+            ref_routes["fwd"] != {want_route: ref_counts["fwd"]}:
+        raise AssertionError(f"serve_lib: batch-1 references launched "
+                             f"{ref_routes['fwd']}")
+    rel = [float(np.linalg.norm(a - r) / np.linalg.norm(r))
+           for a, r in zip(served_rows, reference)]
+    bit_equal = sum(bool(np.array_equal(a, r))
+                    for a, r in zip(served_rows, reference))
+    for a in served_rows:
+        if a.shape != (cfg.vocab_size,) or a.dtype != np.float32 or \
+                not np.isfinite(a).all():
+            raise AssertionError("serve_lib: an answer is malformed or not "
+                                 "finite")
+    if not max(rel) <= SERVE_LIB_REL_TOL:
+        raise AssertionError(f"serve_lib: answers off batch-1 serving: "
+                             f"worst rel L2 {max(rel):.3g} > "
+                             f"{SERVE_LIB_REL_TOL}")
+    http_rel = []
+    for i, h in enumerate(http):
+        row = answers[i]
+        http_rel.append(abs(h["sum"] - float(row.sum()))
+                        / float(np.abs(row).sum()))
+        if h["argmax"] != int(row.argmax()) or \
+                not http_rel[-1] <= SERVE_LIB_REL_TOL:
+            raise AssertionError(f"serve_lib: HTTP answer {h} for row {i} "
+                                 f"off the handle's (argmax "
+                                 f"{int(row.argmax())}, sum "
+                                 f"{float(row.sum())})")
+
+    lat = np.asarray(latency)
+    report["serve_lib"] = {
+        "model": MODEL_DESC["b1"], "replicas": k["replicas"],
+        "ray_actor_options": {"num_gpus": 0.5},
+        "max_batch_size": k["max_batch"],
+        "batch_wait_timeout_s": k["wait_s"],
+        "startup_s": startup_s, "traffic_s": traffic_s,
+        "requests_per_s": n_traffic / traffic_s,
+        "latency_s": latency,
+        "latency_p50_s": float(np.percentile(lat, 50)),
+        "latency_p95_s": float(np.percentile(lat, 95)),
+        "latency_max_s": float(lat.max()),
+        "batch_sizes": span_sizes, "batch_sizes_by_replica": per_replica,
+        "requests_by_replica": served, "scale_down_s": scale_s,
+        "drains_completed": drained, "kernel_launches": counts["fwd"],
+        "kernel_launches_by_route": routes["fwd"],
+        "reference_launches": ref_counts["fwd"],
+        "rel_l2_vs_batch1": rel, "bit_equal_vs_batch1": bit_equal,
+        "http_answers": http, "http_sum_rel_vs_handle": http_rel,
+        "timeline": trace_path,
+    }
+    print(f"serve_lib: b1 from {k['replicas']} replicas on one card, start-"
+          f"up {startup_s:.2f} s; {n_traffic} requests from {k['clients']} "
+          f"threads in {traffic_s:.3f} s ({n_traffic / traffic_s:.2f} "
+          f"requests/s), latency s p50 {np.percentile(lat, 50):.4f} p95 "
+          f"{np.percentile(lat, 95):.4f} max {lat.max():.4f}; batch sizes "
+          f"{span_sizes} (by replica {per_replica}, requests {served}); "
+          f"scale-down to 1 in {scale_s:.2f} s, {k['inflight']} in flight, "
+          f"0 dropped; K1 {routes['fwd']} for {batches} batches; vs batch 1 "
+          f"rel L2 worst {max(rel):.3g} (readings "
+          f"{sorted({float(f'{x:.3g}') for x in rel})}), {bit_equal} of "
+          f"{len(rel)} bit-equal; HTTP sums rel {[f'{x:.3g}' for x in http_rel]}; "
+          f"{card_line()}", flush=True)
     return routes
 
 
@@ -2180,6 +2480,7 @@ def main() -> int:
             ("build", phase_build), ("kernel", phase_kernel),
             ("debug", phase_debug),
             ("sched", phase_sched), ("serve", phase_serve),
+            ("serve_lib", phase_serve_lib),
             ("proc_serve", phase_proc_serve),
             ("cluster", phase_cluster),
             ("train", phase_train),

@@ -49,6 +49,13 @@ from ray_tpu_torch.core.api import (  # noqa: F401,E402
 )
 
 
+def timeline(filename: str = "ray_tpu_timeline.json") -> str:
+    """Dump the Chrome-trace timeline (reference: ray.timeline)."""
+    from ray_tpu_torch.observability import timeline as _timeline
+
+    return _timeline(filename)
+
+
 def get_gpu_ids():
     """Accelerator ids assigned to this worker (reference: ray.get_gpu_ids).
 
@@ -75,6 +82,6 @@ __all__ = [
     "UniqueID", "WorkerID", "ObjectRef", "exceptions", "init", "shutdown",
     "is_initialized", "remote", "get", "put", "wait", "kill", "cancel",
     "get_actor", "method", "nodes", "cluster_resources",
-    "available_resources", "get_runtime_context",
+    "available_resources", "get_runtime_context", "timeline",
     "get_gpu_ids", "__version__",
 ]

@@ -52,6 +52,10 @@ class StoredObject:
     create_time: float = field(default_factory=time.monotonic)
     # set when the payload lives on disk, not in memory (spilled)
     spilled_path: Optional[str] = None
+    # integrity plane: put-time digest of buffer-typed values (bytes/
+    # ndarray), verified at get when integrity_verify_on_get is on;
+    # spill files carry their own digest in the file header
+    crc: Optional[int] = None
 
 
 class MemoryStore:
@@ -73,11 +77,11 @@ class MemoryStore:
                                 if spill_threshold is not None
                                 else cfg.object_spilling_threshold)
         self._spill_dir = spill_directory or cfg.spill_directory or None
-        self._verify_on_get = (cfg.integrity_enabled
-                               and cfg.integrity_verify_on_get)
         self.num_spilled = 0
         self.num_restored = 0
         self.spilled_bytes = 0
+        # integrity plane: spilled copies dropped on a failed digest
+        self.num_corrupt_dropped = 0
         # admission control for restores (scheduler/pull_manager.py);
         # attached by the runtime, None -> restore immediately
         self.pull_manager = None
@@ -85,14 +89,23 @@ class MemoryStore:
     # -- write -------------------------------------------------------------
     def put(self, object_id: ObjectID, value: Any, is_error: bool = False) -> None:
         size = _sizeof(value)
-        if self._verify_on_get:
-            raise NotImplementedError(
-                "the integrity plane (integrity_verify_on_get) is not "
-                "ported to ray_tpu_torch")
+        # in-process values are held by reference (zero-copy) — there
+        # is no byte seam to protect at put time, so the put digest is
+        # computed only when the verify-on-get knob asks for the
+        # end-to-end re-check (and only for buffer-typed values, which
+        # have a stable byte representation). Spill files always carry
+        # their own digest, computed at spill time.
+        crc = None
+        if not is_error:
+            from ray_tpu_torch.cluster import integrity
+
+            if integrity.verify_on_get():
+                crc = integrity.checksum_value(value)
         with self._lock:
             if object_id in self._objects:
                 return  # objects are immutable; first write wins
-            self._objects[object_id] = StoredObject(value, is_error, size)
+            self._objects[object_id] = StoredObject(value, is_error,
+                                                    size, crc=crc)
             self.total_bytes += size
             self.num_puts += 1
             callbacks = self._waiters.pop(object_id, ())
@@ -155,6 +168,8 @@ class MemoryStore:
             import cloudpickle as pickle
         except ImportError:  # pragma: no cover
             import pickle
+        from ray_tpu_torch.cluster import fault_plane as _fault
+        from ray_tpu_torch.cluster import integrity
 
         path = os.path.join(self._spill_dir_path(),
                             f"{object_id.hex()}.spill")
@@ -171,10 +186,20 @@ class MemoryStore:
             data = pickle.dumps(obj.value)
         except Exception:  # unpicklable values just stay resident
             return
-        # the spill file is the bare pickle: the integrity plane's digest
-        # header is not ported
+        # integrity plane: digest of the pickled payload rides the
+        # spill-file header and is verified at restore — a flipped bit
+        # at rest becomes a typed error + lineage recompute, not a
+        # silently-wrong get
+        crc = integrity.checksum(data) if integrity.enabled() else None
+        plane = _fault.get_plane()
+        if plane is not None:
+            fault = plane.decide("spill", "memory_store",
+                                 object_id.hex())
+            if fault is not None and fault["action"] == "corrupt":
+                data = _fault.apply_corruption(data, fault)
         try:
             with open(tmp, "wb") as f:
+                f.write(integrity.pack_spill_header(False, crc))
                 f.write(data)
         except Exception:
             return
@@ -195,8 +220,36 @@ class MemoryStore:
             import cloudpickle as pickle
         except ImportError:  # pragma: no cover
             import pickle
+        from ray_tpu_torch.cluster import integrity
+        from ray_tpu_torch.exceptions import ObjectCorruptedError
+
         with open(obj.spilled_path, "rb") as f:
-            payload = f.read()
+            raw = f.read()
+        try:
+            _, payload, crc = integrity.parse_spill(raw)
+            integrity.verify(payload, crc, "spill_restore",
+                             bytes(object_id.binary())
+                             if hasattr(object_id, "binary") else b"")
+        except (ObjectCorruptedError, ValueError) as err:
+            # failed digest or torn header: the spilled copy is gone
+            # for good — drop the OBJECT (its bytes are unrecoverable
+            # here) and surface the typed error; Runtime.get recovers
+            # via lineage reconstruction
+            with self._lock:
+                cur = self._objects.get(object_id)
+                if cur is obj and obj.spilled_path is not None:
+                    self._delete_spill_file(obj)
+                    self._objects.pop(object_id, None)
+                    self.spilled_bytes -= obj.size
+                    obj.spilled_path = None
+            self.num_corrupt_dropped += 1
+            if isinstance(err, ObjectCorruptedError):
+                raise
+            integrity.record_corruption("spill_restore")
+            raise ObjectCorruptedError(
+                object_id.hex(), "spill_restore",
+                f"spill file of {object_id.hex()[:16]} unreadable: "
+                f"{err!r}") from err
         value = pickle.loads(payload)
         with self._lock:
             if obj.spilled_path is None:
@@ -341,6 +394,25 @@ class MemoryStore:
         self.restore_spilled(object_ids, timeout=remaining)
         out = [self._materialized(oid, o)
                for oid, o in zip(object_ids, found)]
+        from ray_tpu_torch.cluster import integrity
+
+        if integrity.verify_on_get():
+            # knob-gated end-to-end re-check at deserialization: a
+            # buffer value mutated in place between put and get fails
+            # its put-time digest here
+            for oid, obj in zip(object_ids, out):
+                if obj.crc is not None and not obj.is_error:
+                    actual = integrity.checksum_value(obj.value)
+                    if actual is not None and actual != obj.crc:
+                        from ray_tpu_torch.exceptions import (
+                            ObjectCorruptedError,
+                        )
+
+                        integrity.record_corruption("get")
+                        raise ObjectCorruptedError(
+                            oid.hex(), "get",
+                            f"object {oid.hex()[:16]} failed its "
+                            f"put-time digest at get")
         return out
 
     def wait(
@@ -405,4 +477,5 @@ class MemoryStore:
                 "num_spilled": self.num_spilled,
                 "num_restored": self.num_restored,
                 "spilled_bytes": self.spilled_bytes,
+                "num_corrupt_dropped": self.num_corrupt_dropped,
             }

@@ -2,8 +2,7 @@
 
 Reference surface: python/ray/state.py (GlobalState) +
 internal/internal_api.py (memory dump). The authoritative data lives in
-the runtime (the in-process GCS); this module is the read path. The
-JAX package's ``timeline`` (its profiling module) is not ported.
+the runtime (the in-process GCS); this module is the read path.
 """
 
 from ray_tpu_torch.gcs.state import (  # noqa: F401
@@ -12,6 +11,8 @@ from ray_tpu_torch.gcs.state import (  # noqa: F401
     memory_summary,
     nodes,
     state,
+    timeline,
 )
 
-__all__ = ["GlobalState", "state", "actors", "nodes", "memory_summary"]
+__all__ = ["GlobalState", "state", "actors", "nodes", "memory_summary",
+           "timeline"]

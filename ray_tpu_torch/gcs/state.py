@@ -130,6 +130,13 @@ def memory_summary() -> str:
     return state.memory_summary()
 
 
+
+def timeline(filename: Optional[str] = None):
+    from ray_tpu_torch.observability.profiling import timeline as _timeline
+
+    return _timeline(filename)
+
+
 def actor_node_of(handle) -> "Optional[str]":
     """Node id hosting an actor handle (the locality signal behind
     dataset.split(locality_hints=...) — reference dataset.py:735 maps
