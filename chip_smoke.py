@@ -111,7 +111,24 @@ if any failed, the script exits non-zero and prints no result. Phases:
               S 197, non-causal, logits held against the plain
               attention); then 3 ClippedAdamW steps at batch 128 through
               loss_fn and autograd (K1, K2 and K3 12 a step), and one
-              step's gradients held against the plain attention.
+              step's gradients held against the plain attention;
+  8. data   — ray_tpu_torch.data feeding the card: 16 b1 token rows
+              (int64 [2049], seed 0) through from_items(parallelism=4),
+              random_shuffle(seed=0) and repeat(2) are the dataset of
+              Trainer(num_workers=1, use_gpu=True) on the train phase's
+              cluster; the train function takes one b1 step (full width
+              and depth, remat full, seed-0 weights) on each batch of 8
+              that its shard's to_device feeds: 4 steps. Every fed batch
+              must be int32 on cuda [8, 2049] and equal to the batch the
+              script computes on the host from the same pipeline
+              (iter_batches, JAX's x64-off dtypes); K1, K2 and K3 must
+              launch 192, 96 and 96 times on wgmma; losses finite and
+              falling. Then ViT-B/16's input alone: 256 seeded image rows
+              [224, 224, 3] float32, repeated twice, fed in batches of 128,
+              each equal to its host batch. It prints the feed's ms a
+              batch, the steady step and tokens/s beside the train
+              phase's, and the ViT feed's images/s beside the vit
+              phase's.
 
 The line before the last is the card's name and power limit as
 nvidia-smi prints them; above it, one JSON line with the kernel table
@@ -251,6 +268,13 @@ CKPT_DIR = ".chip_smoke_ckpt"
 VIT_SERVE_IMAGES = 64
 VIT_TRAIN_IMAGES = 128
 VIT_TRAIN_STEPS = 3
+# the data phase: DATA_ROWS b1 token rows (seed 0) shuffled (seed 0) and
+# repeated twice, fed in batches of TRAIN_TOKENS[0]: TRAIN_STEPS steps;
+# ViT's feed alone over VIT_FEED_IMAGES image rows (seed 1), repeated
+# twice, in batches of VIT_TRAIN_IMAGES
+DATA_ROWS = 16
+DATA_PARALLELISM = 4
+VIT_FEED_IMAGES = 256
 # one step's gradients, kernels vs the plain attention, relative L2 per
 # leaf: both run the same bf16 model; the kernels round p and ds to bf16
 # inside attention (the plain version keeps fp32) and that difference
@@ -1328,9 +1352,12 @@ def _check_grads(model: str, rel: dict, worst: str,
             f"attention: {worst} rel L2 {rel[worst]:.3g} > {tol}")
 
 
-def _run_trainer(train_fn, config=None):
+def _run_trainer(train_fn, config=None, dataset_fn=None, results=None):
     """``train_fn`` through Trainer(num_workers=1, use_gpu=True) on a
-    one-GPU cluster -> (reported rows, run s, launches, by route)."""
+    one-GPU cluster -> (reported rows, run s, launches, by route).
+    ``dataset_fn()``, called once the cluster is up, gives the run's
+    dataset; the list ``results`` receives the train function's return
+    values."""
     from ray_tpu_torch import train
     from ray_tpu_torch.cluster_utils import Cluster
 
@@ -1343,12 +1370,16 @@ def _run_trainer(train_fn, config=None):
     cluster = Cluster(head_node_args={"num_cpus": 4, "num_gpus": 1,
                                       "device": "cuda"})
     try:
+        dataset = dataset_fn() if dataset_fn is not None else None
         trainer = train.Trainer(num_workers=1, use_gpu=True)
         trainer.start()
         _reset_counts()
         t0 = time.monotonic()
-        trainer.run(train_fn, config=config, callbacks=[Collect()])
+        out = trainer.run(train_fn, config=config, dataset=dataset,
+                          callbacks=[Collect()])
         run_s = time.monotonic() - t0
+        if results is not None:
+            results.extend(out)
         counts = _read_counts()
         routes = _read_routes()
         trainer.shutdown()
@@ -1680,6 +1711,190 @@ def phase_vit(report: dict) -> dict:
     if abs(loss_k - losses[0]) > 1e-3 * abs(losses[0]):
         raise AssertionError(f"vit: the replayed first step's loss {loss_k} "
                              f"is not the train run's {losses[0]}")
+    return routes
+
+
+# ------------------------------------------------------------ phase data
+
+
+def _b1_pipeline():
+    """DATA_ROWS b1 token rows, each an int64 array [2049] drawn with seed
+    0, through ray_tpu_torch.data: shuffled (seed 0) and repeated twice."""
+    import numpy as np
+
+    from ray_tpu_torch import data
+
+    rows = np.random.default_rng(0).integers(
+        0, _text_config("b1").vocab_size, size=(DATA_ROWS, TRAIN_TOKENS[1]))
+    return data.from_items(list(rows), parallelism=DATA_PARALLELISM
+                           ).random_shuffle(seed=0).repeat(2)
+
+
+def _host_batches(source, batch_size: int) -> list:
+    """The batches ``to_device`` must give, computed on the host from the
+    same source: its numpy batches with JAX's x64-off dtypes."""
+    import numpy as np
+    import torch
+
+    x32 = {np.dtype(np.int64): np.int32, np.dtype(np.float64): np.float32}
+    return [torch.from_numpy(b.astype(x32.get(b.dtype, b.dtype)))
+            for b in source.iter_batches(batch_size=batch_size,
+                                         batch_format="numpy",
+                                         drop_last=True)]
+
+
+def train_b1_data():
+    """The data phase's train function: b1 at full width and depth on this
+    worker's card, one optimizer step on each batch that its dataset
+    shard's ``to_device`` feeds; the time inside the feed's ``next()``,
+    each step's loss and wall time (feed included) and the fed batch's
+    dtype, device and shape reported. Returns the fed batches (host
+    copies, taken after each step)."""
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.transformer import ModelConfig
+    from ray_tpu_torch.models.training import build_train_step
+
+    cfg = ModelConfig.b1()
+    step, init_fn = build_train_step(cfg, device="cuda")
+    params, opt_state = init_fn(
+        torch.Generator(device="cuda").manual_seed(0))
+    feed = train.get_dataset_shard().to_device(batch_size=TRAIN_TOKENS[0])
+    fed = []
+    torch.cuda.synchronize()
+    while True:
+        t0 = time.monotonic()
+        tokens = next(feed, None)
+        feed_s = time.monotonic() - t0
+        if tokens is None:
+            break
+        params, opt_state, metrics = step(params, opt_state, tokens)
+        loss = metrics["loss"].item()  # waits for the step's kernels
+        step_s = time.monotonic() - t0
+        train.report(step=len(fed), loss=loss, step_s=step_s,
+                     feed_ms=feed_s * 1e3, dtype=str(tokens.dtype),
+                     device=tokens.device.type, shape=list(tokens.shape))
+        fed.append(tokens.cpu())
+    return fed
+
+
+def _vit_feed() -> dict:
+    """ViT-B/16's input alone through ray_tpu_torch.data: VIT_FEED_IMAGES
+    seeded image rows, repeated twice, fed by ``to_device`` in batches of
+    VIT_TRAIN_IMAGES. Times each ``next()`` and each batch until its copy
+    has landed; every batch must equal its host batch."""
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import data
+
+    ray_tpu_torch.init(num_cpus=4, device="cuda")
+    try:
+        images, _ = _vit_batch(VIT_FEED_IMAGES, 1)
+        pipe = data.from_items(list(images)).repeat(2)
+        want = _host_batches(pipe, VIT_TRAIN_IMAGES)
+        feed = pipe.to_device(batch_size=VIT_TRAIN_IMAGES)
+        got, next_ms, landed_ms = [], [], []
+        torch.cuda.synchronize()
+        while True:
+            t0 = time.monotonic()
+            batch = next(feed, None)
+            t1 = time.monotonic()
+            if batch is None:
+                break
+            torch.cuda.synchronize()
+            next_ms.append((t1 - t0) * 1e3)
+            landed_ms.append((time.monotonic() - t0) * 1e3)
+            got.append(batch)
+    finally:
+        ray_tpu_torch.shutdown()
+    if len(got) != len(want) or not all(
+            g.device.type == "cuda" and g.dtype == torch.float32
+            and torch.equal(g.cpu(), w) for g, w in zip(got, want)):
+        raise AssertionError(
+            f"vit feed: {len(got)} batches "
+            f"{[(g.dtype, g.device.type) for g in got]} not equal to the "
+            f"{len(want)} host batches")
+    steady = landed_ms[1:]
+    return {"images": VIT_FEED_IMAGES, "batch": VIT_TRAIN_IMAGES,
+            "batches": len(got), "next_ms": next_ms, "landed_ms": landed_ms,
+            "images_per_s": VIT_TRAIN_IMAGES * len(steady) / sum(steady)
+            * 1e3,
+            "batch_mb": got[0].numel() * got[0].element_size() / 1e6}
+
+
+def phase_data(report: dict) -> dict:
+    """b1 trained through Trainer from a shuffled, repeated
+    ray_tpu_torch.data pipeline that ``to_device`` feeds to the card;
+    then ViT-B/16's feed alone."""
+    import torch
+
+    cfg = _text_config("b1")
+    made, fed = {}, []
+
+    def dataset_fn():
+        made["pipe"] = _b1_pipeline()
+        made["host"] = _host_batches(made["pipe"], TRAIN_TOKENS[0])
+        return made["pipe"]
+
+    rows, run_s, counts, routes = _run_trainer(
+        train_b1_data, dataset_fn=dataset_fn, results=fed)
+    [fed] = fed
+    want = {"fwd": 2 * cfg.layers * TRAIN_STEPS,
+            "dq": cfg.layers * TRAIN_STEPS,
+            "dkdv": cfg.layers * TRAIN_STEPS}
+    _check_launches("b1 data", counts, routes, want, cfg.head_dim)
+    if len(rows) != TRAIN_STEPS or len(made["host"]) != TRAIN_STEPS:
+        raise AssertionError(f"b1 data: {len(rows)} steps on "
+                             f"{len(made['host'])} host batches; expected "
+                             f"{TRAIN_STEPS}")
+    for r, got, host in zip(rows, fed, made["host"]):
+        if (r["dtype"], r["device"], r["shape"]) != (
+                "torch.int32", "cuda", [TRAIN_TOKENS[0], TRAIN_TOKENS[1]]) \
+                or not torch.equal(got, host):
+            raise AssertionError(
+                f"b1 data: step {r['step']} was fed {r['dtype']} on "
+                f"{r['device']} {r['shape']}, equal to the host batch: "
+                f"{torch.equal(got, host)}")
+    losses = [r["loss"] for r in rows]
+    if not all(math.isfinite(x) for x in losses) or \
+            not losses[-1] < losses[0]:
+        raise AssertionError(f"b1 data losses not finite and falling: "
+                             f"{losses}")
+    steady = [r["step_s"] for r in rows[1:]]
+    step_s = sum(steady) / len(steady)
+    tokens = TRAIN_TOKENS[0] * (TRAIN_TOKENS[1] - 1)
+    feed_ms = [r["feed_ms"] for r in rows]
+    vit = _vit_feed()
+    train_tps = report.get("train", {}).get("tokens_per_s")
+    vit_ips = report.get("vit_train", {}).get("images_per_s")
+    report["data"] = {
+        "model": MODEL_DESC["b1"] + ", remat full",
+        "rows": DATA_ROWS, "pipeline": "from_items(parallelism="
+        f"{DATA_PARALLELISM}).random_shuffle(seed=0).repeat(2)",
+        "steps": rows, "run_s": run_s, "kernel_launches": counts,
+        "kernel_launches_by_route": routes, "feed_ms": feed_ms,
+        "feed_ms_steady": sum(feed_ms[1:]) / len(feed_ms[1:]),
+        "step_s_steady": step_s, "tokens_per_s": tokens / step_s,
+        "train_phase_tokens_per_s": train_tps, "vit_feed": vit,
+        "vit_phase_images_per_s": vit_ips,
+    }
+    print(f"data: b1 through Trainer(num_workers=1, use_gpu=True) from "
+          f"{report['data']['pipeline']} of {DATA_ROWS} rows, to_device "
+          f"batches of {TRAIN_TOKENS[0]}: losses "
+          f"{[round(x, 4) for x in losses]}, feed ms (inside next()) "
+          f"{[round(x, 3) for x in feed_ms]}, step s (feed included) "
+          f"{[round(r['step_s'], 4) for r in rows]}; steady {step_s:.4f} "
+          f"s/step, {tokens / step_s:.0f} tokens/s (train phase, one "
+          f"resident batch: {train_tps and round(train_tps)}); launches "
+          f"{routes}; every batch int32 on cuda, equal to the host batch. "
+          f"ViT feed alone: {vit['batches']} batches of {vit['batch']} "
+          f"({vit['batch_mb']:.1f} MB), next() ms "
+          f"{[round(x, 2) for x in vit['next_ms']]}, landed ms "
+          f"{[round(x, 2) for x in vit['landed_ms']]}: "
+          f"{vit['images_per_s']:.0f} images/s (vit phase's step: "
+          f"{vit_ips and round(vit_ips)} images/s)", flush=True)
     return routes
 
 
@@ -2487,7 +2702,8 @@ def main() -> int:
             ("moe_serve", lambda r: phase_serve(r, "moe")),
             ("moe", phase_moe),
             ("vit_serve", lambda r: phase_serve(r, "vit")),
-            ("vit", phase_vit)):
+            ("vit", phase_vit),
+            ("data", phase_data)):
         t0 = time.monotonic()
         try:
             routes = phase(report)

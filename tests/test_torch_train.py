@@ -4,7 +4,12 @@ callbacks and dataset shards through ``Trainer`` on the thread tier,
 brought up with ``init(device="cpu")``; a ``ModelConfig.debug()`` train
 step inside the train function, whose loss falls; and the ``"torch"``
 (gloo) and ``"tensorflow"`` backends on the process tier
-(``init(device="cpu", worker_mode="process")``)."""
+(``init(device="cpu", worker_mode="process")``). The data ingest path:
+``ray_tpu_torch.data`` Datasets and pipelines sharded by ``Trainer`` and
+fed through ``to_device``, against the JAX package's ``Trainer`` and
+``to_jax`` on the same data, also without pyarrow and pandas, and
+``ModelConfig.debug()`` trained from a shuffled, repeated pipeline on
+both packages."""
 
 import json
 
@@ -166,6 +171,195 @@ class TestDatasetSharding:
         out = trainer.run(train_func, dataset=FakeDataset(list(range(10))))
         assert sum(out) == sum(range(10))
         trainer.shutdown()
+
+
+def _token_rows(n: int, width: int, vocab: int):
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab, size=width) for _ in range(n)]
+
+
+def _shards_through_trainer(pkg, data, rows, pipeline: bool):
+    """Each rank's rows and fed batches (numpy) from ``pkg``'s Trainer
+    with two workers over a shuffled Dataset, or that Dataset repeated
+    twice; the JAX side feeds through to_jax, the port's through
+    to_device."""
+    from importlib import import_module
+
+    port = pkg is ray_tpu_torch
+    ds = data.from_items(rows, parallelism=4).random_shuffle(seed=0)
+    ds = ds.repeat(2) if pipeline else ds
+
+    def train_func():
+        shard = import_module(f"{pkg.__name__}.train").get_dataset_shard()
+        feed = (shard.to_device(batch_size=3, device="cpu") if port
+                else shard.to_jax(batch_size=3))
+        return ([r.tolist() for r in shard.iter_rows()],
+                [np.asarray(b.numpy() if port else b) for b in feed])
+
+    trainer = (Trainer(num_workers=2) if port else import_module(
+        "ray_tpu.train").Trainer(backend="jax", num_workers=2))
+    try:
+        return trainer.run(train_func, dataset=ds)
+    finally:
+        trainer.shutdown()
+
+
+@pytest.mark.parametrize("pipeline", [False, True])
+def test_trainer_data_shards_match_jax(pipeline):
+    """Trainer(num_workers=2) on both packages over the same Dataset or
+    DatasetPipeline: each rank gets the same rows, and its to_device
+    batches equal its to_jax batches in value and dtype."""
+    import ray_tpu
+    from ray_tpu import data as jdata
+    from ray_tpu_torch import data as tdata
+
+    rows = _token_rows(14, 5, 1000)
+    ray_tpu.init(num_cpus=4)
+    try:
+        want = _shards_through_trainer(ray_tpu, jdata, rows, pipeline)
+    finally:
+        ray_tpu.shutdown()
+    ray_tpu_torch.init(num_cpus=4, device="cpu")
+    try:
+        got = _shards_through_trainer(ray_tpu_torch, tdata, rows, pipeline)
+    finally:
+        ray_tpu_torch.shutdown()
+    assert len(got) == len(want) == 2
+    for (g_rows, g_fed), (w_rows, w_fed) in zip(got, want):
+        assert g_rows == w_rows and len(w_rows) == (14 if pipeline else 7)
+        assert len(g_fed) == len(w_fed) == len(w_rows) // 3
+        for g, w in zip(g_fed, w_fed):
+            assert g.dtype == w.dtype == np.int32
+            np.testing.assert_array_equal(g, w)
+
+
+def test_array_rows_feed_without_pyarrow(port_rt, monkeypatch):
+    """The card machine has neither pyarrow nor pandas. With the port's
+    block module seeing neither, rows that are arrays still go through
+    shuffle, repeat, the Trainer's shard and to_device, batch for batch
+    as the JAX package (with pyarrow) feeds them; dict rows become list
+    blocks, whose object batches no feed converts."""
+    import ray_tpu
+    from ray_tpu import data as jdata
+    from ray_tpu_torch import data as tdata
+    from ray_tpu_torch.data import block
+
+    rows = _token_rows(16, 9, 32000)
+    ray_tpu.init(num_cpus=4)
+    try:
+        want = [np.asarray(b) for b in jdata.from_items(rows, parallelism=4)
+                .random_shuffle(seed=0).repeat(2).to_jax(batch_size=8)]
+    finally:
+        ray_tpu.shutdown()
+
+    monkeypatch.setattr(block, "pa", None)
+    monkeypatch.setattr(block, "pd", None)
+    pipe = tdata.from_items(rows, parallelism=4).random_shuffle(
+        seed=0).repeat(2)
+
+    def train_func():
+        return [(b.dtype, b.device.type, b.numpy()) for b in
+                train.get_dataset_shard().to_device(batch_size=8,
+                                                    device="cpu")]
+
+    trainer = Trainer(num_workers=1)
+    [fed] = trainer.run(train_func, dataset=pipe)
+    trainer.shutdown()
+    assert len(fed) == len(want) == 4
+    for (dtype, dev, got), w in zip(fed, want):
+        assert dtype == torch.int32 and dev == "cpu"
+        np.testing.assert_array_equal(got, w)
+    dict_rows = tdata.from_items([{"x": 1.0}] * 4)
+    assert isinstance(ray_tpu_torch.get(
+        dict_rows.get_internal_block_refs()[0]), list)
+    with pytest.raises(TypeError, match="not a valid array type"):
+        next(dict_rows.to_device(batch_size=2, device="cpu"))
+
+
+def test_to_device_without_device_raises():
+    """to_device's device is None: CUDA, as every entry point's; on a
+    host without CUDA it raises on the call, before any batch."""
+    from ray_tpu_torch import data as tdata
+
+    if torch.cuda.is_available():
+        pytest.skip("this host has CUDA: the default device resolves")
+    ray_tpu_torch.init(num_cpus=2, device="cpu")
+    try:
+        ds = tdata.range(8)
+        for source in (ds, ds.repeat(2)):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                source.to_device(batch_size=2)
+    finally:
+        ray_tpu_torch.shutdown()
+
+
+def test_debug_model_trained_from_pipeline_matches_jax():
+    """The slice on the CPU: ModelConfig.debug() trained through each
+    package's Trainer from a shuffled, repeated pipeline of token rows,
+    fed by to_jax on the JAX side and to_device on the port's, from the
+    same initial weights: loss and grad norm per step within 1e-4
+    relative (tests/test_torch_training.py's step tolerance)."""
+    import jax
+
+    import ray_tpu
+    from ray_tpu import data as jdata
+    from ray_tpu import train as jtrain
+    from ray_tpu.models import transformer as jtfm
+    from ray_tpu.models.training import build_train_step as j_build
+    from ray_tpu.parallel.mesh import MeshSpec, build_mesh
+    from ray_tpu_torch import data as tdata
+    from ray_tpu_torch.models import transformer as ttfm
+    from ray_tpu_torch.models.convert import params_from_jax
+    from ray_tpu_torch.models.training import build_train_step, make_optimizer
+
+    jcfg, tcfg = jtfm.ModelConfig.debug(), ttfm.ModelConfig.debug()
+    rows = _token_rows(8, 33, tcfg.vocab_size)
+    mesh = build_mesh(MeshSpec(dp=1, pp=1, sp=1, tp=1))
+    j_step, j_init = j_build(jcfg, mesh)
+    j_params0, _ = j_init(jax.random.PRNGKey(0))
+    np_params = jax.tree.map(np.asarray, j_params0)
+
+    def j_train():
+        params, state = j_init(jax.random.PRNGKey(0))
+        out = []
+        for batch in jtrain.get_dataset_shard().to_jax(batch_size=4):
+            params, state, m = j_step(params, state, batch)
+            out.append((float(m["loss"]), float(m["grad_norm"])))
+        return out
+
+    def t_train():
+        step, _ = build_train_step(tcfg, device="cpu")
+        params = params_from_jax(np_params, tcfg, device="cpu")
+        state = make_optimizer().init(params)
+        out = []
+        for batch in train.get_dataset_shard().to_device(batch_size=4,
+                                                         device="cpu"):
+            assert batch.dtype == torch.int32
+            params, state, m = step(params, state, batch)
+            out.append((m["loss"].item(), m["grad_norm"].item()))
+        return out
+
+    ray_tpu.init(num_cpus=4)
+    try:
+        pipe = jdata.from_items(rows, parallelism=4).random_shuffle(
+            seed=0).repeat(2)
+        trainer = jtrain.Trainer(backend="jax", num_workers=1)
+        [want] = trainer.run(j_train, dataset=pipe)
+        trainer.shutdown()
+    finally:
+        ray_tpu.shutdown()
+    ray_tpu_torch.init(num_cpus=4, device="cpu")
+    try:
+        pipe = tdata.from_items(rows, parallelism=4).random_shuffle(
+            seed=0).repeat(2)
+        trainer = Trainer(num_workers=1)
+        [got] = trainer.run(t_train, dataset=pipe)
+        trainer.shutdown()
+    finally:
+        ray_tpu_torch.shutdown()
+    assert len(got) == len(want) == 4
+    np.testing.assert_allclose(np.array(got), np.array(want), rtol=1e-4)
+    assert got[-1][0] < got[0][0]
 
 
 # The three backend tests of tests/test_train.py, on the port's process
