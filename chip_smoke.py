@@ -128,7 +128,25 @@ if any failed, the script exits non-zero and prints no result. Phases:
               each equal to its host batch. It prints the feed's ms a
               batch, the steady step and tokens/s beside the train
               phase's, and the ViT feed's images/s beside the vit
-              phase's.
+              phase's;
+  9. tune   — ray_tpu_torch.tune on the card: five b1 trials (full width
+              and depth, seed-0 weights, the train phase's batch, 6
+              steps; ClippedAdamW at lr 1e-4, 3e-4, 3e-2, 1e-1, 1e-3, in
+              that order) through Trainer(num_workers=1, use_gpu=True,
+              GPU 0.5).to_tune_trainable under ASHA (grace 2, factor 2,
+              max_t 6), two at a time on a one-GPU cluster. Every trial
+              ends TERMINATED with finite losses, the first the train
+              phase's; ASHA stops the two bad rates at rung 2, and the
+              last trial then gets the card; the best config is a good
+              rate; two trials' steps overlap on the card; K1, K2 and K3
+              launch 48, 24 and 24 times for each b1 step the train
+              functions finished, on wgmma; after tune.run the GPU
+              resource is whole again, no placement group and no trial or
+              train thread is left, and the card memory is back within
+              TUNE_MEM_SLACK of its value before the phase. It prints each
+              trial's losses, the steady step alone and shared, the peak
+              and each stopped trial's time from its stop to its weights
+              being freed.
 
 The line before the last is the card's name and power limit as
 nvidia-smi prints them; above it, one JSON line with the kernel table
@@ -150,6 +168,7 @@ import os
 import re
 import subprocess
 import sys
+import threading
 import time
 import traceback
 
@@ -275,6 +294,22 @@ VIT_TRAIN_STEPS = 3
 DATA_ROWS = 16
 DATA_PARALLELISM = 4
 VIT_FEED_IMAGES = 256
+# the tune phase: b1 trials of TUNE_STEPS steps under ASHA (grace 2,
+# factor 2, max_t TUNE_STEPS), two at a time, in this order: two good
+# learning rates set the rungs; the two bad ones (a step-2 loss above the
+# good trials') start when those end and are stopped at rung 2; the last
+# needs the card share (GPU 0.5 a trial) that the stopped ones held
+TUNE_STEPS = 6
+TUNE_LRS = (1e-4, 3e-4, 3e-2, 1e-1, 1e-3)
+TUNE_BAD_LRS = (3e-2, 1e-1)
+# a tune trial's first loss is the train phase's first (the same seed-0
+# weights and batch, before any update): relative difference, as train's
+# replay check
+TUNE_FIRST_LOSS_RTOL = 1e-3
+# after tune.run, the card memory allocated may exceed its value before
+# the phase by at most this: PyTorch may keep a cuBLAS workspace for each
+# trial's thread; a trial's weights and AdamW state are ≈ 8 GiB
+TUNE_MEM_SLACK = 1 << 30
 # one step's gradients, kernels vs the plain attention, relative L2 per
 # leaf: both run the same bf16 model; the kernels round p and ds to bf16
 # inside attention (the plain version keeps fp32) and that difference
@@ -1898,6 +1933,244 @@ def phase_data(report: dict) -> dict:
     return routes
 
 
+# ------------------------------------------------------------ phase tune
+
+
+class _TuneLog:
+    """What the tune phase's train functions record in this process (the
+    thread tier runs them here): each b1 step they finished, as its start
+    and end on this process's monotonic clock by learning rate (a
+    stopped trial's last steps reach no result), and when each trial's
+    weights were freed."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.spans = {}
+        self.freed_at = {}
+
+    def reset(self) -> None:
+        with self._lock:
+            self.spans = {}
+            self.freed_at = {}
+
+    def step_done(self, lr: float, t0: float, t1: float) -> None:
+        with self._lock:
+            self.spans.setdefault(lr, []).append((t0, t1))
+
+    @property
+    def steps(self) -> int:
+        return sum(len(v) for v in self.spans.values())
+
+    def freed(self, lr: float) -> None:
+        self.freed_at[lr] = time.monotonic()
+
+
+TUNE_LOG = _TuneLog()
+
+
+def train_b1_tune(config):
+    """The tune phase's train function: train_b1 at the trial's learning
+    rate (ClippedAdamW's other settings as build_train_step's default),
+    TUNE_STEPS steps, each reporting its loss, its wall time and the peak
+    memory. TUNE_LOG notes each finished step and when the weights are
+    freed."""
+    import weakref
+
+    import torch
+
+    from ray_tpu_torch import train
+    from ray_tpu_torch.models.transformer import ModelConfig
+    from ray_tpu_torch.models.training import (
+        build_train_step,
+        make_optimizer,
+    )
+
+    cfg = ModelConfig.b1()
+    step, init_fn = build_train_step(
+        cfg, device="cuda",
+        optimizer=make_optimizer(learning_rate=config["lr"]))
+    params, opt_state = init_fn(
+        torch.Generator(device="cuda").manual_seed(0))
+    weakref.finalize(params["embed"], TUNE_LOG.freed, config["lr"])
+    tokens = torch.as_tensor(_train_batch("b1"), device="cuda")
+    torch.cuda.synchronize()
+    for i in range(TUNE_STEPS):
+        t0 = time.monotonic()
+        params, opt_state, metrics = step(params, opt_state, tokens)
+        loss = metrics["loss"].item()  # waits for the step's kernels
+        t1 = time.monotonic()
+        TUNE_LOG.step_done(config["lr"], t0, t1)
+        train.report(step=i, loss=loss, step_s=t1 - t0,
+                     peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+
+
+def _timed_asha():
+    """ASHA (grace 2, factor 2, max_t TUNE_STEPS) that notes when it is
+    told each trial completed: for a stopped trial, its stop."""
+    from ray_tpu_torch import tune
+
+    class TimedASHA(tune.AsyncHyperBandScheduler):
+        def __init__(self):
+            super().__init__(max_t=TUNE_STEPS, grace_period=2,
+                             reduction_factor=2)
+            self.completed_at = {}
+
+        def on_trial_complete(self, runner, trial, result):
+            self.completed_at[trial.config["lr"]] = time.monotonic()
+
+    return TimedASHA()
+
+
+def _steady_steps(spans: dict):
+    """{lr: [(start, end) of each step]} -> (mean step s alone on the
+    card, mean step s beside another trial's step, whether any two
+    trials' steps overlapped), each trial's first step left out of the
+    means."""
+    alone, shared = [], []
+    for lr, mine in spans.items():
+        others = [iv for o, ivs in spans.items() if o != lr for iv in ivs]
+        for a, b in mine[1:]:
+            overlap = any(a < d and c < b for c, d in others)
+            (shared if overlap else alone).append(b - a)
+
+    def mean(xs):
+        return sum(xs) / len(xs) if xs else None
+
+    return mean(alone), mean(shared), bool(shared)
+
+
+def phase_tune(report: dict) -> dict:
+    """b1 trials searched by ray_tpu_torch.tune under ASHA through
+    Trainer.to_tune_trainable, two sharing the card at a time."""
+    import tempfile
+
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import train, tune
+    from ray_tpu_torch.cluster_utils import Cluster
+    from ray_tpu_torch.util.placement_group import placement_group_table
+
+    cfg = _text_config("b1")
+    if "train" not in report:
+        raise AssertionError("tune needs the train phase's first loss")
+    train_first = report["train"]["steps"][0]["loss"]
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    sched = _timed_asha()
+    cluster = Cluster(head_node_args={"num_cpus": 6, "num_gpus": 1,
+                                      "device": "cuda"})
+    try:
+        trainable = train.Trainer(
+            num_workers=1, use_gpu=True, resources_per_worker={"GPU": 0.5}
+        ).to_tune_trainable(train_b1_tune)
+        with tempfile.TemporaryDirectory(prefix="chip_smoke_tune_") as d:
+            TUNE_LOG.reset()
+            _reset_counts()
+            t0 = time.monotonic()
+            analysis = tune.run(
+                trainable, config={"lr": tune.grid_search(list(TUNE_LRS))},
+                metric="loss", mode="min", scheduler=sched,
+                max_concurrent_trials=2, resources_per_trial={"cpu": 1},
+                local_dir=d)
+            run_s = time.monotonic() - t0
+            counts, routes = _read_counts(), _read_routes()
+            spans, steps = dict(TUNE_LOG.spans), TUNE_LOG.steps
+        gpu_free = ray_tpu_torch.available_resources().get("GPU")
+        pgs_left = [pg["state"] for pg in placement_group_table().values()
+                    if pg["state"] != "REMOVED"]
+        threads_left = [th.name for th in threading.enumerate()
+                        if th.name.startswith(("tune-fn-", "train-rank-"))]
+        torch.cuda.synchronize()
+        mem_after = torch.cuda.memory_allocated()
+    finally:
+        cluster.shutdown()
+
+    trials = {t.config["lr"]: t for t in analysis.trials}
+    rows = {lr: t.results for lr, t in trials.items()}
+    losses = {lr: [r["loss"] for r in rs] for lr, rs in rows.items()}
+    best = analysis.get_best_config()
+    alone_s, shared_s, overlapped = _steady_steps(spans)
+    # the trials ASHA stopped before max_t: from the stop to the moment
+    # their weights were freed (None: never freed)
+    stop_to_free_ms = {
+        lr: (TUNE_LOG.freed_at[lr] - sched.completed_at[lr]) * 1e3
+        if lr in TUNE_LOG.freed_at else None
+        for lr in trials if len(rows[lr]) < TUNE_STEPS}
+    free_ms = {f"{lr:g}": v and round(v, 1)
+               for lr, v in stop_to_free_ms.items()}
+    peak_gib = max(r["peak_gib"] for rs in rows.values() for r in rs)
+    report["tune"] = {
+        "model": MODEL_DESC["b1"] + ", remat full",
+        "tokens": list(TRAIN_TOKENS), "steps_per_trial": TUNE_STEPS,
+        "scheduler": "AsyncHyperBandScheduler(max_t=6, grace_period=2, "
+                     "reduction_factor=2)", "max_concurrent_trials": 2,
+        "trials": {str(lr): {"status": trials[lr].status,
+                             "losses": losses[lr],
+                             "step_s": [r["step_s"] for r in rows[lr]]}
+                   for lr in TUNE_LRS},
+        "best_config": best, "run_s": run_s, "steps_finished": steps,
+        "step_spans_s": {str(lr): [(a - t0, b - t0) for a, b in v]
+                         for lr, v in spans.items()},
+        "kernel_launches": counts, "kernel_launches_by_route": routes,
+        "step_s_alone": alone_s, "step_s_shared": shared_s,
+        "peak_gib": peak_gib, "stop_to_free_ms": stop_to_free_ms,
+        "gpu_free_after": gpu_free, "placement_groups_left": pgs_left,
+        "threads_left": threads_left, "memory_before_gib":
+        mem_before / 2**30, "memory_after_gib": mem_after / 2**30,
+    }
+    print(f"tune: b1 trials through Trainer(num_workers=1, use_gpu=True, "
+          f"GPU 0.5).to_tune_trainable under ASHA (max_t {TUNE_STEPS}, "
+          f"grace 2, factor 2), 2 at a time, {TRAIN_TOKENS[0]}x"
+          f"{TRAIN_TOKENS[1]} tokens: "
+          + "; ".join(f"lr {lr:g} {trials[lr].status} {len(rows[lr])} steps "
+                      f"losses {[round(x, 4) for x in losses[lr]]}"
+                      for lr in TUNE_LRS)
+          + f"; best {best}; phase {run_s:.1f} s; steady step alone "
+          f"{alone_s and round(alone_s, 4)} s, two sharing the card "
+          f"{shared_s and round(shared_s, 4)} s; peak {peak_gib:.2f} GiB; "
+          f"stop to weights freed ms {free_ms}; {steps} steps, launches "
+          f"{routes}; after: GPU free {gpu_free}, "
+          f"memory {mem_before / 2**30:.3f} -> {mem_after / 2**30:.3f} GiB "
+          f"[{card_line()}]", flush=True)
+
+    problems = []
+    if any(t.status != "TERMINATED" for t in trials.values()):
+        problems.append("statuses "
+                        f"{ {lr: t.status for lr, t in trials.items()} }")
+    for lr in TUNE_BAD_LRS:
+        if len(rows[lr]) != 2:
+            problems.append(f"lr {lr:g}: {len(rows[lr])} results, not "
+                            "stopped at rung 2")
+    if len(rows[TUNE_LRS[-1]]) < 2:
+        problems.append(f"lr {TUNE_LRS[-1]:g} got {len(rows[TUNE_LRS[-1]])}"
+                        " results: it never had the card")
+    flat = [x for ls in losses.values() for x in ls]
+    if not all(math.isfinite(x) for x in flat):
+        problems.append(f"losses not finite: {losses}")
+    for lr, ls in losses.items():
+        if abs(ls[0] - train_first) > TUNE_FIRST_LOSS_RTOL * abs(train_first):
+            problems.append(f"lr {lr:g}: first loss {ls[0]} is not the "
+                            f"train phase's {train_first}")
+    if best is None or best["lr"] in TUNE_BAD_LRS:
+        problems.append(f"best config {best}")
+    if not overlapped:
+        problems.append("no two trials' steps overlapped on the card")
+    if gpu_free != 1.0 or pgs_left or threads_left:
+        problems.append(f"after tune.run: GPU free {gpu_free}, placement "
+                        f"groups {pgs_left}, threads {threads_left}")
+    if mem_after - mem_before > TUNE_MEM_SLACK:
+        problems.append(f"card memory {mem_before} -> {mem_after} bytes")
+    if problems:
+        raise AssertionError("b1 tune: " + "; ".join(problems))
+    _check_launches("b1 tune", counts, routes,
+                    {"fwd": 2 * cfg.layers * steps,
+                     "dq": cfg.layers * steps, "dkdv": cfg.layers * steps},
+                    cfg.head_dim)
+    return routes
+
+
 # --------------------------------------------------------------- phase 8
 
 
@@ -2703,7 +2976,8 @@ def main() -> int:
             ("moe", phase_moe),
             ("vit_serve", lambda r: phase_serve(r, "vit")),
             ("vit", phase_vit),
-            ("data", phase_data)):
+            ("data", phase_data),
+            ("tune", phase_tune)):
         t0 = time.monotonic()
         try:
             routes = phase(report)

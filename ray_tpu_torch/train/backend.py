@@ -489,6 +489,7 @@ class BackendExecutor:
 
     def shutdown(self, keep_checkpoint: bool = False) -> None:
         if self.worker_group is not None:
+            _end_sessions(self.worker_group)
             try:
                 self._backend.on_shutdown(self.worker_group,
                                           self._backend_config)
@@ -512,6 +513,29 @@ class BackendExecutor:
 # process (in-process mode), so the registry is keyed, not global.
 _worker_sessions: Dict[str, Any] = {}
 _worker_topology: Dict[str, tuple] = {}
+
+
+# how long a shutdown waits for its workers' train threads to end
+SESSION_END_TIMEOUT_S = 30.0
+
+
+def _end_sessions(worker_group: WorkerGroup) -> None:
+    """End the train threads of the group's thread-tier workers, which
+    run in this process (a process-tier worker's ends with its process),
+    so that what a train function holds is freed before its worker and
+    placement group are given back. A thread still running at the
+    deadline is logged by name, not waited on."""
+    sessions = [s for s in (_worker_sessions.pop(w.actor._actor_id.hex(),
+                                                 None)
+                            for w in worker_group.workers) if s is not None]
+    for s in sessions:  # all unwind at once, each at its next report
+        s.ended = True
+    deadline = time.monotonic() + SESSION_END_TIMEOUT_S
+    for s in sessions:
+        if not s.end(deadline):
+            logger.warning("train thread %s still running %.0f s after "
+                           "the shutdown", s.training_thread.name,
+                           SESSION_END_TIMEOUT_S)
 
 
 def _actor_key() -> str:

@@ -4,7 +4,11 @@ Mirrors the reference's ray.train session (python/ray/train/session.py):
 the train function runs on a thread inside each worker actor; ``report``
 and ``save_checkpoint`` hand results back to the driver through a
 producer/consumer queue, pausing the train thread until the driver has
-consumed the result (lock-step heartbeat, as the reference does).
+consumed the result (lock-step heartbeat, as the reference does). A
+Trainer that shuts down mid-run ends its sessions (``Session.end``): the
+train function's next report raises ``SessionEnded``, so on the thread
+tier its thread ends and frees what it held, as a killed worker process
+does in the reference.
 """
 
 from __future__ import annotations
@@ -28,6 +32,12 @@ class TrainingResult:
     data: Dict[str, Any]
 
 
+class SessionEnded(SystemExit):
+    """Raised by report and save_checkpoint once the session has ended:
+    the train function unwinds (its finally blocks run) and its thread
+    ends. A SystemExit, so an ``except Exception`` lets it by."""
+
+
 class Session:
     def __init__(self, training_func: Callable[[], Any], world_rank: int,
                  local_rank: int, world_size: int,
@@ -49,6 +59,7 @@ class Session:
         self.output = None
         self.iteration = 0
         self.time_start = time.time()
+        self.ended = False
 
     def start(self) -> None:
         def run():
@@ -58,6 +69,8 @@ class Session:
             _sessions[threading.get_ident()] = self
             try:
                 self.output = self.training_func()
+            except SessionEnded:
+                pass  # ended by the Trainer's shutdown: not an error
             except BaseException as e:  # noqa: BLE001
                 self.error = e
             finally:
@@ -66,8 +79,26 @@ class Session:
                 # unblock a driver waiting in get_next
                 self.result_queue.put(None)
 
-        self.training_thread = threading.Thread(target=run, daemon=True)
+        self.training_thread = threading.Thread(
+            target=run, daemon=True, name=f"train-rank-{self.world_rank}")
         self.training_thread.start()
+
+    def end(self, deadline: float) -> bool:
+        """End the train thread: its next (or pending) report raises
+        SessionEnded. Wakes it wherever it waits, on a full result queue
+        or on the continue lock, until it ends or ``deadline``
+        (time.monotonic()) passes -> whether it ended."""
+        self.ended = True
+        thread = self.training_thread
+        while thread is not None and thread.is_alive() and \
+                time.monotonic() < deadline:
+            try:
+                self.result_queue.get_nowait()
+            except queue.Empty:
+                pass
+            self.continue_lock.release()
+            thread.join(0.05)
+        return thread is None or not thread.is_alive()
 
     def pause_reporting(self) -> None:
         self.continue_lock.release()
@@ -106,18 +137,24 @@ class Session:
         out.setdefault("_training_iteration", self.iteration)
         return out
 
+    def _hand_over(self, result: TrainingResult) -> None:
+        """Queue ``result``; wait until the driver has consumed it."""
+        if self.ended:
+            raise SessionEnded(0)
+        self.result_queue.put(result)
+        self.continue_lock.acquire()
+        if self.ended:
+            raise SessionEnded(0)
+
     def report(self, **kwargs) -> None:
         self.iteration += 1
-        self.result_queue.put(TrainingResult(
+        self._hand_over(TrainingResult(
             TrainingResultType.REPORT, self._autofill(kwargs)))
-        self.continue_lock.acquire()
 
     def checkpoint(self, **kwargs) -> None:
         # only rank 0's checkpoint is persisted (reference session.py)
         data = kwargs if self.world_rank == 0 else {}
-        self.result_queue.put(TrainingResult(
-            TrainingResultType.CHECKPOINT, data))
-        self.continue_lock.acquire()
+        self._hand_over(TrainingResult(TrainingResultType.CHECKPOINT, data))
 
 
 _sessions: Dict[int, Session] = {}

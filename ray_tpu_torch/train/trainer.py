@@ -6,8 +6,9 @@ loop through callbacks, persists checkpoints, and exposes an iterator
 form. The default backend ``"topology"`` records each worker's rank and
 world size; ``"torch"`` (a gloo process group) and ``"tensorflow"``
 (TF_CONFIG) need one OS process per rank, the process tier
-(``init(worker_mode="process")``), and refuse thread workers. The Tune bridge
-(``to_tune_trainable``) waits for the tune port.
+(``init(worker_mode="process")``), and refuse thread workers.
+``to_tune_trainable`` wraps a train function into a ray_tpu_torch.tune
+function trainable that runs its own Trainer per trial.
 """
 
 from __future__ import annotations
@@ -220,6 +221,42 @@ class Trainer:
         if self._started:
             self._executor.shutdown()
             self._started = False
+
+    # ---------------------------------------------------- tune integration
+    def to_tune_trainable(self, train_func: Callable,
+                          dataset: Any = None) -> Callable:
+        """Wrap into a function trainable for ray_tpu_torch.tune
+        (reference trainer.py build_tune_trainable). Each trial builds
+        its OWN Trainer — concurrent trials sharing one executor would
+        overwrite each other's worker sessions. A stopped trial's
+        tune.report raises, so the finally below gives its workers,
+        placement group and device memory back."""
+        backend_config = self._backend_config
+        num_workers = self._executor._num_workers
+        cpus = self._executor._num_cpus_per_worker
+        gpus = self._executor._num_gpus_per_worker
+        extra = self._executor._additional_resources_per_worker
+
+        def trainable(config):
+            from ray_tpu_torch import tune
+
+            resources = dict(extra or {})
+            resources["CPU"] = cpus
+            if gpus:
+                resources["GPU"] = gpus
+            trial_trainer = Trainer(
+                backend=backend_config, num_workers=num_workers,
+                resources_per_worker=resources)
+            try:
+                iterator = trial_trainer.run_iterator(
+                    train_func, config, dataset=dataset)
+                for round_results in iterator:
+                    if round_results:
+                        tune.report(**round_results[0])
+            finally:
+                trial_trainer.shutdown()
+        trainable.__name__ = getattr(train_func, "__name__", "train_func")
+        return trainable
 
 
 class TrainingIterator:

@@ -1,7 +1,7 @@
 """The port stands alone: no module of ray_tpu_torch, and not
 chip_smoke.py, imports jax or ray_tpu; and its entry points (the runtime,
-the model constructors, the train step and the Trainer) run on CUDA
-unless the caller asks for the CPU, so on a host without CUDA they
+the model constructors, the train step, the Trainer and tune.run) run on
+CUDA unless the caller asks for the CPU, so on a host without CUDA they
 raise instead of running on the CPU."""
 
 import ast
@@ -33,6 +33,9 @@ def _imported_roots(path):
 def test_port_imports_neither_jax_nor_ray_tpu():
     files = _port_files()
     assert len(files) > 20 and all(f.exists() for f in files)
+    tune = [f for f in files
+            if f.relative_to(ROOT).parts[:2] == ("ray_tpu_torch", "tune")]
+    assert len(tune) == 17  # ray_tpu_torch.tune and its suggest/
     bad = {}
     for path in files:
         roots = set(_imported_roots(path)) & {"jax", "jaxlib", "ray_tpu",
@@ -58,12 +61,14 @@ def test_init_without_device_raises_without_cuda():
 
 @pytest.mark.parametrize("entry", ["init_params", "build_forward",
                                    "build_train_step", "trainer",
-                                   "cluster_state", "params_from_jax"])
+                                   "cluster_state", "params_from_jax",
+                                   "tune_run"])
 def test_model_entry_points_raise_without_cuda(entry):
     from ray_tpu_torch.core.raylet import ClusterState
     from ray_tpu_torch.models import transformer as tfm
     from ray_tpu_torch.models.convert import params_from_jax
     from ray_tpu_torch.models.training import build_forward, build_train_step
+    from ray_tpu_torch import tune
     from ray_tpu_torch.train import Trainer
 
     _needs_no_cuda()
@@ -76,6 +81,8 @@ def test_model_entry_points_raise_without_cuda(entry):
         "trainer": lambda: Trainer(num_workers=1),
         "cluster_state": lambda: ClusterState(),
         "params_from_jax": lambda: params_from_jax({"layers": {}}, cfg),
+        # tune.run with no runtime brings the port's up, on CUDA
+        "tune_run": lambda: tune.run(lambda config: None),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

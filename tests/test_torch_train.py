@@ -9,9 +9,13 @@ step inside the train function, whose loss falls; and the ``"torch"``
 fed through ``to_device``, against the JAX package's ``Trainer`` and
 ``to_jax`` on the same data, also without pyarrow and pandas, and
 ``ModelConfig.debug()`` trained from a shuffled, repeated pipeline on
-both packages."""
+both packages. A Trainer shut down mid-run ends its train threads; and
+``Trainer.to_tune_trainable`` runs ``ModelConfig.debug()`` trials under
+ASHA with the JAX train step's losses, giving every placement group and
+CPU back."""
 
 import json
+import time
 
 import numpy as np
 import pytest
@@ -25,6 +29,9 @@ from ray_tpu_torch.train import (
     Trainer,
     WorkerGroup,
 )
+
+
+STEP_RTOL = 1e-4  # tests/test_torch_training.py's step tolerance
 
 
 @pytest.fixture
@@ -360,6 +367,110 @@ def test_debug_model_trained_from_pipeline_matches_jax():
     assert len(got) == len(want) == 4
     np.testing.assert_allclose(np.array(got), np.array(want), rtol=1e-4)
     assert got[-1][0] < got[0][0]
+
+
+def _wait_for(cond, timeout: float = 10.0) -> bool:
+    deadline = time.monotonic() + timeout
+    while not cond() and time.monotonic() < deadline:
+        time.sleep(0.02)
+    return cond()
+
+
+def test_shutdown_mid_run_ends_the_train_threads(port_rt):
+    """A Trainer shut down while its train functions still have reports
+    to make ends them: their finally blocks run and their threads end
+    before shutdown returns, and the workers' CPUs come back."""
+    import itertools
+    import threading
+
+    ended = []
+
+    def train_func():
+        try:
+            for i in range(100):
+                train.report(step=i)
+        finally:
+            ended.append(threading.current_thread().name)
+
+    trainer = Trainer(num_workers=2)
+    rounds = itertools.islice(trainer.run_iterator(train_func), 3)
+    assert [r[0]["step"] for r in rounds] == [0, 1, 2]
+    trainer.shutdown()
+    assert sorted(ended) == ["train-rank-0", "train-rank-1"]
+    assert not [t.name for t in threading.enumerate()
+                if t.name.startswith("train-rank-")]
+    assert _wait_for(
+        lambda: ray_tpu_torch.available_resources().get("CPU") == 4.0)
+
+
+def test_to_tune_trainable_debug_model_matches_jax():
+    """Trainer.to_tune_trainable on ModelConfig.debug(): three trials
+    through the port's Trainer under ASHA (grace 2, two at a time), each
+    from the JAX package's initial weights (params_from_jax). Each
+    trial's losses equal the JAX build_train_step's at its learning rate
+    within STEP_RTOL (1e-4, tests/test_torch_training.py's); the trial at
+    learning rate 0, whose loss stays at the first, is stopped at rung 2;
+    afterwards every placement group is removed and every CPU is free."""
+    import jax
+
+    from ray_tpu.models import transformer as jtfm
+    from ray_tpu.models.training import build_train_step as j_build
+    from ray_tpu.models.training import make_optimizer as j_make_optimizer
+    from ray_tpu.parallel.mesh import MeshSpec, build_mesh
+    from ray_tpu_torch import tune
+    from ray_tpu_torch.models import transformer as ttfm
+    from ray_tpu_torch.models.convert import params_from_jax
+    from ray_tpu_torch.models.training import build_train_step, make_optimizer
+    from ray_tpu_torch.util.placement_group import placement_group_table
+
+    steps, lrs = 4, [1e-3, 3e-3, 0.0]
+    jcfg, tcfg = jtfm.ModelConfig.debug(), ttfm.ModelConfig.debug()
+    tokens = np.random.default_rng(0).integers(0, tcfg.vocab_size,
+                                               size=(2, 33))
+    mesh = build_mesh(MeshSpec(dp=1, pp=1, sp=1, tp=1))
+    want, np_params = {}, None
+    for lr in lrs:
+        j_step, j_init = j_build(jcfg, mesh,
+                                 optimizer=j_make_optimizer(learning_rate=lr))
+        params, state = j_init(jax.random.PRNGKey(0))
+        if np_params is None:
+            np_params = jax.tree.map(np.asarray, params)
+        want[lr] = []
+        for _ in range(steps):
+            params, state, m = j_step(params, state, tokens)
+            want[lr].append(float(m["loss"]))
+
+    def train_debug(config):
+        opt = make_optimizer(learning_rate=config["lr"])
+        step, _ = build_train_step(tcfg, device="cpu", optimizer=opt)
+        params = params_from_jax(np_params, tcfg, device="cpu")
+        state = opt.init(params)
+        for _ in range(steps):
+            params, state, m = step(params, state, tokens)
+            train.report(loss=m["loss"].item())
+
+    ray_tpu_torch.init(num_cpus=4, device="cpu")
+    try:
+        trainable = Trainer(num_workers=1).to_tune_trainable(train_debug)
+        analysis = tune.run(
+            trainable, config={"lr": tune.grid_search(lrs)},
+            metric="loss", mode="min", max_concurrent_trials=2,
+            scheduler=tune.AsyncHyperBandScheduler(
+                max_t=steps, grace_period=2, reduction_factor=2))
+        states = {pg["state"] for pg in placement_group_table().values()}
+        cpus_back = _wait_for(
+            lambda: ray_tpu_torch.available_resources().get("CPU") == 4.0)
+    finally:
+        ray_tpu_torch.shutdown()
+    got = {t.config["lr"]: [r["loss"] for r in t.results]
+           for t in analysis.trials}
+    assert all(t.status == "TERMINATED" for t in analysis.trials)
+    assert len(got[0.0]) == 2 and max(len(v) for v in got.values()) == steps
+    for lr, losses in got.items():
+        np.testing.assert_allclose(losses, want[lr][:len(losses)],
+                                   rtol=STEP_RTOL)
+    assert analysis.get_best_config()["lr"] in (1e-3, 3e-3)
+    assert states == {"REMOVED"} and cpus_back
 
 
 # The three backend tests of tests/test_train.py, on the port's process
