@@ -146,7 +146,29 @@ if any failed, the script exits non-zero and prints no result. Phases:
               TUNE_MEM_SLACK of its value before the phase. It prints each
               trial's losses, the steady step alone and shared, the peak
               and each stopped trial's time from its stop to its weights
-              being freed.
+              being freed;
+  10. rllib — ray_tpu_torch.rllib on the card (no K1-K3 launch; its
+              launch counts are reported, all 0): each translated policy
+              class (PPO, DQN, PG, MARWIL, A2C, SAC, IMPALA, APPO, DDPG,
+              TD3, continuous SAC, CQL), the QMIX and VDN networks and
+              the three catalog nets built on cuda and on the CPU from
+              the same numpy weights, three updates on one seeded batch,
+              the worst weight leaf's rel L2 within RLLIB_REL_L2 (fp32;
+              RLLIB_SQUASHED_REL_L2 for the squashed Gaussians,
+              RLLIB_VISION_REL_L2 for vision_net's TF32 convs) and every
+              tensor of each on cuda; PPO, DQN and continuous SAC learn
+              their test environments to the tests' thresholds with two
+              rollout workers on the thread tier, every other trainer
+              takes two iterations with finite stats; every torch
+              policy the trainers built, the learner's and each rollout
+              worker's (built in this process on the thread tier), holds
+              its tensors on cuda; PPOTrainer on CartPole at upstream RLlib's PPO
+              defaults (256x256, batch 4000, minibatch 128, 30 SGD
+              passes, 2 workers) for 3 iterations, each train() split
+              into sampling and learning; vision_net at 84x84x4 (batch
+              128) forward+backward timed and held against the CPU; the
+              card's memory after trainer.stop() within RLLIB_MEM_SLACK
+              of its value before the phase.
 
 The line before the last is the card's name and power limit as
 nvidia-smi prints them; above it, one JSON line with the kernel table
@@ -171,6 +193,7 @@ import sys
 import threading
 import time
 import traceback
+import weakref
 
 # published peaks of one H100 SXM (NVIDIA data sheet; dense): the bound
 H100_PEAK_FLOPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -2860,6 +2883,893 @@ def phase_cluster(report: dict) -> dict:
     return routes
 
 
+# ----------------------------------------------------------- phase rllib
+
+# the rllib phase: every translated policy class on the card against its
+# CPU copy (same numpy weights, RLLIB_UPDATES updates on one seeded
+# batch of RLLIB_BATCH rows); the QMIX/VDN networks the same way; the
+# three catalog nets (vision at 84x84x4, RLLIB_VISION_CHECK_BATCH rows)
+RLLIB_OBS, RLLIB_ACTIONS, RLLIB_ACTION_DIM = 8, 4, 2
+RLLIB_BATCH, RLLIB_UPDATES, RLLIB_LR = 256, 3, 1e-3
+RLLIB_VISION_CHECK_BATCH = 32
+# card vs CPU, relative L2 of the worst weight leaf after the updates.
+# float32 MLPs: cuBLAS runs fp32 matmuls without TF32 by default, so the
+# two sides differ by summation order and the last ulps of tanh/exp,
+# which adam's sqrt(nu) normalisation carries into each step at the
+# same relative size (~1e-6 in the CPU parity tests against JAX);
+# continuous SAC and CQL take log(1 - tanh^2), whose cancellation turns
+# 1-2 ulp tanh differences into 1e-4-level weight differences
+# (tests/test_torch_rllib_extra.py: 3.7e-4 against JAX)
+RLLIB_REL_L2 = 1e-4
+RLLIB_SQUASHED_REL_L2 = 2e-3
+# vision_net's convs run on cuDNN in TF32 (rllib/models.py): inputs
+# rounded to 10 mantissa bits, products summed in fp32; through three
+# convs and two dense layers, ~1e-3 relative on the output and up to
+# ~1e-2 on the worst gradient leaf (a bias, summed over every position).
+# Its updates are held with fp32 convs (_rllib_catalog_pairs)
+RLLIB_VISION_REL_L2 = {"out": 5e-3, "grads": 2e-2, "weights": RLLIB_REL_L2}
+# learning on the card: the tests' configs and thresholds, with two
+# rollout workers on the thread tier (tests/test_torch_rllib*.py)
+RLLIB_OTHER_ITERS = 2
+# at published widths: upstream RLlib's PPO widths on CartPole
+# (fcnet_hiddens, train_batch_size, sgd_minibatch_size,
+# num_sgd_iter); lr, clip, lambda, the loss coefficients and the
+# absent KL penalty are the port's PPOPolicy defaults
+RLLIB_PPO_PUBLISHED = dict(hidden=(256, 256), train_batch_size=4000,
+                           sgd_minibatch_size=128, num_sgd_iter=30,
+                           num_workers=2, iterations=3)
+RLLIB_VISION = dict(shape=(84, 84, 4), batch=128, hidden=256, iters=20)
+# card memory after every trainer.stop() against before the phase,
+# read after a warm-up trainer has given a cuBLAS handle and workspace
+# (kept by PyTorch for the process) to each thread the phase multiplies
+# on: the main thread, autograd's device thread and two rollout
+# workers'. The slack is below the smallest policy the phase builds (a
+# DQN policy on the guessing env: 74 KiB of weights, target and
+# moments), so one policy left on the card fails the check
+RLLIB_MEM_SLACK = 64 << 10
+# the offline trainers' JSON input (in the checkout, listed in
+# .gitignore, removed when the phase ends)
+RLLIB_DATA_DIR = ".chip_smoke_rllib"
+
+
+def _rllib_env_classes():
+    """The continuous one-step oracle of tests/test_torch_rllib_extra.py
+    (reward -(a - 0.5)^2) and the oracle experts for offline data."""
+    import numpy as np
+
+    from ray_tpu_torch.rllib.env import Env
+
+    class TargetEnv(Env):
+        observation_dim = 2
+        num_actions = 1
+        action_dim = 1
+        action_low = -1.0
+        action_high = 1.0
+
+        def __init__(self, seed=None):
+            self._rng = np.random.default_rng(seed)
+
+        def reset(self):
+            return self._rng.normal(size=2).astype(np.float32)
+
+        def step(self, action):
+            a = float(np.asarray(action).reshape(-1)[0])
+            return self.reset(), -((a - 0.5) ** 2), True, {}
+
+    class Oracle:
+        def compute_actions(self, obs):
+            return np.array([int(np.argmax(obs))]), {}
+
+    class RandomCont:
+        def __init__(self):
+            self._rng = np.random.default_rng(0)
+
+        def compute_actions(self, obs):
+            return self._rng.uniform(-1, 1, size=(1, 1)), {}
+
+    return TargetEnv, Oracle, RandomCont
+
+
+def _policy_tensors(obj, out=None) -> list:
+    """Every tensor a policy (or a QMIX trainer) holds: parameters,
+    targets, optimizer moments, the noise generator's device."""
+    import torch
+
+    out = [] if out is None else out
+    if isinstance(obj, torch.Tensor):
+        out.append(obj)
+    elif isinstance(obj, dict):
+        for v in obj.values():
+            _policy_tensors(v, out)
+    elif isinstance(obj, (list, tuple)):
+        for v in obj:
+            _policy_tensors(v, out)
+    elif isinstance(obj, torch.Generator):
+        out.append(torch.empty(0, device=obj.device))
+    return out
+
+
+def _off_card(holder) -> list:
+    """The attributes of ``holder`` that hold a tensor off the card."""
+    return [k for k, v in vars(holder).items()
+            if any(t.device.type != "cuda" for t in _policy_tensors(v))]
+
+
+def _tree_rel_l2(got, want) -> tuple:
+    """(worst leaf's relative L2, its path) over two numpy trees."""
+    import numpy as np
+
+    worst = (0.0, "")
+
+    def walk(g, w, path):
+        nonlocal worst
+        if isinstance(w, dict):
+            for k in w:
+                walk(g[k], w[k], f"{path}/{k}")
+        elif isinstance(w, (list, tuple)):
+            for i, (a, b) in enumerate(zip(g, w)):
+                walk(a, b, f"{path}/{i}")
+        elif isinstance(w, np.ndarray):
+            rel = float(np.linalg.norm(g - w)
+                        / max(np.linalg.norm(w), 1e-12))
+            worst = max(worst, (rel, path))
+
+    walk(got, want, "")
+    return worst
+
+
+def _rllib_batch(continuous: bool, scale: float = 1.0, mid: float = 0.0):
+    import numpy as np
+
+    from ray_tpu_torch.rllib import SampleBatch
+    from ray_tpu_torch.rllib import sample_batch as sb
+
+    rng = np.random.default_rng(11)
+    n = RLLIB_BATCH
+    dones = rng.random(n) < 0.2
+    dones[-1] = False
+    actions = (rng.uniform(-1, 1, (n, RLLIB_ACTION_DIM)).astype(np.float32)
+               * scale + mid if continuous
+               else rng.integers(RLLIB_ACTIONS, size=n))
+    return SampleBatch({
+        sb.OBS: rng.normal(size=(n, RLLIB_OBS)).astype(np.float32),
+        sb.ACTIONS: actions,
+        sb.REWARDS: rng.normal(size=n).astype(np.float32),
+        sb.NEXT_OBS: rng.normal(size=(n, RLLIB_OBS)).astype(np.float32),
+        sb.DONES: dones,
+        sb.LOGP: np.log(rng.uniform(0.1, 0.9, n)).astype(np.float32),
+        sb.VALUES: rng.normal(size=n).astype(np.float32),
+        sb.ADVANTAGES: rng.normal(size=n).astype(np.float32),
+        sb.RETURNS: rng.normal(size=n).astype(np.float32),
+    })
+
+
+def _rllib_policy_pairs() -> dict:
+    """Each translated policy class on the card and on the CPU from the
+    same numpy weights: RLLIB_UPDATES updates on one batch (continuous
+    SAC and CQL given the same noise), then the worst weight leaf's
+    relative L2 and the device check."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch import rllib
+    from ray_tpu_torch.rllib import policy_extra
+
+    classes = [
+        ("PPO", rllib.PPOPolicy, {"num_sgd_iter": 2,
+                                  "sgd_minibatch_size": 64}),
+        ("DQN", rllib.DQNPolicy, {"target_update_freq": 2}),
+        ("PG", rllib.PGPolicy, {}), ("MARWIL", rllib.MARWILPolicy,
+                                      {"beta": 1.0, "ma_lr": 0.1}),
+        ("A2C", rllib.A2CPolicy, {}), ("SAC", rllib.SACPolicy, {}),
+        ("IMPALA", rllib.IMPALAPolicy, {}),
+        ("APPO", policy_extra.APPOPolicy, {}),
+        ("DDPG", rllib.DDPGPolicy, {"action_low": -2.0,
+                                    "action_high": 2.0}),
+        ("TD3", rllib.TD3Policy, {}),
+        ("ContinuousSAC", rllib.ContinuousSACPolicy, {}),
+        ("CQL", rllib.CQLPolicy, {"num_cql_actions": 8}),
+    ]
+    out = {}
+    for name, cls, extra in classes:
+        continuous = name in ("DDPG", "TD3", "ContinuousSAC", "CQL")
+        width = RLLIB_ACTION_DIM if continuous else RLLIB_ACTIONS
+        lrs = ({"actor_lr": RLLIB_LR, "critic_lr": RLLIB_LR,
+                "alpha_lr": RLLIB_LR} if continuous else {"lr": RLLIB_LR})
+        cfg = {"seed": 7, "hidden": (64, 64), **lrs, **extra}
+        host = cls(RLLIB_OBS, width, {**cfg, "device": "cpu"})
+        card = cls(RLLIB_OBS, width, {**cfg, "device": "cuda"})
+        card.set_weights(host.get_weights())
+        batch = _rllib_batch(continuous, getattr(host, "_scale", 1.0),
+                             getattr(host, "_mid", 0.0))
+        noise_rng = np.random.default_rng(12)
+        squashed = name in ("ContinuousSAC", "CQL")
+        stats = []
+        for _ in range(RLLIB_UPDATES):
+            kw = {}
+            if squashed:
+                shape = (RLLIB_BATCH, RLLIB_ACTION_DIM)
+                kw["noise"] = {
+                    "next": torch.as_tensor(noise_rng.normal(
+                        size=shape).astype(np.float32)),
+                    "pi": torch.as_tensor(noise_rng.normal(
+                        size=shape).astype(np.float32))}
+                if name == "CQL":
+                    kw["noise"]["rand"] = torch.as_tensor(noise_rng.uniform(
+                        -1, 1, (RLLIB_BATCH, 8, RLLIB_ACTION_DIM)).astype(
+                            np.float32))
+            copy = {k: np.array(v) for k, v in batch.items()}
+            s_host = host.learn_on_batch(type(batch)(copy), **kw)
+            copy = {k: np.array(v) for k, v in batch.items()}
+            s_card = card.learn_on_batch(type(batch)(copy), **kw)
+            stats.append({k: (s_card[k], s_host[k]) for k in s_host})
+        rel, leaf = _tree_rel_l2(card.get_weights(), host.get_weights())
+        out[name] = {"weights_rel_l2": rel, "worst_leaf": leaf,
+                     "tol": RLLIB_SQUASHED_REL_L2 if squashed
+                     else RLLIB_REL_L2,
+                     "device": str(card.device),
+                     "off_device": _off_card(card),
+                     "last_stats_card_cpu": stats[-1]}
+    return out
+
+
+def _rllib_qmix_pairs() -> dict:
+    """QMIX's and VDN's networks (agent Q-net, mixer hypernets, one
+    adam) on the card against the CPU: three training steps from the same
+    weights (the numpy rollouts and replay draws agree while the greedy
+    actions do)."""
+    import torch
+
+    from ray_tpu_torch import rllib
+
+    out = {}
+    for name, cls in (("QMIX", rllib.QMixTrainer),
+                      ("VDN", rllib.VDNTrainer)):
+        cfg = {"env": rllib.TwoStepCoopEnv, "seed": 3, "lr": 5e-3,
+               "sgd_steps_per_iter": 8}
+        host = cls({**cfg, "device": "cpu"})
+        card = cls({**cfg, "device": "cuda"})
+        card.restore(host.save_checkpoint())
+        for _ in range(RLLIB_UPDATES):
+            host.train()
+            card.train()
+        rel, leaf = _tree_rel_l2(card.save_checkpoint()["params"],
+                                 host.save_checkpoint()["params"])
+        out[name] = {"weights_rel_l2": rel, "worst_leaf": leaf,
+                     "tol": RLLIB_REL_L2, "device": str(card.device),
+                     "off_device": _off_card(card)}
+    return out
+
+
+def _adam_fit(model, params, x, target, steps: int):
+    """``steps`` adam updates (rllib.policy.Adam) of an MSE fit; the
+    first forward's output and gradients, as numpy."""
+    import torch
+
+    from ray_tpu_torch.rllib.policy import Adam, grads_of, tree_leaves
+
+    opt = Adam(RLLIB_LR)
+    state = opt.init(params)
+    first = None
+    for _ in range(steps):
+        out = model(params, x)
+        out = out[0] if isinstance(out, tuple) else out
+        loss = torch.mean((out - target) ** 2)
+        grads = grads_of(loss, tree_leaves(params))
+        if first is None:
+            first = (out.detach().cpu().numpy(),
+                     [g.cpu().numpy() for g in grads])
+        opt.update(params, grads, state)
+    return first
+
+
+def _rllib_catalog_pairs() -> dict:
+    """fcnet, gru_net and vision_net (84x84x4, the catalog's default
+    filters) on the card against the CPU from the same weights: the first
+    forward and its gradients, then the weights after RLLIB_UPDATES adam
+    steps of an MSE fit. vision_net's convs run in TF32 on the card by
+    default (rllib/models.py), and adam's first steps are +-lr wherever
+    |g| >> eps, so a gradient element that TF32 rounding flips in sign
+    moves its weight by 2 lr: its updates are held in full fp32 convs
+    (``torch.backends.cudnn.flags``, scoped to the check), its TF32
+    weights reported beside them."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.rllib import models
+    from ray_tpu_torch.rllib.policy import tree_to_device, tree_to_numpy
+
+    rng = np.random.default_rng(13)
+    nets = {
+        "fcnet": (models.ModelCatalog.get_model((RLLIB_OBS,), 4),
+                  rng.normal(size=(RLLIB_BATCH, RLLIB_OBS)),
+                  (RLLIB_BATCH, 4)),
+        "gru_net": (models.ModelCatalog.get_model(
+            (RLLIB_OBS,), 4, {"use_rnn": True, "rnn_hidden": 64}),
+            rng.normal(size=(32, 16, RLLIB_OBS)), (32, 16, 4)),
+        "vision_net": (models.ModelCatalog.get_model(
+            RLLIB_VISION["shape"], 4),
+            rng.uniform(size=(RLLIB_VISION_CHECK_BATCH,
+                              *RLLIB_VISION["shape"])),
+            (RLLIB_VISION_CHECK_BATCH, 4)),
+    }
+    out = {}
+    for name, ((init, apply), x, tshape) in nets.items():
+        weights = tree_to_numpy(init(torch.Generator().manual_seed(5),
+                                     device="cpu"))
+        target = rng.normal(size=tshape).astype(np.float32)
+
+        def fit(side):
+            params = tree_to_device(weights, side)
+            (o, g) = _adam_fit(
+                apply, params, torch.as_tensor(x.astype(np.float32),
+                                               device=side),
+                torch.as_tensor(target, device=side), RLLIB_UPDATES)
+            return o, g, tree_to_numpy(params), params
+
+        o_h, g_h, w_h, _ = fit("cpu")
+        o_c, g_c, w_c, p_card = fit("cuda")
+        row = {"out_rel_l2": float(np.linalg.norm(o_c - o_h)
+                                   / np.linalg.norm(o_h)),
+               "grads_rel_l2": max(float(np.linalg.norm(a - b)
+                                         / max(np.linalg.norm(b), 1e-12))
+                                   for a, b in zip(g_c, g_h)),
+               "weights_rel_l2": _tree_rel_l2(w_c, w_h)[0],
+               "off_device": [] if all(
+                   t.device.type == "cuda"
+                   for t in _policy_tensors(p_card)) else ["params"]}
+        if name == "vision_net":
+            row["tol"] = dict(RLLIB_VISION_REL_L2)
+            row["tf32_weights_rel_l2"] = row.pop("weights_rel_l2")
+            with torch.backends.cudnn.flags(enabled=True,
+                                            allow_tf32=False):
+                o_f, _g, w_f, _p = fit("cuda")
+            row["fp32_out_rel_l2"] = float(np.linalg.norm(o_f - o_h)
+                                           / np.linalg.norm(o_h))
+            row["weights_rel_l2"] = _tree_rel_l2(w_f, w_h)[0]
+        else:
+            row["tol"] = {"out": 1e-5, "grads": 1e-4,
+                          "weights": RLLIB_REL_L2}
+        out[name] = row
+    return out
+
+
+def _finite_stats(stats) -> bool:
+    if isinstance(stats, dict):
+        return bool(stats) and all(_finite_stats(v) for v in stats.values())
+    return isinstance(stats, (int, float)) and math.isfinite(stats)
+
+
+def _rllib_learn(data_dir: str) -> dict:
+    """PPO, DQN and continuous SAC learn their test environments to the
+    tests' thresholds with two rollout workers; every other trainer
+    takes RLLIB_OTHER_ITERS iterations. The policies get no ``device``
+    key on the card: ``None`` is CUDA."""
+    import numpy as np
+
+    from ray_tpu_torch import rllib
+
+    TargetEnv, Oracle, RandomCont = _rllib_env_classes()
+    guess = {"env": rllib.StatelessGuessEnv, "num_workers": 2}
+    expert = os.path.join(data_dir, "expert.json")
+    cont = os.path.join(data_dir, "cont.json")
+    w = rllib.JsonWriter(expert)
+    for ep in range(4):
+        rllib.collect_episodes(rllib.StatelessGuessEnv(num_actions=4,
+                                                       seed=0),
+                               Oracle(), 256, writer=w, seed=ep)
+    w.close()
+    w = rllib.JsonWriter(cont)
+    for ep in range(4):
+        rllib.collect_episodes(TargetEnv(seed=0), RandomCont(), 256,
+                               writer=w, seed=ep)
+    w.close()
+    replay_cont = {"env": TargetEnv, "num_workers": 2,
+                   "rollout_fragment_length": 128, "learning_starts": 128,
+                   "sgd_batch_size": 64}
+    sac_pc = {"seed": 0, "actor_lr": 1e-3, "critic_lr": 1e-3,
+              "alpha_lr": 1e-3}
+    runs = {
+        # name: (trainer class, config, iterations, check(result, trainer))
+        "PPO": (rllib.PPOTrainer, {
+            **guess, "train_batch_size": 512,
+            "policy_config": {"seed": 0, "lr": 5e-3, "entropy_coeff": 0.0},
+            "env_config": {"num_actions": 4, "seed": 1}}, 12,
+            lambda r, t: r["episode_reward_mean"] > 0.6),
+        "DQN": (rllib.DQNTrainer, {
+            **guess, "rollout_fragment_length": 256,
+            "learning_starts": 256, "sgd_steps_per_iter": 64,
+            "policy_config": {"seed": 0, "lr": 5e-3, "epsilon_decay": 0.9},
+            "env_config": {"num_actions": 3, "seed": 2}}, 12,
+            lambda r, t: r["episode_reward_mean"] > 0.6),
+        "SACContinuous": (rllib.SACContinuousTrainer, {
+            **replay_cont, "sgd_steps_per_iter": 64,
+            "policy_config": sac_pc}, 25,
+            lambda r, t: (r["episode_reward_mean"] > -0.12
+                          and r["info"]["learner"]["alpha"] < 0.1
+                          and abs(float(t.get_policy().greedy_actions(
+                              np.zeros((4, 2), np.float32)).mean())
+                              - 0.5) < 0.25)),
+    }
+    guess4 = {**guess, "train_batch_size": 512,
+              "env_config": {"num_actions": 4, "seed": 3}}
+    two = RLLIB_OTHER_ITERS
+    for name, cls, cfg in (
+            ("A2C", rllib.A2CTrainer, {**guess4, "policy_config": {
+                "seed": 0, "lr": 5e-3}}),
+            ("SAC", rllib.SACTrainer, {
+                **guess, "rollout_fragment_length": 256,
+                "learning_starts": 256, "sgd_steps_per_iter": 32,
+                "policy_config": {"seed": 0, "lr": 5e-3},
+                "env_config": {"num_actions": 3, "seed": 4}}),
+            ("IMPALA", rllib.IMPALATrainer, {**guess4, "policy_config": {
+                "seed": 0, "lr": 5e-3}}),
+            ("APPO", rllib.APPOTrainer, {**guess4, "policy_config": {
+                "seed": 0, "lr": 5e-3}}),
+            ("PG", rllib.PGTrainer, {**guess4, "policy_config": {
+                "seed": 0, "lr": 2e-2}}),
+            ("MARWIL", rllib.MARWILTrainer, {
+                **guess4, "input": expert, "sgd_steps_per_iter": 24,
+                "policy_config": {"seed": 0, "lr": 1e-2}}),
+            ("BC", rllib.BCTrainer, {
+                **guess4, "input": expert, "sgd_steps_per_iter": 24,
+                "policy_config": {"seed": 0, "lr": 1e-2}}),
+            ("DDPG", rllib.DDPGTrainer, {
+                **replay_cont, "sgd_steps_per_iter": 32,
+                "policy_config": {"seed": 0}}),
+            ("TD3", rllib.TD3Trainer, {
+                **replay_cont, "sgd_steps_per_iter": 32,
+                "policy_config": {"seed": 0}}),
+            ("CQL", rllib.CQLTrainer, {
+                "env": TargetEnv, "num_workers": 2, "input": cont,
+                "sgd_steps_per_iter": 64,
+                "policy_config": {**sac_pc, "min_q_weight": 0.5}}),
+            ("LinUCB", rllib.LinUCBTrainer, {
+                "env": rllib.LinearBanditEnv, "num_workers": 2,
+                "policy_config": {"seed": 0},
+                "env_config": {"context_dim": 6, "num_arms": 4,
+                               "seed": 5, "noise": 0.02}}),
+            ("LinTS", rllib.LinTSTrainer, {
+                "env": rllib.LinearBanditEnv, "num_workers": 2,
+                "policy_config": {"seed": 0},
+                "env_config": {"context_dim": 6, "num_arms": 4,
+                               "seed": 5, "noise": 0.02}}),
+            ("ES", rllib.ESTrainer, {
+                "env": rllib.StatelessGuessEnv,
+                "env_config": {"num_actions": 4, "seed": 7},
+                "num_perturbations": 12, "episodes_per_perturbation": 8,
+                "hidden": ()}),
+            ("ARS", rllib.ARSTrainer, {
+                "env": rllib.StatelessGuessEnv,
+                "env_config": {"num_actions": 4, "seed": 7},
+                "num_perturbations": 12, "episodes_per_perturbation": 8,
+                "hidden": ()}),
+            ("A3C", rllib.A3CTrainer, {
+                "env": rllib.StatelessGuessEnv, "num_workers": 2,
+                "rollout_fragment_length": 64, "grads_per_iter": 16,
+                "policy_config": {"seed": 0, "lr": 5e-3},
+                "env_config": {"num_actions": 4, "seed": 1}}),
+            ("MultiAgent", rllib.MultiAgentTrainer, {
+                "env": rllib.TwoStepGuessEnv,
+                "env_config": {"num_actions": 3, "seed": 2},
+                "num_workers": 2, "train_batch_size": 256,
+                "policies": {"p0": (rllib.PGPolicy, {"lr": 2e-2}),
+                             "p1": (rllib.PGPolicy, {"lr": 2e-2})},
+                "policy_mapping_fn": _agent_to_policy}),
+            ("QMix", rllib.QMixTrainer, {
+                "env": rllib.TwoStepCoopEnv, "seed": 0}),
+            ("VDN", rllib.VDNTrainer, {
+                "env": rllib.TwoStepCoopEnv, "seed": 0})):
+        runs[name] = (cls, cfg, two, None)
+
+    out = {}
+    for name, (cls, cfg, iters, check) in runs.items():
+        t0 = time.monotonic()
+        cls, made = _probed(cls)
+        trainer = cls(cfg)
+        try:
+            results = [trainer.train() for _ in range(iters)]
+            built = [p for p in (ref() for ref in made) if p is not None]
+            holders = _rllib_holders(name, trainer)
+            # the learner's policy and, on the thread tier, each rollout
+            # worker's, built in this process
+            holders.update({f"policy#{i}": p for i, p in enumerate(built)})
+            off = sorted({f"{h}.{k}" for h, obj in holders.items()
+                          for k in _off_card(obj)})
+            res = results[-1]
+            row = {"iterations": iters,
+                   "reward": res.get("episode_reward_mean"),
+                   "rewards": [r.get("episode_reward_mean")
+                               for r in results],
+                   "stats": res["info"]["learner"],
+                   "finite": _finite_stats(res["info"]["learner"]),
+                   "tensors_on": "host numpy (as the reference)"
+                   if not holders else "cuda",
+                   "off_device": off, "policies_checked": len(built),
+                   "policies_expected": 1 + cfg.get("num_workers", 0)
+                   if built else 0,
+                   "s": time.monotonic() - t0}
+            if check is not None:
+                row["learned"] = bool(check(res, trainer))
+        finally:
+            trainer.stop()
+        out[name] = row
+    return out
+
+
+def _probed(trainer_cls):
+    """(a subclass of ``trainer_cls`` whose policy class records a weak
+    reference to every instance, the list it records into). The thread
+    tier builds each rollout worker's policy in this process, so the
+    phase reads where the workers' tensors live, not only the learner's.
+    The references are weak: a dead actor's record keeps its creation
+    arguments (this policy class) until shutdown, and strong ones would
+    keep every policy on the card through it. Trainers without
+    a torch policy class (A3C, multi-agent, QMIX, the numpy ones) come
+    back as they are."""
+    base = getattr(trainer_cls, "_policy_cls", None)
+    made: list = []
+    if base is None or base.__module__.endswith(".policy_bandit"):
+        return trainer_cls, made
+
+    class Probe(base):
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            made.append(weakref.ref(self))
+
+    return type(trainer_cls.__name__, (trainer_cls,),
+                {"_policy_cls": Probe}), made
+
+
+def _agent_to_policy(aid: str) -> str:
+    return "p0" if aid == "a0" else "p1"
+
+
+def _rllib_holders(name: str, trainer) -> dict:
+    """The objects whose tensors must be on the card: the learner's
+    policy or policies, or QMIX's trainer itself; none for the numpy
+    algorithms (bandits, ES, ARS)."""
+    if name in ("LinUCB", "LinTS", "ES", "ARS"):
+        return {}
+    if name == "MultiAgent":
+        return {pid: trainer.get_policy(pid) for pid in ("p0", "p1")}
+    if name in ("QMix", "VDN"):
+        return {name: trainer}
+    return {"policy": trainer.get_policy()}
+
+
+class _PPOClock:
+    """Splits a PPOTrainer.train() into sampling (host clock around
+    ``sample_parallel``) and learning (CUDA events and host clock around
+    ``learn_on_batch``); the rest is the weight sync and metrics. Keeps
+    the last batch learned on for ``_ppo_profile``."""
+
+    def __init__(self, trainer):
+        import torch
+
+        self.sample_s = 0.0
+        self.learn_s = 0.0
+        self.learn_events = []
+        self.last_batch = None
+        ws = trainer.workers
+        sample, learn = ws.sample_parallel, ws.local_worker.learn_on_batch
+
+        def timed_sample(*a, **k):
+            t0 = time.perf_counter()
+            try:
+                return sample(*a, **k)
+            finally:
+                self.sample_s += time.perf_counter() - t0
+
+        def timed_learn(batch):
+            self.last_batch = batch
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+            t0 = time.perf_counter()
+            try:
+                return learn(batch)
+            finally:
+                ev[1].record()
+                self.learn_events.append(ev)
+                self.learn_s += time.perf_counter() - t0
+
+        ws.sample_parallel = timed_sample
+        ws.local_worker.learn_on_batch = timed_learn
+
+    def take(self) -> dict:
+        import torch
+
+        torch.cuda.synchronize()
+        out = {"sample_s": self.sample_s, "learn_s": self.learn_s,
+               "learn_cuda_ms": sum(a.elapsed_time(b)
+                                    for a, b in self.learn_events)}
+        self.sample_s = self.learn_s = 0.0
+        self.learn_events = []
+        return out
+
+
+def _union_us(spans) -> float:
+    """Microseconds covered by the union of (start, end) spans."""
+    busy, end = 0.0, float("-inf")
+    for a, b in sorted(spans):
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy
+
+
+def _ppo_profile(policy, batch) -> dict:
+    """One learn_on_batch of the published-width policy on the last
+    sampled batch, one SGD pass (``num_sgd_iter`` 1), under
+    torch.profiler: wall time, the device's busy time (union of its
+    kernel and copy spans), kernels and top-level ATen ops per update.
+    None where the profiler saw no device event."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    updates = -(-batch.count // policy.cfg["sgd_minibatch_size"])
+    passes = policy.cfg["num_sgd_iter"]
+    policy.cfg["num_sgd_iter"] = 1
+    try:
+        policy.learn_on_batch(batch)  # the same work, outside the trace
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            policy.learn_on_batch(batch)
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+    finally:
+        policy.cfg["num_sgd_iter"] = passes
+    events = prof.events()
+    device = [e for e in events if e.device_type == DeviceType.CUDA]
+    if not device:
+        return None
+    kernels = [e for e in device
+               if not e.name.startswith(("Memcpy", "Memset"))]
+    ops = [e for e in events if e.device_type == DeviceType.CPU
+           and e.name.startswith("aten::") and e.cpu_parent is None]
+    busy_s = _union_us((e.time_range.start, e.time_range.end)
+                       for e in device) / 1e6
+    return {"updates": updates, "wall_s": wall_s, "device_busy_s": busy_s,
+            "device_busy_share": busy_s / wall_s,
+            "kernels_per_update": len(kernels) / updates,
+            "copies_per_update": (len(device) - len(kernels)) / updates,
+            "aten_ops_per_update": len(ops) / updates,
+            "device_us_per_update": busy_s * 1e6 / updates,
+            "wall_ms_per_update": wall_s * 1e3 / updates}
+
+
+def _rllib_published() -> dict:
+    """PPOTrainer on CartPoleEnv at upstream RLlib's PPO widths
+    (fcnet_hiddens [256, 256], train_batch_size 4000, sgd_minibatch_size
+    128, num_sgd_iter 30) with two rollout workers; each train() split
+    into sampling and learning, then one update pass traced."""
+    from ray_tpu_torch import rllib
+
+    p = RLLIB_PPO_PUBLISHED
+    trainer = rllib.PPOTrainer({
+        "env": rllib.CartPoleEnv, "num_workers": p["num_workers"],
+        "train_batch_size": p["train_batch_size"],
+        "policy_config": {"hidden": p["hidden"],
+                          "sgd_minibatch_size": p["sgd_minibatch_size"],
+                          "num_sgd_iter": p["num_sgd_iter"]}})
+    try:
+        clock = _PPOClock(trainer)
+        iters = []
+        for _ in range(p["iterations"]):
+            t0 = time.perf_counter()
+            res = trainer.train()
+            row = {"train_s": time.perf_counter() - t0, **clock.take(),
+                   "reward": res["episode_reward_mean"],
+                   "timesteps_total": res["timesteps_total"],
+                   "stats": res["info"]["learner"]}
+            iters.append(row)
+        off = _off_card(trainer.get_policy())
+        traced = _ppo_profile(trainer.get_policy(), clock.last_batch)
+    finally:
+        trainer.stop()
+    return {"config": {k: list(v) if isinstance(v, tuple) else v
+                       for k, v in p.items()},
+            "iterations": iters, "off_device": off, "profile": traced}
+
+
+def _rllib_vision() -> dict:
+    """vision_net at 84x84x4 (the catalog's default filters, hidden 256)
+    on a minibatch of 128: forward + backward ms on the card (CUDA
+    events) and its output and gradients against the CPU."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.rllib import models
+    from ray_tpu_torch.rllib.policy import (
+        tree_leaves,
+        tree_to_device,
+        tree_to_numpy,
+    )
+
+    v = RLLIB_VISION
+    init, apply = models.ModelCatalog.get_model(
+        v["shape"], 4, {"post_fcnet_hiddens": v["hidden"]})
+    weights = tree_to_numpy(init(torch.Generator().manual_seed(6),
+                                 device="cpu"))
+    x = np.random.default_rng(14).uniform(
+        size=(v["batch"], *v["shape"])).astype(np.float32)
+
+    def fwd_bwd(side):
+        params = tree_to_device(weights, side)
+        xs = torch.as_tensor(x, device=side)
+        leaves = tree_leaves(params)
+
+        def step():
+            out = apply(params, xs)
+            return out, torch.autograd.grad(out.square().mean(), leaves)
+
+        return step
+
+    step = fwd_bwd("cuda")
+    ms = cuda_ms(step, v["iters"])
+    out_c, g_c = step()
+    out_h, g_h = fwd_bwd("cpu")()
+    rel_out = _rel_l2(out_c.cpu(), out_h)
+    rel_grads = max(_rel_l2(a.cpu(), b) for a, b in zip(g_c, g_h))
+    return {"batch": v["batch"], "shape": list(v["shape"]),
+            "hidden": v["hidden"], "fwd_bwd_ms": ms,
+            "out_rel_l2": rel_out, "grads_rel_l2": rel_grads,
+            "tol": RLLIB_VISION_REL_L2}
+
+
+def _rllib_warm() -> None:
+    """One iteration of a PPOTrainer with two rollout workers, stopped:
+    every thread the phase multiplies on (the main thread, autograd's
+    device thread, two workers' at once) has its cuBLAS handle and
+    workspace before the phase's memory is read."""
+    from ray_tpu_torch import rllib
+
+    trainer = rllib.PPOTrainer({
+        "env": rllib.StatelessGuessEnv, "num_workers": 2,
+        "train_batch_size": 128, "env_config": {"num_actions": 4}})
+    try:
+        trainer.train()
+    finally:
+        trainer.stop()
+
+
+def phase_rllib(report: dict) -> dict:
+    """ray_tpu_torch.rllib on the card: every translated policy class,
+    the QMIX/VDN networks and the catalog nets against their CPU copies;
+    PPO, DQN and continuous SAC learning their test environments, every
+    other trainer two iterations; PPO at upstream RLlib's published
+    widths and vision_net at 84x84x4 timed; the card's memory back after
+    the trainers stop. Launches none of K1-K3."""
+    import gc
+    import shutil
+
+    import torch
+
+    import ray_tpu_torch
+
+    os.makedirs(RLLIB_DATA_DIR, exist_ok=True)
+    ray_tpu_torch.init(num_cpus=8)
+    try:
+        _rllib_warm()
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_before = torch.cuda.memory_allocated()
+        _reset_counts()
+        t0 = time.monotonic()
+        pairs = _rllib_policy_pairs()
+        pairs.update(_rllib_qmix_pairs())
+        catalog = _rllib_catalog_pairs()
+        pairs_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        learn = _rllib_learn(RLLIB_DATA_DIR)
+        learn_s = time.monotonic() - t0
+        published = _rllib_published()
+        vision = _rllib_vision()
+        counts, routes = _read_counts(), _read_routes()
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_after_stop = torch.cuda.memory_allocated()
+    finally:
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(RLLIB_DATA_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.synchronize()
+    mem = {"before": mem_before, "after_stop": mem_after_stop,
+           "after_shutdown": torch.cuda.memory_allocated(),
+           "slack": RLLIB_MEM_SLACK}
+    report["rllib"] = {"card_vs_cpu": pairs, "catalog": catalog,
+                       "learn": learn, "published_ppo": published,
+                       "vision": vision, "memory_bytes": mem,
+                       "kernel_launches": counts, "pairs_s": pairs_s,
+                       "learn_s": learn_s}
+    card = card_line()
+    print("rllib: card vs CPU, worst weight leaf rel L2 after "
+          f"{RLLIB_UPDATES} updates: "
+          + ", ".join(f"{k} {v['weights_rel_l2']:.3g}"
+                      for k, v in pairs.items())
+          + "; catalog (out / grads / weights): "
+          + ", ".join(f"{k} {v['out_rel_l2']:.3g} / {v['grads_rel_l2']:.3g}"
+                      f" / {v['weights_rel_l2']:.3g}"
+                      for k, v in catalog.items())
+          + " (vision_net's weights with fp32 convs; with TF32 "
+          f"{catalog['vision_net']['tf32_weights_rel_l2']:.3g})"
+          + f" [{card}]", flush=True)
+    print("rllib: learning with 2 rollout workers: "
+          + "; ".join(f"{k} {v['iterations']} it reward "
+                      f"{v['reward'] if v['reward'] is None else round(v['reward'], 4)}"
+                      f"{' learned' if v.get('learned') else ''} "
+                      f"{v['s']:.1f} s" for k, v in learn.items())
+          + "; policies read on the device (learner + workers): "
+          + str(sum(v["policies_checked"] for v in learn.values()))
+          + f" [{card}]", flush=True)
+    for i, row in enumerate(published["iterations"]):
+        print(f"rllib: PPO CartPole at published widths (256x256, batch "
+              f"4000, minibatch 128, 30 SGD passes, 2 workers) iteration "
+              f"{i + 1}: train {row['train_s']:.3f} s = sample "
+              f"{row['sample_s']:.3f} s + learn {row['learn_s']:.3f} s "
+              f"(CUDA events {row['learn_cuda_ms']:.1f} ms) + rest; reward "
+              f"{row['reward']:.2f} [{card}]", flush=True)
+    prof = published["profile"]
+    print("rllib: one traced SGD pass at published widths: "
+          + ("not measured (torch.profiler saw no device event)"
+             if prof is None else
+             f"{prof['updates']} updates in {prof['wall_s']:.4f} s, device "
+             f"busy {prof['device_busy_s']:.4f} s "
+             f"({prof['device_busy_share']:.4f}); an update "
+             f"{prof['wall_ms_per_update']:.3f} ms wall, "
+             f"{prof['device_us_per_update']:.1f} us on the device, "
+             f"{prof['kernels_per_update']:.1f} kernels, "
+             f"{prof['copies_per_update']:.1f} copies, "
+             f"{prof['aten_ops_per_update']:.1f} top-level ATen ops")
+          + f" [{card}]", flush=True)
+    print(f"rllib: vision_net 84x84x4 batch {vision['batch']}: fwd+bwd "
+          f"{vision['fwd_bwd_ms']:.4f} ms, rel L2 vs CPU out "
+          f"{vision['out_rel_l2']:.3g} grads {vision['grads_rel_l2']:.3g}; "
+          f"memory bytes {mem}; launches {counts} [{card}]", flush=True)
+
+    problems = []
+    for name, row in pairs.items():
+        if not row["weights_rel_l2"] <= row["tol"]:
+            problems.append(f"{name}: weights rel L2 "
+                            f"{row['weights_rel_l2']} ({row['worst_leaf']})")
+        if row["off_device"]:
+            problems.append(f"{name}: off the card: {row['off_device']}")
+    for name, row in catalog.items():
+        for k in ("out", "grads", "weights"):
+            if not row[f"{k}_rel_l2"] <= row["tol"][k]:
+                problems.append(f"{name}: {k} rel L2 {row[f'{k}_rel_l2']}")
+        if row["off_device"]:
+            problems.append(f"{name}: params off the card")
+    for name, row in learn.items():
+        if not row["finite"]:
+            problems.append(f"{name}: stats {row['stats']}")
+        if row["off_device"]:
+            problems.append(f"{name}: off the card: {row['off_device']}")
+        if row.get("learned") is False:
+            problems.append(f"{name}: did not learn: {row['rewards']}")
+        if row["policies_checked"] != row["policies_expected"]:
+            problems.append(f"{name}: {row['policies_checked']} policies "
+                            f"seen, {row['policies_expected']} built")
+    if published["off_device"] or not all(
+            _finite_stats(r["stats"]) for r in published["iterations"]):
+        problems.append(f"published PPO: {published}")
+    for k in ("out", "grads"):
+        if not vision[f"{k}_rel_l2"] <= RLLIB_VISION_REL_L2[k]:
+            problems.append(f"vision_net 84x84x4: {k} rel L2 "
+                            f"{vision[f'{k}_rel_l2']}")
+    if mem["after_stop"] - mem["before"] > RLLIB_MEM_SLACK:
+        problems.append(f"card memory {mem}")
+    if any(counts.values()):
+        problems.append(f"K1-K3 launched: {counts}")
+    if problems:
+        raise AssertionError("rllib: " + "; ".join(problems))
+    return routes
+
+
 # ------------------------------------------------------------------ main
 
 
@@ -2977,7 +3887,8 @@ def main() -> int:
             ("vit_serve", lambda r: phase_serve(r, "vit")),
             ("vit", phase_vit),
             ("data", phase_data),
-            ("tune", phase_tune)):
+            ("tune", phase_tune),
+            ("rllib", phase_rllib)):
         t0 = time.monotonic()
         try:
             routes = phase(report)

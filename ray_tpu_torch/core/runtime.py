@@ -1031,6 +1031,11 @@ class Runtime:
         self.actor_directory.mark_dead(
             record.actor_id,
             cause="ray_tpu_torch.kill" if not graceful else "actor exited")
+        # the dead record stays listed (state API) but lets go of the
+        # instance, as a killed worker process frees it: an actor that
+        # holds tensors on the card gives that memory back at kill()
+        with record.lock:
+            record.executor = None
         if executor is not None:
             executor.kill()
             if raylet is not None and lifetime and was_alive:

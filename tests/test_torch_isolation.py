@@ -2,7 +2,8 @@
 chip_smoke.py, imports jax or ray_tpu; and its entry points (the runtime,
 the model constructors, the train step, the Trainer and tune.run) run on
 CUDA unless the caller asks for the CPU, so on a host without CUDA they
-raise instead of running on the CPU."""
+raise instead of running on the CPU. So do RLlib's policies, trainers
+and catalog models."""
 
 import ast
 from pathlib import Path
@@ -36,6 +37,9 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     tune = [f for f in files
             if f.relative_to(ROOT).parts[:2] == ("ray_tpu_torch", "tune")]
     assert len(tune) == 17  # ray_tpu_torch.tune and its suggest/
+    rllib = [f for f in files
+             if f.relative_to(ROOT).parts[:2] == ("ray_tpu_torch", "rllib")]
+    assert len(rllib) == 16  # every module of ray_tpu/rllib/
     bad = {}
     for path in files:
         roots = set(_imported_roots(path)) & {"jax", "jaxlib", "ray_tpu",
@@ -62,7 +66,9 @@ def test_init_without_device_raises_without_cuda():
 @pytest.mark.parametrize("entry", ["init_params", "build_forward",
                                    "build_train_step", "trainer",
                                    "cluster_state", "params_from_jax",
-                                   "tune_run"])
+                                   "tune_run", "rllib_policies",
+                                   "rllib_trainer", "rllib_qmix",
+                                   "rllib_models"])
 def test_model_entry_points_raise_without_cuda(entry):
     from ray_tpu_torch.core.raylet import ClusterState
     from ray_tpu_torch.models import transformer as tfm
@@ -71,8 +77,23 @@ def test_model_entry_points_raise_without_cuda(entry):
     from ray_tpu_torch import tune
     from ray_tpu_torch.train import Trainer
 
+    from ray_tpu_torch import rllib
+    from ray_tpu_torch.rllib import models as rl_models
+
     _needs_no_cuda()
     cfg = tfm.ModelConfig.debug()
+
+    def every_policy():
+        # each raises on its own; the first that does not fails the test
+        for cls in (rllib.PPOPolicy, rllib.DQNPolicy, rllib.PGPolicy,
+                    rllib.MARWILPolicy, rllib.A2CPolicy, rllib.SACPolicy,
+                    rllib.IMPALAPolicy, rllib.policy_extra.APPOPolicy,
+                    rllib.DDPGPolicy, rllib.TD3Policy,
+                    rllib.ContinuousSACPolicy, rllib.CQLPolicy):
+            with pytest.raises(RuntimeError, match="no CUDA device"):
+                cls(4, 2)
+        raise RuntimeError("no CUDA device: every policy raised")
+
     calls = {
         "init_params": lambda: tfm.init_params(cfg),
         "build_forward": lambda: build_forward(cfg),
@@ -83,6 +104,16 @@ def test_model_entry_points_raise_without_cuda(entry):
         "params_from_jax": lambda: params_from_jax({"layers": {}}, cfg),
         # tune.run with no runtime brings the port's up, on CUDA
         "tune_run": lambda: tune.run(lambda config: None),
+        # RLlib: a policy, a trainer (its local worker's policy) and
+        # QMIX's own networks run on CUDA unless their config asks for
+        # the CPU; the catalog's init places its tree on CUDA
+        "rllib_policies": every_policy,
+        "rllib_trainer": lambda: rllib.PPOTrainer(
+            {"env": rllib.StatelessGuessEnv, "num_workers": 0}),
+        "rllib_qmix": lambda: rllib.QMixTrainer(
+            {"env": rllib.TwoStepCoopEnv}),
+        "rllib_models": lambda: rl_models.fcnet((4, 2))[0](
+            torch.Generator()),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

@@ -89,6 +89,36 @@ def test_actor_state_and_errors(port_rt):
         ray_tpu_torch.get(c.add.remote(1), timeout=10)
 
 
+def test_killed_actor_lets_go_of_its_instance(port_rt):
+    """kill() frees the actor's instance while the runtime runs on, as a
+    killed worker process does: an actor holding tensors (an RLlib
+    rollout worker's policy on the card) gives them back at kill(), not
+    at shutdown. The dead actor stays listed."""
+    import gc
+    import weakref
+
+    instances = []
+
+    @ray_tpu_torch.remote
+    class Holder:
+        def __init__(self):
+            self.weights = torch.zeros(4)
+            instances.append(weakref.ref(self))
+
+        def ping(self):
+            return 1
+
+    h = Holder.remote()
+    assert ray_tpu_torch.get(h.ping.remote(), timeout=60) == 1
+    assert instances[0]() is not None
+    aid = h._actor_id
+    ray_tpu_torch.kill(h)
+    gc.collect()
+    assert instances[0]() is None
+    record = port_rt.actor_directory.get(aid)
+    assert record is not None and record.state.name == "DEAD"
+
+
 def test_cluster_add_node_spreads_work(port_cluster):
     for _ in range(3):
         port_cluster.add_node(num_cpus=2, resources={"pin": 1.0})

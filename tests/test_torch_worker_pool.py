@@ -341,11 +341,16 @@ def test_pool_level_exhausted_lease_misses_deterministically():
     pool = ProcessWorkerPool(size=1, warm_size=1)
     try:
         _wait_pool_warm(pool, 1)
-        leased = pool._warm_lease()
-        assert leased is not None
-        assert pool.stats()["warm_hits"] == 1
-        assert pool._warm_lease() is None  # drained: a miss
-        assert pool.stats()["warm_misses"] == 1
+        # the first lease wakes the replenisher, which appends a fresh
+        # worker within milliseconds; holding the pool's condition (an
+        # RLock, which _warm_lease re-enters) keeps it from appending
+        # between the two leases
+        with pool._warm_cv:
+            leased = pool._warm_lease()
+            assert leased is not None
+            assert pool.stats()["warm_hits"] == 1
+            assert pool._warm_lease() is None  # drained: a miss
+            assert pool.stats()["warm_misses"] == 1
         leased.terminate()
     finally:
         pool.shutdown()
