@@ -19,9 +19,11 @@ if any failed, the script exits non-zero and prints no result. Phases:
               plain version, its bound and one PyTorch library call (a
               yardstick only);
               each row names the route (``attention.kernel_route``) it
-              took; rows at head dims 16, 20 (Sq != Sk), 160 and 256
-              hold the mma.sync kernels (bf16) and the FMA kernels
-              (ModelConfig.debug's fp32 d 16) the same way;
+              took; rows at head dims 16, 20 (Sq != Sk), 80 (Sq < Sk),
+              160 (B2, and the xl16 train step's B8), 192 (non-causal)
+              and 256 hold K1 on mma.sync, K2 and K3 on the padded wgmma
+              kernels (mma.sync at 16 and 20) in bf16, and the FMA
+              kernels (ModelConfig.debug's fp32 d 16) the same way;
   2b. debug — the JAX package's test configs on the card through the
               kernels (head_dim 16, float32: the FMA route):
               ModelConfig.debug() and tiny_moe() (routed alike) served
@@ -92,6 +94,11 @@ if any failed, the script exits non-zero and prints no result. Phases:
               recompute) and K2 and K3 24 x 4 times each, all three on
               the wgmma route, and one step's gradients must agree with
               the same step on the plain attention, leaf by leaf;
+  5b. xl16  — the same for bench.py's 1.25 B xl at 16 heads (hidden 2560,
+              16 layers, 16 heads over 8 kv heads: head_dim 160, inter
+              6912, vocab 32000, remat full, logits_chunk 256, bf16) at
+              full width and depth: K1 2 x 16 x 4 launches on mma.sync,
+              K2 and K3 16 x 4 each on the padded wgmma kernels;
   6. moe    — the bench's sparse model (bench.py's MoE row: hidden 1024,
               8 layers, 16 heads over 8 kv heads, head_dim 64, inter
               2816, vocab 32000, top-2 of 8 experts on every second
@@ -241,12 +248,17 @@ KERNEL_SHAPES = [
     # head dims off the wgmma route's 64 and 128 (mma.sync in bf16, FMA
     # in fp32): ModelConfig.debug's attention; d 16 in bf16 at a ragged
     # length; d 20 (a 40-byte row: the element-wise loads) with Sq != Sk,
-    # given as an 8th field; bench.py's xl width at 16 heads; the widest
+    # given as an 8th field; bench.py's xl width at 16 heads; the widest;
+    # the xl16 train step's shape; the backward rows' d 80 (Sq < Sk) and
+    # d 192 (non-causal) below
     ("debug_f32", 2, 128, 4, 16, True, "float32"),
     ("d16_bf16", 2, 1000, 4, 16, True, "bfloat16"),
     ("d20_ragged", 1, 1000, 4, 20, False, "bfloat16", 700),
     ("d160", 2, 2048, 16, 160, True, "bfloat16"),
     ("d256_ragged", 1, 1000, 4, 256, True, "bfloat16"),
+    ("xl16_train", 8, 2048, 16, 160, True, "bfloat16"),
+    ("d80_sq_lt_sk", 1, 700, 4, 80, True, "bfloat16", 1000),
+    ("d192_noncausal", 2, 1000, 8, 192, False, "bfloat16"),
 ]
 
 BWD_SHAPES = [
@@ -264,17 +276,27 @@ BWD_SHAPES = [
     ("ragged_noncausal_bf16", 1, 1000, 1000, 4, 128, False, "bfloat16"),
     ("moe", 16, 2048, 2048, 16, 64, True, "bfloat16"),
     ("vit", 128, 197, 197, 12, 64, False, "bfloat16"),
-    # the kernel phase's rows at head dims off 64 and 128
+    # the kernel phase's rows at head dims off 64 and 128 (K2 and K3 on
+    # the padded wgmma kernels at d 160 and 256, mma.sync at 16 and 20);
+    # for the padded kernels: the xl16 train step's shape, d 80 (padded to
+    # 96: a 64-column box, then a 32-column piece whose last 16 columns TMA
+    # fills with zeros) at Sq < Sk (causal, top-left aligned: the last key
+    # tiles see no query and write zeros), and d 192 (one whole box past
+    # 128) without the causal bound
     ("debug_f32", 2, 128, 128, 4, 16, True, "float32"),
     ("d16_bf16", 2, 1000, 1000, 4, 16, True, "bfloat16"),
     ("d20_ragged", 1, 1000, 700, 4, 20, False, "bfloat16"),
     ("d160", 2, 2048, 2048, 16, 160, True, "bfloat16"),
     ("d256_ragged", 1, 1000, 1000, 4, 256, True, "bfloat16"),
+    ("xl16_train", 8, 2048, 2048, 16, 160, True, "bfloat16"),
+    ("d80_sq_lt_sk", 1, 700, 1000, 4, 80, True, "bfloat16"),
+    ("d192_noncausal", 2, 1000, 1000, 8, 192, False, "bfloat16"),
 ]
 # the rows of KERNEL_SHAPES and BWD_SHAPES off the wgmma route, reported
 # beside the model shapes in the kernels line
 HEAD_DIM_SHAPES = ("debug_f32", "d16_bf16", "d20_ragged", "d160",
-                   "d256_ragged")
+                   "d256_ragged", "xl16_train", "d80_sq_lt_sk",
+                   "d192_noncausal")
 
 SCHED = dict(nodes=256, tasks=100_000, classes=32)
 # the cluster phase: the GCS burst placer at the scheduler's verdict
@@ -400,6 +422,7 @@ def _spill_bytes(spill: str) -> int:
 
 def phase_build(report: dict) -> None:
     from ray_tpu_torch.ops import attention
+    from ray_tpu_torch.tools.check_head_dims import kernel_name
 
     t0 = time.monotonic()
     log = attention.build_kernels()
@@ -409,8 +432,8 @@ def phase_build(report: dict) -> None:
     print(f"build: kernels built in {report['build_s']:.1f} s on "
           f"{report['card']}", flush=True)
     for row in report["ptxas"]:
-        if "_ws_kernel" in row["kernel"]:
-            print(f"build: ptxas {row['kernel'][-60:]}: "
+        if "_ws_kernel" in row["kernel"] or "padded_kernel" in row["kernel"]:
+            print(f"build: ptxas {kernel_name(row['kernel'])[-60:]}: "
                   f"{row.get('registers')} registers at entry, "
                   f"{row.get('spill')} {row['notes']}", flush=True)
     # the mma.sync and FMA kernels: one instantiation per padded head dim
@@ -763,16 +786,32 @@ def phase_sched(report: dict) -> None:
 # --------------------------------------------------------------- phase 4
 
 
+# bench.py's 1.25 B "xl" (its dims["xl"]: hidden 2560, 16 layers, inter
+# 6912, vocab 32000, S 2048, remat full, logits_chunk 256) at 16 heads,
+# the head_dim-160 variant its comments measured; kv_heads 8 keeps
+# bench.py's heads/kv ratio of 2
+XL16 = dict(vocab_size=32000, hidden=2560, layers=16, heads=16, kv_heads=8,
+            intermediate=6912, max_seq=2048, remat=True,
+            remat_policy="full", logits_chunk=256)
+
+
 def _text_config(model: str):
-    """b1, or the bench's MoE model (bench.py's sparse row)."""
+    """b1, bench.py's xl at 16 heads, or the bench's MoE model (bench.py's
+    sparse row)."""
     from ray_tpu_torch.models.transformer import ModelConfig
 
-    return ModelConfig.b1() if model == "b1" else ModelConfig.moe_bench()
+    if model == "b1":
+        return ModelConfig.b1()
+    if model == "xl16":
+        return ModelConfig(**XL16)
+    return ModelConfig.moe_bench()
 
 
 MODEL_DESC = {
     "b1": "ModelConfig.b1 (hidden 2048, 24 layers, 16 heads, d 128, inter "
           "5632, vocab 32000, bf16)",
+    "xl16": "bench.py's xl at 16 heads (hidden 2560, 16 layers, 16 heads "
+            "over 8 kv heads, d 160, inter 6912, vocab 32000, bf16)",
     "moe": "bench MoE (hidden 1024, 8 layers, 16 heads over 8 kv heads, d "
            "64, inter 2816, top-2 of 8 experts every 2nd layer, groups "
            "4096, vocab 32000, bf16)",
@@ -1321,25 +1360,26 @@ def _train_batch(model: str = "b1"):
 
     rng = np.random.default_rng(0)
     return rng.integers(0, _text_config(model).vocab_size,
-                        size=TRAIN_TOKENS if model == "b1"
-                        else MOE_TRAIN_TOKENS)
+                        size=MOE_TRAIN_TOKENS if model == "moe"
+                        else TRAIN_TOKENS)
 
 
-def train_b1():
-    """The train function: b1 at full width and depth on this worker's
-    card, TRAIN_STEPS optimizer steps on one seeded batch, each step's
-    loss, grad norm and wall time reported."""
+def train_text(config):
+    """The train function: ``config["model"]`` (b1 or xl16) at full
+    width and depth on this worker's card, TRAIN_STEPS optimizer steps on
+    one seeded batch, each step's loss, grad norm and wall time
+    reported."""
     import torch
 
     from ray_tpu_torch import train
-    from ray_tpu_torch.models.transformer import ModelConfig
     from ray_tpu_torch.models.training import build_train_step
 
-    cfg = ModelConfig.b1()
+    cfg = _text_config(config["model"])
+    torch.cuda.reset_peak_memory_stats()
     step, init_fn = build_train_step(cfg, device="cuda")
     params, opt_state = init_fn(
         torch.Generator(device="cuda").manual_seed(0))
-    tokens = torch.as_tensor(_train_batch("b1"), device="cuda")
+    tokens = torch.as_tensor(_train_batch(config["model"]), device="cuda")
     torch.cuda.synchronize()
     for i in range(TRAIN_STEPS):
         t0 = time.monotonic()
@@ -1458,26 +1498,32 @@ def _check_launches(model: str, counts: dict, routes: dict, want: dict,
                 f"expected all {want[kernel]} on {route}")
 
 
-def phase_train(report: dict) -> dict:
-    from ray_tpu_torch.models.transformer import ModelConfig
+def _text_train_phase(report: dict, model: str, shape: str) -> tuple:
+    """``model`` (b1 or xl16) trained TRAIN_STEPS steps through
+    Trainer(num_workers=1, use_gpu=True): every K1, K2 and K3 launch on
+    its route at the model's head dim, losses finite and falling, one
+    step's gradients against the plain attention, the replayed first
+    loss the run's; the kernels' share of a step from the kernel phase's
+    rows at ``shape``."""
     from ray_tpu_torch.ops.attention import blockwise_attention
 
-    cfg = ModelConfig.b1()
-    rows, run_s, counts, routes = _run_trainer(train_b1)
+    cfg = _text_config(model)
+    rows, run_s, counts, routes = _run_trainer(train_text,
+                                               config={"model": model})
     want = {"fwd": 2 * cfg.layers * TRAIN_STEPS,
             "dq": cfg.layers * TRAIN_STEPS,
             "dkdv": cfg.layers * TRAIN_STEPS}
-    _check_launches("b1 train", counts, routes, want, cfg.head_dim)
+    _check_launches(f"{model} train", counts, routes, want, cfg.head_dim)
     losses = [r["loss"] for r in rows]
     if len(rows) != TRAIN_STEPS or not all(
             math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
-        raise AssertionError(f"b1 train losses not finite and falling: "
-                             f"{losses}")
+        raise AssertionError(f"{model} train losses not finite and "
+                             f"falling: {losses}")
 
-    loss_k, grads_k = _one_step_grads("b1", None)
-    loss_p, grads_p = _one_step_grads("b1", blockwise_attention)
+    loss_k, grads_k = _one_step_grads(model, None)
+    loss_p, grads_p = _one_step_grads(model, blockwise_attention)
     rel, worst = _grad_rel(grads_k, grads_p)
-    _check_grads("b1", rel, worst)
+    _check_grads(model, rel, worst)
     if abs(loss_k - losses[0]) > 1e-3 * abs(losses[0]):
         raise AssertionError(f"the replayed first step's loss {loss_k} is "
                              f"not the train run's {losses[0]}")
@@ -1486,32 +1532,46 @@ def phase_train(report: dict) -> dict:
     step_s = sum(steady) / len(steady)
     tokens = TRAIN_TOKENS[0] * (TRAIN_TOKENS[1] - 1)
     kernel_ms = {"fwd": next(r["ms"] for r in report["kernel_shapes"]
-                             if r["shape"] == "train")}
-    bwd = next(r for r in report["bwd_shapes"] if r["shape"] == "train")
+                             if r["shape"] == shape)}
+    bwd = next(r for r in report["bwd_shapes"] if r["shape"] == shape)
     kernel_ms.update(dq=bwd["dq_ms"], dkdv=bwd["dkdv_ms"])
     share = {k: counts[k] / TRAIN_STEPS * kernel_ms[k] / (step_s * 1e3)
              for k in counts}
-    report["train"] = {
-        "model": MODEL_DESC["b1"] + ", remat full",
+    out = {
+        "model": MODEL_DESC[model] + ", remat full",
         "tokens": list(TRAIN_TOKENS), "steps": rows, "run_s": run_s,
         "kernel_launches": counts, "kernel_launches_by_route": routes,
         "step_s_steady": step_s,
         "tokens_per_s": tokens / step_s,
+        "peak_gib": max(r["peak_gib"] for r in rows),
         "kernel_share_of_step_est": share,
         "grad_rel_l2_vs_plain": rel, "loss_kernels": loss_k,
         "loss_plain": loss_p,
     }
-    print(f"train: b1 through Trainer(num_workers=1, use_gpu=True), "
+    print(f"{model} train: through Trainer(num_workers=1, use_gpu=True), "
           f"{TRAIN_STEPS} steps on {TRAIN_TOKENS[0]}x{TRAIN_TOKENS[1]} "
           f"tokens: losses {[round(x, 4) for x in losses]}, grad norms "
           f"{[round(r['grad_norm'], 4) for r in rows]}, step s "
           f"{[round(r['step_s'], 4) for r in rows]}; steady {step_s:.4f} "
           f"s/step, {tokens / step_s:.0f} tokens/s, peak "
-          f"{rows[-1]['peak_gib']:.1f} GiB; launches {routes}; kernel "
+          f"{out['peak_gib']:.2f} GiB; launches {routes}; kernel "
           f"share of a step (launches x kernel-phase ms) "
           f"{ {k: round(v, 4) for k, v in share.items()} }; grads vs "
           f"plain attention: worst rel L2 {rel[worst]:.3g} ({worst}), "
           f"loss {loss_k:.5f} vs {loss_p:.5f}", flush=True)
+    return out, routes
+
+
+def phase_train(report: dict) -> dict:
+    report["train"], routes = _text_train_phase(report, "b1", "train")
+    return routes
+
+
+def phase_xl16(report: dict) -> dict:
+    """bench.py's xl at 16 heads (head_dim 160): K1 on mma.sync, K2 and
+    K3 on the padded wgmma kernels."""
+    report["xl16"], routes = _text_train_phase(report, "xl16",
+                                               "xl16_train")
     return routes
 
 
@@ -1992,11 +2052,11 @@ TUNE_LOG = _TuneLog()
 
 
 def train_b1_tune(config):
-    """The tune phase's train function: train_b1 at the trial's learning
-    rate (ClippedAdamW's other settings as build_train_step's default),
-    TUNE_STEPS steps, each reporting its loss, its wall time and the peak
-    memory. TUNE_LOG notes each finished step and when the weights are
-    freed."""
+    """The tune phase's train function: train_text's b1 at the trial's
+    learning rate (ClippedAdamW's other settings as build_train_step's
+    default), TUNE_STEPS steps, each reporting its loss, its wall time and
+    the peak memory. TUNE_LOG notes each finished step and when the
+    weights are freed."""
     import weakref
 
     import torch
@@ -2130,6 +2190,7 @@ def phase_tune(report: dict) -> dict:
         "scheduler": "AsyncHyperBandScheduler(max_t=6, grace_period=2, "
                      "reduction_factor=2)", "max_concurrent_trials": 2,
         "trials": {str(lr): {"status": trials[lr].status,
+                             "error": trials[lr].error,
                              "losses": losses[lr],
                              "step_s": [r["step_s"] for r in rows[lr]]}
                    for lr in TUNE_LRS},
@@ -2160,8 +2221,10 @@ def phase_tune(report: dict) -> dict:
 
     problems = []
     if any(t.status != "TERMINATED" for t in trials.values()):
+        errors = {lr: t.error for lr, t in trials.items() if t.error}
         problems.append("statuses "
-                        f"{ {lr: t.status for lr, t in trials.items()} }")
+                        f"{ {lr: t.status for lr, t in trials.items()} }, "
+                        f"errors {errors}")
     for lr in TUNE_BAD_LRS:
         if len(rows[lr]) != 2:
             problems.append(f"lr {lr:g}: {len(rows[lr])} results, not "
@@ -2173,7 +2236,9 @@ def phase_tune(report: dict) -> dict:
     if not all(math.isfinite(x) for x in flat):
         problems.append(f"losses not finite: {losses}")
     for lr, ls in losses.items():
-        if abs(ls[0] - train_first) > TUNE_FIRST_LOSS_RTOL * abs(train_first):
+        # a trial with no result is reported by the statuses above
+        if ls and abs(ls[0] - train_first) > (TUNE_FIRST_LOSS_RTOL
+                                              * abs(train_first)):
             problems.append(f"lr {lr:g}: first loss {ls[0]} is not the "
                             f"train phase's {train_first}")
     if best is None or best["lr"] in TUNE_BAD_LRS:
@@ -3845,7 +3910,8 @@ def _kernel_table(report: dict, paths: dict) -> list:
             "kernel_route": bwd["routes"][kernel],
             "source": csrc + "flash_attn_bwd.cu",
             "sources": [csrc + f for f in (
-                "flash_attn_bwd.cu", f"flash_attn_bwd_{kernel}_mma.cu",
+                "flash_attn_bwd.cu", f"flash_attn_bwd_{kernel}_padded.cu",
+                f"flash_attn_bwd_{kernel}_mma.cu",
                 "flash_attn_bwd_fma.cu")],
             "replaces": f"ray_tpu/ops/attention.py:{line}",
             **launches(kernel), "head_dims_by_route": head_dims(kernel),
@@ -3882,6 +3948,7 @@ def main() -> int:
             ("proc_serve", phase_proc_serve),
             ("cluster", phase_cluster),
             ("train", phase_train),
+            ("xl16", phase_xl16),
             ("moe_serve", lambda r: phase_serve(r, "moe")),
             ("moe", phase_moe),
             ("vit_serve", lambda r: phase_serve(r, "vit")),

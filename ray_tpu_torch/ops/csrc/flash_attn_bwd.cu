@@ -2,14 +2,14 @@
 // kernels, the flash-attention-2 split of the JAX package's TPU kernels.
 //
 //   dq   (K2) replaces ray_tpu/ops/attention.py::_bwd_dq_kernel
-//        one block per (batch*head, q tile: 128 rows on the wgmma route,
+//        one block per (batch*head, q tile: 128 rows on the wgmma routes,
 //        64 on the others); a loop over the key tiles up to the causal
 //        diagonal accumulates dq = sum_k ds.K in fp32 registers;
 //   dkdv (K3) replaces ray_tpu/ops/attention.py::_bwd_dkdv_kernel
 //        one block per (batch*head, key tile: 128 keys on the wgmma
-//        route, 64 on the others); a loop over the q tiles from the first
-//        one at or below the diagonal to the end accumulates
-//        dv = sum_q p^T.dO and dk = sum_q ds^T.Q.
+//        route at d 64/128, 64 on the others); a loop over the q tiles
+//        from the first one at or below the diagonal to the end
+//        accumulates dv = sum_q p^T.dO and dk = sum_q ds^T.Q.
 //
 // Both launched by _pallas_bwd on the TPU. Each block owns its output
 // tile, so there are no atomics and the result is deterministic. Both
@@ -49,8 +49,10 @@
 //     240 beside its addresses. The upper warpgroup's rows end 64 before
 //     the lower one's: at the causal diagonal it skips the last tile's
 //     products but still releases its stages. ptxas (sm_90a, on the H100
-//     host): 168 registers at entry, the consumers run in up to 240; no
-//     spills and no serialised wgmmas at D 64 or 128. Leaving ds.K in
+//     host): 168 registers at entry, setmaxnreg gives the consumers 240
+//     at run time, but the trap in mbar_wait keeps ptxas allocating them
+//     within 168 (see mbar_wait_no_trap); no spills and no serialised
+//     wgmmas at D 64 or 128 all the same. Leaving ds.K in
 //     flight across the next tile's S and dP made ptxas serialise the
 //     wgmmas (0.76x); a third ring stage and one elementwise pass after
 //     both products each changed the time by under 1 % (PERF.md).
@@ -69,12 +71,46 @@
 //     block at a time and packed to bf16 as the register A operands of
 //     dV += p^T dO and dK += ds^T Q (dO and Q MN-major through the
 //     transpose bit). ptxas (sm_90a, CUDA 12.9, on the H100 host): 168
-//     registers at entry, the consumers run in up to 240; at D 64 no
-//     spills; at D 128 272 bytes of spills and the note that the wgmmas
-//     are serialised for want of registers: that is what holds it back
-//     (each wgmma waits for the last, so the products of one warpgroup
-//     do not overlap its own elementwise work).
-//   - K2 and K3 in bf16 at every other head_dim 1..256: mma.sync.m16n8k16,
+//     registers at entry; as K2's, its consumers are allocated within
+//     168 because mbar_wait traps; at D 64 no spills; at D 128 272 bytes
+//     of spills and the note that the wgmmas are serialised for want of
+//     registers: that is what holds it back (each wgmma waits for the
+//     last, so the products of one warpgroup do not overlap its own
+//     elementwise work).
+//   - K2 and K3, bf16, head_dim % 8 == 0, 64 < head_dim <= 256, head_dim
+//     != 128 (the padded wgmma route; TMA needs rows of a multiple of 16
+//     bytes): instantiated at DP = D rounded up to 32 (96, 128, 160, 192,
+//     224, 256) over rows of DS = D rounded up to 64 columns, boxes of
+//     64 that TMA fills past D with zeros. The products that sum over
+//     the head dim run DP/16 k steps; those whose N is the head dim run
+//     in m64n128, m64n64 and m64n32 pieces, each from a box edge
+//     (hopper_common.cuh's wgmma_rs_cols / wgmma_ss_cols; a 32-column
+//     piece reads the first half of its box's 128-byte rows, held against
+//     the plain version at d 80 and 160). Every wait is mbar_wait_no_trap,
+//     so ptxas allocates the consumers within setmaxnreg's 240 registers.
+//     K2 is bwd_dq_ws_kernel<DP> (flash_attn_bwd_dq_ws.cuh, instantiated
+//     in flash_attn_bwd_dq_padded.cu): the d 64/128 design, its dq [64,
+//     DP] accumulator DP/2 registers a thread (80 at D 160, 128 at 256)
+//     beside S and dP's 64; two K and two V stages up to DS 192 (192 KB
+//     of shared memory there), one V stage at DS 256 (224 KB). K3 is
+//     bwd_dkdv_padded_kernel<DP> (flash_attn_bwd_dkdv_padded.cu): one
+//     block per (batch*head, 64-key tile), K and V resident, Q/dO tiles
+//     of 64 queries on a three-stage ring (two at DS 256); the consumer
+//     warpgroups split each tile's queries for S^T and dP^T (m64n32k16),
+//     exchange p^T and ds^T through two 64 x 64 bf16 tiles in shared
+//     memory and named barriers, and split the head dim's columns for
+//     dV += p^T dO and dK += ds^T Q (both operands in shared memory): NW
+//     columns each (96 at D 160, 128 at D 192..256), so dK and dV are NW
+//     registers a thread; the loop is software-pipelined (tile it - 1's
+//     products run while tile it's p^T and ds^T are computed); 211 KB of
+//     shared memory at DS 192, 210 at DS 256. ptxas (sm_90a, CUDA 12.9,
+//     on the H100 host; tools/check_head_dims.py): 168 registers at
+//     entry, no spills and no serialised wgmmas at any DP for either
+//     kernel. With mbar_wait's trap K2 spilled 128 / 260 / 388 / 836
+//     bytes at DP 160 / 192 / 224 / 256 with its wgmmas serialised, and
+//     K3 spilled at DP 192..256.
+//   - K2 and K3 in bf16 at the other head dims (under 64, or off the
+//     multiples of 8) up to 256: mma.sync.m16n8k16,
 //     bf16 operands, fp32 accumulators, ldmatrix fragment loads from
 //     16-byte padded rows, cp.async double buffering of the streamed
 //     tiles (flash_attn_bwd_dq_mma.cu, flash_attn_bwd_dkdv_mma.cu).
@@ -95,6 +131,7 @@
 // Plain C interface, loaded with ctypes: the caller allocates the outputs,
 // passes the current stream and raises on a non-zero return.
 
+#include "flash_attn_bwd_dq_ws.cuh"
 #include "flash_attn_common.cuh"
 #include "flash_attn_routes.cuh"
 #include "hopper_common.cuh"
@@ -122,8 +159,6 @@ using bf16 = __nv_bfloat16;
 constexpr int WS_BK = 128;  // keys per block
 constexpr int WS_BQ = 64;   // queries per streamed tile
 constexpr int WS_STAGES = 2;
-constexpr int WS_THREADS = 384;  // two consumer warpgroups + the producer
-constexpr int WS_CONSUMERS = 256;
 
 template <int D>
 struct WsDkdvSmem {
@@ -390,274 +425,6 @@ cudaError_t launch_dkdv_ws(const bf16* q, const bf16* k, const bf16* v,
   return cudaGetLastError();
 }
 
-// ---------------------------------------------------------------------------
-// K2, bf16, head_dim 64 and 128: wgmma on a TMA-fed ring, warp-specialised.
-// One block per (batch*head, 128-row q tile); warpgroups 0 and 1 each own
-// 64 q rows and hold their dq accumulator [64, D] in registers for the
-// whole loop; warpgroup 2 is the producer. Q and dO are loaded once and
-// stay; K and V tiles of 64 keys go round a two-stage ring, each stage
-// with its own full and empty barrier for K and for V: V is last read by
-// dP, K by ds.K, so V's stage is released (and refilled) first.
-// ---------------------------------------------------------------------------
-
-constexpr int DQ_BM = 128;  // q rows per block
-constexpr int DQ_BN = 64;   // keys per K/V tile
-
-template <int D>
-struct WsDqSmem {
-  static constexpr int Q_BYTES = DQ_BM * D * 2;   // Q or dO, resident
-  static constexpr int KV_BYTES = DQ_BN * D * 2;  // one K or one V tile
-  static constexpr int Q_BOX = DQ_BM * SWIZZLE_ROW_BYTES;  // bytes a box
-  static constexpr int KV_BOX = DQ_BN * SWIZZLE_ROW_BYTES;
-  static constexpr int DO_OFF = Q_BYTES;
-  static constexpr int K_OFF = 2 * Q_BYTES;
-  static constexpr int V_OFF = K_OFF + WS_STAGES * KV_BYTES;
-  static constexpr int BAR_OFF = V_OFF + WS_STAGES * KV_BYTES;
-  // qdo_full, then per stage k_full, v_full, k_empty, v_empty
-  static constexpr int BYTES = BAR_OFF + (1 + 4 * WS_STAGES) * 8;
-  static constexpr int ALLOC = BYTES + 1024;  // room to align to 1024
-};
-
-template <int D>
-__global__ void __launch_bounds__(WS_THREADS, 1)
-bwd_dq_ws_kernel(const __grid_constant__ CUtensorMap tm_q,
-                 const __grid_constant__ CUtensorMap tm_k,
-                 const __grid_constant__ CUtensorMap tm_v,
-                 const __grid_constant__ CUtensorMap tm_do,
-                 const float* __restrict__ lse,
-                 const float* __restrict__ delta, bf16* __restrict__ dq,
-                 int H, int Sq, int Sk, int causal, float scale) {
-  using L = WsDqSmem<D>;
-  constexpr int BOXES = D / BOX_COLS;
-  extern __shared__ unsigned char smem_raw[];
-  // 128-byte swizzle repeats every 1024 bytes: tiles start on that grid
-  const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
-  const uint32_t qdo_full = base + L::BAR_OFF;
-  auto k_full = [&](int s) { return qdo_full + 8 * (1 + s); };
-  auto v_full = [&](int s) { return qdo_full + 8 * (1 + WS_STAGES + s); };
-  auto k_empty = [&](int s) {
-    return qdo_full + 8 * (1 + 2 * WS_STAGES + s);
-  };
-  auto v_empty = [&](int s) {
-    return qdo_full + 8 * (1 + 3 * WS_STAGES + s);
-  };
-
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * DQ_BM;  // longest first
-  // causal: keys past this tile's last row are never needed
-  const int q_last = min(q0 + DQ_BM, Sq) - 1;
-  const int kv_len = causal ? min(Sk, q_last + 1) : Sk;
-  const int n_tiles = (kv_len + DQ_BN - 1) / DQ_BN;
-  const int wg = warpgroup_index();
-
-  if (threadIdx.x == 0) {
-    mbar_init(qdo_full, 1);
-    for (int s = 0; s < WS_STAGES; ++s) {
-      mbar_init(k_full(s), 1);
-      mbar_init(v_full(s), 1);
-      mbar_init(k_empty(s), WS_CONSUMERS);
-      mbar_init(v_empty(s), WS_CONSUMERS);
-    }
-    fence_barrier_init();
-  }
-  __syncthreads();
-
-  if (wg == 2) {
-    // ---- producer: every warp lowers its register limit, one thread
-    // keeps the ring full
-    setmaxnreg_dec<24>();
-    if (threadIdx.x == 256) {
-      prefetch_tensor_map(&tm_k);
-      prefetch_tensor_map(&tm_v);
-      mbar_expect_tx(qdo_full, 2 * L::Q_BYTES);
-      for (int x = 0; x < BOXES; ++x) {
-        tma_load_4d(base + x * L::Q_BOX, &tm_q, qdo_full, x * BOX_COLS, h,
-                    q0, b);
-        tma_load_4d(base + L::DO_OFF + x * L::Q_BOX, &tm_do, qdo_full,
-                    x * BOX_COLS, h, q0, b);
-      }
-      for (int j = 0; j < n_tiles; ++j) {
-        const int s = j % WS_STAGES;
-        const uint32_t free_parity = ((j / WS_STAGES) & 1) ^ 1;
-        mbar_wait(k_empty(s), free_parity);
-        mbar_expect_tx(k_full(s), L::KV_BYTES);
-        for (int x = 0; x < BOXES; ++x)
-          tma_load_4d(base + L::K_OFF + s * L::KV_BYTES + x * L::KV_BOX,
-                      &tm_k, k_full(s), x * BOX_COLS, h, j * DQ_BN, b);
-        mbar_wait(v_empty(s), free_parity);
-        mbar_expect_tx(v_full(s), L::KV_BYTES);
-        for (int x = 0; x < BOXES; ++x)
-          tma_load_4d(base + L::V_OFF + s * L::KV_BYTES + x * L::KV_BOX,
-                      &tm_v, v_full(s), x * BOX_COLS, h, j * DQ_BN, b);
-      }
-    }
-  } else {
-    // ---- consumers: warpgroup wg owns q rows [q0 + 64 wg, +64)
-    setmaxnreg_inc<240>();
-    const int warp = (threadIdx.x % 128) / 32;
-    const int lane = threadIdx.x % 32;
-    const int g = lane >> 2;
-    const int t = lane & 3;
-    const int wg_row = q0 + wg * 64;
-    const int qp[2] = {wg_row + warp * 16 + g, wg_row + warp * 16 + g + 8};
-    const float scale_log2 = scale * LOG2E;
-    // this thread's two rows: lse in the log2 domain, delta; rows past Sq
-    // take 0 and are never written
-    float lse_l2[2], delta_r[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      const long i = (long)bh * Sq + qp[r];
-      lse_l2[r] = qp[r] < Sq ? lse[i] * LOG2E : 0.f;
-      delta_r[r] = qp[r] < Sq ? delta[i] : 0.f;
-    }
-    // the tiles this warpgroup's rows reach: at the causal diagonal the
-    // upper warpgroup (rows ending 64 before the lower one's) skips the
-    // block's last tile, and a warpgroup wholly past Sq skips them all;
-    // a skipped tile's stages are still released
-    const int wg_kv = causal ? min(Sk, min(wg_row + 64, Sq)) : Sk;
-    const int wg_tiles = wg_row < Sq ? (wg_kv + DQ_BN - 1) / DQ_BN : 0;
-
-    float acc[D / 2];
-#pragma unroll
-    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-    const uint32_t q_rows = base + wg * 64 * SWIZZLE_ROW_BYTES;
-    const uint32_t do_rows = q_rows + L::DO_OFF;
-    mbar_wait(qdo_full, 0);
-
-    for (int j = 0; j < n_tiles; ++j) {
-      const int s = j % WS_STAGES;
-      const uint32_t parity = (j / WS_STAGES) & 1;
-      const uint32_t k_tile = base + L::K_OFF + s * L::KV_BYTES;
-      const uint32_t v_tile = base + L::V_OFF + s * L::KV_BYTES;
-      if (j >= wg_tiles) {
-        // a full barrier's phase completes only after every consumer
-        // released this stage's previous fill: arriving before it could
-        // count toward that release
-        mbar_wait(k_full(s), parity);
-        mbar_arrive(k_empty(s));
-        mbar_wait(v_full(s), parity);
-        mbar_arrive(v_empty(s));
-        continue;
-      }
-      const int k0 = j * DQ_BN;
-
-      // S = Q K^T and dP = dO V^T: [64 rows, 64 keys], both operands
-      // K-major; two groups, so p is computed while dP is in flight
-      float sc[32], dp[32];
-      const uint32_t q_at = opaque(q_rows), do_at = opaque(do_rows);
-      mbar_wait(k_full(s), parity);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t in_box = (kk & 3) * 32;
-        wgmma_ss_n64<0>(
-            sc, sw128_desc(q_at + (kk >> 2) * L::Q_BOX + in_box, 16, 1024),
-            sw128_desc(k_tile + (kk >> 2) * L::KV_BOX + in_box, 16, 1024),
-            kk > 0);
-      }
-      wgmma_commit();
-      mbar_wait(v_full(s), parity);
-#pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t in_box = (kk & 3) * 32;
-        wgmma_ss_n64<0>(
-            dp, sw128_desc(do_at + (kk >> 2) * L::Q_BOX + in_box, 16, 1024),
-            sw128_desc(v_tile + (kk >> 2) * L::KV_BOX + in_box, 16, 1024),
-            kk > 0);
-      }
-      wgmma_commit();
-
-      // p = exp(S scale - lse) as exp2 of one FMA, in place; the mask
-      // only where the tile needs it: the causal diagonal, and keys past
-      // Sk (TMA reads them as zeros: S = 0 there, p = exp(-lse) != 0)
-      wgmma_wait<1>();
-      fence_operand(sc);
-      const bool edge =
-          (causal && k0 + DQ_BN - 1 > wg_row) || k0 + DQ_BN > Sk;
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int r = (i >> 1) & 1;
-        float p = ex2(fmaf(sc[i], scale_log2, -lse_l2[r]));
-        if (edge) {
-          const int kp = k0 + 8 * (i >> 2) + 2 * t + (i & 1);
-          p = (kp < Sk && (!causal || kp <= qp[r])) ? p : 0.f;
-        }
-        sc[i] = p;
-      }
-      wgmma_wait<0>();
-      fence_operand(dp);
-      mbar_arrive(v_empty(s));  // V is done with
-
-      // ds = p (dP - delta) scale in fp32, packed to bf16 as the register
-      // A operand of dq += ds K: the accumulator pair {d[8kc + 2x],
-      // d[8kc + 2x + 1]} is A register x of 16-key step kc (row g for
-      // even x, g + 8 for odd)
-      uint32_t da[DQ_BN / 16][4];
-#pragma unroll
-      for (int kc = 0; kc < DQ_BN / 16; ++kc) {
-#pragma unroll
-        for (int x = 0; x < 4; ++x) {
-          const int i = 8 * kc + 2 * x;
-          const float d = delta_r[x & 1];
-          da[kc][x] = pack_bf16(sc[i] * (dp[i] - d) * scale,
-                                sc[i + 1] * (dp[i + 1] - d) * scale);
-        }
-      }
-      // dq += ds K over 16-key steps: K is MN-major here (head_dim
-      // contiguous), so B is transposed
-      wgmma_fence();
-#pragma unroll
-      for (int kc = 0; kc < DQ_BN / 16; ++kc) {
-        const uint64_t dk =
-            sw128_desc(k_tile + kc * 16 * SWIZZLE_ROW_BYTES, L::KV_BOX, 1024);
-        if constexpr (D == 128)
-          wgmma_rs_n128<1>(acc, da[kc], dk, 1);
-        else
-          wgmma_rs_n64<1>(acc, da[kc], dk, 1);
-      }
-      wgmma_commit();
-      wgmma_wait<0>();
-      fence_operand(acc);
-      mbar_arrive(k_empty(s));  // K is done with
-    }
-
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      if (qp[r] >= Sq) continue;
-      bf16* out = dq + (((long)b * Sq + qp[r]) * H + h) * D;
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-        *reinterpret_cast<uint32_t*>(out + j * 8 + 2 * t) =
-            pack_bf16(acc[4 * j + 2 * r], acc[4 * j + 2 * r + 1]);
-    }
-  }
-}
-
-template <int D>
-cudaError_t launch_dq_ws(const bf16* q, const bf16* k, const bf16* v,
-                         const bf16* dout, const float* lse,
-                         const float* delta, bf16* dq, int B, int H, int Sq,
-                         int Sk, int causal, float scale,
-                         cudaStream_t stream) {
-  CUtensorMap tq, tk, tv, tdo;
-  int err = encode_bshd(&tq, q, B, Sq, H, D, DQ_BM);
-  if (!err) err = encode_bshd(&tdo, dout, B, Sq, H, D, DQ_BM);
-  if (!err) err = encode_bshd(&tk, k, B, Sk, H, D, DQ_BN);
-  if (!err) err = encode_bshd(&tv, v, B, Sk, H, D, DQ_BN);
-  if (err) return static_cast<cudaError_t>(err);
-  constexpr int smem = WsDqSmem<D>::ALLOC;
-  cudaError_t cerr = cudaFuncSetAttribute(
-      bwd_dq_ws_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      smem);
-  if (cerr != cudaSuccess) return cerr;
-  const dim3 grid((Sq + DQ_BM - 1) / DQ_BM, B * H);
-  bwd_dq_ws_kernel<D><<<grid, WS_THREADS, smem, stream>>>(
-      tq, tk, tv, tdo, lse, delta, dq, H, Sq, Sk, causal, scale);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // dtype: 0 = float32, 1 = bfloat16; head_dim D in [1, 256]. q/dout/dq
@@ -683,11 +450,16 @@ extern "C" int rtt_flash_attn_bwd_dq(const void* q, const void* k,
              *bv = static_cast<const bf16*>(v),
              *bdo = static_cast<const bf16*>(dout);
   if (D == 64)
-    return launch_dq_ws<64>(bq, bk, bv, bdo, l, dl, static_cast<bf16*>(dq), B,
-                            H, Sq, Sk, causal, scale, s);
+    return launch_dq_ws<64, true>(bq, bk, bv, bdo, l, dl,
+                                  static_cast<bf16*>(dq), B, H, Sq, Sk, 64,
+                                  causal, scale, s);
   if (D == 128)
-    return launch_dq_ws<128>(bq, bk, bv, bdo, l, dl, static_cast<bf16*>(dq),
-                             B, H, Sq, Sk, causal, scale, s);
+    return launch_dq_ws<128, true>(bq, bk, bv, bdo, l, dl,
+                                   static_cast<bf16*>(dq), B, H, Sq, Sk, 128,
+                                   causal, scale, s);
+  if (rtt::wgmma_padded_head_dim(D))
+    return rtt::bwd_dq_padded(q, k, v, dout, l, dl, dq, B, H, Sq, Sk, D,
+                              causal, scale, s);
   return rtt::bwd_dq_mma(q, k, v, dout, l, dl, dq, B, H, Sq, Sk, D, causal,
                          scale, s);
 }
@@ -720,6 +492,9 @@ extern "C" int rtt_flash_attn_bwd_dkdv(const void* q, const void* k,
                      static_cast<bf16*>(dk), static_cast<bf16*>(dv), B, H, Sq,
                      Sk, causal, scale, s);
   }
+  if (rtt::wgmma_padded_head_dim(D))
+    return rtt::bwd_dkdv_padded(q, k, v, dout, l, dl, dk, dv, B, H, Sq, Sk,
+                                D, causal, scale, s);
   return rtt::bwd_dkdv_mma(q, k, v, dout, l, dl, dk, dv, B, H, Sq, Sk, D,
                            causal, scale, s);
 }

@@ -1,8 +1,11 @@
-// K3 (flash-attention dk/dv backward) in bf16 on mma.sync, for every head
-// dim 1..256 that the wgmma kernel (d 64 and 128, flash_attn_bwd.cu) does
-// not take. Replaces ray_tpu/ops/attention.py::_bwd_dkdv_kernel for those
-// bf16 inputs; flash_attn_bwd.cu describes the kernel family and its
-// numerics.
+// K3 (flash-attention dk/dv backward) in bf16 on mma.sync, for the head
+// dims 1..256 that no wgmma kernel takes: every D under 64, and every D
+// past 64 that is not a multiple of 8 (TMA's rows must be multiples of 16
+// bytes; d 64 and 128 take flash_attn_bwd.cu's wgmma kernel, the other
+// multiples of 8 up to 256 the padded wgmma kernels); past DP 64 its
+// instantiations serve only those D. Replaces
+// ray_tpu/ops/attention.py::_bwd_dkdv_kernel for those bf16 inputs;
+// flash_attn_bwd.cu describes the kernel family and its numerics.
 //
 // mma.sync.m16n8k16 (bf16 operands, fp32 accumulators): one block per
 // (batch*head, 64-key tile), 4 warps of 16 keys; K and V stay in shared

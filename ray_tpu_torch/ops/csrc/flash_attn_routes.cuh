@@ -1,9 +1,11 @@
-// The mma.sync (bf16) and FMA (fp32) routes of K1, K2 and K3, each in its
-// own translation unit so that nvcc compiles them side by side; the C
-// entry points in flash_attn_fwd.cu and flash_attn_bwd.cu dispatch to
-// them for every head dim the wgmma kernels do not take. Each takes any
-// head dim D in [1, MAX_HEAD_DIM] (flash_attn_common.cuh) and returns a
-// cudaError_t (cudaErrorInvalidValue for a D outside it).
+// The routes of K1, K2 and K3 past the wgmma kernels at head_dim 64 and
+// 128, each in its own translation unit so that nvcc compiles them side by
+// side: K2 and K3 on wgmma at the padded head dims, and the mma.sync
+// (bf16) and FMA (fp32) kernels. The C entry points in flash_attn_fwd.cu
+// and flash_attn_bwd.cu dispatch to them. The mma.sync and FMA routes take
+// any head dim D in [1, MAX_HEAD_DIM] (flash_attn_common.cuh), the padded
+// wgmma route the D that wgmma_padded_head_dim admits; each returns a
+// cudaError_t (cudaErrorInvalidValue for a D outside its set).
 //
 // Layouts as the C entry points': q/dout/out/dq [B,Sq,H,D], k/v/dk/dv
 // [B,Sk,H,D], contiguous with a 16-byte aligned base; lse and delta
@@ -35,6 +37,24 @@ cudaError_t bwd_dkdv_mma(const void* q, const void* k, const void* v,
                          const float* delta, void* dk, void* dv, int B,
                          int H, int Sq, int Sk, int D, int causal,
                          float scale, cudaStream_t stream);
+// The head dims K2 and K3 take on wgmma at a padded width in bf16: D % 8
+// == 0 (TMA's 16-byte row stride), 64 < D <= 256, D != 128 (64 and 128
+// have their own instantiations in flash_attn_bwd.cu)
+constexpr bool wgmma_padded_head_dim(int D) {
+  return D % 8 == 0 && D > 64 && D <= 256 && D != 128;
+}
+// K2, bf16 on wgmma at those head dims (flash_attn_bwd_dq_padded.cu)
+cudaError_t bwd_dq_padded(const void* q, const void* k, const void* v,
+                          const void* dout, const float* lse,
+                          const float* delta, void* dq, int B, int H, int Sq,
+                          int Sk, int D, int causal, float scale,
+                          cudaStream_t stream);
+// K3, bf16 on wgmma at those head dims (flash_attn_bwd_dkdv_padded.cu)
+cudaError_t bwd_dkdv_padded(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* delta, void* dk, void* dv, int B,
+                            int H, int Sq, int Sk, int D, int causal,
+                            float scale, cudaStream_t stream);
 // K2 and K3, fp32 on the CUDA cores (flash_attn_bwd_fma.cu)
 cudaError_t bwd_dq_fma(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse,

@@ -159,6 +159,34 @@ __device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
   }
 }
 
+// mbar_wait without __trap(): a wait that never ends stores through a
+// null pointer after 2^30 polls (the launch fails with "an illegal memory
+// access was encountered") and returns, so it cannot hold the card either
+// way. A trap in a kernel makes ptxas (CUDA 12.9) allocate the consumers'
+// code within the registers the launch bounds give a thread (168 at 384
+// threads), whatever setmaxnreg raises at run time; without one it
+// allocates within setmaxnreg's count (240 for the consumers). The padded
+// K2 and K3 kernels wait with this one (flash_attn_bwd.cu's header gives
+// their ptxas numbers both ways).
+__device__ __forceinline__ void mbar_wait_no_trap(uint32_t bar,
+                                                  uint32_t parity) {
+  uint32_t done;
+  for (uint32_t polls = 0;; ++polls) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (polls == (1u << 30)) {
+      *reinterpret_cast<volatile int*>(uintptr_t{0}) = 0;
+      return;
+    }
+  }
+}
+
 __device__ __forceinline__ void prefetch_tensor_map(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(map) : "memory");
 }
@@ -345,6 +373,46 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
         "n"(TRANS_B));
 }
 
+// D[64, 32] (+)= A[64, 16] * B[16, 32], A and B in shared memory
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_ss_n32(float (&d)[16], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, 0, %19;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d), "n"(TRANS_B));
+}
+
+// D[64, 32] (+)= A[64, 16] * B[16, 32], A in registers, B in shared memory
+template <int TRANS_B>
+__device__ __forceinline__ void wgmma_rs_n32(float (&d)[16],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "setp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{"
+      "%0, %1, %2, %3, %4, %5, %6, %7, "
+      "%8, %9, %10, %11, %12, %13, %14, %15"
+      "}, {%16, %17, %18, %19}, %20, p, 1, 1, %22;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d),
+        "n"(TRANS_B));
+}
+
 // D[64, 128] (+)= A[64, 16] * B[16, 128], A in registers (the
 // accumulator-like fragment of a 16-wide k step), B in shared memory
 template <int TRANS_B>
@@ -385,5 +453,64 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
         "n"(TRANS_B));
 }
 
+// Products whose N is a head dim padded to a multiple of 32 (not 64): B
+// is MN-major (the transpose bit), N columns of boxes of 64 columns
+// `box` bytes apart, the first box at shared address `b`; accumulated
+// into d[N / 2] as one m64nNk16 would lay it out. Run as m64n128,
+// m64n64 and m64n32 pieces, each starting on a box edge: a 32-column
+// piece is the first half of its box (its 128-byte rows hold 64 columns;
+// the wgmma reads the first 64 bytes of each, swizzled as TMA wrote
+// them). A comes from registers (rs) or from a shared-memory descriptor
+// (ss). Accumulator piece c is d[c / 2 ...]: the layout of m64nNk16
+// puts column 8j..8j+7 in d[4j..4j+3].
+template <int N>
+__device__ __forceinline__ void wgmma_rs_cols(float (&d)[N / 2],
+                                              const uint32_t (&a)[4],
+                                              uint32_t b, uint32_t box) {
+  static_assert(N % 32 == 0 && N <= 256, "N: a multiple of 32 up to 256");
+#pragma unroll
+  for (int c = 0; c + 128 <= N; c += 128)
+    wgmma_rs_n128<1>(*reinterpret_cast<float(*)[64]>(d + c / 2), a,
+                     sw128_desc(b + (c / 64) * box, box, 1024), 1);
+  constexpr int c64 = N / 128 * 128;
+  if constexpr (N - c64 >= 64)
+    wgmma_rs_n64<1>(*reinterpret_cast<float(*)[32]>(d + c64 / 2), a,
+                    sw128_desc(b + (c64 / 64) * box, box, 1024), 1);
+  constexpr int c32 = N / 64 * 64;
+  if constexpr (N - c32 == 32)
+    wgmma_rs_n32<1>(*reinterpret_cast<float(*)[16]>(d + c32 / 2), a,
+                    sw128_desc(b + (c32 / 64) * box, box, 1024), 1);
+}
+
+template <int N>
+__device__ __forceinline__ void wgmma_ss_cols(float (&d)[N / 2],
+                                              uint64_t da, uint32_t b,
+                                              uint32_t box) {
+  static_assert(N % 32 == 0 && N <= 256, "N: a multiple of 32 up to 256");
+#pragma unroll
+  for (int c = 0; c + 128 <= N; c += 128)
+    wgmma_ss_n128<1>(*reinterpret_cast<float(*)[64]>(d + c / 2), da,
+                     sw128_desc(b + (c / 64) * box, box, 1024), 1);
+  constexpr int c64 = N / 128 * 128;
+  if constexpr (N - c64 >= 64)
+    wgmma_ss_n64<1>(*reinterpret_cast<float(*)[32]>(d + c64 / 2), da,
+                    sw128_desc(b + (c64 / 64) * box, box, 1024), 1);
+  constexpr int c32 = N / 64 * 64;
+  if constexpr (N - c32 == 32)
+    wgmma_ss_n32<1>(*reinterpret_cast<float(*)[16]>(d + c32 / 2), da,
+                    sw128_desc(b + (c32 / 64) * box, box, 1024), 1);
+}
+
+// bar.sync on named barrier `id` (1..15; __syncthreads takes 0) for
+// `threads` threads, a multiple of 32
+__device__ __forceinline__ void named_barrier_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// makes this thread's st.shared writes visible to the async proxy (the
+// wgmmas that read them as operands)
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
 
 }  // namespace

@@ -170,6 +170,10 @@ class PlacementGroupManager:
         self._groups: Dict[PlacementGroupID, PlacementGroup] = {}
         self._pending: List[PlacementGroup] = []
         self._named: Dict[str, PlacementGroupID] = {}
+        # retry_pending runs one pass at a time; a call during a pass asks
+        # for another one
+        self._retrying = False
+        self._retry_requested = False
 
     # ------------------------------------------------------------- create
     def create(self, pg: PlacementGroup) -> None:
@@ -180,9 +184,8 @@ class PlacementGroupManager:
                         f"placement group name {pg.name!r} already taken")
                 self._named[pg.name] = pg.id
             self._groups[pg.id] = pg
-        if not self._try_place(pg):
-            with self._lock:
-                self._pending.append(pg)
+            self._pending.append(pg)
+        self.retry_pending()
 
     def pending_pgs(self) -> List["PlacementGroup"]:
         """Unplaced groups — the autoscaler's PG demand feed (reference:
@@ -191,17 +194,40 @@ class PlacementGroupManager:
             return list(self._pending)
 
     def retry_pending(self) -> None:
+        """Tries each pending group, oldest first, on the resources free
+        now. A call that lands during a pass (resources freed, a group
+        created) makes the running pass go round again instead of running
+        beside it, so no group stays pending beside resources that fit
+        it: without that, a group tried on a view taken before a free and
+        queued after that free's retry had read the queue waited for the
+        next free, which might never come (the JAX package's manager has
+        that race)."""
         with self._lock:
-            pending, self._pending = self._pending, []
-        still = []
-        for pg in pending:
-            if pg.state is PlacementGroupState.REMOVED:
-                continue
-            if not self._try_place(pg):
-                still.append(pg)
-        if still:
+            self._retry_requested = True
+            if self._retrying:
+                return
+            self._retrying = True
+        while True:
             with self._lock:
-                self._pending.extend(still)
+                if not self._retry_requested:
+                    self._retrying = False
+                    return
+                self._retry_requested = False
+                pending, self._pending = self._pending, []
+            still = []
+            for i, pg in enumerate(pending):
+                try:
+                    placed = (pg.state is PlacementGroupState.REMOVED
+                              or self._try_place(pg))
+                except BaseException:
+                    with self._lock:
+                        self._pending[:0] = still + pending[i:]
+                        self._retrying = False
+                    raise
+                if not placed:
+                    still.append(pg)
+            with self._lock:
+                self._pending[:0] = still
 
     # -------------------------------------------------------------- solve
     def _try_place(self, pg: PlacementGroup) -> bool:
@@ -325,6 +351,9 @@ class PlacementGroupManager:
                 if raylet is not None:
                     raylet.return_bundle(pg.id, index, pg.bundles[index],
                                          committed=True)
+            # the bundles' resources may fit a pending group: returning a
+            # bundle is no task's end, so nothing else would retry now
+            self.retry_pending()
 
     def handle_node_death(self, node_id: NodeID) -> None:
         """Bundles on a dead node put the PG into RESCHEDULING

@@ -1,12 +1,15 @@
 """K1, K2 and K3 at head dims off the wgmma route's 64 and 128, against
-their plain versions: the short first call after the mma.sync or FMA
-kernels change.
+their plain versions: the short first call after the padded wgmma,
+mma.sync or FMA kernels change.
 
     python3 -m ray_tpu_torch.tools.check_head_dims
 
-Builds the kernels (printing the build time, and for the mma.sync and
-FMA kernels the most registers any instantiation uses and every one that
-spills), then for each (dtype, head dim) in ``CASES`` runs the forward,
+Builds the kernels (printing the build time; for the mma.sync and FMA
+kernels the most registers any instantiation uses and every one that
+spills; for each instantiation of K2's and K3's wgmma kernels its
+registers, spills and ptxas's performance notes, such as wgmmas
+serialised for want of registers), then for each (dtype, head dim) in
+``CASES`` runs the forward,
 then K2 and K3 on its lse, at a ragged shape with Sq != Sk (causal at
 even head dims, non-causal at odd ones), and holds out/lse against
 ``_blockwise_fwd`` and dq/dk/dv against ``_blockwise_bwd`` within
@@ -18,13 +21,17 @@ without CUDA.
 from __future__ import annotations
 
 import json
+import re
 import sys
 import time
 
 # (dtype, head dims): every padded instantiation's edges -- element-wise
 # rows (D % 8 != 0 in bf16, D % 4 != 0 in fp32), odd k-step counts
-# (D rounded to 16 an odd multiple of 16), K3's two-launch split past 128
-# and fp32's 32-row tiles past 160 -- and the debug configs' 16
+# (D rounded to 16 an odd multiple of 16), mma.sync K3's two-launch split
+# past 128, fp32's 32-row tiles past 160, and in bf16 K2 and K3's padded
+# wgmma widths (D rounded up to 32: 96, 128, 160, 192, 224, 256; a
+# 32-column piece at 80, 96, 160, 224; D 72 and 200 short of their
+# padding by 24) -- and the debug configs' 16
 CASES = [
     ("bfloat16", (1, 8, 16, 20, 24, 32, 40, 48, 72, 80, 96, 100, 112, 136,
                   160, 176, 192, 200, 224, 250, 256)),
@@ -55,6 +62,52 @@ def ptxas_summary(log: str) -> dict:
     return {"most_registers": most, "spilling": spills}
 
 
+def kernel_name(mangled: str) -> str:
+    """A kernel template's name and arguments out of its mangled name
+    ("bwd_dkdv_ws_kernel<128, 1>"), else the mangled name itself."""
+    end = mangled.find("_kernelI") + len("_kernel")
+    args = re.match(r"I((?:L[a-z]\d+E)+)E", mangled[end:])
+    if end < len("_kernel") or not args:
+        return mangled
+    # the name follows its length in decimal
+    n = next((n for n in range(len("_kernel"), end)
+              if mangled[:end - n].endswith(str(n))), None)
+    if n is None:
+        return mangled
+    values = re.findall(r"L[a-z](\d+)E", args.group(1))
+    return f"{mangled[end - n:end]}<{', '.join(values)}>"
+
+
+# the wgmma kernels of K2 (every width) and of K3 at the padded widths
+_WGMMA_BWD = ("bwd_dq_ws_kernel<", "bwd_dkdv_padded_kernel<")
+
+
+def wgmma_bwd_rows(log: str) -> list:
+    """One row per instantiation of K2's and K3's padded wgmma kernels in
+    ``nvcc -Xptxas=-v``'s report: its name and width, registers, spill
+    line and any performance note (ptxas may print a note before its
+    function's rows)."""
+    rows, notes, row = [], {}, None
+    for ln in log.splitlines():
+        if "Potential Performance Loss" in ln:
+            notes.setdefault(ln.split("'")[1], []).append(
+                ln.split("Loss:")[1].split(" for ")[0].strip())
+        elif "Compiling entry function" in ln:
+            mangled = ln.split("'")[1]
+            name = kernel_name(mangled)
+            row = None
+            if name.startswith(_WGMMA_BWD):
+                row = {"kernel": name, "mangled": mangled}
+                rows.append(row)
+        elif row is not None and "Used" in ln and "registers" in ln:
+            row["registers"] = int(ln.split("Used")[1].split()[0])
+        elif row is not None and "spill stores" in ln:
+            row["spill"] = ln.strip()
+    for r in rows:
+        r["notes"] = notes.get(r.pop("mangled"), [])
+    return rows
+
+
 def run_case(dtype: str, d: int) -> dict:
     import torch
 
@@ -75,7 +128,9 @@ def run_case(dtype: str, d: int) -> dict:
     p_out, p_lse = T._blockwise_fwd(q, k, v, causal, scale)
     want = T._blockwise_bwd(q, k, v, out, lse, do, causal, scale)
     row = {"dtype": dtype, "D": d, "causal": causal,
-           "route": T.kernel_route("fwd", dt, d), "err": {}, "agree": True}
+           "routes": {kernel: T.kernel_route(kernel, dt, d)
+                      for kernel in ("fwd", "dq", "dkdv")},
+           "err": {}, "agree": True}
     pairs = [("out", out, p_out, FWD_TOL[dtype]["out"]),
              ("lse", lse, p_lse, FWD_TOL[dtype]["lse"])]
     pairs += [(n, x, y, BWD_TOL[dtype])
@@ -101,6 +156,8 @@ def main(argv=None) -> int:
     log = T.build_kernels()
     print(json.dumps({"build_s": time.monotonic() - t0,
                       **ptxas_summary(log)}), flush=True)
+    for row in wgmma_bwd_rows(log):
+        print(json.dumps(row), flush=True)
     failed = 0
     for dtype, dims in CASES:
         for d in dims:

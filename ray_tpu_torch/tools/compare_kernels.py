@@ -7,14 +7,18 @@ DIR is another checkout of this repository (for example the parent
 commit, unpacked with ``git archive`` into a git-ignored directory). Both
 trees' ``ray_tpu_torch/ops/attention.py`` are loaded side by side as
 standalone modules; each builds its own kernels from its own sources into
-its own ``_build`` directory. At the b1 shapes (the served forward B2 and
-the train step B8, S2048 H16 D128 causal bf16) the script checks that the
-two trees' outputs agree, then times the forward (K1), the dq backward
-(K2) and the dk/dv backward (K3) with CUDA events in the order baseline,
-current, current, baseline, repeated ``--rounds`` times, and prints one
-JSON line with every timing, the mean of each, the factor
-baseline/current, and the card's name and power limit. Needs CUDA (exits
-2 without it).
+its own ``_build`` directory. At each of ``SHAPES`` (b1's served forward
+and train step, bench.py's xl head dim 160 at B2 and at its train step's
+B8, and chip_smoke.py's d 256, d 80 and d 192 rows; bf16) the script
+checks that
+the two trees' outputs agree, then times the forward (K1), the dq
+backward (K2) or the dk/dv backward (K3) with CUDA events in the order
+baseline, current, current, baseline, repeated ``--rounds`` times, and
+beside them one PyTorch library call on the same inputs as a yardstick
+(scaled_dot_product_attention's forward for K1, its whole backward for K2
+and K3), and prints one JSON line with every timing, the mean of each,
+the factor baseline/current, the library's time, and the card's name and
+power limit. Needs CUDA (exits 2 without it).
 """
 
 from __future__ import annotations
@@ -28,12 +32,24 @@ from pathlib import Path
 from ray_tpu_torch.tools.profile_serving import card_line
 
 SHAPES = [
-    # name, kernel, B, S, H, D — b1's served forward, its train step's
-    # forward, dq and dk/dv backward (causal, bf16)
-    ("served_fwd", "fwd", 2, 2048, 16, 128),
-    ("train_fwd", "fwd", 8, 2048, 16, 128),
-    ("train_dq", "dq", 8, 2048, 16, 128),
-    ("train_dkdv", "dkdv", 8, 2048, 16, 128),
+    # name, kernel, B, Sq, Sk, H, D, causal (bf16) — b1's served forward,
+    # its train step's forward, dq and dk/dv backward; K2 and K3 at
+    # bench.py's xl head dim 160 (B2, and B8: the xl16 train step), and at
+    # chip_smoke.py's d256_ragged, d80_sq_lt_sk and d192_noncausal rows
+    ("served_fwd", "fwd", 2, 2048, 2048, 16, 128, True),
+    ("train_fwd", "fwd", 8, 2048, 2048, 16, 128, True),
+    ("train_dq", "dq", 8, 2048, 2048, 16, 128, True),
+    ("train_dkdv", "dkdv", 8, 2048, 2048, 16, 128, True),
+    ("d160_dq", "dq", 2, 2048, 2048, 16, 160, True),
+    ("d160_dkdv", "dkdv", 2, 2048, 2048, 16, 160, True),
+    ("xl16_dq", "dq", 8, 2048, 2048, 16, 160, True),
+    ("xl16_dkdv", "dkdv", 8, 2048, 2048, 16, 160, True),
+    ("d256_dq", "dq", 1, 1000, 1000, 4, 256, True),
+    ("d256_dkdv", "dkdv", 1, 1000, 1000, 4, 256, True),
+    ("d80_dq", "dq", 1, 700, 1000, 4, 80, True),
+    ("d80_dkdv", "dkdv", 1, 700, 1000, 4, 80, True),
+    ("d192_dq", "dq", 2, 1000, 1000, 8, 192, False),
+    ("d192_dkdv", "dkdv", 2, 1000, 1000, 8, 192, False),
 ]
 ITERS = 20
 # the two trees round p (and ds) to bf16 in the same places but sum in
@@ -51,30 +67,51 @@ def load_attention(root: Path, name: str):
     return module
 
 
-def _inputs(b, s, h, d):
+def _inputs(b, sq, sk, h, d):
     import torch
 
-    g = torch.Generator(device="cuda").manual_seed(s + d)
-    q, k, v, do = (torch.randn((b, s, h, d), generator=g, device="cuda")
-                   .bfloat16() for _ in range(4))
+    g = torch.Generator(device="cuda").manual_seed(sq + d)
+    q, do = (torch.randn((b, sq, h, d), generator=g, device="cuda")
+             .bfloat16() for _ in range(2))
+    k, v = (torch.randn((b, sk, h, d), generator=g, device="cuda")
+            .bfloat16() for _ in range(2))
     return q, k, v, do
 
 
-def _call(mod, kernel, q, k, v, do):
+def _call(mod, kernel, q, k, v, do, causal):
     """A closure launching ``kernel`` of module ``mod`` once; it returns
     the kernel's outputs as a tuple."""
     import torch
 
     scale = q.shape[-1] ** -0.5
     if kernel == "fwd":
-        return lambda: mod._fwd_dispatch(q, k, v, True)
-    out, lse = mod._fwd_dispatch(q, k, v, True)
+        return lambda: mod._fwd_dispatch(q, k, v, causal)
+    out, lse = mod._fwd_dispatch(q, k, v, causal)
     delta = torch.einsum("bqhd,bqhd->bhq", out.float(),
                          do.float()).contiguous()
     if kernel == "dq":
-        return lambda: (mod._kernel_bwd_dq(q, k, v, do, lse, delta, True,
+        return lambda: (mod._kernel_bwd_dq(q, k, v, do, lse, delta, causal,
                                            scale),)
-    return lambda: mod._kernel_bwd_dkdv(q, k, v, do, lse, delta, True, scale)
+    return lambda: mod._kernel_bwd_dkdv(q, k, v, do, lse, delta, causal,
+                                        scale)
+
+
+def _library(kernel, q, k, v, do, causal):
+    """A closure of the PyTorch call computing the same function on the
+    same inputs: SDPA's forward for K1, SDPA's backward (dq, dk and dv in
+    one call) for K2 and K3."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).detach().requires_grad_()
+                  for x in (q, k, v))
+    if kernel == "fwd":
+        return lambda: F.scaled_dot_product_attention(qt, kt, vt,
+                                                      is_causal=causal)
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal)
+    dot = do.transpose(1, 2)
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                       retain_graph=True)
 
 
 def _ms(fn) -> float:
@@ -108,9 +145,9 @@ def main(argv=None) -> int:
                                        "attention_baseline"),
             "current": load_attention(here, "attention_current")}
     rows = []
-    for name, kernel, b, s, h, d in SHAPES:
-        q, k, v, do = _inputs(b, s, h, d)
-        calls = {tag: _call(mod, kernel, q, k, v, do)
+    for name, kernel, b, sq, sk, h, d, causal in SHAPES:
+        q, k, v, do = _inputs(b, sq, sk, h, d)
+        calls = {tag: _call(mod, kernel, q, k, v, do, causal)
                  for tag, mod in mods.items()}
         outs = {tag: fn() for tag, fn in calls.items()}
         err = max((x.float() - y.float()).abs().max().item()
@@ -123,14 +160,18 @@ def main(argv=None) -> int:
             for tag in ("baseline", "current", "current", "baseline"):
                 times[tag].append(_ms(calls[tag]))
         mean = {tag: sum(x) / len(x) for tag, x in times.items()}
-        rows.append({"shape": name, "kernel": kernel, "B": b, "S": s,
-                     "H": h, "D": d, "max_abs_diff": err, "ms": times,
+        library_ms = _ms(_library(kernel, q, k, v, do, causal))
+        rows.append({"shape": name, "kernel": kernel, "B": b, "Sq": sq,
+                     "Sk": sk, "H": h, "D": d, "causal": causal,
+                     "max_abs_diff": err, "ms": times,
                      "mean_ms": mean,
                      "baseline_over_current": mean["baseline"]
-                     / mean["current"]})
+                     / mean["current"],
+                     "library_ms": library_ms})
         print(f"{name}: baseline {mean['baseline']:.4f} ms, current "
               f"{mean['current']:.4f} ms, x{rows[-1]['baseline_over_current']:.3f}"
-              f" (max abs diff {err:.3g})", flush=True)
+              f" (max abs diff {err:.3g}); library {library_ms:.4f} ms",
+              flush=True)
         del q, k, v, do, outs, calls
     print(json.dumps({"card": card_line(), "baseline": str(args.baseline),
                       "order": "baseline, current, current, baseline",

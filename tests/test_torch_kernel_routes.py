@@ -25,14 +25,29 @@ ROOT = Path(__file__).resolve().parents[1]
     ("dkdv", torch.bfloat16, 128, T.WGMMA),
     ("dkdv", torch.bfloat16, 64, T.WGMMA),
     # a head_dim-32 row (64 bytes) is under the 128-byte swizzle box,
-    # and every other head dim takes mma.sync too (the debug configs'
-    # 16, bench.py's xl width's 160)
+    # and the forward takes mma.sync at every other head dim (the debug
+    # configs' 16, bench.py's xl width's 160)
     ("fwd", torch.bfloat16, 32, T.MMA_SYNC),
     ("dkdv", torch.bfloat16, 32, T.MMA_SYNC),
     ("fwd", torch.bfloat16, 16, T.MMA_SYNC),
-    ("dq", torch.bfloat16, 160, T.MMA_SYNC),
-    ("dkdv", torch.bfloat16, 256, T.MMA_SYNC),
-    # K2 follows the same rule: wgmma at 64 and 128, mma.sync at 32
+    ("fwd", torch.bfloat16, 160, T.MMA_SYNC),
+    # K2 and K3 take the padded wgmma kernels at D % 8 == 0 between 64
+    # and 256 (bench.py's xl width's 160, the widest 256, and 72, 96,
+    # 192: a 24-column pad, a 32-column piece, three boxes) ...
+    ("dq", torch.bfloat16, 160, T.WGMMA_PADDED),
+    ("dkdv", torch.bfloat16, 256, T.WGMMA_PADDED),
+    ("dq", torch.bfloat16, 72, T.WGMMA_PADDED),
+    ("dkdv", torch.bfloat16, 72, T.WGMMA_PADDED),
+    ("dq", torch.bfloat16, 96, T.WGMMA_PADDED),
+    ("dkdv", torch.bfloat16, 96, T.WGMMA_PADDED),
+    ("dq", torch.bfloat16, 192, T.WGMMA_PADDED),
+    ("dkdv", torch.bfloat16, 192, T.WGMMA_PADDED),
+    # ... and mma.sync where a row is not a multiple of 16 bytes
+    ("dq", torch.bfloat16, 100, T.MMA_SYNC),
+    ("dkdv", torch.bfloat16, 100, T.MMA_SYNC),
+    ("dq", torch.bfloat16, 250, T.MMA_SYNC),
+    ("dkdv", torch.bfloat16, 250, T.MMA_SYNC),
+    # K2 follows K3's rule: wgmma at 64 and 128, mma.sync at 32
     ("dq", torch.bfloat16, 128, T.WGMMA),
     ("dq", torch.bfloat16, 64, T.WGMMA),
     ("dq", torch.bfloat16, 32, T.MMA_SYNC),
@@ -48,13 +63,21 @@ def test_kernel_route(kernel, dtype, head_dim, route):
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkdv"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_kernel_route_takes_every_head_dim_to_256(kernel, dtype):
-    """Every head dim 1..256 has a kernel: bf16 keeps wgmma at 64 and 128
-    and takes mma.sync at every other, fp32 takes the FMA kernels at
-    all; 257 and past raise, naming the shared-memory reason."""
+    """Every head dim 1..256 has a kernel: bf16 keeps wgmma at 64 and 128;
+    K2 and K3 take the padded wgmma kernels at every other multiple of 8
+    past 64 and mma.sync below 64 and off the multiples of 8, K1
+    mma.sync at every other; fp32 takes the FMA kernels at all; 257 and
+    past raise, naming the shared-memory reason."""
+    padded = [d for d in range(1, T.MAX_HEAD_DIM + 1)
+              if d % 8 == 0 and d > 64 and d != 128]
+    assert len(padded) == 23 and padded[0] == 72 and padded[-1] == 256
     for d in range(1, T.MAX_HEAD_DIM + 1):
         want = (T.FMA if dtype == torch.float32 else
-                T.WGMMA if d in (64, 128) else T.MMA_SYNC)
+                T.WGMMA if d in (64, 128) else
+                T.WGMMA_PADDED if kernel != "fwd" and d in padded else
+                T.MMA_SYNC)
         assert T.kernel_route(kernel, dtype, d) == want, d
+        assert T.wgmma_padded_head_dim(d) == (d in padded), d
     for d in (0, T.MAX_HEAD_DIM + 1, 512):
         with pytest.raises(ValueError, match="227 KB of shared memory"):
             T.kernel_route(kernel, dtype, d)
@@ -134,6 +157,17 @@ def test_refused_launch_names_its_cause_and_route(err, cause):
         T._launch_check(err, "dkdv", q, 64, True)
     assert cause in str(info.value) and T.WGMMA in str(info.value)
     T._launch_check(0, "fwd", q, 64, True)
+
+
+@pytest.mark.parametrize("kernel", ["dq", "dkdv"])
+def test_refused_padded_launch_raises_with_its_route(kernel):
+    """No fallback at the padded head dims: a tensor map the launcher
+    could not make, or a refused launch, raises naming the padded wgmma
+    route (nothing gives way to mma.sync or the plain version)."""
+    q = _bf16((1, 64, 2, 160))
+    for err in (1000 + 1, 1):
+        with pytest.raises(RuntimeError, match=T.WGMMA_PADDED):
+            T._launch_check(err, kernel, q, 64, True)
 
 
 def _chip_smoke():
@@ -226,3 +260,133 @@ def test_check_bwd_rows_covers_every_row_alignment():
     assert ("dkdv", 128, 197, 12, 64, False) in check_bwd_rows.CASES
     if not torch.cuda.is_available():
         assert check_bwd_rows.main([]) == 2
+
+
+def test_xl16_path_is_bench_xl_at_16_heads():
+    """chip_smoke.py's xl16 phase trains bench.py's xl dims (hidden 2560,
+    16 layers, inter 6912) at 16 heads over 8 kv heads: head_dim 160,
+    where K1 takes mma.sync and K2 and K3 the padded wgmma kernels; its
+    kernel rows run at the train step's attention shape."""
+    cs = _chip_smoke()
+    cfg = cs._text_config("xl16")
+    assert (cfg.hidden, cfg.layers, cfg.intermediate, cfg.vocab_size) == (
+        2560, 16, 6912, 32000)
+    assert (cfg.heads, cfg.kv_heads, cfg.head_dim) == (16, 8, 160)
+    assert cfg.remat and cfg.remat_policy == "full"
+    assert cfg.logits_chunk == 256 and cfg.dtype == torch.bfloat16
+    assert cs._main_path_routes("bfloat16", cfg.head_dim) == {
+        "fwd": T.MMA_SYNC, "dq": T.WGMMA_PADDED, "dkdv": T.WGMMA_PADDED}
+    b, s = cs.TRAIN_TOKENS[0], cs.TRAIN_TOKENS[1] - 1
+    fwd = {row[0]: row[1:] for row in cs.KERNEL_SHAPES}
+    bwd = {row[0]: row[1:] for row in cs.BWD_SHAPES}
+    assert fwd["xl16_train"] == (b, s, cfg.heads, 160, True, "bfloat16")
+    assert bwd["xl16_train"] == (b, s, s, cfg.heads, 160, True, "bfloat16")
+    assert tuple(cs._train_batch("xl16").shape) == cs.TRAIN_TOKENS
+
+
+@pytest.mark.parametrize("shape,sq,sk,d,causal", [
+    # an N of 80 (padded to 96) where the last key tiles see no query
+    ("d80_sq_lt_sk", 700, 1000, 80, True),
+    # one whole box past 128, without the causal bound
+    ("d192_noncausal", 1000, 1000, 192, False),
+])
+def test_padded_route_rows_reach_its_edges(shape, sq, sk, d, causal):
+    """The kernel phase's rows for the padded wgmma kernels: forward and
+    backward at the same shape, listed with the head-dim rows."""
+    cs = _chip_smoke()
+    fwd = {row[0]: row[1:] for row in cs.KERNEL_SHAPES}
+    bwd = {row[0]: row[1:] for row in cs.BWD_SHAPES}
+    b, got_sq, got_sk, h, got_d, got_causal, dtype = bwd[shape]
+    assert (got_sq, got_sk, got_d, got_causal, dtype) == (
+        sq, sk, d, causal, "bfloat16")
+    row = fwd[shape]
+    assert row[:6] == (b, sq, h, d, causal, "bfloat16")
+    assert (row[6] if len(row) > 6 else sq) == sk
+    assert shape in cs.HEAD_DIM_SHAPES and "xl16_train" in cs.HEAD_DIM_SHAPES
+    for kernel in ("dq", "dkdv"):
+        assert T.kernel_route(kernel, torch.bfloat16, d) == T.WGMMA_PADDED
+
+
+@pytest.mark.parametrize("kernel,bound_ms", [
+    # the xl16 train step, B8 S2048 H16 D160 causal bf16: b1's train shape
+    # at 160/128 of its head dim, so 1.25x its operation bounds
+    ("fwd", 0.1738),
+    ("dq", 0.2607),
+    ("dkdv", 0.3476),
+])
+def test_attention_bound_at_the_xl16_shape(kernel, bound_ms):
+    got, bound_by = _chip_smoke()._attention_work(
+        kernel, 8, 2048, 2048, 16, 160, True, "bfloat16")
+    assert bound_by == "operations"
+    assert got == pytest.approx(bound_ms, abs=5e-5)
+
+
+def test_check_head_dims_names_kernels_from_their_mangled_names():
+    """tools/check_head_dims (and chip_smoke.py's build phase) print each
+    wgmma kernel as name<arguments>."""
+    from ray_tpu_torch.tools.check_head_dims import kernel_name as name
+
+    assert name("_ZN54_GLOBAL__N__abc_21_flash_attn_bwd_cu_b2cda7d118"
+                "bwd_dkdv_ws_kernelILi128ELb1EEEv14CUtensorMap_st") == (
+        "bwd_dkdv_ws_kernel<128, 1>")
+    assert name("_ZN62_GLOBAL__N__93e5_29_flash_attn_bwd_dkdv_padded_cu_"
+                "4c1749c222bwd_dkdv_padded_kernelILi192EEEv14CUtensorMap_st"
+                ) == "bwd_dkdv_padded_kernel<192>"
+    assert name("_Z16bwd_dq_ws_kernelILi160ELb0EEv") == (
+        "bwd_dq_ws_kernel<160, 0>")
+    assert name("_Z3fooi") == "_Z3fooi"
+
+
+def test_check_head_dims_reports_each_wgmma_backward_instantiation():
+    """tools/check_head_dims prints one row per instantiation of K2's and
+    K3's padded wgmma kernels: its width, registers, spills and ptxas's
+    notes (which may come before the function's own rows); other
+    functions' rows are left out."""
+    from ray_tpu_torch.tools.check_head_dims import CASES, wgmma_bwd_rows
+
+    k3 = "_Z22bwd_dkdv_padded_kernelILi192EEv"
+    log = "\n".join([
+        "ptxas info    : Compiling entry function "
+        "'_Z16bwd_dq_ws_kernelILi160ELb0EEv' for 'sm_90a'",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : (C7515) Potential Performance Loss: wgmma.mma_async "
+        "instructions are serialized due to insufficient register "
+        f"resources for the function '{k3}'",
+        f"ptxas info    : Compiling entry function '{k3}' for 'sm_90a'",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+        "    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Compiling entry function '_Z3foov' for 'sm_90a'",
+        "ptxas info    : Used 16 registers",
+    ])
+    rows = wgmma_bwd_rows(log)
+    assert [r["kernel"] for r in rows] == ["bwd_dq_ws_kernel<160, 0>",
+                                           "bwd_dkdv_padded_kernel<192>"]
+    assert rows[0]["registers"] == 168 and rows[0]["notes"] == []
+    assert "8 bytes spill stores" in rows[1]["spill"]
+    assert rows[1]["notes"] == [
+        "wgmma.mma_async instructions are serialized due to insufficient "
+        "register resources"]
+    # every padded width (D rounded up to 32) and both sides of D % 8
+    bf16 = dict(CASES)["bfloat16"]
+    assert {(d + 31) // 32 * 32 for d in bf16
+            if T.wgmma_padded_head_dim(d)} == {96, 128, 160, 192, 224, 256}
+    assert any(d % 8 and d > 64 for d in bf16)
+
+
+def test_compare_kernels_times_the_padded_route_at_its_rows():
+    """tools/compare_kernels times K2 and K3 at bench.py's xl head dim
+    160 (B2, and the xl16 train step's B8) and at chip_smoke.py's rows of
+    the padded route (d 256, 80 and 192, at those rows' shapes), beside
+    b1's shapes."""
+    from ray_tpu_torch.tools.compare_kernels import SHAPES
+
+    cs = _chip_smoke()
+    bwd = {row[0]: row[1:] for row in cs.BWD_SHAPES}
+    got = {(kernel, *rest) for _, kernel, *rest in SHAPES}
+    for kernel in ("dq", "dkdv"):
+        assert (kernel, 8, 2048, 2048, 16, 128, True) in got
+        assert (kernel, 2, 2048, 2048, 16, 160, True) in got
+        for row in ("xl16_train", "d256_ragged", "d80_sq_lt_sk",
+                    "d192_noncausal"):
+            assert (kernel, *bwd[row][:6]) in got, row

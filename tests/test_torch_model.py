@@ -183,6 +183,32 @@ def test_loss_fn_value_and_grads_match_jax():
                                    **GRAD_TOL)
 
 
+def test_loss_fn_grads_match_jax_at_head_dim_160():
+    """The CPU side of chip_smoke.py's xl16 path (bench.py's xl at 16
+    heads, head_dim 160): the port's loss_fn gradients against jax.grad
+    at a narrow config with that head dim (hidden 320, 2 heads over 1 kv
+    head, 2 layers, vocab 256, fp32, remat on), seeded numpy tokens."""
+    widths = dict(vocab_size=256, hidden=320, layers=2, heads=2, kv_heads=1,
+                  intermediate=640, max_seq=64)
+    jcfg = jtfm.ModelConfig(dtype=jnp.float32, **widths)
+    tcfg = ttfm.ModelConfig(dtype=torch.float32, **widths)
+    assert tcfg.head_dim == 160
+    params = jtfm.init_params(jcfg, jax.random.PRNGKey(5))
+    tokens = np.random.default_rng(5).integers(
+        0, jcfg.vocab_size, size=(2, 49)).astype(np.int32)
+    j_loss, j_grads = jax.value_and_grad(
+        lambda p: jtfm.loss_fn(p, jnp.asarray(tokens), jcfg))(params)
+    port = params_from_jax(jax.tree.map(np.asarray, params), tcfg,
+                           device="cpu")
+    loss, grads = _port_loss_and_grads(port, tokens, tcfg)
+    np.testing.assert_allclose(loss, float(j_loss), rtol=LOSS_RTOL)
+    want = dict(_leaf_items(jax.tree.map(np.asarray, j_grads)))
+    assert set(grads) == set(want)
+    for name, g in grads.items():
+        np.testing.assert_allclose(g.numpy(), want[name], err_msg=name,
+                                   **GRAD_TOL)
+
+
 def _small(**kw):
     """The JAX twin tests' model (test_models_extra.py), fp32."""
     base = dict(vocab_size=128, hidden=64, layers=2, heads=4, kv_heads=4,

@@ -175,3 +175,40 @@ def test_actor_serves_debug_model_like_jax(port_rt):
                                 for _ in range(2)], timeout=120)
     for out in logits:
         np.testing.assert_allclose(out.numpy(), ref, atol=1e-4, rtol=1e-4)
+
+
+def test_pending_placement_group_is_placed_when_resources_free(port_rt,
+                                                               monkeypatch):
+    """A pending placement group is placed as soon as resources that fit
+    it are freed, with no task finishing after: by another group's
+    removal, and by a free that lands while the group is tried on a view
+    taken before it. The JAX package's manager leaves the group pending
+    in both cases until some task ends; a Tune trial whose Trainer waited
+    so for a card share timed out (30 s) with the card free."""
+    from ray_tpu_torch.util.placement_group import (
+        placement_group,
+        remove_placement_group,
+    )
+
+    hold = placement_group([{"CPU": 4}])
+    assert hold.wait(5)
+    waiting = placement_group([{"CPU": 2}])
+    assert not waiting.wait(0.2)
+    remove_placement_group(hold)
+    assert waiting.wait(5)
+
+    mgr = port_rt.pg_manager
+    real = mgr._try_place
+    armed = [True]
+
+    def try_then_free(pg):
+        placed = real(pg)  # 2 of 4 CPUs free: the 3-CPU group does not fit
+        if armed and not placed:
+            armed.clear()
+            remove_placement_group(waiting)  # frees 2 during the try
+        return placed
+
+    monkeypatch.setattr(mgr, "_try_place", try_then_free)
+    late = placement_group([{"CPU": 3}])
+    assert not armed and late.wait(5)
+    remove_placement_group(late)
