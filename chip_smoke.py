@@ -175,7 +175,47 @@ if any failed, the script exits non-zero and prints no result. Phases:
               into sampling and learning; vision_net at 84x84x4 (batch
               128) forward+backward timed and held against the CPU; the
               card's memory after trainer.stop() within RLLIB_MEM_SLACK
-              of its value before the phase.
+              of its value before the phase;
+  11. workflow — ray_tpu_torch.workflow on the card: workflow.init
+              (storage in WORKFLOW_DIR, removed after) starts the runtime
+              on CUDA; a four-step DAG: init_b1 writes b1's seeded
+              weights and AdamW state with models/checkpoint.py, train_b1
+              takes WORKFLOW_STEPS steps at TRAIN_TOKENS from the latest
+              checkpoint and writes the next, a second train_b1
+              (max_retries=0) dies on its first attempt (a marker file),
+              serve_b1 serves two seeded [2048] prompts and returns the
+              last-position logits on the card. The first run ends
+              FAILED; workflow.resume finishes it, launching K1, K2 and K3
+              for the unfinished steps alone (the second train and the
+              serve); its losses and logits are bit-equal to an
+              uninterrupted run of the same DAG under another id, and
+              get_output gives the stored result on the card. Each
+              step's checkpoint read and write times print;
+  12. persist — a detached, named b1 actor (seed-0 weights) serves
+              through K1; gcs.persistence.save_snapshot, shutdown() (the
+              card's memory back within PERSIST_MEM_SLACK of its value
+              before the actor), init(), restore_snapshot; the restored
+              actor, found by name, answers the serve phase's prompts
+              with last-position logits bit-equal to the serve phase's;
+              the snapshot's size and save/restore times print;
+  13. client — ray:// client mode: a ``python -m
+              ray_tpu_torch.util.client.server`` process whose runtime is
+              on CUDA; this process, with no runtime of its own, connects
+              with init(address="ray://..."), creates a b1 actor over the
+              wire and gets its last-position logits back in client
+              frames as CUDA tensors, bit-equal to the serve phase's; K1's
+              launches are counted in the server's process;
+              CLIENT_REQUESTS requests' round trips print beside as many
+              direct calls to a b1 actor of a local runtime, made first
+              and shut down before client mode; the server is killed and its card memory freed (free memory
+              back within CLIENT_MEM_SLACK);
+  14. util  — ray_tpu_torch.util on the card: UTIL_ROWS seeded [2048]
+              rows through util.iter.from_items(num_shards=2).gather_sync()
+              into a util.queue.Queue, drained by a b1 actor in batches of
+              up to UTIL_MAX_BATCH through K1; every answer bit-equal to
+              the row served alone at batch 1; QUEUE_OPS host puts, then
+              as many gets, each timed as one window, print the queue's
+              puts and gets per second.
 
 The line before the last is the card's name and power limit as
 nvidia-smi prints them; above it, one JSON line with the kernel table
@@ -1492,7 +1532,7 @@ def _check_launches(model: str, counts: dict, routes: dict, want: dict,
         raise AssertionError(f"{model}: attention kernels launched "
                              f"{counts}; expected {want}")
     for kernel, route in _main_path_routes("bfloat16", head_dim).items():
-        if routes[kernel] != {route: want[kernel]}:
+        if routes[kernel] != ({route: want[kernel]} if want[kernel] else {}):
             raise AssertionError(
                 f"{model}: {kernel} launches by route {routes[kernel]}; "
                 f"expected all {want[kernel]} on {route}")
@@ -2399,6 +2439,13 @@ class ProcServer(ModelServer):
     def forward_last(self, tokens):
         return self.forward(tokens)[:, -1].float().cpu().numpy()
 
+    def forward_last_card(self, tokens):
+        """The last position's logits left on the card (the client phase's
+        replies: they cross the ray:// frames as CUDA tensors). A copy:
+        a view pickles its whole storage, here the [2, 2048, 32000] fp32
+        logits (524 MB)."""
+        return self.forward(tokens)[:, -1].clone()
+
     def rel_l2_vs_plain(self, tokens):
         return _rel_l2(self.forward(tokens), self.forward_plain(tokens))
 
@@ -2995,6 +3042,26 @@ RLLIB_MEM_SLACK = 64 << 10
 # the offline trainers' JSON input (in the checkout, listed in
 # .gitignore, removed when the phase ends)
 RLLIB_DATA_DIR = ".chip_smoke_rllib"
+# phase workflow: the DAG's storage and checkpoints (b1's weights and
+# AdamW state, ≈ 7.7 GB a checkpoint), removed after
+WORKFLOW_DIR = ".chip_smoke_workflow"
+WORKFLOW_STEPS = 2  # optimizer steps in each of the DAG's train steps
+WORKFLOW_PROMPTS = (2, 2048)  # the serve step's two seeded prompts
+# phase persist: the GCS snapshot, removed after; the card's memory after
+# shutdown() within this of its value before the detached actor
+PERSIST_DIR = ".chip_smoke_persist"
+PERSIST_MEM_SLACK = 64 << 10
+# phase client: the card's free memory after the server's kill within
+# this of its value before the server started (this process's caching
+# allocator keeps the blocks of the replies it received)
+CLIENT_MEM_SLACK = 64 << 20
+# b1 requests timed over ray:// and as direct actor calls, each side
+CLIENT_REQUESTS = 32
+# phase util: rows through the iterator and the queue, the drain's batch;
+# host puts, then gets, of a [2048] row timed as one window each
+UTIL_ROWS = 10
+UTIL_MAX_BATCH = 4
+QUEUE_OPS = 5000
 
 
 def _rllib_env_classes():
@@ -3838,6 +3905,636 @@ def phase_rllib(report: dict) -> dict:
 # ------------------------------------------------------------------ main
 
 
+# ------------------------------------------------------------ phase 11
+
+
+def _to_card(tree):
+    """A restored (CPU) train state on the card, tree for tree."""
+    import torch
+
+    if isinstance(tree, torch.Tensor):
+        return tree.to("cuda")
+    if isinstance(tree, dict):
+        return {k: _to_card(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_to_card(v) for v in tree)
+    return tree
+
+
+def _wf_note(ckpt_dir: str, **row) -> None:
+    """A step's timings, appended to a file beside its checkpoints (a
+    resumed workflow runs unpickled copies of the steps, so nothing in
+    this process's memory would see them)."""
+    with open(os.path.join(ckpt_dir, "steps.jsonl"), "a") as f:
+        f.write(json.dumps(row) + "\n")
+
+
+def wf_init_b1(ckpt_dir: str, seed: int) -> str:
+    """Workflow step 1: b1's seeded weights and AdamW state, written with
+    models/checkpoint.py as step 0 -> the directory."""
+    import torch
+
+    from ray_tpu_torch.models.checkpoint import CheckpointManager
+    from ray_tpu_torch.models.training import build_train_step
+
+    _, init_fn = build_train_step(_text_config("b1"), device="cuda")
+    params, opt_state = init_fn(
+        torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    CheckpointManager(ckpt_dir, max_to_keep=None).save(
+        0, {"params": params, "opt_state": opt_state})
+    _wf_note(ckpt_dir, step="init_b1", write_s=time.monotonic() - t0)
+    return ckpt_dir
+
+
+def wf_train_b1(prev, steps: int, fail_marker: str = ""):
+    """Workflow steps 2 and 3: ``steps`` b1 train steps at TRAIN_TOKENS
+    from the latest checkpoint, saved as the next -> (directory, every
+    loss so far). With ``fail_marker`` it raises on its first attempt,
+    before it touches the card."""
+    import torch
+
+    from ray_tpu_torch.models.checkpoint import CheckpointManager
+    from ray_tpu_torch.models.training import build_train_step
+
+    if fail_marker and not os.path.exists(fail_marker):
+        open(fail_marker, "w").close()
+        raise RuntimeError("train_b1 dies on its first attempt")
+    ckpt_dir, losses = (prev, []) if isinstance(prev, str) else prev
+    ckpt = CheckpointManager(ckpt_dir, max_to_keep=None, create=False)
+    done = ckpt.latest_step()
+    t0 = time.monotonic()
+    state = _to_card(ckpt.restore(done))
+    torch.cuda.synchronize()
+    read_s = time.monotonic() - t0
+    step, _ = build_train_step(_text_config("b1"), device="cuda")
+    params, opt_state = state["params"], state["opt_state"]
+    tokens = torch.as_tensor(_train_batch("b1"), device="cuda")
+    step_s = []
+    for _ in range(steps):
+        t0 = time.monotonic()
+        params, opt_state, metrics = step(params, opt_state, tokens)
+        losses = losses + [metrics["loss"].item()]
+        step_s.append(time.monotonic() - t0)
+    t0 = time.monotonic()
+    ckpt.save(done + steps, {"params": params, "opt_state": opt_state})
+    _wf_note(ckpt_dir, step=f"train_b1 {done}->{done + steps}",
+             read_s=read_s, step_s=step_s, write_s=time.monotonic() - t0)
+    return ckpt_dir, losses
+
+
+def wf_serve_b1(prev, prompts):
+    """Workflow step 4: the trained b1 serves ``prompts`` [2, 2048]
+    through K1 -> (the losses, the last-position logits [2, 32000] fp32
+    on the card, so that the stored result carries a device)."""
+    import torch
+
+    from ray_tpu_torch.models.checkpoint import CheckpointManager
+    from ray_tpu_torch.models.training import build_forward
+
+    ckpt_dir, losses = prev
+    ckpt = CheckpointManager(ckpt_dir, max_to_keep=None, create=False)
+    t0 = time.monotonic()
+    params = _to_card(ckpt.restore(ckpt.latest_step())["params"])
+    torch.cuda.synchronize()
+    read_s = time.monotonic() - t0
+    fwd = build_forward(_text_config("b1"), device="cuda")
+    t0 = time.monotonic()
+    # a copy: a view would pickle the whole [2, 2048, 32000] logits
+    logits = fwd(params, prompts)[:, -1].clone()
+    torch.cuda.synchronize()
+    _wf_note(ckpt_dir, step="serve_b1", read_s=read_s,
+             forward_s=time.monotonic() - t0)
+    return losses, logits
+
+
+def _wf_dag(workflow, ckpt_dir: str, fail_marker: str):
+    """init_b1 -> train_b1 (2) -> train_b1 (2, dies once) -> serve_b1."""
+    import numpy as np
+
+    prompts = np.random.default_rng(13).integers(
+        0, _text_config("b1").vocab_size, size=WORKFLOW_PROMPTS)
+    init, train, serve = (workflow.step(f) for f in (
+        wf_init_b1, wf_train_b1, wf_serve_b1))
+    first = train.step(init.step(ckpt_dir, 0), WORKFLOW_STEPS)
+    second = train.options(max_retries=0).step(first, WORKFLOW_STEPS,
+                                                fail_marker)
+    return serve.step(second, prompts)
+
+
+def _du(root: str) -> int:
+    """Bytes of the files under ``root``."""
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, fs in os.walk(root) for f in fs)
+
+
+def _wf_notes(ckpt_dir: str) -> list:
+    with open(os.path.join(ckpt_dir, "steps.jsonl")) as f:
+        return [json.loads(line) for line in f]
+
+
+def phase_workflow(report: dict) -> dict:
+    """A durable b1 workflow (ray_tpu_torch.workflow) on the card: the
+    DAG's third step dies on its first attempt, resume finishes the run
+    from the stored outputs of the first two, and its losses and logits
+    are bit-equal to an uninterrupted run of the same DAG under another
+    id; the resumed run launches K1-K3 for the unfinished steps alone."""
+    import shutil
+
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch import workflow
+    from ray_tpu_torch.core import runtime as rt_mod
+
+    cfg = _text_config("b1")
+    root = os.path.abspath(WORKFLOW_DIR)
+    shutil.rmtree(root, ignore_errors=True)
+    per_step = {"fwd": 2 * cfg.layers, "dq": cfg.layers, "dkdv": cfg.layers}
+
+    def want(train_steps: int, serves: int) -> dict:
+        return {k: n * train_steps + (cfg.layers * serves if k == "fwd"
+                                      else 0)
+                for k, n in per_step.items()}
+
+    runs = {}
+    try:
+        # with no runtime up, workflow.init starts the port's, on CUDA
+        workflow.init(storage=os.path.join(root, "storage"))
+        if rt_mod.global_runtime.device.type != "cuda":
+            raise AssertionError("workflow.init did not start the runtime "
+                                 "on CUDA")
+        node = _wf_dag(workflow, os.path.join(root, "resumed"),
+                       os.path.join(root, "attempted"))
+        _reset_counts()
+        t0 = time.monotonic()
+        try:
+            node.run("b1-resumed")
+        except Exception as exc:  # the third step's first attempt
+            if "first attempt" not in str(exc):
+                raise
+        else:
+            raise AssertionError("workflow: the failing step did not fail")
+        runs["failed"] = (time.monotonic() - t0, _read_counts(),
+                          _read_routes())
+        status_failed = workflow.get_status("b1-resumed")
+        _reset_counts()
+        t0 = time.monotonic()
+        resumed = workflow.resume("b1-resumed")
+        runs["resumed"] = (time.monotonic() - t0, _read_counts(),
+                           _read_routes())
+        stored = workflow.get_output("b1-resumed")
+        status_resumed = workflow.get_status("b1-resumed")
+        # the result holds what the checks compare; the checkpoints go
+        # before the next run writes its own
+        notes = {"resumed": _wf_notes(os.path.join(root, "resumed"))}
+        disk = {"after_resume": _du(root)}
+        shutil.rmtree(os.path.join(root, "resumed"))
+
+        node = _wf_dag(workflow, os.path.join(root, "uninterrupted"), "")
+        _reset_counts()
+        t0 = time.monotonic()
+        whole = node.run("b1-uninterrupted")
+        runs["uninterrupted"] = (time.monotonic() - t0, _read_counts(),
+                                 _read_routes())
+        listed = sorted(workflow.list_all())
+        notes["uninterrupted"] = _wf_notes(os.path.join(root,
+                                                        "uninterrupted"))
+        disk["after_uninterrupted"] = _du(root)
+        ckpt_bytes = _du(os.path.join(root, "uninterrupted", "0"))
+    finally:
+        workflow.set_global_storage(None)
+        ray_tpu_torch.shutdown()
+        shutil.rmtree(root, ignore_errors=True)
+
+    for name, train_steps, serves in (("failed", WORKFLOW_STEPS, 0),
+                                      ("resumed", WORKFLOW_STEPS, 1),
+                                      ("uninterrupted", 2 * WORKFLOW_STEPS,
+                                       1)):
+        _check_launches(f"workflow {name} run", runs[name][1], runs[name][2],
+                        want(train_steps, serves), cfg.head_dim)
+    losses, logits = resumed
+    if status_failed != "FAILED" or status_resumed != "SUCCESSFUL" or \
+            listed != ["b1-resumed", "b1-uninterrupted"]:
+        raise AssertionError(f"workflow: statuses {status_failed} -> "
+                             f"{status_resumed}, listed {listed}")
+    if len(losses) != 2 * WORKFLOW_STEPS or not all(
+            math.isfinite(x) for x in losses) or not losses[-1] < losses[0]:
+        raise AssertionError(f"workflow: losses not finite and falling: "
+                             f"{losses}")
+    if logits.device.type != "cuda" or stored[1].device.type != "cuda" or \
+            tuple(logits.shape) != (WORKFLOW_PROMPTS[0], cfg.vocab_size) or \
+            not torch.isfinite(logits).all():
+        raise AssertionError(f"workflow: result logits {logits.device} "
+                             f"{tuple(logits.shape)}, stored on "
+                             f"{stored[1].device}")
+    bit_equal = (losses == whole[0] and torch.equal(logits, whole[1])
+                 and stored[0] == losses and torch.equal(stored[1], logits))
+    if not bit_equal:
+        raise AssertionError(
+            f"workflow: the resumed run is not the uninterrupted one: losses "
+            f"{losses} vs {whole[0]}, logits max diff "
+            f"{(logits - whole[1]).abs().max().item():.3g}")
+    trains = [n for n in notes["uninterrupted"]
+              if n["step"].startswith("train")]
+    step_s = [s for n in trains for s in n["step_s"][1:]]
+    out = {
+        "model": MODEL_DESC["b1"] + ", remat full",
+        "dag": f"init_b1 -> train_b1 ({WORKFLOW_STEPS} steps at "
+               f"{list(TRAIN_TOKENS)}) -> train_b1 ({WORKFLOW_STEPS}, dies "
+               f"on its first attempt) -> serve_b1 ({list(WORKFLOW_PROMPTS)})",
+        "run_s": {k: v[0] for k, v in runs.items()},
+        "kernel_launches": {k: v[1] for k, v in runs.items()},
+        "losses": losses, "steps": notes, "checkpoint_bytes": ckpt_bytes,
+        "disk_bytes": disk, "peak_disk_bytes": max(disk.values()),
+        "bit_equal_to_uninterrupted": bit_equal,
+        "result_device": str(stored[1].device),
+    }
+    report["workflow"] = out
+    writes = [n["write_s"] for n in notes["uninterrupted"] if "write_s" in n]
+    reads = [n["read_s"] for n in notes["uninterrupted"] if "read_s" in n]
+    print(f"workflow: on {report.get('card')}: b1 DAG {out['dag']}: failed "
+          f"run {runs['failed'][0]:.2f} s, resume {runs['resumed'][0]:.2f} "
+          f"s, uninterrupted {runs['uninterrupted'][0]:.2f} s; launches "
+          f"failed/resumed/uninterrupted {[runs[k][1] for k in runs]}; "
+          f"losses {[round(x, 5) for x in losses]} bit-equal to the "
+          f"uninterrupted run's, logits too, result on {stored[1].device}; "
+          f"checkpoint {ckpt_bytes / 2**30:.2f} GiB (peak disk "
+          f"{max(disk.values()) / 2**30:.2f} GiB): writes s "
+          f"{[round(x, 3) for x in writes]}, reads s "
+          f"{[round(x, 3) for x in reads]}; steady train step "
+          f"{sum(step_s) / len(step_s):.4f} s", flush=True)
+    return _merge_routes(*(v[2] for v in runs.values()))
+
+
+# ------------------------------------------------------------ phase 12
+
+
+def phase_persist(report: dict) -> dict:
+    """A detached, named b1 actor comes back from a GCS snapshot
+    (ray_tpu_torch.gcs.persistence): save_snapshot, shutdown (the card's
+    memory back within PERSIST_MEM_SLACK), init, restore_snapshot; the
+    restored actor, found by name, serves the serve phase's prompts with
+    last-position logits bit-equal to the serve phase's."""
+    import gc
+    import shutil
+
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    from ray_tpu_torch.gcs import persistence
+
+    want_last = report.get("_serve_last_logits")
+    if want_last is None:
+        raise AssertionError("persist needs the serve phase's logits")
+    cfg = _text_config("b1")
+    rng = np.random.default_rng(0)  # the serve phase's tokens
+    batches = [rng.integers(0, cfg.vocab_size, size=SERVE_TOKENS)
+               for _ in range(SERVE_REQUESTS)]
+    os.makedirs(PERSIST_DIR, exist_ok=True)
+    path = os.path.join(PERSIST_DIR, "gcs_snapshot.bin")
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_before = torch.cuda.memory_allocated()
+    try:
+        ray_tpu_torch.init(num_cpus=4, num_gpus=1)
+        server = ray_tpu_torch.remote(num_gpus=1)(ProcServer).options(
+            name="b1-server", lifetime="detached").remote(0, "b1")
+        _reset_counts()
+        before = [ray_tpu_torch.get(server.forward_last.remote(t))
+                  for t in batches[:1]]
+        first_counts, first_routes = _read_counts(), _read_routes()
+        mem_serving = torch.cuda.memory_allocated()
+        t0 = time.monotonic()
+        persistence.save_snapshot(path)
+        save_s = time.monotonic() - t0
+        del server
+        ray_tpu_torch.shutdown()
+        gc.collect()
+        torch.cuda.synchronize()
+        mem_down = torch.cuda.memory_allocated()
+
+        ray_tpu_torch.init(num_cpus=4, num_gpus=1)
+        t0 = time.monotonic()
+        counts = persistence.restore_snapshot(path)
+        restored = ray_tpu_torch.get_actor("b1-server")
+        # constructed (its weights' kernels enqueued, not yet run)
+        ray_tpu_torch.get(restored.pid.remote())
+        restore_s = time.monotonic() - t0
+        _reset_counts()
+        last, latencies = [], []
+        for tokens in batches:
+            t0 = time.monotonic()
+            last.append(ray_tpu_torch.get(
+                restored.forward_last.remote(tokens)))
+            latencies.append(time.monotonic() - t0)
+        main_counts, main_routes = _read_counts(), _read_routes()
+        ray_tpu_torch.kill(restored)
+        del restored
+    finally:
+        ray_tpu_torch.shutdown()
+        size = os.path.getsize(path) if os.path.exists(path) else None
+        shutil.rmtree(PERSIST_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.synchronize()
+    mem_after = torch.cuda.memory_allocated()
+    _check_launches("persist (before the snapshot)", first_counts,
+                    first_routes, {"fwd": cfg.layers, "dq": 0, "dkdv": 0},
+                    cfg.head_dim)
+    _check_launches("persist (the restored actor)", main_counts,
+                    main_routes, {"fwd": cfg.layers * SERVE_REQUESTS,
+                                  "dq": 0, "dkdv": 0}, cfg.head_dim)
+    if counts["actors"] != 1:
+        raise AssertionError(f"persist: restore counts {counts}")
+    if mem_serving - mem_before < 2 << 30 or \
+            mem_down - mem_before > PERSIST_MEM_SLACK or \
+            mem_after - mem_before > PERSIST_MEM_SLACK:
+        raise AssertionError(
+            f"persist: card memory allocated before {mem_before}, serving "
+            f"{mem_serving}, after shutdown {mem_down}, at the end "
+            f"{mem_after} (slack {PERSIST_MEM_SLACK})")
+    equal = [bool(np.array_equal(g, w)) for g, w in zip(last, want_last)]
+    if not all(equal) or not np.array_equal(before[0], want_last[0]):
+        raise AssertionError(f"persist: the restored actor's logits are not "
+                             f"the serve phase's bit for bit ({equal})")
+    report["persist"] = {
+        "model": MODEL_DESC["b1"], "snapshot_bytes": size,
+        "save_s": save_s, "restore_s": restore_s, "restore_counts": counts,
+        "latency_s": latencies,
+        "memory_bytes": {"before": mem_before, "serving": mem_serving,
+                         "after_shutdown": mem_down, "after": mem_after,
+                         "slack": PERSIST_MEM_SLACK},
+        "kernel_launches": main_counts, "bit_equal_to_serve": equal,
+    }
+    print(f"persist: on {report.get('card')}: detached b1 actor snapshot "
+          f"{size} bytes, saved in {save_s * 1e3:.2f} ms; after shutdown "
+          f"the card holds {mem_down - mem_before} bytes more than before "
+          f"(serving: {(mem_serving - mem_before) / 2**30:.2f} GiB); "
+          f"restored (re-created from its class and arguments, a first "
+          f"call answered) in {restore_s * 1e3:.2f} ms; {SERVE_REQUESTS} "
+          f"requests, latency s {[round(x, 4) for x in latencies]} (the "
+          f"first includes the weights' draw), K1 "
+          f"{main_routes['fwd']}; logits bit-equal to the serve phase's",
+          flush=True)
+    return _merge_routes(first_routes, main_routes)
+
+
+# ------------------------------------------------------------ phase 13
+
+
+def _median(xs: list) -> float:
+    return sorted(xs)[len(xs) // 2]
+
+
+def phase_client(report: dict) -> dict:
+    """b1 served over ray://: a ``python -m ray_tpu_torch.util.client.
+    server`` process on the card, this process a pure client
+    (init(address=...)); the actor's last-position logits come back in
+    client frames as CUDA tensors, bit-equal to the serve phase's; K1
+    counted in the server's process; CLIENT_REQUESTS round trips against
+    as many direct calls to the same actor class in a local runtime,
+    shut down before client mode; the server killed and its card memory
+    freed."""
+    import numpy as np
+    import torch
+
+    import ray_tpu_torch
+    import ray_tpu_torch.core.api as api
+
+    want_last = report.get("_serve_last_logits")
+    if want_last is None:
+        raise AssertionError("client needs the serve phase's logits")
+    if ray_tpu_torch.is_initialized():
+        raise AssertionError("client: a local runtime is up")
+    cfg = _text_config("b1")
+    rng = np.random.default_rng(0)  # the serve phase's tokens
+    batches = [rng.integers(0, cfg.vocab_size, size=SERVE_TOKENS)
+               for _ in range(SERVE_REQUESTS)]
+
+    def serve(server) -> tuple:
+        """CLIENT_REQUESTS requests after a first forward -> (round trips
+        s, replies, launches, routes)."""
+        ray_tpu_torch.get(server.forward_last_card.remote(
+            batches[0][:, :16]))  # the first forward, as serve's probe
+        ray_tpu_torch.get(server.reset_counts.remote())
+        latencies, last = [], []
+        for i in range(CLIENT_REQUESTS):
+            t = time.monotonic()
+            last.append(ray_tpu_torch.get(server.forward_last_card.remote(
+                batches[i % SERVE_REQUESTS])))
+            latencies.append(time.monotonic() - t)
+        return (latencies, last, *ray_tpu_torch.get(server.counts.remote()))
+
+    ray_tpu_torch.init(num_cpus=4, num_gpus=1)
+    try:
+        local = ray_tpu_torch.remote(num_gpus=1)(ProcServer).remote(0, "b1")
+        direct, direct_last, direct_counts, direct_routes = serve(local)
+        direct_last = [t.cpu().numpy() for t in direct_last]
+        ray_tpu_torch.kill(local)
+        del local
+    finally:
+        ray_tpu_torch.shutdown()
+    torch.cuda.synchronize()
+    free_before = torch.cuda.mem_get_info()[0]
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "ray_tpu_torch.util.client.server",
+         "--init-kwargs", json.dumps({"num_cpus": 4, "num_gpus": 1})],
+        stdout=subprocess.PIPE, text=True, cwd=root,
+        env=dict(os.environ, PYTHONPATH=root))
+    try:
+        t0 = time.monotonic()
+        line = proc.stdout.readline().strip()
+        if not line.startswith("CLIENT_SERVER_ADDRESS "):
+            raise AssertionError(f"client: the server said {line!r}")
+        address = line.split()[1]
+        server_up_s = time.monotonic() - t0
+        threading.Thread(target=proc.stdout.read, daemon=True).start()
+        ray_tpu_torch.init(address=address)
+        if api._client() is None:
+            raise AssertionError("client: init(address=...) is not in "
+                                 "client mode")
+        t0 = time.monotonic()
+        server = ray_tpu_torch.remote(num_gpus=1)(ProcServer).remote(0, "b1")
+        server_pid = ray_tpu_torch.get(server.pid.remote())
+        actor_up_s = time.monotonic() - t0
+        latencies, last, counts, routes = serve(server)
+        torch.cuda.synchronize()
+        free_serving = torch.cuda.mem_get_info()[0]
+        ray_tpu_torch.kill(server)
+        ray_tpu_torch.shutdown()
+        if api._client() is not None or ray_tpu_torch.is_initialized():
+            raise AssertionError("client: shutdown left a connection or a "
+                                 "local runtime")
+    finally:
+        if api._client() is not None:
+            ray_tpu_torch.shutdown()
+        proc.kill()
+        proc.wait(timeout=30)
+    devices = {str(t.device) for t in last}
+    last_np = [t.cpu().numpy() for t in last]
+    del last
+    deadline = time.monotonic() + 30
+    while True:  # the server's context goes with its process
+        torch.cuda.synchronize()
+        free_after = torch.cuda.mem_get_info()[0]
+        if free_before - free_after <= CLIENT_MEM_SLACK or \
+                time.monotonic() > deadline:
+            break
+        time.sleep(0.2)
+    if server_pid != proc.pid:
+        raise AssertionError(f"client: the actor ran in pid {server_pid}, "
+                             f"not the server's {proc.pid}")
+    want = {"fwd": cfg.layers * CLIENT_REQUESTS, "dq": 0, "dkdv": 0}
+    _check_launches("client (direct)", direct_counts, direct_routes, want,
+                    cfg.head_dim)
+    _check_launches("client (in the server)", counts, routes, want,
+                    cfg.head_dim)
+    if devices != {"cuda:0"}:
+        raise AssertionError(f"client: logits came back on {devices}")
+    equal = [bool(np.array_equal(g, want_last[i % SERVE_REQUESTS]) and
+                  np.array_equal(d, want_last[i % SERVE_REQUESTS]))
+             for i, (g, d) in enumerate(zip(last_np, direct_last))]
+    if not all(equal):
+        raise AssertionError(f"client: logits over ray:// or direct are not "
+                             f"the serve phase's bit for bit ({equal})")
+    if free_before - free_serving < 2 << 30 or \
+            free_before - free_after > CLIENT_MEM_SLACK:
+        raise AssertionError(
+            f"client: card memory free before the server {free_before}, "
+            f"while it served {free_serving}, after its kill {free_after} "
+            f"(slack {CLIENT_MEM_SLACK})")
+    report["client"] = {
+        "model": MODEL_DESC["b1"], "server_up_s": server_up_s,
+        "actor_up_s": actor_up_s, "latency_s": latencies,
+        "direct_latency_s": direct,
+        "median_s": {"ray": _median(latencies), "direct": _median(direct)},
+        "kernel_launches": counts, "kernel_launches_by_route": routes,
+        "logits_device": sorted(devices), "bit_equal_to_serve": equal,
+        "card_free_bytes": {"before": free_before, "serving": free_serving,
+                            "after_kill": free_after,
+                            "slack": CLIENT_MEM_SLACK},
+    }
+    print(f"client: on {report.get('card')}: server process up in "
+          f"{server_up_s:.2f} s, b1 actor over ray:// in {actor_up_s:.2f} s; "
+          f"{CLIENT_REQUESTS} requests of {list(SERVE_TOKENS)} each side, "
+          f"round trip s over ray:// median {_median(latencies):.4f} (range "
+          f"{min(latencies):.4f}-{max(latencies):.4f}), direct actor call "
+          f"median {_median(direct):.4f} ({min(direct):.4f}-"
+          f"{max(direct):.4f}); K1 in the server {routes['fwd']}; logits on "
+          f"{sorted(devices)}, bit-equal to the serve phase's; card free GiB "
+          f"before / serving / after the kill {free_before / 2**30:.2f} / "
+          f"{free_serving / 2**30:.2f} / {free_after / 2**30:.2f}",
+          flush=True)
+    return routes
+
+
+# ------------------------------------------------------------ phase 14
+
+
+class QueueServer(ProcServer):
+    """b1 on the card draining a util.queue.Queue of [2048] token rows
+    in batches of up to UTIL_MAX_BATCH, one forward a batch."""
+
+    def drain(self, queue):
+        import numpy as np
+
+        answers, sizes = [], []
+        while n := queue.qsize():
+            rows = queue.get_nowait_batch(min(UTIL_MAX_BATCH, n))
+            last = self.forward(np.stack(rows))[:, -1].float().cpu()
+            answers.extend(last.numpy())
+            sizes.append(len(rows))
+        return answers, sizes
+
+
+def phase_util(report: dict) -> dict:
+    """ray_tpu_torch.util on the card: seeded prompt rows through
+    util.iter.from_items(..., num_shards=2).gather_sync() into a
+    util.queue.Queue; a b1 actor drains it in batches of up to
+    UTIL_MAX_BATCH through K1; every answer bit-equal to the row served
+    alone at batch 1. Then the queue's rate: QUEUE_OPS host puts of a
+    row into a fresh Queue, then as many gets, each timed as one window,
+    the gets in the order of the puts."""
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch.util import iter as rti
+    from ray_tpu_torch.util.queue import Queue
+
+    cfg = _text_config("b1")
+    rows = np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(UTIL_ROWS, SERVE_LIB["seq"]))
+    ray_tpu_torch.init(num_cpus=4, num_gpus=1)
+    try:
+        server = ray_tpu_torch.remote(num_gpus=1)(QueueServer).remote(0)
+        ray_tpu_torch.get(server.forward_last.remote(rows[:1, :16]))
+        _reset_counts()
+        t0 = time.monotonic()
+        fed = list(rti.from_items(list(rows), num_shards=2).gather_sync())
+        queue = Queue()
+        for row in fed:
+            queue.put(row)
+        answers, sizes = ray_tpu_torch.get(server.drain.remote(queue))
+        run_s = time.monotonic() - t0
+        counts, routes = _read_counts(), _read_routes()
+        queue.shutdown()
+        reference = [ray_tpu_torch.get(server.forward_last.remote(r[None]))[0]
+                     for r in fed]
+        ray_tpu_torch.kill(server)
+
+        queue = Queue()
+        t0 = time.monotonic()
+        for i in range(QUEUE_OPS):
+            queue.put(rows[i % UTIL_ROWS])
+        put_s = time.monotonic() - t0
+        t0 = time.monotonic()
+        got = [queue.get() for _ in range(QUEUE_OPS)]
+        get_s = time.monotonic() - t0
+        queue.shutdown()
+    finally:
+        ray_tpu_torch.shutdown()
+    if sorted(map(tuple, fed)) != sorted(map(tuple, rows)) or \
+            len(answers) != UTIL_ROWS or max(sizes) > UTIL_MAX_BATCH or \
+            max(sizes) < 2:
+        raise AssertionError(f"util: {len(fed)} rows fed, {len(answers)} "
+                             f"answers in batches {sizes}")
+    _check_launches("util", counts, routes,
+                    {"fwd": cfg.layers * len(sizes), "dq": 0, "dkdv": 0},
+                    cfg.head_dim)
+    equal = [bool(np.array_equal(a, r)) for a, r in zip(answers, reference)]
+    if not all(equal):
+        rel = max(float(np.linalg.norm(a - r) / np.linalg.norm(r))
+                  for a, r in zip(answers, reference))
+        raise AssertionError(f"util: batched answers not bit-equal to batch "
+                             f"1 ({sum(equal)} of {len(equal)}; worst rel L2 "
+                             f"{rel:.3g})")
+    if not all(np.array_equal(g, rows[i % UTIL_ROWS])
+               for i, g in enumerate(got)):
+        raise AssertionError("util: the queue's gets are not its puts in "
+                             "order")
+    report["util"] = {
+        "model": MODEL_DESC["b1"], "rows": UTIL_ROWS,
+        "batch_sizes": sizes, "run_s": run_s,
+        "queue_ops": QUEUE_OPS, "queue_put_s": put_s, "queue_get_s": get_s,
+        "queue_puts_per_s": QUEUE_OPS / put_s,
+        "queue_gets_per_s": QUEUE_OPS / get_s,
+        "kernel_launches": counts, "kernel_launches_by_route": routes,
+        "bit_equal_to_batch1": equal,
+    }
+    print(f"util: on {report.get('card')}: {UTIL_ROWS} rows of "
+          f"[{SERVE_LIB['seq']}] through from_items(num_shards=2)."
+          f"gather_sync() into a Queue, drained by a b1 actor in batches "
+          f"{sizes} in {run_s:.3f} s; K1 {routes['fwd']}; all answers "
+          f"bit-equal to batch 1; {QUEUE_OPS} host puts of a row in "
+          f"{put_s:.3f} s ({QUEUE_OPS / put_s:.1f} puts/s), as many gets in "
+          f"{get_s:.3f} s ({QUEUE_OPS / get_s:.1f} gets/s), in order",
+          flush=True)
+    return routes
+
+
 def _at_shapes(report: dict, kernel: str) -> dict:
     """The kernel's time, bound, plain and library times at the moe and
     vit train shapes and at the head dims off 64 and 128 (kernel phase
@@ -3955,7 +4652,11 @@ def main() -> int:
             ("vit", phase_vit),
             ("data", phase_data),
             ("tune", phase_tune),
-            ("rllib", phase_rllib)):
+            ("rllib", phase_rllib),
+            ("workflow", phase_workflow),
+            ("persist", phase_persist),
+            ("client", phase_client),
+            ("util", phase_util)):
         t0 = time.monotonic()
         try:
             routes = phase(report)

@@ -44,15 +44,41 @@ def init(
     device=None,
     **kwargs,
 ):
-    """Start the in-process runtime (reference: ray.init starting a
-    local node). ``device`` is where the scheduling plane's placement
-    solve runs: ``None`` means CUDA, and a missing CUDA raises — pass
+    """Start (or connect to) the runtime. With no address, brings up an
+    in-process cluster (reference: ray.init starting a local node);
+    ``device`` is where the scheduling plane's placement solve runs:
+    ``None`` means CUDA, and a missing CUDA raises — pass
     ``device="cpu"`` to run on the CPU. ``address="ray://host:port"``
-    (client mode) is not ported and raises."""
-    if address is not None:
-        raise NotImplementedError(
-            "ray:// client mode (init(address=...)) is not ported to "
-            "ray_tpu_torch")
+    enters CLIENT MODE against a running client server (reference: ray
+    client, ray.init("ray://...")): the module-level verbs
+    (remote/get/put/wait/kill) proxy over the wire until shutdown(), and
+    no local runtime starts (the server's runtime holds the device)."""
+    global _client_ctx
+    if address is not None and str(address).startswith("ray://"):
+        if _client_ctx is not None and _client_ctx.connected:
+            if ignore_reinit_error:
+                return _client_ctx
+            raise RuntimeError(
+                "ray_tpu_torch.init() called twice; pass "
+                "ignore_reinit_error=True")
+        if (rt_mod.global_runtime is not None
+                and not rt_mod.global_runtime.is_shutdown):
+            raise RuntimeError(
+                "cannot enter ray:// client mode while a local runtime "
+                "is active; call ray_tpu_torch.shutdown() first")
+        from ray_tpu_torch.util.client.client import connect
+
+        _client_ctx = connect(address)
+        return _client_ctx
+    if _client_ctx is not None and _client_ctx.connected:
+        # Mirror of the client-mode guard above: a local init while a
+        # ray:// connection is open would make _client() silently prefer
+        # the local runtime, shadowing the still-open client connection.
+        if ignore_reinit_error:
+            return _client_ctx
+        raise RuntimeError(
+            "cannot start a local runtime while a ray:// client "
+            "connection is active; call ray_tpu_torch.shutdown() first")
     device = resolve_device(device)
     if rt_mod.global_runtime is not None and not rt_mod.global_runtime.is_shutdown:
         if ignore_reinit_error:
@@ -84,12 +110,34 @@ def init(
     )
 
 
+_client_ctx = None  # set by init(address="ray://...")
+
+
+def _client():
+    if _client_ctx is None or not _client_ctx.connected:
+        return None
+    # A live LOCAL runtime wins: this process IS (part of) the cluster —
+    # e.g. the client server itself, or a worker executing tasks — and
+    # its own api calls must never bounce back over the wire.
+    rt = rt_mod.global_runtime
+    if rt is not None and not rt.is_shutdown:
+        return None
+    return _client_ctx
+
+
 def shutdown() -> None:
+    global _client_ctx
+    if _client_ctx is not None:
+        _client_ctx.disconnect()
+        _client_ctx = None
+        return
     rt_mod.shutdown_runtime()
     Config.reset()
 
 
 def is_initialized() -> bool:
+    if _client() is not None:
+        return True
     return (rt_mod.global_runtime is not None
             and not rt_mod.global_runtime.is_shutdown)
 
@@ -97,6 +145,14 @@ def is_initialized() -> bool:
 def _runtime():
     rt = rt_mod.global_runtime
     if rt is None or rt.is_shutdown:
+        if _client() is not None:
+            # loud failure beats silently auto-initing a second,
+            # unrelated local runtime (on the card) underneath a
+            # connected client
+            raise RuntimeError(
+                "this API is not proxied in ray:// client mode; use the "
+                "core verbs (remote/get/put/wait/kill) or run against a "
+                "local runtime")
         # auto-init like the reference does on first remote call
         return init(device=auto_init_device())
     return rt
@@ -118,6 +174,14 @@ class RemoteFunction:
         functools.update_wrapper(self, func)
 
     def remote(self, *args, **kwargs) -> Union[ObjectRef, List[ObjectRef]]:
+        ctx = _client()
+        if ctx is not None:
+            # client mode binds at CALL time: decoration commonly
+            # happens at import, before init("ray://...") connects
+            return ctx.remote(
+                self._func,
+                **_nondefault_options(self._options, TaskOptions())
+            ).remote(*args, **kwargs)
         return self._remote(args, kwargs, self._options)
 
     def options(self, **overrides) -> "RemoteFunction":
@@ -236,6 +300,12 @@ class ActorClass:
         self._module = getattr(cls, "__module__", "")
 
     def remote(self, *args, **kwargs) -> ActorHandle:
+        ctx = _client()
+        if ctx is not None:  # call-time client binding, like tasks
+            return ctx.remote(
+                self._cls,
+                **_nondefault_options(self._options, ActorOptions())
+            ).remote(*args, **kwargs)
         rt = _runtime()
         opts = self._options
         if opts.name and opts.get_if_exists:
@@ -283,10 +353,24 @@ class ActorClass:
             f"{self._name}.remote()")
 
 
+def _nondefault_options(opts, defaults) -> Dict[str, Any]:
+    """TaskOptions/ActorOptions -> the kwargs the user actually set
+    (for re-decorating on the far side of a client connection)."""
+    out = {}
+    for field in opts.__dataclass_fields__:
+        value = getattr(opts, field)
+        if value != getattr(defaults, field):
+            out[field] = value
+    return out
+
+
 # ------------------------------------------------------------- decorators
 def remote(*args, **kwargs):
     """``@remote`` / ``@remote(num_cpus=..., ...)`` for functions and
-    classes (reference: worker.py:2272 ray.remote)."""
+    classes (reference: worker.py:2272 ray.remote). Binding to client
+    mode happens at CALL time inside RemoteFunction/ActorClass, so
+    import-time decoration works regardless of when init("ray://...")
+    connects."""
 
     def _make(target):
         if inspect.isclass(target):
@@ -330,12 +414,18 @@ def method(**kwargs):
 
 # ------------------------------------------------------------ data plane
 def put(value: Any) -> ObjectRef:
+    ctx = _client()
+    if ctx is not None:
+        return ctx.put(value)
     if isinstance(value, ObjectRef):
         raise TypeError("Calling put() on an ObjectRef is not allowed")
     return _runtime().put(value)
 
 
 def get(refs, timeout: Optional[float] = None, _skip_wait: bool = False):
+    ctx = _client()
+    if ctx is not None:
+        return ctx.get(refs, timeout=timeout)
     rt = _runtime()
     if isinstance(refs, ObjectRef):
         return rt.get([refs], timeout)[0]
@@ -351,6 +441,10 @@ def get(refs, timeout: Optional[float] = None, _skip_wait: bool = False):
 def wait(refs: Sequence[ObjectRef], *, num_returns: int = 1,
          timeout: Optional[float] = None, fetch_local: bool = True
          ) -> Tuple[List[ObjectRef], List[ObjectRef]]:
+    ctx = _client()
+    if ctx is not None:
+        return ctx.wait(list(refs), num_returns=num_returns,
+                        timeout=timeout)
     if isinstance(refs, ObjectRef):
         raise TypeError("wait() expects a list of ObjectRefs")
     refs = list(refs)
@@ -363,6 +457,10 @@ def wait(refs: Sequence[ObjectRef], *, num_returns: int = 1,
 
 
 def kill(actor: ActorHandle, *, no_restart: bool = True) -> None:
+    ctx = _client()
+    if ctx is not None:
+        ctx.kill(actor, no_restart=no_restart)
+        return
     if not isinstance(actor, ActorHandle):
         raise TypeError("kill() expects an actor handle; for tasks use cancel()")
     _runtime().kill_actor(actor._record, no_restart=no_restart)

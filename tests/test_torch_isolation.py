@@ -40,6 +40,9 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     rllib = [f for f in files
              if f.relative_to(ROOT).parts[:2] == ("ray_tpu_torch", "rllib")]
     assert len(rllib) == 16  # every module of ray_tpu/rllib/
+    for sub, n in ((("workflow",), 4), (("util", "client"), 4)):
+        got = [f for f in files if f.relative_to(ROOT).parts[1:-1] == sub]
+        assert len(got) == n, (sub, got)  # as in the JAX package
     bad = {}
     for path in files:
         roots = set(_imported_roots(path)) & {"jax", "jaxlib", "ray_tpu",
@@ -68,8 +71,10 @@ def test_init_without_device_raises_without_cuda():
                                    "cluster_state", "params_from_jax",
                                    "tune_run", "rllib_policies",
                                    "rllib_trainer", "rllib_qmix",
-                                   "rllib_models"])
+                                   "rllib_models", "workflow_init",
+                                   "mp_pool", "client_server"])
 def test_model_entry_points_raise_without_cuda(entry):
+    import ray_tpu_torch
     from ray_tpu_torch.core.raylet import ClusterState
     from ray_tpu_torch.models import transformer as tfm
     from ray_tpu_torch.models.convert import params_from_jax
@@ -77,8 +82,10 @@ def test_model_entry_points_raise_without_cuda(entry):
     from ray_tpu_torch import tune
     from ray_tpu_torch.train import Trainer
 
-    from ray_tpu_torch import rllib
+    from ray_tpu_torch import rllib, workflow
     from ray_tpu_torch.rllib import models as rl_models
+    from ray_tpu_torch.util.client.server import ClientServer
+    from ray_tpu_torch.util.multiprocessing import Pool
 
     _needs_no_cuda()
     cfg = tfm.ModelConfig.debug()
@@ -114,9 +121,15 @@ def test_model_entry_points_raise_without_cuda(entry):
             {"env": rllib.TwoStepCoopEnv}),
         "rllib_models": lambda: rl_models.fcnet((4, 2))[0](
             torch.Generator()),
+        # with no runtime, workflow.init, Pool and the ray:// client
+        # server bring the port's up, on CUDA
+        "workflow_init": lambda: workflow.init(),
+        "mp_pool": lambda: Pool(1),
+        "client_server": lambda: ClientServer(),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
+    assert not ray_tpu_torch.is_initialized()
 
 
 def test_kernel_wrapper_raises_for_unsupported_cuda_input():
