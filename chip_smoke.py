@@ -215,7 +215,35 @@ if any failed, the script exits non-zero and prints no result. Phases:
               up to UTIL_MAX_BATCH through K1; every answer bit-equal to
               the row served alone at batch 1; QUEUE_OPS host puts, then
               as many gets, each timed as one window, print the queue's
-              puts and gets per second.
+              puts and gets per second;
+  15. ops   — the cluster operator's surface: the runtime of the earlier
+              phases shut down, create_or_update_cluster on the process
+              provider (its GCS on CUDA; node types head {CPU: 2} and
+              gpu {CPU: 2, GPU: 1}, 0 to 1 of them, idle timeout
+              OPS_IDLE_S); a pending {GPU: 1, CPU: 1} placement group
+              makes the autoscaler's monitor launch exactly one gpu node
+              and the group CREATED, then removed; a task with
+              resources {GPU: 1} and runtime_env {py_modules: [a package
+              the phase writes], env_vars: {B1_TAG}} builds b1 from seed
+              0 on that node (its workers given card 0) and serves the
+              serve phase's 4 requests: the package reaches the node as
+              a pymod:// URI through the GCS KV (the servers' module
+              cache is not this process's), K1 24 launches a request on
+              wgmma in the task's process, the last-position logits
+              bit-equal to the serve phase's; the idle gpu node is
+              terminated; a job (JobSubmissionClient.submit_job, its
+              entrypoint a script the phase writes) goes PENDING ->
+              RUNNING -> SUCCEEDED serving b1 from an actor of its own
+              runtime on the card (launches in its log, logits saved and
+              bit-equal); a second job loads b1 and waits until
+              stop_job gives STOPPED and the card's free memory is back
+              within OPS_MEM_SLACK; `python -m ray_tpu_torch status`,
+              `job list`, `job status` and `job logs` on the cluster
+              exit 0 and name both jobs; teardown_cluster leaves no GCS
+              or raylet process, no state file and the card's memory
+              back within OPS_MEM_SLACK; `python -m ray_tpu_torch
+              microbenchmark --json` in a process of its own prints the
+              JAX package's seven rows with their spread.
 
 The line before the last is the card's name and power limit as
 nvidia-smi prints them; above it, one JSON line with the kernel table
@@ -3062,6 +3090,21 @@ CLIENT_REQUESTS = 32
 UTIL_ROWS = 10
 UTIL_MAX_BATCH = 4
 QUEUE_OPS = 5000
+# phase ops: the py_modules package, the job scripts and the module
+# caches, in the checkout (listed in .gitignore) and removed after; the
+# gpu node's idle timeout; the card's free memory after the stopped job
+# and after `down` within OPS_MEM_SLACK of its value before (this
+# process's caching allocator keeps the blocks of the replies it got)
+OPS_DIR = ".chip_smoke_ops"
+OPS_IDLE_S = 3.0
+OPS_MEM_SLACK = 64 << 20
+# the microbenchmark's rows, named and ordered as the JAX package's
+# (ray_tpu/_private/ray_perf.py), and the seconds each run is timed
+OPS_PERF_ROWS = ("single_client_tasks_async", "multi_client_tasks_async",
+                 "1_1_actor_calls_sync", "1_1_actor_calls_async",
+                 "n_n_actor_calls_async", "single_client_put_MiB_per_s",
+                 "placement_group_create_removal")
+OPS_PERF_DURATION = 0.5
 
 
 def _rllib_env_classes():
@@ -4535,6 +4578,486 @@ def phase_util(report: dict) -> dict:
     return routes
 
 
+# ------------------------------------------------------------ phase 15
+
+# the package a py_modules task imports on the gpu node and the jobs
+# import from PYTHONPATH: b1 at full width and depth from a seed on the
+# card, the serve phase's prompts, its probe, then the requests
+OPS_PACKAGE = '''"""b1 served through K1 on the card (chip_smoke.py's ops phase)."""
+
+import os
+
+import numpy as np
+
+
+def prompts(vocab_size, requests=4, shape=(2, 2048)):
+    """The serve phase's seeded prompts."""
+    rng = np.random.default_rng(0)
+    return [rng.integers(0, vocab_size, size=shape) for _ in range(requests)]
+
+
+class B1Server:
+    def __init__(self, seed=0):
+        import torch
+
+        from ray_tpu_torch.models import transformer as tfm
+        from ray_tpu_torch.models.training import build_forward
+
+        self.cfg = tfm.ModelConfig.b1()
+        gen = torch.Generator(device="cuda").manual_seed(seed)
+        self.params = tfm.init_params(self.cfg, gen, device="cuda")
+        self.fwd = build_forward(self.cfg, device="cuda")
+
+    def forward_last(self, tokens):
+        """The last position's logits, a copy: a view would carry the
+        whole [2, 2048, 32000] logits when pickled."""
+        import torch
+
+        logits = self.fwd(self.params, tokens)
+        torch.cuda.current_stream().synchronize()
+        return logits[:, -1].clone()
+
+    def serve(self, batches):
+        """The serve phase's probe, then one forward a batch -> (last
+        logits, K1-K3 launches, by route), counted in this process."""
+        from ray_tpu_torch.ops import attention
+
+        counters = {"fwd": attention.launches, "dq": attention.dq_launches,
+                    "dkdv": attention.dkdv_launches}
+        self.forward_last(batches[0][:, :16])
+        for counter in counters.values():
+            counter.reset()
+        last = [self.forward_last(tokens) for tokens in batches]
+        return (last, {k: c.count for k, c in counters.items()},
+                {k: c.by_route for k, c in counters.items()})
+
+
+def serve_b1(batches):
+    """A task's whole b1 server: build, serve, report where it ran."""
+    last, counts, routes = B1Server(0).serve(batches)
+    return {"last": last, "counts": counts, "routes": routes,
+            "tag": os.environ.get("B1_TAG"), "module": __file__,
+            "pid": os.getpid(),
+            "visible": os.environ.get("CUDA_VISIBLE_DEVICES")}
+'''
+
+# job 1: the port's runtime on the card, b1 served by an actor
+OPS_SERVE_JOB = '''import json
+import sys
+
+import numpy as np
+
+import b1_ops_serving
+import ray_tpu_torch
+from ray_tpu_torch.models.transformer import ModelConfig
+
+ray_tpu_torch.init(num_cpus=2, num_gpus=1)
+server = ray_tpu_torch.remote(num_gpus=1)(b1_ops_serving.B1Server).remote(0)
+batches = b1_ops_serving.prompts(ModelConfig.b1().vocab_size)
+last, counts, routes = ray_tpu_torch.get(server.serve.remote(batches),
+                                         timeout=600)
+np.save(sys.argv[1], np.stack([t.float().cpu().numpy() for t in last]))
+print("OPS_JOB_LAUNCHES " + json.dumps({"counts": counts,
+                                        "routes": routes}), flush=True)
+ray_tpu_torch.shutdown()
+'''
+
+# job 2: b1 loaded on the card, then a wait until it is stopped. The job
+# manager uploads a job's log every 20 lines: 20 lines say it is loaded
+OPS_HOLD_JOB = '''import time
+
+import b1_ops_serving
+import ray_tpu_torch
+from ray_tpu_torch.models.transformer import ModelConfig
+
+ray_tpu_torch.init(num_cpus=2, num_gpus=1)
+server = ray_tpu_torch.remote(num_gpus=1)(b1_ops_serving.B1Server).remote(0)
+ray_tpu_torch.get(server.forward_last.remote(
+    b1_ops_serving.prompts(ModelConfig.b1().vocab_size, 1)[0][:, :16]))
+for i in range(20):
+    print(f"OPS_B1_LOADED {i}", flush=True)
+time.sleep(600)
+'''
+
+
+def _ops_task(batches):
+    """A cluster task: its b1 serving code comes from py_modules."""
+    import b1_ops_serving
+
+    return b1_ops_serving.serve_b1(batches)
+
+
+def _wait_for(predicate, timeout: float, what: str) -> float:
+    """Poll until ``predicate()`` -> the seconds it took."""
+    t0 = time.monotonic()
+    while not predicate():
+        if time.monotonic() - t0 > timeout:
+            raise AssertionError(f"ops: timed out waiting for {what}")
+        time.sleep(0.05)
+    return time.monotonic() - t0
+
+
+def _free_card_bytes() -> int:
+    import torch
+
+    torch.cuda.synchronize()
+    return torch.cuda.mem_get_info()[0]
+
+
+def _ops_cli(root: str, *argv) -> str:
+    """``python -m ray_tpu_torch ...`` -> its output; it must exit 0."""
+    proc = subprocess.run(
+        [sys.executable, "-m", "ray_tpu_torch", *argv], cwd=root,
+        env=dict(os.environ, PYTHONPATH=root), capture_output=True,
+        text=True, timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"ops: `{' '.join(argv)}` exited "
+                             f"{proc.returncode}: {proc.stderr[-2000:]}")
+    return proc.stdout
+
+
+def phase_ops(report: dict) -> dict:
+    """The cluster operator's surface on the card: ``ray up`` (the
+    process provider, its GCS on CUDA); a pending {"GPU": 1} bundle makes
+    the autoscaler launch one gpu node; a task there imports its b1
+    serving code from py_modules (staged by the raylet from the GCS KV)
+    and serves through K1; the idle node goes; two submitted jobs (b1
+    served by an actor of the job's own runtime; b1 loaded, then
+    stopped); the CLI on the cluster; ``down``; the microbenchmark."""
+    import shutil
+
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch._private import runtime_env_packaging as pkg
+    from ray_tpu_torch._private.runtime_env import normalize
+    from ray_tpu_torch.autoscaler.commands import (
+        _state_path,
+        create_or_update_cluster,
+        teardown_cluster,
+    )
+    from ray_tpu_torch.cluster.byte_store import sweep_stale_segments
+    from ray_tpu_torch.cluster.job_manager import JobSubmissionClient
+    from ray_tpu_torch.cluster.process_cluster import ClusterClient
+
+    want_last = report.get("_serve_last_logits")
+    if want_last is None:
+        raise AssertionError("ops needs the serve phase's logits")
+    if ray_tpu_torch.is_initialized():
+        ray_tpu_torch.shutdown()
+    cfg = _text_config("b1")
+    rng = np.random.default_rng(0)  # the serve phase's tokens
+    batches = [rng.integers(0, cfg.vocab_size, size=SERVE_TOKENS)
+               for _ in range(SERVE_REQUESTS)]
+    want = {"fwd": cfg.layers * SERVE_REQUESTS, "dq": 0, "dkdv": 0}
+    root = os.path.dirname(os.path.abspath(__file__))
+    work = os.path.join(root, OPS_DIR)
+    shutil.rmtree(work, ignore_errors=True)
+    pkg_dir = os.path.join(work, "b1_pkg")
+    os.makedirs(pkg_dir)
+    with open(os.path.join(pkg_dir, "b1_ops_serving.py"), "w") as f:
+        f.write(OPS_PACKAGE)
+    for name, src in (("serve_job.py", OPS_SERVE_JOB),
+                      ("hold_job.py", OPS_HOLD_JOB)):
+        with open(os.path.join(work, name), "w") as f:
+            f.write(src)
+    # the servers' module cache is not this process's: the package
+    # reaches the gpu node only through the GCS KV
+    node_cache = os.path.join(work, "node_cache")
+    env_keys = {"RAY_TPU_WORKER_CUDA_VISIBLE_DEVICES": "0",
+                "RAY_TPU_PY_MODULES_CACHE": node_cache,
+                "RAY_TPU_object_store_memory": str(CLUSTER_STORE_BYTES)}
+    saved_env = {k: os.environ.get(k) for k in env_keys}
+    saved_manager = pkg._default
+    os.environ.update(env_keys)
+    pkg._default = pkg.PyModulesManager(
+        cache_root=os.path.join(work, "client_cache"))
+    free_before = _free_card_bytes()
+    name = "ops"
+    config = {
+        "cluster_name": name, "provider": {"type": "process"},
+        "head_node_type": "head", "idle_timeout_minutes": OPS_IDLE_S / 60,
+        "available_node_types": {
+            "head": {"resources": {"CPU": 2}, "min_workers": 0,
+                     "max_workers": 0},
+            "gpu": {"resources": {"CPU": 2, "GPU": 1}, "min_workers": 0,
+                    "max_workers": 1}}}
+    out: dict = {"card": report.get("card")}
+    handle = client = jobs = None
+    started: set = set()
+    try:
+        # 1. up
+        t0 = time.monotonic()
+        handle = create_or_update_cluster(config)
+        out["up_s"] = time.monotonic() - t0
+        if handle.worker_ids():
+            raise AssertionError(f"ops: up launched {handle.worker_ids()}")
+        gcs = handle.provider.gcs_address
+        cluster = handle.provider._cluster
+        gcs_pid = cluster.gcs_proc.pid
+        client = ClusterClient(gcs)
+
+        # 2. a pending GPU bundle: one gpu node, the group CREATED
+        t0 = time.monotonic()
+        pg = client.create_placement_group([{"GPU": 1, "CPU": 1}])
+        handle.start_monitor(interval_s=0.3)
+        _wait_for(lambda: handle.worker_ids(), 60, "a gpu node")
+        launch_s = time.monotonic() - t0
+        _wait_for(lambda: client.pg_info(pg)["state"] == "CREATED", 60,
+                  "the bundle's group CREATED")
+        created_s = time.monotonic() - t0
+        gpu_workers = handle.worker_ids()
+        tags = [handle.provider.node_tags(w)["ray-user-node-type"]
+                for w in gpu_workers]
+        if tags != ["gpu"] or handle.autoscaler.num_launches != 1:
+            raise AssertionError(f"ops: the autoscaler launched {tags} "
+                                 f"({handle.autoscaler.num_launches})")
+        gpu_raylet = handle.provider.raylet_node_id(gpu_workers[0])
+        client.remove_placement_group(pg)
+        started |= _descendants([gcs_pid, *(
+            p.pid for p in cluster.raylets.values())])
+        print(f"ops: on {report.get('card')}: up (GCS on CUDA) in "
+              f"{out['up_s']:.2f} s; a pending {{GPU: 1, CPU: 1}} bundle "
+              f"launched one gpu node in {launch_s:.2f} s, group CREATED in "
+              f"{created_s:.2f} s", flush=True)
+
+        # 3. a py_modules task on the gpu node
+        env = {"py_modules": [pkg_dir], "env_vars": {"B1_TAG": "ops-b1"}}
+        t0 = time.monotonic()
+        uri = normalize(dict(env))["py_modules"][0]
+        package_ms = (time.monotonic() - t0) * 1e3
+        t0 = time.monotonic()
+        ref = client.submit(_ops_task, (batches,), resources={"GPU": 1},
+                            runtime_env=env)
+        result = client.get(ref, timeout=600.0)
+        task_s = time.monotonic() - t0
+        # what the raylet did before dispatch: a KV fetch and an extract
+        t0 = time.monotonic()
+        pkg.PyModulesManager(
+            cache_root=os.path.join(work, "stage_probe")).ensure_local(
+            uri, fetch=lambda key: client.kv_get(key, ns=pkg.KV_NAMESPACE))
+        stage_ms = (time.monotonic() - t0) * 1e3
+        node_extract = os.path.join(node_cache, uri.split("//", 1)[1])
+        staged = os.path.exists(os.path.join(node_extract, ".ready"))
+        task_last = [t.float().cpu().numpy() for t in result["last"]]
+        task_devices = sorted({str(t.device) for t in result["last"]})
+        del result["last"]
+        _check_launches("ops (py_modules task)", result["counts"],
+                        result["routes"], want, cfg.head_dim)
+        equal = [bool(np.array_equal(g, w))
+                 for g, w in zip(task_last, want_last)]
+        if not all(equal) or len(equal) != SERVE_REQUESTS:
+            raise AssertionError(f"ops: the py_modules task's logits are not "
+                                 f"the serve phase's bit for bit ({equal})")
+        if result["tag"] != "ops-b1" or not staged or \
+                not result["module"].startswith(node_extract + os.sep) or \
+                result["visible"] != "0":
+            raise AssertionError(f"ops: the task ran with B1_TAG "
+                                 f"{result['tag']!r}, its module at "
+                                 f"{result['module']}, staged {staged}, "
+                                 f"CUDA_VISIBLE_DEVICES {result['visible']!r}"
+                                 f"; want the package of {uri} under "
+                                 f"{node_cache}")
+        out["py_modules_task"] = {
+            "uri": uri, "package_ms": package_ms, "stage_ms": stage_ms,
+            "task_s": task_s, "node": gpu_raylet,
+            "kernel_launches": result["counts"],
+            "kernel_launches_by_route": result["routes"],
+            "logits_device": task_devices, "bit_equal_to_serve": equal,
+            "env_var": result["tag"], "module": result["module"]}
+        print(f"ops: a task with runtime_env py_modules ({uri}; packaged and "
+              f"put in the GCS KV in {package_ms:.1f} ms, a KV fetch and "
+              f"extract as the raylet stages it {stage_ms:.1f} ms) served "
+              f"b1 on the gpu node in {task_s:.2f} s; K1 "
+              f"{result['routes']['fwd']}; logits on {task_devices}, "
+              f"bit-equal to the serve phase's; B1_TAG {result['tag']!r}",
+              flush=True)
+
+        # 6a. the idle gpu node goes
+        t0 = time.monotonic()
+        _wait_for(lambda: handle.autoscaler.num_terminations == 1, 60,
+                  "the idle gpu node's termination")
+        out["idle_to_terminated_s"] = time.monotonic() - t0
+        if handle.worker_ids() or gpu_raylet in cluster.raylets:
+            raise AssertionError(f"ops: the gpu node is still up: "
+                                 f"{handle.worker_ids()}")
+        print(f"ops: the idle gpu node terminated "
+              f"{out['idle_to_terminated_s']:.2f} s after the task (idle "
+              f"timeout {OPS_IDLE_S} s)", flush=True)
+
+        # 4. two jobs
+        jobs = JobSubmissionClient(gcs)
+        logits_file = os.path.join(work, "job_logits.npy")
+        job_env = {"env_vars": {"PYTHONPATH": f"{root}:{pkg_dir}"}}
+
+        def run_job(script, *args):
+            t0 = time.monotonic()
+            job_id = jobs.submit_job(
+                entrypoint=" ".join([sys.executable,
+                                     os.path.join(work, script), *args]),
+                runtime_env=job_env)
+            seen = [jobs.get_job_status(job_id)]
+
+            def moved(target):
+                status = jobs.get_job_status(job_id)
+                if status != seen[-1]:
+                    seen.append(status)
+                return status in target
+
+            running_s = _wait_for(lambda: moved(("RUNNING", "SUCCEEDED",
+                                                 "FAILED", "STOPPED")),
+                                  120, f"{script} to start")
+            return job_id, seen, moved, t0, running_s
+
+        serve_id, seen, moved, t0, running_s = run_job(
+            "serve_job.py", logits_file)
+        _wait_for(lambda: moved(("SUCCEEDED", "FAILED", "STOPPED")), 600,
+                  "the serve job to end")
+        done_s = time.monotonic() - t0
+        logs = jobs.get_job_logs(serve_id)
+        if seen != ["PENDING", "RUNNING", "SUCCEEDED"]:
+            raise AssertionError(f"ops: serve job went {seen}: {logs[-3000:]}")
+        line = [x for x in logs.splitlines()
+                if x.startswith("OPS_JOB_LAUNCHES ")]
+        launched = json.loads(line[-1].split(" ", 1)[1])
+        _check_launches("ops (job)", launched["counts"], launched["routes"],
+                        want, cfg.head_dim)
+        job_last = np.load(logits_file)
+        job_equal = [bool(np.array_equal(g, w))
+                     for g, w in zip(job_last, want_last)]
+        if not all(job_equal) or len(job_equal) != SERVE_REQUESTS:
+            raise AssertionError(f"ops: the job's logits are not the serve "
+                                 f"phase's bit for bit ({job_equal})")
+
+        free_job = _free_card_bytes()
+        hold_id, hold_seen, hold_moved, t0, hold_running_s = run_job(
+            "hold_job.py")
+        _wait_for(lambda: "OPS_B1_LOADED" in jobs.get_job_logs(hold_id)
+                  or hold_moved(("SUCCEEDED", "FAILED", "STOPPED")), 300,
+                  "the holding job's log to say b1 is loaded")
+        if hold_seen[-1] != "RUNNING":
+            raise AssertionError(f"ops: the holding job went {hold_seen}: "
+                                 f"{jobs.get_job_logs(hold_id)[-3000:]}")
+        free_holding = _free_card_bytes()
+        t0 = time.monotonic()
+        if not jobs.stop_job(hold_id):
+            raise AssertionError("ops: stop_job refused the running job")
+        stop_s = _wait_for(lambda: hold_moved(("STOPPED", "FAILED",
+                                               "SUCCEEDED")), 60,
+                           "the stopped job to end")
+        freed_s = _wait_for(
+            lambda: free_job - _free_card_bytes() <= OPS_MEM_SLACK, 60,
+            "the stopped job's card memory") + stop_s
+        free_stopped = _free_card_bytes()
+        if hold_seen != ["PENDING", "RUNNING", "STOPPED"] or \
+                free_job - free_holding < 2 << 30:
+            raise AssertionError(f"ops: holding job went {hold_seen}, card "
+                                 f"free {free_job} before it, "
+                                 f"{free_holding} while it held b1")
+        out["jobs"] = {
+            "serve": {"id": serve_id, "statuses": seen,
+                      "submit_to_running_s": running_s,
+                      "submit_to_succeeded_s": done_s,
+                      "kernel_launches": launched["counts"],
+                      "kernel_launches_by_route": launched["routes"],
+                      "bit_equal_to_serve": job_equal},
+            "hold": {"id": hold_id, "statuses": hold_seen,
+                     "submit_to_running_s": hold_running_s,
+                     "stop_to_stopped_s": stop_s,
+                     "stop_to_memory_freed_s": freed_s,
+                     "card_free_bytes": {"before": free_job,
+                                         "holding": free_holding,
+                                         "stopped": free_stopped,
+                                         "slack": OPS_MEM_SLACK}}}
+        print(f"ops: job {serve_id}: PENDING -> RUNNING in {running_s:.2f} "
+              f"s, SUCCEEDED in {done_s:.2f} s; K1 "
+              f"{launched['routes']['fwd']} in the job's process; logits "
+              f"bit-equal to the serve phase's. Job {hold_id} (b1 loaded, "
+              f"card free GiB {free_job / 2**30:.2f} -> "
+              f"{free_holding / 2**30:.2f}): stop -> STOPPED in {stop_s:.2f} "
+              f"s, card memory back ({free_stopped / 2**30:.2f} GiB) "
+              f"{freed_s:.2f} s after the stop", flush=True)
+
+        # 5. the CLI on this cluster
+        status = _ops_cli(root, "status", "--address", gcs)
+        listed = _ops_cli(root, "job", "--address", gcs, "list")
+        rows = {line.split()[0]: line.split()[1]
+                for line in listed.splitlines() if line.strip()}
+        statuses = {j: _ops_cli(root, "job", "--address", gcs, "status",
+                                j).strip() for j in (serve_id, hold_id)}
+        cli_logs = _ops_cli(root, "job", "--address", gcs, "logs", serve_id)
+        want_rows = {serve_id: "SUCCEEDED", hold_id: "STOPPED"}
+        if rows != want_rows or statuses != want_rows or \
+                f"[gcs {gcs}]" not in status or \
+                "OPS_JOB_LAUNCHES" not in cli_logs:
+            raise AssertionError(f"ops: the CLI listed {rows}, statuses "
+                                 f"{statuses}, status {status[:200]!r}")
+        out["cli"] = {"status": status, "list": listed, "statuses": statuses}
+        print(f"ops: python -m ray_tpu_torch status / job list / status / "
+              f"logs --address {gcs}: exit 0, jobs {statuses}", flush=True)
+        started |= _descendants([gcs_pid, *(
+            p.pid for p in cluster.raylets.values())])
+        servers = [cluster.gcs_proc, *cluster.raylets.values()]
+        jobs.close()
+        jobs = None
+        client.close()
+        client = None
+
+        # 6b. down
+        t0 = time.monotonic()
+        teardown_cluster(name)
+        handle = None
+        out["down_s"] = time.monotonic() - t0
+        left = [p.pid for p in servers if p.poll() is None]
+        if left or os.path.exists(_state_path(name)):
+            raise AssertionError(f"ops: down left servers {left} or the "
+                                 f"state file {_state_path(name)}")
+        out["workers_left_after_down"] = _reap(started)
+        freed_s = _wait_for(
+            lambda: free_before - _free_card_bytes() <= OPS_MEM_SLACK, 60,
+            "the card's memory after down")
+        free_after = _free_card_bytes()
+        out["card_free_bytes"] = {"before": free_before, "after": free_after,
+                                  "slack": OPS_MEM_SLACK}
+        print(f"ops: down in {out['down_s']:.2f} s, no GCS or raylet left, "
+              f"no state file; card free GiB {free_before / 2**30:.2f} "
+              f"before, {free_after / 2**30:.2f} {freed_s:.2f} s after",
+              flush=True)
+    finally:
+        if jobs is not None:
+            jobs.close()
+        if client is not None:
+            client.close()
+        if handle is not None:
+            with contextlib.suppress(Exception):
+                teardown_cluster(name)
+        _reap(started)
+        for key, value in saved_env.items():
+            if value is None:
+                os.environ.pop(key, None)
+            else:
+                os.environ[key] = value
+        pkg._default = saved_manager
+        shutil.rmtree(work, ignore_errors=True)
+        sweep_stale_segments(min_age_s=0.0)
+
+    # 7. the microbenchmark on the card's runtime, in a process of its own
+    perf = _ops_cli(root, "microbenchmark", "--json", "--duration",
+                    str(OPS_PERF_DURATION))
+    rows = json.loads(perf.strip().splitlines()[-1])
+    if tuple(r["name"] for r in rows) != OPS_PERF_ROWS:
+        raise AssertionError(f"ops: microbenchmark rows "
+                             f"{[r['name'] for r in rows]}")
+    out["microbenchmark"] = rows
+    for r in rows:
+        print(f"ops: microbenchmark {r['name']}: {r['rate']:.1f} /s "
+              f"(min {r['rate_min']:.1f}, max {r['rate_max']:.1f}, spread "
+              f"{r['spread']}) on {report.get('card')}", flush=True)
+    report["ops"] = out
+    return _merge_routes(out["py_modules_task"]["kernel_launches_by_route"],
+                         out["jobs"]["serve"]["kernel_launches_by_route"])
+
+
 def _at_shapes(report: dict, kernel: str) -> dict:
     """The kernel's time, bound, plain and library times at the moe and
     vit train shapes and at the head dims off 64 and 128 (kernel phase
@@ -4656,7 +5179,8 @@ def main() -> int:
             ("workflow", phase_workflow),
             ("persist", phase_persist),
             ("client", phase_client),
-            ("util", phase_util)):
+            ("util", phase_util),
+            ("ops", phase_ops)):
         t0 = time.monotonic()
         try:
             routes = phase(report)

@@ -28,7 +28,6 @@ from typing import Any, Dict, List, Optional, Tuple
 from ray_tpu_torch.cluster import overload as _overload
 from ray_tpu_torch.cluster import protocol
 from ray_tpu_torch.cluster.rpc import RpcClient, RpcConnectionError
-from ray_tpu_torch.core.runtime import _normalize_runtime_env
 from ray_tpu_torch.exceptions import (
     ActorDiedError,
     GetTimeoutError,
@@ -593,7 +592,6 @@ class ClusterClient:
                resources: Optional[Dict[str, float]] = None,
                max_retries: int = 3, node_id: Optional[str] = None,
                runtime_env: Optional[dict] = None) -> ClusterRef:
-        _normalize_runtime_env(runtime_env)
         task_id = self._next_id("task")
         return_id = os.urandom(28)
         spec = {
@@ -605,6 +603,20 @@ class ClusterClient:
             "resources": dict(resources or {"CPU": 1.0}),
             "return_id": return_id,
         }
+        if runtime_env is not None:
+            # normalize driver-side: pip/conda envs materialize here,
+            # py_modules dirs package into pymod:// URIs seeded to THIS
+            # tier's KV (the GCS server) — the raylet's
+            # _stage_py_modules fetches from the same store, so remote
+            # nodes without the archive can resolve it
+            from ray_tpu_torch._private.runtime_env import normalize
+            from ray_tpu_torch._private.runtime_env_packaging import (
+                KV_NAMESPACE,
+            )
+
+            spec["runtime_env"] = normalize(
+                runtime_env,
+                kv_put=lambda k, v: self.kv_put(k, v, ns=KV_NAMESPACE))
         # observability plane: a sampled trace rides inside the spec, so
         # the raylet's execution span parents to the driver's current
         # span across the wire (reference: tracing_helper.py carrying
@@ -1136,10 +1148,8 @@ class ClusterClient:
     def create_actor(self, cls, args: tuple = (),
                      kwargs: Optional[dict] = None,
                      resources: Optional[Dict[str, float]] = None,
-                     max_restarts: int = 0, name: str = "",
-                     runtime_env: Optional[dict] = None
+                     max_restarts: int = 0, name: str = ""
                      ) -> ClusterActorHandle:
-        _normalize_runtime_env(runtime_env)
         actor_id = self._next_id("actor")
         packed_args = ([self._pack_arg(a) for a in args],
                        {k: self._pack_arg(v)

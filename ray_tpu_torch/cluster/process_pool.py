@@ -361,7 +361,8 @@ class ProcessWorkerPool:
         demonstrably clean; else reap it. True = worker kept alive in
         the pool (the caller must NOT terminate it)."""
         worker = proc.worker
-        clean = not self._shutdown and worker.alive()
+        clean = (not self._shutdown and not proc.had_runtime_env
+                 and worker.alive())
         if clean:
             with self._warm_cv:
                 # capacity pre-check BEFORE paying the actor_reset
@@ -395,7 +396,7 @@ class ProcessWorkerPool:
         return False
 
     def run(self, func, args: tuple, kwargs: dict,
-            result_key: Optional[bytes] = None) -> Any:
+            runtime_env=None, result_key: Optional[bytes] = None) -> Any:
         """``result_key`` (a 20-byte shm-store key) asks the worker to
         write a large result straight into the node's shm segment under
         that key and reply with a protocol.StoredResult marker — the
@@ -405,6 +406,7 @@ class ProcessWorkerPool:
         try:
             return worker.call("task", {
                 "func": func, "args": args, "kwargs": kwargs,
+                "runtime_env": runtime_env,
                 "result_key": result_key,
             })
         finally:
@@ -413,7 +415,7 @@ class ProcessWorkerPool:
     def run_batch(self, items: List[dict]) -> List[tuple]:
         """Batched ``run`` (dispatch fast lane): lease ONE worker and
         ship all ``items`` — each the same payload dict ``run`` sends
-        (func/args/kwargs/result_key) — as a single
+        (func/args/kwargs/runtime_env/result_key) — as a single
         ``task_batch`` pipe frame; the worker executes them serially
         and the N results come back in one reply frame. Returns one
         ``("ok", value)`` or ``("err", exception)`` row per item, in
@@ -429,14 +431,14 @@ class ProcessWorkerPool:
                 else (status, protocol.restore_exception(*body))
                 for status, body in rows]
 
-    def create_actor_process(self, cls, args: tuple,
-                             kwargs: dict) -> "ProcessActorProxy":
+    def create_actor_process(self, cls, args: tuple, kwargs: dict,
+                             runtime_env=None) -> "ProcessActorProxy":
         proc = None
         if self.warm_size > 0:
             worker = self._warm_lease()
             if worker is not None:
                 try:
-                    proc = ActorProcess(cls, args, kwargs,
+                    proc = ActorProcess(cls, args, kwargs, runtime_env,
                                         worker=worker, pool=self)
                 except WorkerCrashedError:
                     # the leased worker died between the liveness check
@@ -459,7 +461,7 @@ class ProcessWorkerPool:
                         worker.pid)
                     proc = None
         if proc is None:
-            proc = ActorProcess(cls, args, kwargs,
+            proc = ActorProcess(cls, args, kwargs, runtime_env,
                                 shm_path=self.shm_path,
                                 log_callback=self.log_callback,
                                 pool=self if self.warm_size > 0 else None)
@@ -526,10 +528,11 @@ class ActorProcess:
     freshly forked dedicated child (classic path) or a warm worker
     leased from the pool and specialized in place (``worker=``)."""
 
-    def __init__(self, cls, args: tuple, kwargs: dict,
+    def __init__(self, cls, args: tuple, kwargs: dict, runtime_env=None,
                  shm_path: str = "", log_callback=None,
                  worker: Optional[WorkerProcess] = None, pool=None):
         self.pool = pool
+        self.had_runtime_env = runtime_env is not None
         self.warm = worker is not None
         self.gone = False  # terminated (worker may live on in the pool)
         self.worker = worker if worker is not None else WorkerProcess(
@@ -537,10 +540,11 @@ class ActorProcess:
         try:
             self.worker.call("actor_create", {
                 "cls": cls, "args": args, "kwargs": kwargs,
+                "runtime_env": runtime_env,
             })
         except BaseException:
-            # covers user __init__ errors too: a half-built instance
-            # may have left state behind, so it never returns to the pool
+            # covers user __init__ errors too: the worker may hold a
+            # half-entered runtime_env, so it never returns to the pool
             self.worker.terminate()
             raise
 

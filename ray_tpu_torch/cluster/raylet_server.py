@@ -1798,6 +1798,39 @@ class RayletServer:
             f"dependency {payload.hex()[:8]} unavailable"
             + (" (corrupt replicas discarded)" if corrupt_seen else ""))
 
+    def _stage_py_modules(self, runtime_env) -> None:
+        """Pre-stage pymod:// archives into the host cache THROUGH THE
+        RAYLET'S GCS KV before dispatch: worker processes have no GCS
+        client, so the node-level agent does the fetch (reference: the
+        per-node runtime-env agent downloads packages, workers only
+        read the cache)."""
+        entries = []
+        if runtime_env is not None:
+            try:
+                entries = list(runtime_env.get("py_modules") or [])
+            except AttributeError:
+                return
+        uris = [e for e in entries
+                if isinstance(e, str) and e.startswith("pymod://")]
+        if not uris:
+            return
+        from ray_tpu_torch._private.runtime_env_packaging import (
+            KV_NAMESPACE,
+            default_py_modules_manager,
+        )
+
+        def fetch(key: bytes):
+            return self.gcs.call("kv_get", ns=KV_NAMESPACE, key=key,
+                                 timeout=30.0)
+
+        manager = default_py_modules_manager()
+        for uri in uris:
+            try:
+                manager.ensure_local(uri, fetch=fetch)
+            except Exception:  # noqa: BLE001 — surface at import time
+                logger.warning("py_modules stage failed for %s", uri,
+                               exc_info=True)
+
     def _execute(self, spec: dict) -> None:
         task_id = spec["task_id"]
         return_id = spec["return_id"]
@@ -1816,8 +1849,10 @@ class RayletServer:
                     for a in spec.get("args", [])]
             kwargs = {k: self._resolve_args(v, pinned)
                       for k, v in (spec.get("kwargs") or {}).items()}
+            self._stage_py_modules(spec.get("runtime_env"))
             result = self.pool.run(
                 func, tuple(args), kwargs,
+                runtime_env=spec.get("runtime_env"),
                 result_key=shm_key(return_id))
             if isinstance(result, protocol.StoredResult):
                 # worker wrote the payload into the segment: adopt it —
@@ -1957,8 +1992,10 @@ class RayletServer:
                         for a in spec.get("args", [])]
                 kwargs = {k: self._resolve_args(v, pinned)
                           for k, v in (spec.get("kwargs") or {}).items()}
+                self._stage_py_modules(spec.get("runtime_env"))
                 rows.append((spec, pinned, {
                     "func": func, "args": tuple(args), "kwargs": kwargs,
+                    "runtime_env": spec.get("runtime_env"),
                     "result_key": shm_key(spec["return_id"])}))
             except BaseException as e:  # noqa: BLE001 — stored error
                 self._finish_batch_row(spec, e, pinned, exec_wall,

@@ -9,19 +9,19 @@ Protocol (see cluster/protocol.py) rides the original stdin/stdout pipe
 pair; user ``print``s are re-routed to stderr so they cannot corrupt
 frames. Messages:
 
-  ("task",        {func, args, kwargs, result_key}) -> ("ok", result) | ("err", ...)
-  ("task_batch",  {items: [task payloads]})         -> ("ok", [row, ...])
-  ("actor_create",{cls, args, kwargs})              -> ("ok", None)   | ("err", ...)
-  ("actor_call",  {method, args, kwargs})           -> ("ok", result) | ("err", ...)
-  ("actor_reset", {})                               -> ("ok", {clean}) | ("err", ...)
-  ("ping",        {})                               -> ("ok", pid)
-  ("shutdown",    {})                               -> process exits 0
+  ("task",        {func, args, kwargs, runtime_env}) -> ("ok", result) | ("err", ...)
+  ("task_batch",  {items: [task payloads]})          -> ("ok", [row, ...])
+  ("actor_create",{cls, args, kwargs, runtime_env})  -> ("ok", None)   | ("err", ...)
+  ("actor_call",  {method, args, kwargs})            -> ("ok", result) | ("err", ...)
+  ("actor_reset", {})                                -> ("ok", {clean}) | ("err", ...)
+  ("ping",        {})                                -> ("ok", pid)
+  ("shutdown",    {})                                -> process exits 0
 
 ``actor_reset`` tears the live actor instance down so a WARM-POOL
 worker can return to its pool after a kill (process_pool.py). The
-reply's ``clean`` says the worker may be reused. The JAX package's
-worker answers False after an actor that held a runtime environment;
-runtime environments are not ported, so here it is always True.
+reply's ``clean`` is False when the actor's life polluted process
+state the reset cannot undo (a runtime_env held for the actor's whole
+life) — the parent reaps such workers instead of reusing them.
 """
 
 from __future__ import annotations
@@ -131,8 +131,12 @@ def _store_result(result, result_key, shm):
     return ("ok", protocol.StoredResult(total))
 
 
-def _execute(func, args, kwargs):
-    result = func(*args, **kwargs)
+def _execute(func, args, kwargs, runtime_env):
+    if runtime_env is not None:
+        with runtime_env.applied():
+            result = func(*args, **kwargs)
+    else:
+        result = func(*args, **kwargs)
     if inspect.isawaitable(result):
         # async actor methods are awaited worker-side; the parent's
         # ordering queue only sees the final value
@@ -197,6 +201,7 @@ def main() -> int:
                 print(f"worker: preimport of {mod} failed: {e!r}",
                       file=sys.stderr)
     actor_instance = None
+    actor_env = None
 
     while True:
         held_keys: list = []  # segment pins released after the reply
@@ -212,7 +217,8 @@ def main() -> int:
             elif msg_type == "task":
                 args, kwargs = _resolve_stored_args(
                     payload["args"], payload["kwargs"], shm, held_keys)
-                result = _execute(payload["func"], args, kwargs)
+                result = _execute(payload["func"], args, kwargs,
+                                  payload.get("runtime_env"))
                 reply = _store_result(result, payload.get("result_key"),
                                       shm)
             elif msg_type == "task_batch":
@@ -227,7 +233,8 @@ def main() -> int:
                         args, kwargs = _resolve_stored_args(
                             item["args"], item["kwargs"], shm,
                             held_keys)
-                        result = _execute(item["func"], args, kwargs)
+                        result = _execute(item["func"], args, kwargs,
+                                          item.get("runtime_env"))
                         rows.append(_store_result(
                             result, item.get("result_key"), shm))
                     except BaseException as e:  # noqa: BLE001
@@ -237,6 +244,12 @@ def main() -> int:
                             ("err", protocol.format_exception(e)))
                 reply = ("ok", rows)
             elif msg_type == "actor_create":
+                actor_env = payload.get("runtime_env")
+                if actor_env is not None:
+                    # the env holds for the actor's whole life (reference:
+                    # runtime envs are per worker process)
+                    actor_env.__enter__ctx = actor_env.applied()
+                    actor_env.__enter__ctx.__enter__()
                 actor_instance = payload["cls"](*payload["args"],
                                                 **payload["kwargs"])
                 reply = ("ok", None)
@@ -244,14 +257,27 @@ def main() -> int:
                 if actor_instance is None:
                     raise RuntimeError("actor_call before actor_create")
                 method = getattr(actor_instance, payload["method"])
-                result = _execute(method, payload["args"], payload["kwargs"])
+                result = _execute(method, payload["args"], payload["kwargs"],
+                                  None)
                 reply = ("ok", result)
             elif msg_type == "actor_reset":
+                # a runtime_env held for the actor's life may have
+                # mutated process state (env vars, cwd) in ways user
+                # code already observed; exiting the ctx restores the
+                # env but the worker is conservatively unfit for reuse
+                clean = actor_env is None
+                if actor_env is not None:
+                    try:
+                        actor_env.__enter__ctx.__exit__(None, None, None)
+                    except Exception as e:  # noqa: BLE001
+                        print(f"worker: runtime_env teardown failed: "
+                              f"{e!r}", file=sys.stderr)
+                    actor_env = None
                 actor_instance = None
                 import gc
 
                 gc.collect()  # run the instance's __del__ before reuse
-                reply = ("ok", {"clean": True})
+                reply = ("ok", {"clean": clean})
             else:
                 raise RuntimeError(f"unknown message type {msg_type!r}")
         except BaseException as e:  # noqa: BLE001

@@ -586,6 +586,15 @@ class Runtime:
             self._tls.ctx = None
 
     def _execute_spec_inner(self, spec: TaskSpec, raylet: Raylet) -> None:
+        if spec.runtime_env is not None:
+            # URI refcount for the env's lifetime (reference: runtime-env
+            # agent URI reference counting)
+            spec.runtime_env.acquire()
+            try:
+                self._execute_spec_body(spec, raylet)
+            finally:
+                spec.runtime_env.release()
+            return
         self._execute_spec_body(spec, raylet)
 
     def _execute_spec_body(self, spec: TaskSpec, raylet: Raylet) -> None:
@@ -604,11 +613,21 @@ class Runtime:
             try:
                 with borrow_context(borrower_id, borrowed):
                     result = self.process_pool.run(
-                        spec.func, tuple(args), kwargs)
+                        spec.func, tuple(args), kwargs,
+                        runtime_env=spec.runtime_env)
             finally:
                 for oid in borrowed:
                     self.reference_counter.remove_borrower(
                         oid, borrower_id)
+        elif (self.process_pool is not None
+                and spec.kind is TaskKind.ACTOR_CREATION):
+            # env is applied inside the dedicated worker process for
+            # the actor's whole life; applying it parent-side too
+            # would mutate the driver's environ for no benefit
+            result = spec.func(*args, **kwargs)
+        elif spec.runtime_env is not None:
+            with spec.runtime_env.applied():
+                result = spec.func(*args, **kwargs)
         else:
             result = spec.func(*args, **kwargs)
         self._store_results(spec, result)
@@ -766,7 +785,8 @@ class Runtime:
                 # dedicated worker process per actor (reference: every
                 # actor gets its own worker; direct_actor_transport)
                 instance = self.process_pool.create_actor_process(
-                    creation.cls, args, kwargs)
+                    creation.cls, args, kwargs,
+                    runtime_env=_normalize_runtime_env(options.runtime_env))
             else:
                 instance = creation.cls(*args, **kwargs)
         except BaseException:
@@ -1251,11 +1271,9 @@ class Runtime:
 
 
 def _normalize_runtime_env(runtime_env):
-    if runtime_env:
-        raise NotImplementedError(
-            "runtime environments (runtime_env=...) are not ported to "
-            "ray_tpu_torch")
-    return None
+    from ray_tpu_torch._private.runtime_env import normalize
+
+    return normalize(runtime_env)
 
 
 def init_runtime(**kwargs) -> Runtime:

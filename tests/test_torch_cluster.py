@@ -5,7 +5,7 @@ The scenarios of tests/test_multi_node.py on the port's
 ``ProcessCluster``, one GCS restart from sqlite storage after
 tests/test_gcs_fault_tolerance.py, the check that no spawned process
 loads the JAX package or JAX, the GCS's burst placer taking the torch
-solve on the CPU in a live GCS, and runtime environments raising.
+solve on the CPU in a live GCS, and a task's runtime environment.
 Scenarios that kill no node and no GCS share one module-scoped cluster;
 the others start their own. Every raylet gets a small object store:
 the port's segments are always prefaulted.
@@ -276,11 +276,21 @@ def test_spawned_processes_load_no_reference_package(shared):
         assert ("libtorch" in maps) == (proc is cluster.gcs_proc)
 
 
+def _read_env(name):
+    return os.environ.get(name)
+
+
 def test_runtime_env_raises(shared):
+    """A cluster task runs under its runtime_env, in both packages; a
+    cluster actor takes none: ``create_actor`` has the JAX package's
+    signature, so the keyword is a TypeError."""
     cluster, client, n1, n2 = shared
-    with pytest.raises(NotImplementedError, match="runtime_env"):
-        client.submit(_sq, (2,), runtime_env={"env_vars": {"A": "1"}})
-    with pytest.raises(NotImplementedError, match="runtime_env"):
+    ref = client.submit(_read_env, ("RT_CLUSTER_VAR",),
+                        runtime_env={"env_vars": {"RT_CLUSTER_VAR": "1"}})
+    assert client.get(ref, timeout=60.0) == "1"
+    assert client.get(client.submit(_read_env, ("RT_CLUSTER_VAR",)),
+                      timeout=60.0) is None
+    with pytest.raises(TypeError, match="runtime_env"):
         client.create_actor(Counter, runtime_env={"env_vars": {"A": "1"}})
 
 

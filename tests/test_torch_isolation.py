@@ -1,11 +1,16 @@
 """The port stands alone: no module of ray_tpu_torch, and not
-chip_smoke.py, imports jax or ray_tpu; and its entry points (the runtime,
-the model constructors, the train step, the Trainer and tune.run) run on
-CUDA unless the caller asks for the CPU, so on a host without CUDA they
-raise instead of running on the CPU. So do RLlib's policies, trainers
-and catalog models."""
+chip_smoke.py, imports jax or ray_tpu, and none names a module of
+ray_tpu, a ``python -m ray_tpu`` command or one of the JAX package's
+state directories in a string (a command template that started the JAX
+package's servers would escape the import scan); and its entry points
+(the runtime, the model constructors, the train step, the Trainer,
+tune.run, the microbenchmark and ``ray up`` on the process provider)
+run on CUDA unless the caller asks for the CPU, so on a host without
+CUDA they raise instead of running on the CPU. So do RLlib's policies,
+trainers and catalog models."""
 
 import ast
+import re
 from pathlib import Path
 
 import pytest
@@ -40,9 +45,14 @@ def test_port_imports_neither_jax_nor_ray_tpu():
     rllib = [f for f in files
              if f.relative_to(ROOT).parts[:2] == ("ray_tpu_torch", "rllib")]
     assert len(rllib) == 16  # every module of ray_tpu/rllib/
-    for sub, n in ((("workflow",), 4), (("util", "client"), 4)):
+    for sub, n in ((("workflow",), 4), (("util", "client"), 4),
+                   (("autoscaler",), 10)):
         got = [f for f in files if f.relative_to(ROOT).parts[1:-1] == sub]
         assert len(got) == n, (sub, got)  # as in the JAX package
+    runtime_env = [f for f in files
+                   if f.relative_to(ROOT).parts[1:-1] == ("_private",)
+                   and f.name.startswith("runtime_env")]
+    assert len(runtime_env) == 3, runtime_env  # env, installer, packaging
     bad = {}
     for path in files:
         roots = set(_imported_roots(path)) & {"jax", "jaxlib", "ray_tpu",
@@ -50,6 +60,68 @@ def test_port_imports_neither_jax_nor_ray_tpu():
         if roots:
             bad[str(path.relative_to(ROOT))] = sorted(roots)
     assert not bad, f"port modules importing the JAX side: {bad}"
+
+
+# a module path of the JAX package ("ray_tpu.cluster.gcs_server"), a
+# command that runs it ("-m ray_tpu"), its state root ("~/.ray_tpu/",
+# ".ray_tpu" as a path part) or its log files ("/tmp/ray_tpu_...")
+_REFERENCE_IN_STRING = (
+    re.compile(r"(?<![\w/])ray_tpu\.[A-Za-z_]"),
+    re.compile(r"-m\s+ray_tpu(?!\w)"),
+    re.compile(r"(^|[~/])\.ray_tpu(?!\w)"),
+    re.compile(r"/tmp/ray_tpu_(?!torch)"),
+)
+
+
+def _docstrings(tree):
+    for node in ast.walk(tree):
+        if isinstance(node, (ast.Module, ast.ClassDef, ast.FunctionDef,
+                             ast.AsyncFunctionDef)):
+            first = node.body[0] if node.body else None
+            if isinstance(first, ast.Expr) and isinstance(
+                    first.value, ast.Constant):
+                yield first.value
+
+
+def _reference_strings(path):
+    """String constants outside docstrings (docstrings cite the JAX
+    package as the reference) that name the JAX package's modules,
+    commands or state directories."""
+    tree = ast.parse(path.read_text(), filename=str(path))
+    docs = {id(d) for d in _docstrings(tree)}
+    for node in ast.walk(tree):
+        if (isinstance(node, ast.Constant) and isinstance(node.value, str)
+                and id(node) not in docs):
+            if node.value == ".ray_tpu" or any(
+                    p.search(node.value) for p in _REFERENCE_IN_STRING):
+                yield node.lineno, node.value
+
+
+def test_port_strings_name_no_reference_module_or_root():
+    bad = {}
+    for path in _port_files():
+        hits = list(_reference_strings(path))
+        if hits:
+            bad[str(path.relative_to(ROOT))] = hits
+    assert not bad, f"strings naming the JAX package: {bad}"
+
+
+@pytest.mark.parametrize("text", [
+    "exec %s -m ray_tpu.cluster.raylet_server ",
+    "ray_tpu.cluster.gcs_server",
+    "python -m ray_tpu microbenchmark",
+    ".ray_tpu",
+    "~/.ray_tpu/clusters",
+    "/tmp/ray_tpu_",
+])
+def test_reference_string_scan_sees_each_form(tmp_path, text):
+    """Each form the scan looks for is found in a plain string, and the
+    port's own names are not."""
+    probe = tmp_path / "probe.py"
+    probe.write_text(f'"""ray_tpu.cluster is the reference."""\n'
+                     f'X = {text!r}\n'
+                     f'Y = {text.replace("ray_tpu", "ray_tpu_torch")!r}\n')
+    assert [line for line, _ in _reference_strings(probe)] == [2]
 
 
 def _needs_no_cuda():
@@ -72,7 +144,8 @@ def test_init_without_device_raises_without_cuda():
                                    "tune_run", "rllib_policies",
                                    "rllib_trainer", "rllib_qmix",
                                    "rllib_models", "workflow_init",
-                                   "mp_pool", "client_server"])
+                                   "mp_pool", "client_server",
+                                   "ray_perf"])
 def test_model_entry_points_raise_without_cuda(entry):
     import ray_tpu_torch
     from ray_tpu_torch.core.raylet import ClusterState
@@ -84,6 +157,7 @@ def test_model_entry_points_raise_without_cuda(entry):
 
     from ray_tpu_torch import rllib, workflow
     from ray_tpu_torch.rllib import models as rl_models
+    from ray_tpu_torch._private import ray_perf
     from ray_tpu_torch.util.client.server import ClientServer
     from ray_tpu_torch.util.multiprocessing import Pool
 
@@ -126,10 +200,31 @@ def test_model_entry_points_raise_without_cuda(entry):
         "workflow_init": lambda: workflow.init(),
         "mp_pool": lambda: Pool(1),
         "client_server": lambda: ClientServer(),
+        # the microbenchmark brings the port's runtime up when none is
+        "ray_perf": lambda: ray_perf.main(duration=0.01),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
     assert not ray_tpu_torch.is_initialized()
+
+
+def test_cluster_up_without_cuda_fails_to_start(monkeypatch, tmp_path):
+    """``ray up`` on the process provider starts a ProcessCluster whose
+    GCS solves on CUDA unless the provider config says
+    ``gcs_device: "cpu"``: without CUDA that GCS exits at start, and no
+    cluster and no state file are left behind."""
+    from ray_tpu_torch.autoscaler import commands
+
+    _needs_no_cuda()
+    monkeypatch.delenv("CUDA_VISIBLE_DEVICES", raising=False)
+    monkeypatch.setenv("HOME", str(tmp_path))
+    with pytest.raises(RuntimeError, match="exited during startup"):
+        commands.create_or_update_cluster({
+            "cluster_name": "no-cuda",
+            "provider": {"type": "process"}})
+    assert "no-cuda" not in commands._CLUSTERS
+    assert not (tmp_path / ".ray_tpu_torch" / "clusters"
+                / "no-cuda.json").exists()
 
 
 def test_kernel_wrapper_raises_for_unsupported_cuda_input():

@@ -4,11 +4,11 @@ worker_mode="process")``, with the same inputs and expected results.
 
 Reference parity targets: worker_pool.h process forking + reuse,
 plasma-style shm payload transport, worker-crash retry, actor-per-process
-with restart on process death. Where the port differs it says so: its
-runtime has no runtime_env yet (the JAX package's is ported with the
-multi-process cluster), and its device rule is CUDA's (a worker sees no
-card unless RAY_TPU_WORKER_CUDA_VISIBLE_DEVICES names one) where the JAX
-package forces JAX onto the CPU. Every wait is bounded.
+with restart on process death, a runtime_env applied inside the worker
+process. Where the port differs it says so: its device rule is CUDA's (a
+worker sees no card unless RAY_TPU_WORKER_CUDA_VISIBLE_DEVICES names
+one) where the JAX package forces JAX onto the CPU. Every wait is
+bounded.
 """
 
 import os
@@ -243,15 +243,13 @@ def test_actor_process_killed_no_budget_dies(proc_runtime):
 
 
 def test_runtime_env_env_vars_in_process(proc_runtime):
-    """The JAX package applies runtime_env={"env_vars": ...} inside the
-    worker process; the port has no runtime envs yet (they come with
-    the multi-process cluster) and refuses one rather than ignore it."""
+    """runtime_env={"env_vars": ...} is applied inside the worker
+    process, as the JAX package applies it."""
     @ray_tpu_torch.remote(runtime_env={"env_vars": {"MY_FLAG": "on"}})
     def read_flag():
         return os.environ.get("MY_FLAG")
 
-    with pytest.raises(NotImplementedError, match="runtime env"):
-        _get(read_flag.remote())
+    assert _get(read_flag.remote()) == "on"
 
 
 def test_kill_actor_terminates_process(proc_runtime):

@@ -10,6 +10,8 @@ model fp32 tolerance of tests/test_torch_model.py. Every test tears the
 port's runtime down in its own fixture; nothing here reads host uptime.
 """
 
+import os
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -138,12 +140,15 @@ def test_cluster_add_node_spreads_work(port_cluster):
 
 
 def test_cut_subsystems_raise(port_rt):
-    with pytest.raises(NotImplementedError, match="runtime env"):
-        @ray_tpu_torch.remote(runtime_env={"env_vars": {"A": "1"}})
-        def f():
-            return 1
+    """Runtime environments were cut from the port until they were
+    ported: a thread-tier task now runs under its env_vars, and the
+    caller's environment is restored after it."""
+    @ray_tpu_torch.remote(runtime_env={"env_vars": {"RT_THREAD_VAR": "1"}})
+    def f():
+        return os.environ.get("RT_THREAD_VAR")
 
-        f.remote()
+    assert ray_tpu_torch.get(f.remote(), timeout=30) == "1"
+    assert os.environ.get("RT_THREAD_VAR") is None
 
 
 def test_actor_serves_debug_model_like_jax(port_rt):
