@@ -243,7 +243,33 @@ if any failed, the script exits non-zero and prints no result. Phases:
               or raylet process, no state file and the card's memory
               back within OPS_MEM_SLACK; `python -m ray_tpu_torch
               microbenchmark --json` in a process of its own prints the
-              JAX package's seven rows with their spread.
+              JAX package's seven rows with their spread;
+  16. dash  — both dashboards over b1 served through K1. The process
+              tier: a ProcessCluster at its default settings (its GCS on
+              CUDA) and one raylet {CPU: 2, GPU: 1} whose workers get
+              card 0; the head as `python -m
+              ray_tpu_torch.observability.dashboard_head --gcs <addr>`
+              (its start to DASHBOARD_URL prints; it maps no libtorch);
+              a b1 actor on that node serves the serve phase's 4
+              requests (24 K1 launches a request on wgmma in the
+              actor's process, logits bit-equal to the serve phase's),
+              each printing a marker line; then over HTTP: /healthz ok,
+              / is text/html naming /api/nodes, /api/cluster shows the
+              node alive with GPU 1, /api/nodes its agent's pid and rss
+              and thread roots that are all labels the port's raycheck
+              derives statically (lambda roots counted apart),
+              /api/actors the actor ALIVE, /api/logs?n=500 its 4
+              markers, /api/jobs a shell job submitted through
+              JobSubmissionClient SUCCEEDED; each route's median of
+              DASH_GETS gets (ms) while 4 more requests are in flight;
+              after shutdown the card's free memory is back within
+              OPS_MEM_SLACK, no process of the cluster or the head is
+              left and no shm segment of its raylet. The thread tier:
+              init() on CUDA, a named b1 actor serving the 4 requests
+              from one task each (bit-equal, 96 launches), then
+              start_dashboard(): every JSON route answers, /api/actors
+              names the actor, /metrics carries ray_tpu_tasks_finished
+              moved by at least the requests.
 
 The line before the last is the card's name and power limit as
 nvidia-smi prints them; above it, one JSON line with the kernel table
@@ -2667,9 +2693,10 @@ def _burst(client, n: int, tag: str) -> list:
         time.sleep(0.1)
 
 
-def _maps_cuda(pid: int) -> bool:
+def _maps(pid: int, library: str) -> bool:
+    """Whether the process has ``library`` mapped."""
     with open(f"/proc/{pid}/maps") as f:
-        return "libcuda.so" in f.read()
+        return library in f.read()
 
 
 def _descendants(roots) -> set:
@@ -2856,8 +2883,8 @@ def phase_cluster(report: dict) -> dict:
 
         # the GCS took its CUDA context at start (warm_device) and the
         # raylets, which run no solve, took none
-        cuda_maps = {"gcs": _maps_cuda(gcs_pid),
-                     "raylets": [_maps_cuda(p.pid)
+        cuda_maps = {"gcs": _maps(gcs_pid, "libcuda.so"),
+                     "raylets": [_maps(p.pid, "libcuda.so")
                                  for p in cluster.raylets.values()]}
         if not cuda_maps["gcs"] or any(cuda_maps["raylets"]):
             raise AssertionError(f"cluster: libcuda.so mapped in {cuda_maps}"
@@ -3105,6 +3132,16 @@ OPS_PERF_ROWS = ("single_client_tasks_async", "multi_client_tasks_async",
                  "n_n_actor_calls_async", "single_client_put_MiB_per_s",
                  "placement_group_create_removal")
 OPS_PERF_DURATION = 0.5
+# phase dash: the process-tier head's routes, gets a route timed under
+# load, the marker each b1 request prints, the thread tier's actor name
+DASH_ROUTES = ("/", "/healthz", "/api/cluster", "/api/nodes",
+               "/api/actors", "/api/logs?n=500", "/api/jobs")
+DASH_THREAD_ROUTES = ("/api/cluster_status", "/api/nodes", "/api/actors",
+                      "/api/placement_groups", "/api/objects",
+                      "/api/events")
+DASH_GETS = 5
+DASH_MARKER = "DASH_B1_REQUEST"
+DASH_ACTOR = "dash_b1"
 
 
 def _rllib_env_classes():
@@ -5058,6 +5095,382 @@ def phase_ops(report: dict) -> dict:
                          out["jobs"]["serve"]["kernel_launches_by_route"])
 
 
+# ------------------------------------------------------------ phase 16
+
+
+class DashServer(ProcServer):
+    """ProcServer whose requests each print one marker line, which the
+    raylet publishes on the LOG channel and the head keeps."""
+
+    def forward_marked(self, tokens, i):
+        print(f"{DASH_MARKER} {i}", file=sys.stderr, flush=True)
+        return self.forward_last(tokens)
+
+
+def _dash_request(tokens):
+    """A thread-tier task: one request to the named b1 actor -> the last
+    position's logits on the host."""
+    import ray_tpu_torch
+
+    server = ray_tpu_torch.get_actor(DASH_ACTOR)
+    logits = ray_tpu_torch.get(server.forward.remote(tokens))
+    return logits[:, -1].float().cpu().numpy()
+
+
+def _http_get(url: str) -> tuple:
+    """(status, content type, body, ms) of one GET."""
+    import urllib.error
+    import urllib.request
+
+    t = time.monotonic()
+    try:
+        with urllib.request.urlopen(url, timeout=30) as r:
+            out = (r.status, r.headers["Content-Type"], r.read())
+    except urllib.error.HTTPError as e:
+        out = (e.code, e.headers.get("Content-Type"), e.read())
+    return (*out, (time.monotonic() - t) * 1e3)
+
+
+def _http_json(url: str):
+    status, ctype, body, _ = _http_get(url)
+    if status != 200 or ctype != "application/json":
+        raise AssertionError(f"dash: GET {url} answered {status} {ctype}")
+    return json.loads(body)
+
+
+def _static_thread_labels() -> set:
+    """The thread-root labels the port's raycheck derives from
+    ``ray_tpu_torch/`` (``facts._root_label`` of each root it finds)."""
+    import ray_tpu_torch
+    from ray_tpu_torch.tools import raycheck
+    from ray_tpu_torch.tools.raycheck import facts
+
+    pkg = os.path.dirname(os.path.abspath(ray_tpu_torch.__file__))
+    program = facts.Program(raycheck.load_tree(pkg), root=pkg)
+    return {r.label for r in program.thread_roots}
+
+
+def _dash_process_tier(report: dict, batches, want_last, want) -> tuple:
+    """b1 from a raylet's worker, read back through the process-tier
+    head; everything the cluster and the head started is gone after."""
+    import statistics
+
+    import numpy as np
+
+    from ray_tpu_torch.cluster import process_cluster as pc
+    from ray_tpu_torch.cluster.job_manager import JobSubmissionClient
+
+    cfg = _text_config("b1")
+    root = os.path.dirname(os.path.abspath(__file__))
+    override = "RAY_TPU_WORKER_CUDA_VISIBLE_DEVICES"
+    saved = os.environ.get(override)
+    os.environ[override] = "0"  # the raylet's workers get card 0
+    free_before = _free_card_bytes()
+    out: dict = {}
+    cluster = client = jobs = head = None
+    started: set = set()
+    raylet_pids: list = []
+    try:
+        t0 = time.monotonic()
+        cluster = pc.ProcessCluster()
+        out["gcs_start_s"] = time.monotonic() - t0
+        node = cluster.add_node(num_cpus=2, resources={"GPU": 1},
+                                object_store_memory=CLUSTER_STORE_BYTES)
+        cluster.wait_for_nodes(1)
+        raylet_pids = [p.pid for p in cluster.raylets.values()]
+        gcs = cluster.gcs_address
+
+        # the head, as a user starts it
+        t0 = time.monotonic()
+        head = subprocess.Popen(
+            [sys.executable, "-m",
+             "ray_tpu_torch.observability.dashboard_head", "--gcs", gcs],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True,
+            cwd=root, env=dict(os.environ, PYTHONPATH=root))
+        line = head.stdout.readline()
+        out["head_start_s"] = time.monotonic() - t0
+        if not line.startswith("DASHBOARD_URL "):
+            raise AssertionError(f"dash: the head printed {line!r}")
+        url = line.split()[1]
+        out["head_maps_libtorch"] = _maps(head.pid, "libtorch")
+        if out["head_maps_libtorch"]:
+            raise AssertionError("dash: the head process loaded torch")
+        print(f"dash: on {report.get('card')}: GCS on CUDA up in "
+              f"{out['gcs_start_s']:.2f} s; `python -m ray_tpu_torch."
+              f"observability.dashboard_head` printed DASHBOARD_URL {url} "
+              f"{out['head_start_s']:.3f} s after its spawn (no libtorch "
+              f"mapped)", flush=True)
+
+        # b1 from the raylet's worker, each request marked
+        client = pc.ClusterClient(gcs)
+        t0 = time.monotonic()
+        server = client.create_actor(DashServer, (0, "b1"),
+                                     resources={"GPU": 1})
+        server.forward_last(batches[0][:, :16])  # the probe
+        out["actor_startup_s"] = time.monotonic() - t0
+        server.reset_counts()
+        latencies, last = [], []
+        for i, tokens in enumerate(batches):
+            t = time.monotonic()
+            last.append(server.forward_marked(tokens, i))
+            latencies.append(time.monotonic() - t)
+        counts, routes = server.counts()
+        _check_launches("dash (process tier)", counts, routes, want,
+                        cfg.head_dim)
+        equal = [bool(np.array_equal(g, w)) for g, w in zip(last, want_last)]
+        if not all(equal) or len(equal) != SERVE_REQUESTS:
+            raise AssertionError(f"dash: the actor's logits are not the "
+                                 f"serve phase's bit for bit ({equal})")
+        out["serve"] = {"latency_s": latencies, "kernel_launches": counts,
+                        "kernel_launches_by_route": routes,
+                        "bit_equal_to_serve": equal}
+
+        # a short job through the job client
+        jobs = JobSubmissionClient(gcs)
+        job_id = jobs.submit_job(entrypoint="echo dash-job-ok")
+        t0 = time.monotonic()
+        while jobs.get_job_status(job_id) not in ("SUCCEEDED", "FAILED",
+                                                   "STOPPED"):
+            if time.monotonic() - t0 > 60:
+                raise AssertionError("dash: the shell job never ended")
+            time.sleep(0.05)
+        out["job"] = {"id": job_id, "status": jobs.get_job_status(job_id),
+                      "submit_to_end_s": time.monotonic() - t0}
+
+        # the routes
+        healthz = _http_json(url + "/healthz")
+        status, ctype, page, _ = _http_get(url + "/")
+        view = _http_json(url + "/api/cluster")
+        nodes = _http_json(url + "/api/nodes")
+        actors = _http_json(url + "/api/actors")
+        logs = _http_json(url + "/api/logs?n=500")
+        job_rows = _http_json(url + "/api/jobs")
+        row = next((n for n in nodes if n["node_id"] == node), {})
+        info = view["nodes"].get(node, {})
+        markers = sorted(e["line"] for e in logs
+                         if e["line"].startswith(DASH_MARKER))
+        listed = {a["actor_id"]: a["state"] for a in actors}
+        job_listed = {j["job_id"]: j["status"] for j in job_rows}
+        problems = [what for what, bad in (
+            ("/healthz", healthz != {"ok": True}),
+            ("/", status != 200 or not str(ctype).startswith("text/html")
+             or b"/api/nodes" not in page),
+            ("/api/cluster", not info.get("alive")
+             or info.get("resources", {}).get("GPU") != 1),
+            ("/api/nodes", not row.get("alive")
+             or row.get("agent", {}).get("pid", 0) == 0
+             or row.get("agent", {}).get("rss_kb", 0) <= 0),
+            ("/api/actors", listed.get(server.actor_id) != "ALIVE"),
+            ("/api/logs", markers != [f"{DASH_MARKER} {i}"
+                                      for i in range(SERVE_REQUESTS)]),
+            ("/api/jobs", job_listed.get(job_id) != "SUCCEEDED"
+             or out["job"]["status"] != "SUCCEEDED")) if bad]
+        if problems:
+            raise AssertionError(
+                f"dash: routes {problems} answered wrong: healthz "
+                f"{healthz}, / {status} {ctype}, node {info}, agent "
+                f"{row.get('agent')}, actors {listed}, markers {markers}, "
+                f"jobs {job_listed}")
+        roots = row.get("threads") or {}
+        static = _static_thread_labels()
+        lambdas = sorted(n for n, label in roots.items()
+                         if "<lambda>" in label)
+        named = {n: label for n, label in roots.items()
+                 if "<lambda>" not in label}
+        unknown = {n: label for n, label in named.items()
+                   if label not in static}
+        if not named or unknown:
+            raise AssertionError(f"dash: thread roots not derived by "
+                                 f"raycheck: {unknown} (of {roots})")
+        out["routes"] = {
+            "node_agent": row["agent"], "thread_roots": roots,
+            "lambda_roots": lambdas, "static_labels": len(static),
+            "actor_state": listed[server.actor_id], "markers": markers,
+            "jobs": job_listed, "node_resources": info["resources"]}
+        print(f"dash: b1 actor (started with its probe in "
+              f"{out['actor_startup_s']:.2f} s) served {SERVE_REQUESTS} "
+              f"requests, latency s {[round(x, 4) for x in latencies]}; "
+              f"K1 {routes['fwd']} in the actor's process; logits "
+              f"bit-equal to the serve phase's. Head: /healthz ok, / "
+              f"text/html, node alive with {info['resources']}, agent pid "
+              f"{row['agent']['pid']} rss {row['agent']['rss_kb']} kB, "
+              f"{len(named)} named thread roots all among raycheck's "
+              f"{len(static)} static labels ({len(lambdas)} lambda roots: "
+              f"{lambdas}), actor ALIVE, {len(markers)} markers in "
+              f"/api/logs, job {job_id} SUCCEEDED in "
+              f"{out['job']['submit_to_end_s']:.2f} s", flush=True)
+
+        # each route under load: 4 more requests in flight
+        server.reset_counts()
+        load = {"last": [], "done": None}
+
+        def more_requests():
+            for i, tokens in enumerate(batches):
+                load["last"].append(
+                    server.forward_marked(tokens, SERVE_REQUESTS + i))
+            load["done"] = time.monotonic()
+
+        loader = threading.Thread(target=more_requests, daemon=True)
+        t_load = time.monotonic()
+        loader.start()
+        route_ms = {}
+        for route in DASH_ROUTES:
+            times = []
+            for _ in range(DASH_GETS):
+                got = _http_get(url + route)
+                if got[0] != 200:
+                    raise AssertionError(f"dash: {route} answered {got[0]} "
+                                         f"under load")
+                times.append(got[3])
+            route_ms[route] = statistics.median(times)
+        timed_s = time.monotonic() - t_load
+        loader.join(timeout=600)
+        load_counts, load_routes = server.counts()
+        if loader.is_alive() or not all(
+                np.array_equal(g, w) for g, w in zip(load["last"],
+                                                     want_last)):
+            raise AssertionError("dash: the requests in flight did not "
+                                 "all answer bit-equal")
+        out["under_load"] = {
+            "route_ms_median": route_ms, "gets": DASH_GETS,
+            "timing_s": timed_s, "requests_s": load["done"] - t_load,
+            "kernel_launches": load_counts}
+        print(f"dash: route ms (median of {DASH_GETS} gets) with "
+              f"{SERVE_REQUESTS} b1 requests in flight "
+              f"({load['done'] - t_load:.3f} s for them, {timed_s:.3f} s "
+              f"for the gets): "
+              f"{ {r: round(v, 3) for r, v in route_ms.items()} }",
+              flush=True)
+
+        started |= _descendants([cluster.gcs_proc.pid, head.pid,
+                                 *raylet_pids])
+        started |= {head.pid}
+        client.kill_actor(server)
+    finally:
+        if jobs is not None:
+            jobs.close()
+        if client is not None:
+            client.close()
+        if head is not None:
+            head.terminate()
+            with contextlib.suppress(Exception):
+                head.wait(timeout=10)
+        if cluster is not None:
+            cluster.shutdown()
+        if saved is None:
+            os.environ.pop(override, None)
+        else:
+            os.environ[override] = saved
+    left = _reap(started)
+    segments = [n for n in os.listdir("/dev/shm") for pid in raylet_pids
+                if n.startswith(f"ray_tpu_torch_store_{pid}_")]
+    freed_s = _wait_for(lambda: free_before - _free_card_bytes()
+                        <= OPS_MEM_SLACK, 60,
+                        "the card's memory after the dash cluster")
+    free_after = _free_card_bytes()
+    out["after_shutdown"] = {
+        "processes_left": left, "raylet_segments_left": segments,
+        "card_free_bytes": {"before": free_before, "after": free_after,
+                            "slack": OPS_MEM_SLACK},
+        "memory_back_s": freed_s}
+    if left or segments:
+        raise AssertionError(f"dash: after shutdown processes {left} and "
+                             f"segments {segments} were left")
+    print(f"dash: shut down: no process and no segment of the raylet "
+          f"left; card free GiB {free_before / 2**30:.2f} before, "
+          f"{free_after / 2**30:.2f} {freed_s:.2f} s after", flush=True)
+    return out, out["serve"]["kernel_launches_by_route"]
+
+
+def _dash_thread_tier(report: dict, batches, want_last, want) -> tuple:
+    """A named b1 actor of the thread tier on CUDA, its requests made by
+    tasks, read back through the in-process dashboard."""
+    import numpy as np
+
+    import ray_tpu_torch
+    from ray_tpu_torch.observability.dashboard import start_dashboard
+    from ray_tpu_torch.observability.metrics import prometheus_text
+
+    def finished(text):
+        for line in text.splitlines():
+            if line.startswith("ray_tpu_tasks_finished "):
+                return float(line.split()[1])
+        raise AssertionError("dash: no ray_tpu_tasks_finished in /metrics")
+
+    cfg = _text_config("b1")
+    ray_tpu_torch.init(num_cpus=4, num_gpus=1)
+    dash = None
+    try:
+        server = ray_tpu_torch.remote(num_gpus=1)(ModelServer).options(
+            name=DASH_ACTOR).remote(0, "b1")
+        ray_tpu_torch.get(server.forward.remote(batches[0][:, :16]))
+        request = ray_tpu_torch.remote(_dash_request)
+        before = finished(prometheus_text())
+        _reset_counts()
+        last = [ray_tpu_torch.get(request.remote(tokens))
+                for tokens in batches]
+        counts, routes = _read_counts(), _read_routes()
+        _check_launches("dash (thread tier)", counts, routes, want,
+                        cfg.head_dim)
+        equal = [bool(np.array_equal(g, w)) for g, w in zip(last, want_last)]
+        if not all(equal) or len(equal) != SERVE_REQUESTS:
+            raise AssertionError(f"dash: the thread tier's logits are not "
+                                 f"the serve phase's bit for bit ({equal})")
+        dash = start_dashboard()
+        answers = {route: _http_json(dash.url + route)
+                   for route in DASH_THREAD_ROUTES}
+        status, _, metrics, _ = _http_get(dash.url + "/metrics")
+        names = [a["Name"] for a in answers["/api/actors"].values()
+                 if a["State"] == "ALIVE"]
+        moved = finished(metrics.decode()) - before
+        if status != 200 or DASH_ACTOR not in names or \
+                moved < SERVE_REQUESTS:
+            raise AssertionError(f"dash: thread-tier dashboard: /metrics "
+                                 f"{status}, alive actors {names}, "
+                                 f"ray_tpu_tasks_finished moved {moved}")
+        ray_tpu_torch.kill(server)
+    finally:
+        if dash is not None:
+            dash.stop()
+        ray_tpu_torch.shutdown()
+    out = {"kernel_launches": counts, "kernel_launches_by_route": routes,
+           "bit_equal_to_serve": equal, "alive_actors": names,
+           "tasks_finished_moved": moved}
+    print(f"dash: thread tier on CUDA: named actor {DASH_ACTOR!r} served "
+          f"{SERVE_REQUESTS} requests from tasks, K1 {routes['fwd']}, "
+          f"bit-equal; start_dashboard(): every JSON route answered, "
+          f"/api/actors names it, ray_tpu_tasks_finished moved by "
+          f"{moved:.0f}", flush=True)
+    return out, routes
+
+
+def phase_dash(report: dict) -> dict:
+    """b1 served through K1 and read back through both dashboards: the
+    process-tier head over a ProcessCluster, then the thread tier's
+    in-process dashboard."""
+    import numpy as np
+
+    import ray_tpu_torch
+
+    want_last = report.get("_serve_last_logits")
+    if want_last is None:
+        raise AssertionError("dash needs the serve phase's logits")
+    if ray_tpu_torch.is_initialized():
+        ray_tpu_torch.shutdown()
+    cfg = _text_config("b1")
+    rng = np.random.default_rng(0)  # the serve phase's tokens
+    batches = [rng.integers(0, cfg.vocab_size, size=SERVE_TOKENS)
+               for _ in range(SERVE_REQUESTS)]
+    want = {"fwd": cfg.layers * SERVE_REQUESTS, "dq": 0, "dkdv": 0}
+    process, process_routes = _dash_process_tier(report, batches,
+                                                 want_last, want)
+    thread, thread_routes = _dash_thread_tier(report, batches, want_last,
+                                              want)
+    report["dash"] = {"card": report.get("card"), "process_tier": process,
+                      "thread_tier": thread}
+    return _merge_routes(process_routes, thread_routes)
+
+
 def _at_shapes(report: dict, kernel: str) -> dict:
     """The kernel's time, bound, plain and library times at the moe and
     vit train shapes and at the head dims off 64 and 128 (kernel phase
@@ -5180,7 +5593,8 @@ def main() -> int:
             ("persist", phase_persist),
             ("client", phase_client),
             ("util", phase_util),
-            ("ops", phase_ops)):
+            ("ops", phase_ops),
+            ("dash", phase_dash)):
         t0 = time.monotonic()
         try:
             routes = phase(report)

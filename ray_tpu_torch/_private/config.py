@@ -441,6 +441,7 @@ class Config:
     # leaving the others polling forever — the failure mode behind the
     # r05 dryrun hang). Generous: a healthy straggler may be JIT-
     # compiling its first step for minutes on a loaded host.
+    # raycheck: disable=RC14 — read by collective/api.py, not ported yet (ROADMAP items 5–8, the four-card items)
     collective_op_timeout_s: float = 600.0
 
     # ---- misc ------------------------------------------------------------

@@ -244,6 +244,11 @@ class CommandNodeProvider(NodeProvider):
             try:
                 proc.kill()
                 proc.wait(timeout=10)
+                from ray_tpu_torch.cluster.byte_store import (
+                    remove_segments_of,
+                )
+
+                remove_segments_of([proc.pid])
             except Exception:
                 pass
             raise
@@ -295,6 +300,8 @@ class CommandNodeProvider(NodeProvider):
     def terminate_node(self, node_id: str) -> None:
         import subprocess
 
+        from ray_tpu_torch.cluster.byte_store import remove_segments_of
+
         with self._lock:
             info = self._nodes.pop(node_id, None)
         if info is None:
@@ -309,6 +316,10 @@ class CommandNodeProvider(NodeProvider):
             info["proc"].wait(timeout=10)
         except Exception:
             info["proc"].kill()
+            info["proc"].wait(timeout=10)
+        # the default create command execs the raylet in the shell's
+        # pid, and a terminated raylet leaves its segment behind
+        remove_segments_of([info["proc"].pid])
 
     def shutdown(self) -> None:
         with self._lock:
@@ -604,6 +615,10 @@ def _teardown_from_state_file(name: str) -> bool:
             os.kill(pid, _signal.SIGTERM)
         except (ProcessLookupError, PermissionError):
             pass
+    # a SIGTERMed raylet ends without unlinking its segment
+    from ray_tpu_torch.cluster.byte_store import remove_segments_when_gone
+
+    remove_segments_when_gone(state.get("pids", []))
     os.unlink(path)
     logger.info("cluster %s (from state file) torn down", name)
     return True

@@ -214,8 +214,14 @@ class InventoryNodeProvider(NodeProvider):
             return
         machine = self._machines[info["machine_idx"]]
         runner = self._runner_for(machine)
+        # a SIGTERMed raylet ends without unlinking its segment: wait
+        # for it (up to 10 s), then remove that pid's segments
         try:
-            runner.run(f"kill $(cat {info['pidfile']}) 2>/dev/null; "
+            runner.run(f"pid=$(cat {info['pidfile']}); "
+                       f"kill $pid 2>/dev/null; for i in $(seq 100); do "
+                       f"kill -0 $pid 2>/dev/null || break; sleep 0.1; "
+                       f"done; kill -0 $pid 2>/dev/null || rm -f "
+                       f"/dev/shm/ray_tpu_torch_store_${{pid}}_*; "
                        f"rm -f {info['pidfile']}", timeout=30.0)
         except Exception:  # noqa: BLE001 — best-effort reap
             logger.warning("terminate of %s failed", node_id,

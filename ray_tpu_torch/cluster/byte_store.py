@@ -80,6 +80,78 @@ def attach_shm(path: str):
         return seg
 
 
+# Anchored patterns: segment files are ray_tpu_torch_store_<pid>_<token>,
+# spill dirs ray_tpu_torch_spill_<pid> (ByteStore) or
+# ray_tpu_torch_spill_<pid>_<rand> (in-process mkdtemp). An unanchored
+# match could misparse a pid-less random suffix as a pid and rmtree a
+# LIVE store's spilled objects.
+_SHM_SEGMENT = re.compile(r"^ray_tpu_torch_store_(\d+)_")
+_TMP_ENTRY = re.compile(r"^ray_tpu_torch_(?:store|spill)_(\d+)(?:_|$)")
+
+
+def _owned_entries():
+    """(path, owner pid) of every segment and spill entry the port's
+    naming gives an owner."""
+    for base, pat in (("/dev/shm", _SHM_SEGMENT),
+                      (tempfile.gettempdir(), _TMP_ENTRY)):
+        try:
+            names = os.listdir(base)
+        except OSError:
+            continue
+        for name in names:
+            m = pat.match(name)
+            if m:
+                yield os.path.join(base, name), int(m.group(1))
+
+
+def _remove_entry(path: str) -> bool:
+    try:
+        if os.path.isdir(path):
+            shutil.rmtree(path, ignore_errors=True)
+        else:
+            os.unlink(path)
+        return True
+    except OSError as e:
+        # permissions or a concurrent sweep won the unlink
+        logger.debug("sweep: removing %s failed: %r", path, e)
+        return False
+
+
+def remove_segments_of(pids) -> int:
+    """Unlink the shm segments and spill entries of processes that the
+    caller started and has reaped (ProcessCluster.shutdown after its
+    SIGKILL): a reaped child's pid cannot be recycled before this
+    returns, so no age rule applies. Returns the number removed."""
+    pids = {int(p) for p in pids}
+    return sum(_remove_entry(path) for path, pid in _owned_entries()
+               if pid in pids)
+
+
+def remove_segments_when_gone(pids, timeout: float = 10.0) -> int:
+    """Unlink the shm segments and spill entries of signalled processes
+    that are not the caller's children (a ``down`` from another process
+    than the ``up``): wait up to ``timeout`` for each to exit, then
+    remove the entries of those that did. Between the exit and the
+    unlink a new process could take the pid, but only a raylet names a
+    segment after its pid, and one started in that window is not
+    plausible. Returns the number removed."""
+    pending, gone = {int(p) for p in pids}, set()
+    deadline = time.monotonic() + timeout
+    while pending:
+        for pid in list(pending):
+            try:
+                os.kill(pid, 0)
+            except ProcessLookupError:
+                pending.discard(pid)
+                gone.add(pid)
+            except (PermissionError, OverflowError):
+                pending.discard(pid)  # another user's: not ours to sweep
+        if not pending or time.monotonic() > deadline:
+            break
+        time.sleep(0.05)
+    return remove_segments_of(gone)
+
+
 def sweep_stale_segments(min_age_s: Optional[float] = None) -> int:
     """Unlink shm segments (and spill dirs) whose creating process is
     dead. Segment files are named ``ray_tpu_torch_store_<pid>_<token>``
@@ -109,54 +181,27 @@ def sweep_stale_segments(min_age_s: Optional[float] = None) -> int:
     # wall-clock by definition
     now = time.time()  # raycheck: disable=RC02
     removed = 0
-    # anchored patterns: segment files are
-    # ray_tpu_torch_store_<pid>_<token>, spill dirs
-    # ray_tpu_torch_spill_<pid> (ByteStore) or
-    # ray_tpu_torch_spill_<pid>_<rand> (in-process mkdtemp). An unanchored
-    # match could misparse a pid-less random suffix as a pid and rmtree
-    # a LIVE store's spilled objects
-    for base, pat in (
-            ("/dev/shm", re.compile(r"^ray_tpu_torch_store_(\d+)_")),
-            (tempfile.gettempdir(),
-             re.compile(r"^ray_tpu_torch_(?:store|spill)_(\d+)(?:_|$)"))):
+    for path, pid in _owned_entries():
         try:
-            names = os.listdir(base)
-        except OSError:
+            os.kill(pid, 0)
+            continue  # owner alive
+        except ProcessLookupError as e:
+            # owner is gone: this entry is a sweep candidate
+            logger.debug("sweep: owner pid %d of %s is dead: %r",
+                         pid, path, e)
+        except PermissionError:
+            continue  # alive, other user
+        except (OverflowError, OSError):
+            # a pid-like number too large for the C long (stray
+            # file): skip the entry, never abort the whole sweep —
+            # a dead sweep silently reintroduces the leak
             continue
-        for name in names:
-            m = pat.match(name)
-            if not m:
-                continue
-            pid = int(m.group(1))
-            try:
-                os.kill(pid, 0)
-                continue  # owner alive
-            except ProcessLookupError as e:
-                # owner is gone: this entry is a sweep candidate
-                logger.debug("sweep: owner pid %d of %s is dead: %r",
-                             pid, name, e)
-            except PermissionError:
-                continue  # alive, other user
-            except (OverflowError, OSError):
-                # a pid-like number too large for the C long (stray
-                # file): skip the entry, never abort the whole sweep —
-                # a dead sweep silently reintroduces the leak
-                continue
-            path = os.path.join(base, name)
-            try:
-                if now - os.stat(path).st_mtime < min_age_s:
-                    continue  # too young to be provably stale
-            except OSError:
-                continue  # vanished under us (concurrent sweep)
-            try:
-                if os.path.isdir(path):
-                    shutil.rmtree(path, ignore_errors=True)
-                else:
-                    os.unlink(path)
-                removed += 1
-            except OSError as e:
-                # permissions or a concurrent sweep won the unlink
-                logger.debug("sweep: removing %s failed: %r", path, e)
+        try:
+            if now - os.stat(path).st_mtime < min_age_s:
+                continue  # too young to be provably stale
+        except OSError:
+            continue  # vanished under us (concurrent sweep)
+        removed += _remove_entry(path)
     return removed
 
 

@@ -27,6 +27,7 @@ from typing import Any, Dict, List, Optional, Tuple
 
 from ray_tpu_torch.cluster import overload as _overload
 from ray_tpu_torch.cluster import protocol
+from ray_tpu_torch.cluster.byte_store import remove_segments_of
 from ray_tpu_torch.cluster.rpc import RpcClient, RpcConnectionError
 from ray_tpu_torch.exceptions import (
     ActorDiedError,
@@ -125,6 +126,7 @@ class ProcessCluster:
         self.gcs_address = fields[1]
         self.raylets: Dict[str, subprocess.Popen] = {}  # node_id -> proc
         self.node_addresses: Dict[str, str] = {}
+        self._killed: List[int] = []  # reaped by kill_node, not unlinked
 
     def restart_gcs(self, env: Optional[Dict[str, str]] = None) -> None:
         """Bring the GCS back on the SAME address after a kill — the
@@ -187,12 +189,14 @@ class ProcessCluster:
             client.close()
 
     def kill_node(self, node_id: str, sig: int = signal.SIGKILL) -> None:
-        """Hard-kill a raylet process — node death as the OS sees it."""
+        """Hard-kill a raylet process — node death as the OS sees it. Its
+        segment stays until ``shutdown()``, as a dead node's would."""
         proc = self.raylets.pop(node_id, None)
         if proc is None:
             raise KeyError(f"unknown node {node_id}")
         proc.send_signal(sig)
         proc.wait(timeout=10)
+        self._killed.append(proc.pid)
 
     def remove_node(self, node_id: str) -> None:
         """Graceful scale-down: drain through the GCS first (so actors /
@@ -217,6 +221,8 @@ class ProcessCluster:
         except subprocess.TimeoutExpired:
             proc.kill()
             proc.wait(timeout=5)
+        # SIGTERM ends a raylet without its unlink, as SIGKILL does
+        remove_segments_of([proc.pid])
 
     def kill_gcs(self, sig: int = signal.SIGKILL) -> None:
         self.gcs_proc.send_signal(sig)
@@ -238,14 +244,20 @@ class ProcessCluster:
             client.close()
 
     def shutdown(self) -> None:
+        reaped, self._killed = self._killed, []
         for proc in self.raylets.values():
             try:
                 proc.kill()
                 proc.wait(timeout=5)
+                reaped.append(proc.pid)
             except Exception as e:
                 logger.debug("raylet pid %s kill failed: %r",
                              getattr(proc, "pid", "?"), e)
         self.raylets.clear()
+        # a SIGKILLed raylet never unlinks its prefaulted segment, whose
+        # pages stay resident in tmpfs; nothing reads a shut-down
+        # cluster's segments
+        remove_segments_of(reaped)
         try:
             self.gcs_proc.kill()
             self.gcs_proc.wait(timeout=5)

@@ -18,6 +18,7 @@ from ray_tpu_torch.observability.metrics import (  # noqa: F401
     prometheus_text,
     start_metrics_server,
 )
+from ray_tpu_torch.observability.dashboard_head import DashboardHead  # noqa: F401
 from ray_tpu_torch.observability.flight_recorder import (  # noqa: F401
     FlightRecorder,
     Ring,
@@ -33,7 +34,7 @@ from ray_tpu_torch.observability.profiling import (  # noqa: F401
 __all__ = [
     "Counter", "Gauge", "Histogram", "get_metric", "prometheus_text",
     "start_metrics_server", "EventLog", "Severity", "emit",
-    "FlightRecorder", "Ring", "global_recorder",
+    "DashboardHead", "FlightRecorder", "Ring", "global_recorder",
     "global_event_log", "Profiler", "global_profiler", "profile",
     "timeline",
 ]

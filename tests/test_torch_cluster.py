@@ -443,3 +443,40 @@ def test_live_gcs_burst_takes_the_torch_solve_on_the_cpu():
     finally:
         client.close()
         cluster.shutdown()
+
+
+def _segments_of(pid):
+    return [n for n in os.listdir("/dev/shm")
+            if n.startswith(f"ray_tpu_torch_store_{pid}_")]
+
+
+def test_shutdown_unlinks_its_raylets_segments():
+    """``shutdown()`` SIGKILLs each raylet, which never reaches its
+    unlink: the cluster reaps it and removes its prefaulted segment,
+    whose pages would otherwise stay resident in /dev/shm."""
+    cluster, client, _ = _start()
+    client.close()
+    pids = [proc.pid for proc in cluster.raylets.values()]
+    try:
+        assert len(pids) == 2
+        assert all(_segments_of(pid) for pid in pids)
+    finally:
+        cluster.shutdown()
+    assert [s for pid in pids for s in _segments_of(pid)] == []
+
+
+def test_remove_node_and_kill_node_segments(cluster2):
+    """A raylet stopped by ``remove_node`` (SIGTERM) dies without its
+    unlink too, and its segment goes with it; a node killed by
+    ``kill_node`` keeps its segment, as a dead node's would, until the
+    cluster shuts down."""
+    cluster, client, n1, n2 = cluster2
+    removed, killed = cluster.raylets[n1].pid, cluster.raylets[n2].pid
+    assert _segments_of(removed) and _segments_of(killed)
+    cluster.remove_node(n1)
+    assert _segments_of(removed) == []
+    cluster.kill_node(n2)
+    assert _segments_of(killed)
+    client.close()
+    cluster.shutdown()
+    assert _segments_of(killed) == []

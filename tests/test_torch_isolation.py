@@ -46,7 +46,8 @@ def test_port_imports_neither_jax_nor_ray_tpu():
              if f.relative_to(ROOT).parts[:2] == ("ray_tpu_torch", "rllib")]
     assert len(rllib) == 16  # every module of ray_tpu/rllib/
     for sub, n in ((("workflow",), 4), (("util", "client"), 4),
-                   (("autoscaler",), 10)):
+                   (("autoscaler",), 10), (("observability",), 9),
+                   (("tools", "raycheck"), 7)):
         got = [f for f in files if f.relative_to(ROOT).parts[1:-1] == sub]
         assert len(got) == n, (sub, got)  # as in the JAX package
     runtime_env = [f for f in files

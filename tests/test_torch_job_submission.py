@@ -7,10 +7,9 @@ status a poll saw, in order) and the logs are equal. Each job is
 submitted while two tasks hold the node's two CPUs, so it stays PENDING
 until the test lets them end, and its entrypoint waits for a gate file
 that the test creates once it has seen the job RUNNING: every side's
-polls see PENDING, RUNNING and the end, whatever the host's load. The
-dashboard half of ``test_list_jobs_and_dashboard_route`` waits for the
-port's dashboard (``observability/dashboard_head.py`` is not ported
-yet); its ``list_jobs`` half runs here.
+polls see PENDING, RUNNING and the end, whatever the host's load.
+``test_list_jobs_and_dashboard_route`` also reads each cluster's jobs
+through its own package's dashboard head (``/api/jobs``).
 
 Then the slice as a whole: a submitted job whose entrypoint brings up
 the port's runtime on the CPU and serves ``ModelConfig.debug()``,
@@ -184,9 +183,17 @@ def test_job_stop(clusters):
 
 
 def test_list_jobs_and_dashboard_route(clusters):
-    """The ``list_jobs`` half: every job of this module, in submit order,
-    with equal statuses on both packages. The ``/api/jobs`` half waits
-    for the port's dashboard head."""
+    """Every job of this module, in submit order, with equal statuses on
+    both packages: from ``list_jobs`` and from each package's dashboard
+    head's ``/api/jobs``, which serves the same rows."""
+    import json
+    import urllib.request
+
+    from ray_tpu.observability.dashboard_head import (
+        DashboardHead as JaxDashboardHead,
+    )
+    from ray_tpu_torch.observability.dashboard_head import DashboardHead
+
     def row(r):  # a generated id differs between the two clusters
         job_id = r["job_id"]
         return ("raysubmit_*" if job_id.startswith("raysubmit_")
@@ -198,6 +205,19 @@ def test_list_jobs_and_dashboard_route(clusters):
     assert len(rows[1]) >= 4
     assert (("custom-job-1", "SUCCEEDED") in
             [(r[0], r[1]) for r in rows[1]])
+
+    served = []
+    for (_, cluster, _), head_cls in zip(clusters[0],
+                                         (JaxDashboardHead, DashboardHead)):
+        head = head_cls(cluster.gcs_address)
+        try:
+            with urllib.request.urlopen(head.url + "/api/jobs",
+                                        timeout=10) as r:
+                served.append([row(j) for j in json.loads(r.read())])
+        finally:
+            head.stop()
+    assert served[1] == served[0]
+    assert sorted(served[1]) == sorted(rows[1])
 
 
 # ------------------------------------------------- the slice as a whole
