@@ -19,11 +19,11 @@ if any failed, the script exits non-zero and prints no result. Phases:
               plain version, its bound and one PyTorch library call (a
               yardstick only);
               each row names the route (``attention.kernel_route``) it
-              took; rows at head dims 16, 20 (Sq != Sk), 80 (Sq < Sk),
-              160 (B2, and the xl16 train step's B8), 192 (non-causal)
-              and 256 hold K1 on mma.sync, K2 and K3 on the padded wgmma
-              kernels (mma.sync at 16 and 20) in bf16, and the FMA
-              kernels (ModelConfig.debug's fp32 d 16) the same way;
+              took; rows at head dims 80 (Sq < Sk), 120 (Sq > Sk), 160
+              (B2, and the xl16 train step's B8), 192 (non-causal), 224
+              and 256 hold K1, K2 and K3 on the padded wgmma kernels,
+              rows at 16 and 20 (Sq != Sk) on mma.sync in bf16, and the
+              FMA kernels (ModelConfig.debug's fp32 d 16) the same way;
   2b. debug — the JAX package's test configs on the card through the
               kernels (head_dim 16, float32: the FMA route):
               ModelConfig.debug() and tiny_moe() (routed alike) served
@@ -97,8 +97,8 @@ if any failed, the script exits non-zero and prints no result. Phases:
   5b. xl16  — the same for bench.py's 1.25 B xl at 16 heads (hidden 2560,
               16 layers, 16 heads over 8 kv heads: head_dim 160, inter
               6912, vocab 32000, remat full, logits_chunk 256, bf16) at
-              full width and depth: K1 2 x 16 x 4 launches on mma.sync,
-              K2 and K3 16 x 4 each on the padded wgmma kernels;
+              full width and depth: K1 2 x 16 x 4 launches, K2 and K3
+              16 x 4 each, all on the padded wgmma kernels;
   6. moe    — the bench's sparse model (bench.py's MoE row: hidden 1024,
               8 layers, 16 heads over 8 kv heads, head_dim 64, inter
               2816, vocab 32000, top-2 of 8 experts on every second
@@ -339,12 +339,13 @@ KERNEL_SHAPES = [
     # ViT-B/16 train step's (196 patches + CLS, non-causal)
     ("moe", 16, 2048, 16, 64, True, "bfloat16"),
     ("vit", 128, 197, 12, 64, False, "bfloat16"),
-    # head dims off the wgmma route's 64 and 128 (mma.sync in bf16, FMA
-    # in fp32): ModelConfig.debug's attention; d 16 in bf16 at a ragged
-    # length; d 20 (a 40-byte row: the element-wise loads) with Sq != Sk,
-    # given as an 8th field; bench.py's xl width at 16 heads; the widest;
-    # the xl16 train step's shape; the backward rows' d 80 (Sq < Sk) and
-    # d 192 (non-causal) below
+    # head dims off the wgmma route's 64 and 128 (the padded wgmma route
+    # in bf16 at D % 8 == 0 past 64, mma.sync below, FMA in fp32):
+    # ModelConfig.debug's attention; d 16 in bf16 at a ragged length; d
+    # 20 (a 40-byte row: the element-wise loads) with Sq != Sk, given as
+    # an 8th field; bench.py's xl width at 16 heads; the widest; the xl16
+    # train step's shape; the backward rows' d 80 (Sq < Sk), d 192
+    # (non-causal), d 120 (padded to 128, Sq > Sk) and d 224 below
     ("debug_f32", 2, 128, 4, 16, True, "float32"),
     ("d16_bf16", 2, 1000, 4, 16, True, "bfloat16"),
     ("d20_ragged", 1, 1000, 4, 20, False, "bfloat16", 700),
@@ -353,6 +354,8 @@ KERNEL_SHAPES = [
     ("xl16_train", 8, 2048, 16, 160, True, "bfloat16"),
     ("d80_sq_lt_sk", 1, 700, 4, 80, True, "bfloat16", 1000),
     ("d192_noncausal", 2, 1000, 8, 192, False, "bfloat16"),
+    ("d120_sq_gt_sk", 1, 1000, 4, 120, True, "bfloat16", 700),
+    ("d224", 2, 2048, 8, 224, True, "bfloat16"),
 ]
 
 BWD_SHAPES = [
@@ -375,8 +378,10 @@ BWD_SHAPES = [
     # for the padded kernels: the xl16 train step's shape, d 80 (padded to
     # 96: a 64-column box, then a 32-column piece whose last 16 columns TMA
     # fills with zeros) at Sq < Sk (causal, top-left aligned: the last key
-    # tiles see no query and write zeros), and d 192 (one whole box past
-    # 128) without the causal bound
+    # tiles see no query and write zeros), d 192 (one whole box past
+    # 128) without the causal bound, d 120 (padded to 128 in one 128-key
+    # tile of K1) at Sq > Sk (the rows past Sk see every key), and d 224
+    # (a 32-column piece past three boxes) at a long causal length
     ("debug_f32", 2, 128, 128, 4, 16, True, "float32"),
     ("d16_bf16", 2, 1000, 1000, 4, 16, True, "bfloat16"),
     ("d20_ragged", 1, 1000, 700, 4, 20, False, "bfloat16"),
@@ -385,12 +390,14 @@ BWD_SHAPES = [
     ("xl16_train", 8, 2048, 2048, 16, 160, True, "bfloat16"),
     ("d80_sq_lt_sk", 1, 700, 1000, 4, 80, True, "bfloat16"),
     ("d192_noncausal", 2, 1000, 1000, 8, 192, False, "bfloat16"),
+    ("d120_sq_gt_sk", 1, 1000, 700, 4, 120, True, "bfloat16"),
+    ("d224", 2, 2048, 2048, 8, 224, True, "bfloat16"),
 ]
 # the rows of KERNEL_SHAPES and BWD_SHAPES off the wgmma route, reported
 # beside the model shapes in the kernels line
 HEAD_DIM_SHAPES = ("debug_f32", "d16_bf16", "d20_ragged", "d160",
                    "d256_ragged", "xl16_train", "d80_sq_lt_sk",
-                   "d192_noncausal")
+                   "d192_noncausal", "d120_sq_gt_sk", "d224")
 
 SCHED = dict(nodes=256, tasks=100_000, classes=32)
 # the cluster phase: the GCS burst placer at the scheduler's verdict
@@ -1662,8 +1669,8 @@ def phase_train(report: dict) -> dict:
 
 
 def phase_xl16(report: dict) -> dict:
-    """bench.py's xl at 16 heads (head_dim 160): K1 on mma.sync, K2 and
-    K3 on the padded wgmma kernels."""
+    """bench.py's xl at 16 heads (head_dim 160): K1, K2 and K3 on the
+    padded wgmma kernels."""
     report["xl16"], routes = _text_train_phase(report, "xl16",
                                                "xl16_train")
     return routes
@@ -5522,8 +5529,10 @@ def _kernel_table(report: dict, paths: dict) -> list:
         "name": "flash_attention_fwd", "route": "cuda",
         "kernel_route": fwd["route"],
         "source": csrc + "flash_attn_fwd.cu",
-        # the wgmma kernel and C entry, then the mma.sync and FMA routes
+        # the wgmma kernel and C entry, then the padded wgmma, mma.sync
+        # and FMA routes
         "sources": [csrc + f for f in ("flash_attn_fwd.cu",
+                                       "flash_attn_fwd_padded.cu",
                                        "flash_attn_fwd_mma.cu",
                                        "flash_attn_fwd_fma.cu")],
         "replaces": "ray_tpu/ops/attention.py:202",

@@ -164,7 +164,9 @@ class JobSubmissionClient:
     # -------------------------------------------------------------- stop
     def stop_job(self, job_id: str, sig: int = 0) -> bool:
         """SIGTERM the entrypoint's process group on its node
-        (reference: job_manager stop_job)."""
+        (reference: job_manager stop_job). The signal task demands no
+        resource, so it reaches a job that holds every CPU (and every
+        pooled worker) of its node."""
         info = self.get_job_info(job_id)
         if info is None or info["status"] not in ("RUNNING", "PENDING"):
             return False
@@ -172,7 +174,7 @@ class JobSubmissionClient:
         node_id = info.get("node_id") or None
         if pgid is None:
             return False
-        ref = self._client.submit(_signal_job, (pgid, sig),
+        ref = self._client.submit(_signal_job, (pgid, sig), resources={},
                                   node_id=node_id)
         return bool(self._client.get(ref, timeout=30.0))
 

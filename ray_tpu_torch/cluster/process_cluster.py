@@ -612,7 +612,9 @@ class ClusterClient:
             "args": [self._pack_arg(a) for a in args],
             "kwargs": {k: self._pack_arg(v)
                        for k, v in (kwargs or {}).items()},
-            "resources": dict(resources or {"CPU": 1.0}),
+            # None takes one CPU; {} is a task with no demand
+            "resources": dict({"CPU": 1.0} if resources is None
+                              else resources),
             "return_id": return_id,
         }
         if runtime_env is not None:

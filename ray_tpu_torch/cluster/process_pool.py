@@ -232,6 +232,9 @@ class ProcessWorkerPool:
         self._all: List[WorkerProcess] = []
         self._shutdown = False
         self._actor_procs: List["ActorProcess"] = []
+        # workers of tasks that demand nothing, started past `size` while
+        # every pooled worker is leased (see run): ended after their task
+        self._spares: List[WorkerProcess] = []
         for _ in range(self.size):
             self._spawn_locked()
         # ---- warm actor-worker pool (worker_pool.cc prestart) ----
@@ -266,7 +269,8 @@ class ProcessWorkerPool:
         self._all.append(worker)
         self._idle.append(worker)
 
-    def _lease(self) -> WorkerProcess:
+    def _lease(self, wait: bool = True) -> Optional[WorkerProcess]:
+        """An idle worker; with ``wait`` False, None when there is none."""
         with self._cv:
             while True:
                 if self._shutdown:
@@ -278,7 +282,30 @@ class ProcessWorkerPool:
                     # died while idle: replace it
                     self._all.remove(worker)
                     self._spawn_locked()
+                if not wait:
+                    return None
                 self._cv.wait()
+
+    def _lease_spare(self) -> tuple:
+        """An idle pooled worker, else a new one outside the pool ->
+        (worker, pooled)."""
+        worker = self._lease(wait=False)
+        if worker is not None:
+            return worker, True
+        worker = WorkerProcess(self.shm_path,
+                               log_callback=self.log_callback)
+        with self._cv:
+            if self._shutdown:
+                worker.terminate()
+                raise RuntimeError("process pool is shut down")
+            self._spares.append(worker)
+        return worker, False
+
+    def _end_spare(self, worker: WorkerProcess) -> None:
+        with self._cv:
+            if worker in self._spares:
+                self._spares.remove(worker)
+        worker.terminate()
 
     def _release(self, worker: WorkerProcess) -> None:
         with self._cv:
@@ -396,13 +423,20 @@ class ProcessWorkerPool:
         return False
 
     def run(self, func, args: tuple, kwargs: dict,
-            runtime_env=None, result_key: Optional[bytes] = None) -> Any:
+            runtime_env=None, result_key: Optional[bytes] = None,
+            spare: bool = False) -> Any:
         """``result_key`` (a 20-byte shm-store key) asks the worker to
         write a large result straight into the node's shm segment under
         that key and reply with a protocol.StoredResult marker — the
         caller then adopts the segment entry without the payload ever
-        crossing the pipe."""
-        worker = self._lease()
+        crossing the pipe. ``spare``: the task demands no resource, so
+        it holds no slot of the pool; when every pooled worker is
+        leased it runs on a worker started for it and ended after it
+        (reference: the worker pool starts workers past its soft limit),
+        instead of waiting behind the tasks that hold the node's CPUs
+        (a job's entrypoint, which a stop signal must reach)."""
+        worker, pooled = self._lease_spare() if spare else (
+            self._lease(), True)
         try:
             return worker.call("task", {
                 "func": func, "args": args, "kwargs": kwargs,
@@ -410,7 +444,10 @@ class ProcessWorkerPool:
                 "result_key": result_key,
             })
         finally:
-            self._release(worker)
+            if pooled:
+                self._release(worker)
+            else:
+                self._end_spare(worker)
 
     def run_batch(self, items: List[dict]) -> List[tuple]:
         """Batched ``run`` (dispatch fast lane): lease ONE worker and
@@ -504,8 +541,9 @@ class ProcessWorkerPool:
     def shutdown(self) -> None:
         with self._cv:
             self._shutdown = True
-            workers = list(self._all)
+            workers = list(self._all) + self._spares
             actors = list(self._actor_procs)
+            self._spares = []
             self._all.clear()
             self._idle.clear()
             self._cv.notify_all()

@@ -1853,7 +1853,8 @@ class RayletServer:
             result = self.pool.run(
                 func, tuple(args), kwargs,
                 runtime_env=spec.get("runtime_env"),
-                result_key=shm_key(return_id))
+                result_key=shm_key(return_id),
+                spare=not spec.get("resources"))
             if isinstance(result, protocol.StoredResult):
                 # worker wrote the payload into the segment: adopt it —
                 # the result never crossed the pipe

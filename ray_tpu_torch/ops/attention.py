@@ -46,7 +46,8 @@ _CSRC = Path(__file__).resolve().parent / "csrc"
 # one nvcc per source, all started together, then one link: the padded
 # wgmma, mma.sync and FMA routes are instantiated at every padded head dim
 _SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu",
-            "flash_attn_bwd_dq_padded.cu", "flash_attn_bwd_dkdv_padded.cu",
+            "flash_attn_fwd_padded.cu", "flash_attn_bwd_dq_padded.cu",
+            "flash_attn_bwd_dkdv_padded.cu",
             "flash_attn_fwd_mma.cu", "flash_attn_fwd_fma.cu",
             "flash_attn_bwd_dq_mma.cu", "flash_attn_bwd_dkdv_mma.cu",
             "flash_attn_bwd_fma.cu")
@@ -70,18 +71,20 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #          shared-memory rings, a producer warpgroup and two consumer
 #          warpgroups (a row under 128 bytes is under the 128-byte
 #          swizzle box those kernels are built on);
-#   WGMMA_PADDED: bf16, K2 and K3 only, at head_dim % 8 == 0 (TMA's
-#          16-byte row stride), 64 < head_dim <= 256, head_dim != 128 --
-#          wgmma on TMA-fed rings as WGMMA, instantiated at the head dim
-#          rounded up to 32 over rows padded with zeros to 64-column
-#          boxes; K2 is WGMMA's kernel at that width, K3 a kernel of its
-#          own (64 keys a block, the two consumer warpgroups splitting
-#          each query tile's rows, then the head dim's columns). A name of
-#          its own, so that the launch counts show which of the two
-#          designs and which widths a path ran;
-#   MMA_SYNC: bf16, K1 at every other head_dim up to 256, K2 and K3 at
-#          the rest of them (head_dim % 8 != 0 or under 64) -- mma.sync
-#          tiles, instantiated at the head dim rounded up to 16;
+#   WGMMA_PADDED: bf16, all three, at head_dim % 8 == 0 (TMA's 16-byte
+#          row stride), 64 < head_dim <= 256, head_dim != 128 -- wgmma on
+#          TMA-fed rings as WGMMA, instantiated at the head dim rounded up
+#          to 32 over rows padded with zeros to 64-column boxes; K2 is
+#          WGMMA's kernel at that width, K1 that design with the
+#          forward's loop body (key tiles as wide as shared memory allows
+#          beside resident Q: 128, 96 or 64 keys), K3 a
+#          kernel of its own (64 keys a block, the two consumer
+#          warpgroups splitting each query tile's rows, then the head
+#          dim's columns). A name of its own, so that the launch counts
+#          show which of the two designs and which widths a path ran;
+#   MMA_SYNC: bf16, all three at the other head dims up to 256 (head_dim
+#          % 8 != 0 or under 64) -- mma.sync tiles, instantiated at the
+#          head dim rounded up to 16;
 #   FMA: float32, all three, at every head_dim up to 256 -- exact FMAs on
 #          the CUDA cores, instantiated at the head dim rounded up to 32.
 WGMMA = "wgmma_tma_ws"
@@ -115,13 +118,13 @@ def kernel_route(kernel: str, dtype: torch.dtype, head_dim: int) -> str:
         return FMA
     if head_dim in _WGMMA_HEAD_DIMS:
         return WGMMA
-    if kernel != "fwd" and wgmma_padded_head_dim(head_dim):
+    if wgmma_padded_head_dim(head_dim):
         return WGMMA_PADDED
     return MMA_SYNC
 
 
 def wgmma_padded_head_dim(head_dim: int) -> bool:
-    """The bf16 head dims K2 and K3 take on WGMMA_PADDED
+    """The bf16 head dims K1, K2 and K3 take on WGMMA_PADDED
     (``rtt::wgmma_padded_head_dim`` in csrc/flash_attn_routes.cuh)."""
     return (head_dim % 8 == 0 and 64 < head_dim <= MAX_HEAD_DIM
             and head_dim not in _WGMMA_HEAD_DIMS)

@@ -38,11 +38,24 @@
 //     the tensor cores (ping-pong over named barriers) both ran slower
 //     here: with two accumulators in flight ptxas serialises the wgmmas
 //     for want of registers.
+//   - bf16, head_dim % 8 == 0, 64 < head_dim <= 256, head_dim != 128
+//     (the padded wgmma route; bench.py's xl width at 16 heads, d 160):
+//     flash_fwd_padded_kernel<DP> in flash_attn_fwd_padded.cu,
+//     instantiated at DP = D rounded up to 32 over rows padded with zeros
+//     to 64-column boxes: this kernel's warp roles and two-stage ring
+//     with K/V tiles as wide as shared memory allows beside resident Q
+//     (128 keys at a padded row of 128 columns, 96 at 192, 64 at 256;
+//     128-key tiles do not fit the 227 KB at 192), S over DP/16 k steps,
+//     O += P V in box-aligned N pieces (wgmma_rs_cols), software-
+//     pipelined inside each warpgroup (tile j's S beside tile j - 1's
+//     P V), every wait mbar_wait_no_trap. ptxas (sm_90a, on the H100
+//     host; tools/check_head_dims.py): 168 registers at entry, no spills
+//     and no serialised wgmmas at any DP;
 //   - bf16, every other head_dim 1..256 (the entry() shape's 32, the
-//     debug configs', bench.py's xl width at 16 heads, d 160): the
+//     debug configs' 16, the head dims off the multiples of 8): the
 //     mma.sync kernel in flash_attn_fwd_mma.cu; a row under 128 bytes is
-//     under the 128-byte swizzle box the wgmma route is built on, and
-//     the wgmma route is instantiated at 64 and 128 only;
+//     under the 128-byte swizzle box the wgmma routes are built on, and
+//     TMA needs a row stride of a multiple of 16 bytes;
 //   - fp32, every head_dim 1..256: exact fp32 FMAs on the CUDA cores in
 //     flash_attn_fwd_fma.cu (the tensor cores would round fp32 to tf32).
 //   Past 256 no route is built: the 64-row K/V tile rings and the fp32
@@ -344,5 +357,8 @@ extern "C" int rtt_flash_attn_fwd(const void* q, const void* k,
   if (D == 128)
     return launch_ws<128>(q, k, v, out, lse_f, B, H, Sq, Sk, causal, scale,
                           s);
+  if (rtt::wgmma_padded_head_dim(D))
+    return rtt::fwd_padded(q, k, v, out, lse_f, B, H, Sq, Sk, D, causal,
+                           scale, s);
   return rtt::fwd_mma(q, k, v, out, lse_f, B, H, Sq, Sk, D, causal, scale, s);
 }

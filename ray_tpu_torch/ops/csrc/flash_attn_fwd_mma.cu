@@ -1,7 +1,9 @@
 // K1 (flash-attention forward) in bf16 on mma.sync, for every head dim
-// 1..256 that the wgmma kernel (d 64 and 128, flash_attn_fwd.cu) does not
-// take. Replaces ray_tpu/ops/attention.py::_flash_kernel for those bf16
-// q/k/v; flash_attn_fwd.cu describes the kernel family and its numerics.
+// 1..256 that the wgmma kernels (d 64 and 128, flash_attn_fwd.cu; the
+// padded head dims, D % 8 == 0 from 72 to 256, flash_attn_fwd_padded.cu)
+// do not take: under 64, and off the multiples of 8. Replaces
+// ray_tpu/ops/attention.py::_flash_kernel for those bf16 q/k/v;
+// flash_attn_fwd.cu describes the kernel family and its numerics.
 //
 // mma.sync.m16n8k16 tiles (bf16 in, fp32 accumulate): one block per
 // (batch*head, 64-row q tile), 4 warps of 16 q rows; K/V tiles of 64
@@ -14,8 +16,10 @@
 // whose 2 D bytes are not a multiple of 16 loads element by element.
 // Q's fragments are read from shared memory at each tile (at DP 256 the
 // fp32 O accumulator alone is 128 registers a thread). What bounds it:
-// at d 160 and S 2048 (bench.py's xl width at 16 heads) operations, as
-// on the wgmma route; the mma.sync issue rate is what holds it back.
+// at the narrow rows and short lengths it runs (d 16 and 20, S ~1000)
+// bytes and launch overhead; at long S and wide rows operations, where
+// the mma.sync issue rate holds it back (3.2x SDPA at d 160, PERF.md,
+// before the padded wgmma route took that width).
 
 #include "flash_attn_common.cuh"
 #include "flash_attn_routes.cuh"

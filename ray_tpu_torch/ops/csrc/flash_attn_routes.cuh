@@ -1,6 +1,6 @@
 // The routes of K1, K2 and K3 past the wgmma kernels at head_dim 64 and
 // 128, each in its own translation unit so that nvcc compiles them side by
-// side: K2 and K3 on wgmma at the padded head dims, and the mma.sync
+// side: all three on wgmma at the padded head dims, and the mma.sync
 // (bf16) and FMA (fp32) kernels. The C entry points in flash_attn_fwd.cu
 // and flash_attn_bwd.cu dispatch to them. The mma.sync and FMA routes take
 // any head dim D in [1, MAX_HEAD_DIM] (flash_attn_common.cuh), the padded
@@ -37,12 +37,17 @@ cudaError_t bwd_dkdv_mma(const void* q, const void* k, const void* v,
                          const float* delta, void* dk, void* dv, int B,
                          int H, int Sq, int Sk, int D, int causal,
                          float scale, cudaStream_t stream);
-// The head dims K2 and K3 take on wgmma at a padded width in bf16: D % 8
-// == 0 (TMA's 16-byte row stride), 64 < D <= 256, D != 128 (64 and 128
-// have their own instantiations in flash_attn_bwd.cu)
+// The head dims K1, K2 and K3 take on wgmma at a padded width in bf16:
+// D % 8 == 0 (TMA's 16-byte row stride), 64 < D <= 256, D != 128 (64 and
+// 128 have their own instantiations in flash_attn_fwd.cu and
+// flash_attn_bwd.cu)
 constexpr bool wgmma_padded_head_dim(int D) {
   return D % 8 == 0 && D > 64 && D <= 256 && D != 128;
 }
+// K1, bf16 on wgmma at those head dims (flash_attn_fwd_padded.cu)
+cudaError_t fwd_padded(const void* q, const void* k, const void* v,
+                       void* out, float* lse, int B, int H, int Sq, int Sk,
+                       int D, int causal, float scale, cudaStream_t stream);
 // K2, bf16 on wgmma at those head dims (flash_attn_bwd_dq_padded.cu)
 cudaError_t bwd_dq_padded(const void* q, const void* k, const void* v,
                           const void* dout, const float* lse,

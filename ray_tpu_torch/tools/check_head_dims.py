@@ -6,9 +6,10 @@ mma.sync or FMA kernels change.
 
 Builds the kernels (printing the build time; for the mma.sync and FMA
 kernels the most registers any instantiation uses and every one that
-spills; for each instantiation of K2's and K3's wgmma kernels its
-registers, spills and ptxas's performance notes, such as wgmmas
-serialised for want of registers), then for each (dtype, head dim) in
+spills; for each instantiation of K1's padded wgmma kernel and of K2's
+and K3's wgmma kernels its registers, spills and ptxas's performance
+notes, such as wgmmas serialised for want of registers), then for each
+(dtype, head dim) in
 ``CASES`` runs the forward,
 then K2 and K3 on its lse, at a ragged shape with Sq != Sk (causal at
 even head dims, non-causal at odd ones), and holds out/lse against
@@ -28,8 +29,8 @@ import time
 # (dtype, head dims): every padded instantiation's edges -- element-wise
 # rows (D % 8 != 0 in bf16, D % 4 != 0 in fp32), odd k-step counts
 # (D rounded to 16 an odd multiple of 16), mma.sync K3's two-launch split
-# past 128, fp32's 32-row tiles past 160, and in bf16 K2 and K3's padded
-# wgmma widths (D rounded up to 32: 96, 128, 160, 192, 224, 256; a
+# past 128, fp32's 32-row tiles past 160, and in bf16 the padded wgmma
+# widths of K1, K2 and K3 (D rounded up to 32: 96, 128, 160, 192, 224, 256; a
 # 32-column piece at 80, 96, 160, 224; D 72 and 200 short of their
 # padding by 24) -- and the debug configs' 16
 CASES = [
@@ -78,15 +79,17 @@ def kernel_name(mangled: str) -> str:
     return f"{mangled[end - n:end]}<{', '.join(values)}>"
 
 
-# the wgmma kernels of K2 (every width) and of K3 at the padded widths
-_WGMMA_BWD = ("bwd_dq_ws_kernel<", "bwd_dkdv_padded_kernel<")
+# the wgmma kernels of K1 and K3 at the padded widths, and of K2 (every
+# width)
+_WGMMA_ROWS = ("flash_fwd_padded_kernel<", "bwd_dq_ws_kernel<",
+               "bwd_dkdv_padded_kernel<")
 
 
-def wgmma_bwd_rows(log: str) -> list:
-    """One row per instantiation of K2's and K3's padded wgmma kernels in
-    ``nvcc -Xptxas=-v``'s report: its name and width, registers, spill
-    line and any performance note (ptxas may print a note before its
-    function's rows)."""
+def wgmma_rows(log: str) -> list:
+    """One row per instantiation of K1's, K2's and K3's padded wgmma
+    kernels in ``nvcc -Xptxas=-v``'s report: its name and width,
+    registers, spill line and any performance note (ptxas may print a
+    note before its function's rows)."""
     rows, notes, row = [], {}, None
     for ln in log.splitlines():
         if "Potential Performance Loss" in ln:
@@ -96,7 +99,7 @@ def wgmma_bwd_rows(log: str) -> list:
             mangled = ln.split("'")[1]
             name = kernel_name(mangled)
             row = None
-            if name.startswith(_WGMMA_BWD):
+            if name.startswith(_WGMMA_ROWS):
                 row = {"kernel": name, "mangled": mangled}
                 rows.append(row)
         elif row is not None and "Used" in ln and "registers" in ln:
@@ -156,7 +159,7 @@ def main(argv=None) -> int:
     log = T.build_kernels()
     print(json.dumps({"build_s": time.monotonic() - t0,
                       **ptxas_summary(log)}), flush=True)
-    for row in wgmma_bwd_rows(log):
+    for row in wgmma_rows(log):
         print(json.dumps(row), flush=True)
     failed = 0
     for dtype, dims in CASES:

@@ -9,8 +9,8 @@ trees' ``ray_tpu_torch/ops/attention.py`` are loaded side by side as
 standalone modules; each builds its own kernels from its own sources into
 its own ``_build`` directory. At each of ``SHAPES`` (b1's served forward
 and train step, bench.py's xl head dim 160 at B2 and at its train step's
-B8, and chip_smoke.py's d 256, d 80 and d 192 rows; bf16) the script
-checks that
+B8, and chip_smoke.py's d 256, d 80 and d 192 rows, for K1 and for K2
+and K3; bf16) the script checks that
 the two trees' outputs agree, then times the forward (K1), the dq
 backward (K2) or the dk/dv backward (K3) with CUDA events in the order
 baseline, current, current, baseline, repeated ``--rounds`` times, and
@@ -33,11 +33,16 @@ from ray_tpu_torch.tools.profile_serving import card_line
 
 SHAPES = [
     # name, kernel, B, Sq, Sk, H, D, causal (bf16) — b1's served forward,
-    # its train step's forward, dq and dk/dv backward; K2 and K3 at
+    # its train step's forward, dq and dk/dv backward; K1, K2 and K3 at
     # bench.py's xl head dim 160 (B2, and B8: the xl16 train step), and at
     # chip_smoke.py's d256_ragged, d80_sq_lt_sk and d192_noncausal rows
     ("served_fwd", "fwd", 2, 2048, 2048, 16, 128, True),
     ("train_fwd", "fwd", 8, 2048, 2048, 16, 128, True),
+    ("d160_fwd", "fwd", 2, 2048, 2048, 16, 160, True),
+    ("xl16_fwd", "fwd", 8, 2048, 2048, 16, 160, True),
+    ("d256_fwd", "fwd", 1, 1000, 1000, 4, 256, True),
+    ("d80_fwd", "fwd", 1, 700, 1000, 4, 80, True),
+    ("d192_fwd", "fwd", 2, 1000, 1000, 8, 192, False),
     ("train_dq", "dq", 8, 2048, 2048, 16, 128, True),
     ("train_dkdv", "dkdv", 8, 2048, 2048, 16, 128, True),
     ("d160_dq", "dq", 2, 2048, 2048, 16, 160, True),

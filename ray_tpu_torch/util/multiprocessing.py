@@ -48,6 +48,16 @@ class AsyncResult:
         self._error = None
         self._done = False
         self._lock = threading.Lock()
+        if callback is not None or error_callback is not None:
+            # a callback fires when the result lands, as multiprocessing's
+            # do, not at the first get(): joblib's pool backend waits for
+            # it before it asks for any result
+            threading.Thread(target=self._collect_when_ready, daemon=True,
+                             name="pool-async-result").start()
+
+    def _collect_when_ready(self) -> None:
+        ray_tpu_torch.wait(self._refs, num_returns=len(self._refs))
+        self._collect()
 
     def _collect(self, timeout: Optional[float] = None):
         with self._lock:
@@ -66,15 +76,18 @@ class AsyncResult:
                     chunks.append(ray_tpu_torch.get(ref))
                 flat = list(itertools.chain.from_iterable(chunks))
                 self._result = flat[0] if self._single else flat
-                if self._callback:
-                    self._callback(self._result)
             except TimeoutError:
                 raise
             except Exception as e:  # noqa: BLE001
                 self._error = e
-                if self._error_callback:
-                    self._error_callback(e)
             self._done = True
+        # once, by the call that collected, outside the lock (a callback
+        # may ask this result for its value)
+        if self._error is None:
+            if self._callback:
+                self._callback(self._result)
+        elif self._error_callback:
+            self._error_callback(self._error)
 
     def get(self, timeout: Optional[float] = None):
         self._collect(timeout)

@@ -97,6 +97,26 @@ def test_plain_path_matches_pallas_kernel_interpret(causal):
     np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse), **TOL)
 
 
+@pytest.mark.parametrize("causal", [False, True])
+def test_plain_path_matches_pallas_kernel_interpret_at_d160(causal):
+    """The forward at bench.py's xl head dim at 16 heads (160: the padded
+    wgmma route on the card, held there against this plain path) against
+    the TPU kernel itself through Pallas's interpreter."""
+    q, k, v = _qkv(13 + causal, 1, 256, 256, 2, 160)
+    scale = 160 ** -0.5
+    A._FORCE_INTERPRET = True
+    try:
+        j_out, j_lse = A._pallas_fwd(jnp.asarray(q), jnp.asarray(k),
+                                     jnp.asarray(v), causal, scale, 128,
+                                     128)
+    finally:
+        A._FORCE_INTERPRET = False
+    out, lse = T._fwd_dispatch(*_torch(q, k, v), causal=causal,
+                               sm_scale=scale)
+    np.testing.assert_allclose(out.numpy(), np.asarray(j_out), **TOL)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(j_lse), **TOL)
+
+
 def test_attention_reference_matches_jax():
     q, k, v = _qkv(5, 2, 48, 48, 2, 16)
     for causal in (False, True):
@@ -145,11 +165,18 @@ def test_blockwise_bwd_matches_jax(causal, shape):
     (80, True),    # an odd count of 16-wide head-dim steps
     (160, True),   # bench.py's xl width at 16 heads
     (256, False),  # the widest head dim a kernel takes
+    # the padded wgmma route's other widths (D rounded up to 32): 72 ->
+    # 96, 120 -> 128, 192, 224
+    (72, True),
+    (120, False),
+    (192, True),
+    (224, False),
 ])
 def test_blockwise_fwd_bwd_match_jax_at_head_dims_off_64_and_128(d, causal):
-    """The plain versions the mma.sync and FMA kernels are held against on
-    the card, against the JAX package's, at the head dims those routes
-    take, ragged (Sq != Sk, neither a multiple of the 128-key block)."""
+    """The plain versions the padded wgmma, mma.sync and FMA kernels are
+    held against on the card, against the JAX package's, at the head dims
+    those routes take, ragged (Sq != Sk, neither a multiple of the
+    128-key block)."""
     b, sq, sk, h = 1, 150, 97, 2
     q, k, v = _qkv(d + causal, b, sq, sk, h, d)
     scale = d ** -0.5

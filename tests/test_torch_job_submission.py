@@ -182,6 +182,34 @@ def test_job_stop(clusters):
     assert clusters[0][1][2].stop_job(job_id) is False
 
 
+def test_job_stop_on_a_node_whose_only_cpu_the_job_holds():
+    """stop_job reaches a job whose entrypoint holds its node's only CPU
+    (and only pooled worker): the signal task demands no resource, so it
+    neither queues behind the job for the CPU nor waits for the worker.
+    The JAX package keeps the fault (ROADMAP Queue C: its signal task
+    takes a CPU, and stop_job raises after 30 s); every wait here is
+    bounded."""
+    cluster = ProcessCluster(heartbeat_period_ms=100,
+                             num_heartbeats_timeout=20, gcs_device="cpu")
+    client = None
+    try:
+        cluster.add_node(num_cpus=1, object_store_memory=64 << 20)
+        cluster.wait_for_nodes(1)
+        client = JobSubmissionClient(cluster.gcs_address)
+        job_id = client.submit_job(entrypoint="sleep 120")
+        deadline = time.monotonic() + 60
+        while client.get_job_status(job_id) != "RUNNING":
+            assert time.monotonic() < deadline, "the job never ran"
+            time.sleep(0.05)
+        assert client.stop_job(job_id) is True
+        assert client.wait_until_finish(job_id, timeout=30) == "STOPPED"
+        assert client.get_job_info(job_id)["returncode"] < 0
+    finally:
+        if client is not None:
+            client.close()
+        cluster.shutdown()
+
+
 def test_list_jobs_and_dashboard_route(clusters):
     """Every job of this module, in submit order, with equal statuses on
     both packages: from ``list_jobs`` and from each package's dashboard

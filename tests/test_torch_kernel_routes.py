@@ -8,6 +8,7 @@ against its plain version there); nothing here builds or launches one.
 """
 
 import importlib.util
+import re
 from pathlib import Path
 
 import pytest
@@ -25,15 +26,19 @@ ROOT = Path(__file__).resolve().parents[1]
     ("dkdv", torch.bfloat16, 128, T.WGMMA),
     ("dkdv", torch.bfloat16, 64, T.WGMMA),
     # a head_dim-32 row (64 bytes) is under the 128-byte swizzle box,
-    # and the forward takes mma.sync at every other head dim (the debug
-    # configs' 16, bench.py's xl width's 160)
+    # and all three take mma.sync below 64 (the debug configs' 16, 48)
     ("fwd", torch.bfloat16, 32, T.MMA_SYNC),
     ("dkdv", torch.bfloat16, 32, T.MMA_SYNC),
     ("fwd", torch.bfloat16, 16, T.MMA_SYNC),
-    ("fwd", torch.bfloat16, 160, T.MMA_SYNC),
-    # K2 and K3 take the padded wgmma kernels at D % 8 == 0 between 64
-    # and 256 (bench.py's xl width's 160, the widest 256, and 72, 96,
+    ("fwd", torch.bfloat16, 48, T.MMA_SYNC),
+    # K1, K2 and K3 take the padded wgmma kernels at D % 8 == 0 between
+    # 64 and 256 (bench.py's xl width's 160, the widest 256, and 72, 96,
     # 192: a 24-column pad, a 32-column piece, three boxes) ...
+    ("fwd", torch.bfloat16, 160, T.WGMMA_PADDED),
+    ("fwd", torch.bfloat16, 72, T.WGMMA_PADDED),
+    ("fwd", torch.bfloat16, 96, T.WGMMA_PADDED),
+    ("fwd", torch.bfloat16, 192, T.WGMMA_PADDED),
+    ("fwd", torch.bfloat16, 256, T.WGMMA_PADDED),
     ("dq", torch.bfloat16, 160, T.WGMMA_PADDED),
     ("dkdv", torch.bfloat16, 256, T.WGMMA_PADDED),
     ("dq", torch.bfloat16, 72, T.WGMMA_PADDED),
@@ -43,6 +48,8 @@ ROOT = Path(__file__).resolve().parents[1]
     ("dq", torch.bfloat16, 192, T.WGMMA_PADDED),
     ("dkdv", torch.bfloat16, 192, T.WGMMA_PADDED),
     # ... and mma.sync where a row is not a multiple of 16 bytes
+    ("fwd", torch.bfloat16, 100, T.MMA_SYNC),
+    ("fwd", torch.bfloat16, 250, T.MMA_SYNC),
     ("dq", torch.bfloat16, 100, T.MMA_SYNC),
     ("dkdv", torch.bfloat16, 100, T.MMA_SYNC),
     ("dq", torch.bfloat16, 250, T.MMA_SYNC),
@@ -64,17 +71,17 @@ def test_kernel_route(kernel, dtype, head_dim, route):
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_kernel_route_takes_every_head_dim_to_256(kernel, dtype):
     """Every head dim 1..256 has a kernel: bf16 keeps wgmma at 64 and 128;
-    K2 and K3 take the padded wgmma kernels at every other multiple of 8
-    past 64 and mma.sync below 64 and off the multiples of 8, K1
-    mma.sync at every other; fp32 takes the FMA kernels at all; 257 and
-    past raise, naming the shared-memory reason."""
+    K1, K2 and K3 take the padded wgmma kernels at every other multiple
+    of 8 past 64 and mma.sync below 64 and off the multiples of 8; fp32
+    takes the FMA kernels at all; 257 and past raise, naming the
+    shared-memory reason."""
     padded = [d for d in range(1, T.MAX_HEAD_DIM + 1)
               if d % 8 == 0 and d > 64 and d != 128]
     assert len(padded) == 23 and padded[0] == 72 and padded[-1] == 256
     for d in range(1, T.MAX_HEAD_DIM + 1):
         want = (T.FMA if dtype == torch.float32 else
                 T.WGMMA if d in (64, 128) else
-                T.WGMMA_PADDED if kernel != "fwd" and d in padded else
+                T.WGMMA_PADDED if d in padded else
                 T.MMA_SYNC)
         assert T.kernel_route(kernel, dtype, d) == want, d
         assert T.wgmma_padded_head_dim(d) == (d in padded), d
@@ -159,7 +166,7 @@ def test_refused_launch_names_its_cause_and_route(err, cause):
     T._launch_check(0, "fwd", q, 64, True)
 
 
-@pytest.mark.parametrize("kernel", ["dq", "dkdv"])
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkdv"])
 def test_refused_padded_launch_raises_with_its_route(kernel):
     """No fallback at the padded head dims: a tensor map the launcher
     could not make, or a refused launch, raises naming the padded wgmma
@@ -265,8 +272,8 @@ def test_check_bwd_rows_covers_every_row_alignment():
 def test_xl16_path_is_bench_xl_at_16_heads():
     """chip_smoke.py's xl16 phase trains bench.py's xl dims (hidden 2560,
     16 layers, inter 6912) at 16 heads over 8 kv heads: head_dim 160,
-    where K1 takes mma.sync and K2 and K3 the padded wgmma kernels; its
-    kernel rows run at the train step's attention shape."""
+    where K1, K2 and K3 take the padded wgmma kernels; its kernel rows
+    run at the train step's attention shape."""
     cs = _chip_smoke()
     cfg = cs._text_config("xl16")
     assert (cfg.hidden, cfg.layers, cfg.intermediate, cfg.vocab_size) == (
@@ -275,7 +282,8 @@ def test_xl16_path_is_bench_xl_at_16_heads():
     assert cfg.remat and cfg.remat_policy == "full"
     assert cfg.logits_chunk == 256 and cfg.dtype == torch.bfloat16
     assert cs._main_path_routes("bfloat16", cfg.head_dim) == {
-        "fwd": T.MMA_SYNC, "dq": T.WGMMA_PADDED, "dkdv": T.WGMMA_PADDED}
+        "fwd": T.WGMMA_PADDED, "dq": T.WGMMA_PADDED,
+        "dkdv": T.WGMMA_PADDED}
     b, s = cs.TRAIN_TOKENS[0], cs.TRAIN_TOKENS[1] - 1
     fwd = {row[0]: row[1:] for row in cs.KERNEL_SHAPES}
     bwd = {row[0]: row[1:] for row in cs.BWD_SHAPES}
@@ -289,6 +297,10 @@ def test_xl16_path_is_bench_xl_at_16_heads():
     ("d80_sq_lt_sk", 700, 1000, 80, True),
     # one whole box past 128, without the causal bound
     ("d192_noncausal", 1000, 1000, 192, False),
+    # padded to 128, Sq > Sk (the rows past Sk see every key)
+    ("d120_sq_gt_sk", 1000, 700, 120, True),
+    # a 32-column piece past three boxes, at a long causal length
+    ("d224", 2048, 2048, 224, True),
 ])
 def test_padded_route_rows_reach_its_edges(shape, sq, sk, d, causal):
     """The kernel phase's rows for the padded wgmma kernels: forward and
@@ -303,8 +315,32 @@ def test_padded_route_rows_reach_its_edges(shape, sq, sk, d, causal):
     assert row[:6] == (b, sq, h, d, causal, "bfloat16")
     assert (row[6] if len(row) > 6 else sq) == sk
     assert shape in cs.HEAD_DIM_SHAPES and "xl16_train" in cs.HEAD_DIM_SHAPES
-    for kernel in ("dq", "dkdv"):
+    for kernel in ("fwd", "dq", "dkdv"):
         assert T.kernel_route(kernel, torch.bfloat16, d) == T.WGMMA_PADDED
+
+
+def test_padded_forward_source_is_built_and_instantiated_at_each_width():
+    """The padded K1 is one of the sources every build compiles, and its
+    launcher instantiates the kernel at each width the padded head dims
+    round up to (D rounded up to 32)."""
+    assert "flash_attn_fwd_padded.cu" in T._SOURCES
+    src = (ROOT / "ray_tpu_torch" / "ops" / "csrc"
+           / "flash_attn_fwd_padded.cu").read_text()
+    widths = {(d + 31) // 32 * 32 for d in range(1, T.MAX_HEAD_DIM + 1)
+              if T.wgmma_padded_head_dim(d)}
+    assert widths == {96, 128, 160, 192, 224, 256}
+    launched = {int(w) for w in
+                re.findall(r"launch_fwd_padded<(\d+)>\)", src)}
+    assert launched == widths
+    # every wait is mbar_wait_no_trap: a trap anywhere in the kernel keeps
+    # ptxas allocating its consumers within 168 registers
+    code = re.sub(r"//[^\n]*", "", src)
+    assert "__trap" not in code and "mbar_wait(" not in code
+    assert "mbar_wait_no_trap(" in code
+    # the C entry dispatches to it before the mma.sync kernel
+    entry = (ROOT / "ray_tpu_torch" / "ops" / "csrc"
+             / "flash_attn_fwd.cu").read_text()
+    assert entry.index("rtt::fwd_padded(") < entry.index("rtt::fwd_mma(")
 
 
 @pytest.mark.parametrize("kernel,bound_ms", [
@@ -338,11 +374,11 @@ def test_check_head_dims_names_kernels_from_their_mangled_names():
 
 
 def test_check_head_dims_reports_each_wgmma_backward_instantiation():
-    """tools/check_head_dims prints one row per instantiation of K2's and
-    K3's padded wgmma kernels: its width, registers, spills and ptxas's
-    notes (which may come before the function's own rows); other
+    """tools/check_head_dims prints one row per instantiation of K1's, K2's
+    and K3's padded wgmma kernels: its width, registers, spills and
+    ptxas's notes (which may come before the function's own rows); other
     functions' rows are left out."""
-    from ray_tpu_torch.tools.check_head_dims import CASES, wgmma_bwd_rows
+    from ray_tpu_torch.tools.check_head_dims import CASES, wgmma_rows
 
     k3 = "_Z22bwd_dkdv_padded_kernelILi192EEv"
     log = "\n".join([
@@ -358,10 +394,17 @@ def test_check_head_dims_reports_each_wgmma_backward_instantiation():
         "    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
         "ptxas info    : Compiling entry function '_Z3foov' for 'sm_90a'",
         "ptxas info    : Used 16 registers",
+        "ptxas info    : Compiling entry function '_ZN62_GLOBAL__N__93e5_"
+        "29_flash_attn_fwd_padded_cu_4c1749c223flash_fwd_padded_kernel"
+        "ILi160EEEv14CUtensorMap_st' for 'sm_90a'",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
     ])
-    rows = wgmma_bwd_rows(log)
+    rows = wgmma_rows(log)
     assert [r["kernel"] for r in rows] == ["bwd_dq_ws_kernel<160, 0>",
-                                           "bwd_dkdv_padded_kernel<192>"]
+                                           "bwd_dkdv_padded_kernel<192>",
+                                           "flash_fwd_padded_kernel<160>"]
+    assert rows[2]["registers"] == 168 and rows[2]["notes"] == []
     assert rows[0]["registers"] == 168 and rows[0]["notes"] == []
     assert "8 bytes spill stores" in rows[1]["spill"]
     assert rows[1]["notes"] == [
@@ -375,7 +418,7 @@ def test_check_head_dims_reports_each_wgmma_backward_instantiation():
 
 
 def test_compare_kernels_times_the_padded_route_at_its_rows():
-    """tools/compare_kernels times K2 and K3 at bench.py's xl head dim
+    """tools/compare_kernels times K1, K2 and K3 at bench.py's xl head dim
     160 (B2, and the xl16 train step's B8) and at chip_smoke.py's rows of
     the padded route (d 256, 80 and 192, at those rows' shapes), beside
     b1's shapes."""
@@ -384,7 +427,10 @@ def test_compare_kernels_times_the_padded_route_at_its_rows():
     cs = _chip_smoke()
     bwd = {row[0]: row[1:] for row in cs.BWD_SHAPES}
     got = {(kernel, *rest) for _, kernel, *rest in SHAPES}
-    for kernel in ("dq", "dkdv"):
+    names = {name for name, *_ in SHAPES}
+    assert {"d160_fwd", "xl16_fwd", "d256_fwd", "d80_fwd",
+            "d192_fwd"} <= names
+    for kernel in ("fwd", "dq", "dkdv"):
         assert (kernel, 8, 2048, 2048, 16, 128, True) in got
         assert (kernel, 2, 2048, 2048, 16, 160, True) in got
         for row in ("xl16_train", "d256_ragged", "d80_sq_lt_sk",

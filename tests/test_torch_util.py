@@ -290,9 +290,10 @@ class TestDaskOnRayTpu:
 
 def test_joblib_backend_registers_and_sizes_its_pool():
     """register_ray installs a "ray" backend whose pool is the package's
-    Pool. (A whole joblib.Parallel run on it never returns, on either
+    Pool. (A whole joblib.Parallel run on it never returns on the JAX
     package, with joblib 1.5: joblib waits for apply_async's callback,
-    which AsyncResult fires only inside get(); ROADMAP Queue C.)"""
+    which its AsyncResult fires only inside get(); the port's run is the
+    next test.)"""
     joblib = pytest.importorskip("joblib")
     from joblib.parallel import BACKENDS
 
@@ -309,6 +310,35 @@ def test_joblib_backend_registers_and_sizes_its_pool():
 
     assert _on_both(scenario) == (4, 2, "Pool", 2, [0, 1, 4, 9])
     assert joblib.parallel_backend  # the seam the README's example uses
+
+
+def test_joblib_parallel_returns_on_the_ray_backend():
+    """A whole joblib.Parallel run on the port's "ray" backend returns
+    the right list: AsyncResult fires apply_async's callback when the
+    result lands, as multiprocessing does, so joblib (which waits for
+    the callback before it collects) gets its results. The JAX package
+    keeps the hang (ROADMAP Queue C); the run has a bounded wait here, so
+    a regression fails instead of hanging the suite."""
+    import threading
+
+    joblib = pytest.importorskip("joblib")
+
+    _end_jax_leftovers()
+    ray_tpu_torch.init(num_cpus=4, device="cpu")
+    try:
+        _mod(ray_tpu_torch, "joblib").register_ray()
+        out = []
+
+        def run():
+            out.append(joblib.Parallel(n_jobs=2, backend="ray")(
+                joblib.delayed(_square)(i) for i in range(6)))
+
+        worker = threading.Thread(target=run, daemon=True)
+        worker.start()
+        worker.join(60)
+        assert out == [[0, 1, 4, 9, 16, 25]], "joblib.Parallel never returned"
+    finally:
+        ray_tpu_torch.shutdown()
 
 
 def test_metrics_are_the_observability_registry_types():
