@@ -426,6 +426,7 @@ HEAD_DIM_SHAPES = ("debug_f32", "d16_bf16", "d20_ragged", "d160",
                    "d192_noncausal", "d120_sq_gt_sk", "d224")
 
 SCHED = dict(nodes=256, tasks=100_000, classes=32)
+SCHED_PIPELINED_TICKS = 3
 # the cluster phase: the GCS burst placer at the scheduler's verdict
 # scale (256 nodes x 32 classes = 8,192 cells, the device threshold's
 # default), 3 timed bursts a route; the live cluster's burst of
@@ -860,6 +861,71 @@ def _sched_drive(device: str, device_solve: bool, pipeline: bool):
             cfg._set(k, v)
 
 
+def _sched_pipelined_step(policy) -> list:
+    """bench.py's device-resident drain for SCHED_PIPELINED_TICKS ticks
+    (SCHED's nodes and classes, its tasks spread over the classes): each
+    tick's ``pipelined_step`` on CUDA, repaired on the host, against
+    ``schedule_tick_fused`` + ``repair_oversubscription`` on the
+    availability the step folded; the device availability against the
+    host's int64 shadow. -> per tick {ms to the pulled counts, placed}."""
+    import numpy as np
+    import torch
+
+    from ray_tpu_torch.scheduler.policy import SchedulingOptions
+    from ray_tpu_torch.scheduler.resources import to_fixed
+
+    rng = np.random.default_rng(2)
+    n, c = SCHED["nodes"], SCHED["classes"]
+    total = rng.integers(4, 32, size=(n, 3)) * to_fixed(1)
+    reqs = rng.integers(0, 4, size=(c, 3)) * to_fixed(1)
+    reqs[:, 0] = np.maximum(reqs[:, 0], to_fixed(1))
+    ks = np.full(c, SCHED["tasks"] // c, dtype=np.int64)
+    alive = np.ones(n, dtype=bool)
+    opts = SchedulingOptions()
+    dev = torch.device("cuda")
+    total_d = torch.as_tensor(total, dtype=torch.float32, device=dev)
+    alive_d = torch.as_tensor(alive, device=dev)
+    avail_d = total_d.clone()
+    zeros = torch.zeros_like(total_d)
+    freed_d = zeros
+    avail_host, prev_usage = total.copy(), np.zeros_like(total)
+    ticks = []
+    for _ in range(SCHED_PIPELINED_TICKS):
+        t0 = time.monotonic()
+        avail_d, usage_d, pending = policy.pipelined_step(
+            avail_d, freed_d, zeros, reqs.astype(np.float32),
+            ks.astype(np.float32), total_d, alive_d, 0, opts)
+        raw = pending.pull()
+        ms = (time.monotonic() - t0) * 1e3
+        avail_host += prev_usage  # last tick's tasks complete now
+        counts = policy.repair_oversubscription(reqs, raw, avail_host)
+        want = policy.repair_oversubscription(
+            reqs, policy.schedule_tick_fused(
+                reqs, ks, total, avail_host, alive, 0, opts).pull(),
+            avail_host)
+        if not np.array_equal(counts, want):
+            raise AssertionError("pipelined_step's counts are not "
+                                 "schedule_tick_fused's")
+        usage = counts.T @ reqs
+        avail_host -= usage
+        prev_usage = usage
+        freed_d = usage_d
+        ks = ks - counts.sum(axis=1)
+        ticks.append({"ms": ms, "placed": int(counts.sum())})
+    torch.cuda.synchronize()
+    # no repair clamped (magnitudes far below 2^24): the device's
+    # availability is the host shadow's
+    if not np.array_equal(avail_d.cpu().numpy(),
+                          avail_host.astype(np.float32)):
+        raise AssertionError("pipelined_step's device availability left "
+                             "the host shadow")
+    print(f"sched pipelined_step: {SCHED_PIPELINED_TICKS} chained ticks "
+          f"at {n} nodes x {c} classes on CUDA equal to schedule_tick_fused"
+          f" + repair; ms to counts {[round(t['ms'], 3) for t in ticks]}, "
+          f"placed {[t['placed'] for t in ticks]}", flush=True)
+    return ticks
+
+
 def phase_sched(report: dict) -> None:
     import torch
 
@@ -888,6 +954,7 @@ def phase_sched(report: dict) -> None:
 
     per_tick = Config.instance().scheduler_max_tasks_per_tick
     batches = -(-SCHED["tasks"] // per_tick)
+    pipelined_ticks = _sched_pipelined_step(policy)
     report["sched"] = {
         **SCHED, "batches": batches, "tasks_per_batch": per_tick,
         "single_device_s": dev_s, "single_device_solves": single_solves,
@@ -899,6 +966,7 @@ def phase_sched(report: dict) -> None:
         "mirror_full_syncs": mirror.full_syncs,
         "mirror_delta_syncs": mirror.delta_syncs,
         "placements_equal": True,
+        "pipelined_step_ticks": pipelined_ticks,
     }
     print(f"sched: {SCHED['nodes']}x{SCHED['tasks']}x{SCHED['classes']} "
           f"single-buffered CUDA == numpy placements; {batches} batches "
@@ -5520,6 +5588,14 @@ PARALLEL_LOSS_TOL = 2e-2
 # a rank's collectives and the pool's wait for its answer: a hung rank
 # fails the phase instead of the run's time limit
 PARALLEL_TIMEOUT_S = 240
+# the mesh parts (tensor, fully-sharded and expert parallelism): b1 steps
+# at dp2 x tp2 (saved after the last), the step after them restored at
+# tp 4, b1 steps at FSDP dp 4, and the bench MoE model's steps at dp 4
+# (experts over dp: 2 a rank) on MOE_TRAIN_TOKENS
+MESH_TP_STEPS = 3
+MESH_FSDP_STEPS = 2
+MESH_EP_STEPS = 2
+MESH_CKPT = "mesh_ckpt"  # in the phase's work directory
 
 
 def _parallel_pool(device: str):
@@ -5584,12 +5660,37 @@ def _parallel_prompts(cfg) -> list:
             for _ in range(SERVE_REQUESTS)][:PARALLEL_SERVE_REQUESTS]
 
 
+def _logits_check(logits, ref_path: str) -> dict:
+    """Served logits against the single-rank logits saved at
+    ``ref_path``: rel L2, last position's argmax, finite, shape."""
+    import numpy as np
+    import torch
+
+    ref = torch.from_numpy(np.load(ref_path)).to(logits.device)
+    return {"rel_l2": ((logits - ref).norm() / ref.norm()).item(),
+            "last_argmax_equal": bool((logits[:, -1].argmax(-1)
+                                       == ref[:, -1].argmax(-1)).all()),
+            "finite": bool(torch.isfinite(logits).all()),
+            "shape": list(logits.shape)}
+
+
+def _check_served(part: str, checks: list, cfg) -> None:
+    """Raises unless every request's logits are finite, of the served
+    shape, within SERVE_LIB_REL_TOL of one rank's and agree on the last
+    argmax."""
+    for i, c in enumerate(checks):
+        if not (c["finite"] and c["rel_l2"] <= SERVE_LIB_REL_TOL
+                and c["last_argmax_equal"]
+                and c["shape"] == [*SERVE_TOKENS, cfg.vocab_size]):
+            raise AssertionError(f"parallel {part} request {i}: gathered "
+                                 f"logits off the single-rank logits: {c}")
+
+
 def par_serve_rank(device: str, ref_paths: list) -> dict:
     """A rank of the sp mesh: b1 (seed 0) served by build_forward(mesh=)
     with each strategy, every rank starting each request together; then
     the logits gathered over sp and held on rank 0 against the
     single-rank logits in ``ref_paths``."""
-    import numpy as np
     import torch
     import torch.distributed as dist
 
@@ -5632,15 +5733,7 @@ def par_serve_rank(device: str, ref_paths: list) -> dict:
             full = full.transpose(0, 1).reshape(
                 local.shape[0], -1, local.shape[-1])
             if rank == 0:
-                ref = torch.from_numpy(np.load(ref_path)).to(device)
-                checks.append({
-                    "rel_l2": ((full - ref).norm() / ref.norm()).item(),
-                    "last_argmax_equal": bool(
-                        (full[:, -1].argmax(-1)
-                         == ref[:, -1].argmax(-1)).all()),
-                    "finite": bool(torch.isfinite(full).all()),
-                    "shape": list(full.shape)})
-                del ref
+                checks.append(_logits_check(full, ref_path))
             del full
         del logits
         out[strategy] = {"latency_s": latency, "staged_bytes": staged,
@@ -5831,13 +5924,7 @@ def _parallel_serve(device: str, work: str, card: str) -> tuple:
         for rank, r in enumerate(per_rank):
             _check_launches(f"parallel serve {strategy} rank {rank}",
                             r["counts"], r["routes"], want, cfg.head_dim)
-        for i, c in enumerate(checks):
-            if not (c["finite"] and c["rel_l2"] <= SERVE_LIB_REL_TOL
-                    and c["last_argmax_equal"]
-                    and c["shape"] == [*SERVE_TOKENS, cfg.vocab_size]):
-                raise AssertionError(
-                    f"parallel serve {strategy} request {i}: gathered "
-                    f"logits off the single-rank logits: {c}")
+        _check_served(f"serve {strategy}", checks, cfg)
         latency = [max(r["latency_s"][i] for r in per_rank)
                    for i in range(n_req)]
         out[strategy] = {
@@ -5936,9 +6023,16 @@ def _parallel_pipeline(device: str, work: str, card: str) -> tuple:
     params, opt_state = init_fn(
         torch.Generator(device=device).manual_seed(0))
     single = []
-    for _ in range(PARALLEL_PIPE_STEPS):
+    # the mesh parts compare with these too, up to the step after the
+    # reshard
+    for _ in range(max(PARALLEL_PIPE_STEPS, MESH_TP_STEPS + 1,
+                       MESH_FSDP_STEPS)):
         params, opt_state, m = step(params, opt_state, tokens)
         single.append((m["loss"].item(), m["grad_norm"].item()))
+    with open(os.path.join(work, "b1_single.json"), "w") as f:
+        json.dump({"steps": single,
+                   "state_bytes": _state_bytes(params, opt_state)}, f)
+    single = single[:PARALLEL_PIPE_STEPS]
     del params, opt_state, step, m
     _free_card(device)
     free_before = (torch.cuda.mem_get_info()[0] if device == "cuda"
@@ -5956,14 +6050,7 @@ def _parallel_pipeline(device: str, work: str, card: str) -> tuple:
         if bad:
             raise AssertionError(f"parallel pipeline rank {rank}: step-1 "
                                  f"gradients off one rank's: {bad}")
-        for (loss, norm), row in zip(single, r["steps"]):
-            if not abs(row["loss"] - loss) <= PARALLEL_LOSS_TOL or \
-                    not abs(row["grad_norm"] - norm) <= \
-                    GRAD_REL_L2_TOL * norm:
-                raise AssertionError(
-                    f"parallel pipeline rank {rank}: steps "
-                    f"{r['steps']} off one rank's (loss, grad norm) "
-                    f"{single}")
+    _check_mesh_steps("pipeline", results, single)
     step_s = [max(r["steps"][i]["step_s"] for r in results)
               for i in range(PARALLEL_PIPE_STEPS)]
     collective_s = [[row["collective_s"] for row in r["steps"]]
@@ -5997,6 +6084,378 @@ def _parallel_pipeline(device: str, work: str, card: str) -> tuple:
     return out, _merge_routes(*(r["routes"] for r in results))
 
 
+def _state_bytes(params, opt_state) -> int:
+    """Bytes of a rank's parameters and AdamW moments."""
+    from ray_tpu_torch.models.training import tree_leaves
+
+    return sum(t.nbytes for t in (tree_leaves(params) + opt_state["mu"]
+                                  + opt_state["nu"]))
+
+
+def _mesh_steps(step, params, opt_state, tokens, steps: int,
+                device: str) -> list:
+    """``steps`` steps, every rank starting each together -> a row each:
+    loss, grad norm, step s, s in collectives, staged bytes."""
+    from ray_tpu_torch.collective import api as coll
+    from ray_tpu_torch.parallel.multihost import sync_global_devices
+
+    rows = []
+    for _ in range(steps):
+        coll.staged_bytes.reset()
+        _sync(device)
+        sync_global_devices("step")
+        t0 = time.monotonic()
+        with _CollectiveClock().running() as clock:
+            params, opt_state, metrics = step(params, opt_state, tokens)
+            loss = metrics["loss"].item()  # waits for the step
+        rows.append({"loss": loss, "grad_norm": metrics["grad_norm"].item(),
+                     "step_s": time.monotonic() - t0,
+                     "collective_s": clock.seconds,
+                     "staged_bytes": coll.staged_bytes.count})
+    return rows
+
+
+def _mesh_params(cfg, mesh, device: str, fsdp: bool = False):
+    """b1-style seeded weights (seed 0) cut to this rank's shards."""
+    import torch
+
+    from ray_tpu_torch.models import transformer as tfm
+    from ray_tpu_torch.models.convert import local_params
+    from ray_tpu_torch.models.training import param_shardings
+
+    full = tfm.init_params(cfg, torch.Generator(device=device).manual_seed(0),
+                           device=device)
+    params = local_params(full, param_shardings(cfg, mesh, fsdp), mesh)
+    del full
+    _free_card(device)
+    return params
+
+
+def par_tp_serve_rank(device: str, ref_paths: list) -> dict:
+    """A rank of tp 4: b1 served by build_forward(mesh=) on its heads,
+    mlp columns and vocab rows; the full-vocab logits (gathered over tp)
+    held on rank 0 against the single-rank logits in ``ref_paths``."""
+    import torch.distributed as dist
+
+    from ray_tpu_torch.collective import api as coll
+    from ray_tpu_torch.models.training import build_forward
+    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+    from ray_tpu_torch.parallel.multihost import sync_global_devices
+
+    cfg = _text_config("b1")
+    mesh = build_mesh(MeshSpec(tp=PARALLEL_RANKS), device_type=device)
+    params = _mesh_params(cfg, mesh, device)
+    prompts = _parallel_prompts(cfg)
+    fwd = build_forward(cfg, mesh=mesh)
+    fwd(params, prompts[0])  # outside the timings: gloo pairs, buffers
+    _sync(device)
+    _reset_counts()
+    latency, staged, checks = [], [], []
+    clock = _CollectiveClock()
+    for batch, ref_path in zip(prompts, ref_paths):
+        coll.staged_bytes.reset()
+        sync_global_devices("request")
+        t0 = time.monotonic()
+        with clock.running():
+            logits = fwd(params, batch)
+            _sync(device)
+        latency.append(time.monotonic() - t0)
+        staged.append(coll.staged_bytes.count)
+        if dist.get_rank() == 0:
+            checks.append(_logits_check(logits, ref_path))
+        del logits
+    return {"latency_s": latency, "staged_bytes": staged,
+            "collective_s": clock.seconds, "counts": _read_counts(),
+            "routes": _read_routes(), "checks": checks,
+            "peak_gib": _peak_gib(device)}
+
+
+def par_tp_train_rank(device: str, work: str) -> dict:
+    """A rank of dp 2 x tp 2: MESH_TP_STEPS b1 steps from the seeded
+    weights, then the state saved with DCP (every rank together)."""
+    import torch
+
+    from ray_tpu_torch.models.checkpoint import CheckpointManager
+    from ray_tpu_torch.models.convert import checkpoint_state
+    from ray_tpu_torch.models.training import (
+        build_train_step,
+        make_optimizer,
+        param_shardings,
+    )
+    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+
+    cfg = _text_config("b1")
+    mesh = build_mesh(MeshSpec(dp=2, tp=2), device_type=device)
+    opt = make_optimizer()
+    step, _ = build_train_step(cfg, mesh=mesh, optimizer=opt)
+    params = _mesh_params(cfg, mesh, device)
+    opt_state = opt.init(params)
+    tokens = torch.as_tensor(_train_batch("b1"), device=device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    rows = _mesh_steps(step, params, opt_state, tokens, MESH_TP_STEPS,
+                       device)
+    counts, routes = _read_counts(), _read_routes()
+    state_bytes = _state_bytes(params, opt_state)
+    t0 = time.monotonic()
+    ckpt = CheckpointManager(os.path.join(work, MESH_CKPT))
+    ckpt.save(MESH_TP_STEPS, checkpoint_state(
+        {"params": params, "opt_state": opt_state},
+        param_shardings(cfg, mesh), mesh))
+    save_s = time.monotonic() - t0
+    return {"steps": rows, "counts": counts, "routes": routes,
+            "state_bytes": state_bytes, "save_s": save_s,
+            "peak_gib": _peak_gib(device)}
+
+
+def par_reshard_rank(device: str, work: str) -> dict:
+    """A rank of tp 4: the dp2 x tp2 state restored in this layout (DCP
+    reshards), then the step after the saved ones."""
+    import torch
+
+    from ray_tpu_torch.models.checkpoint import CheckpointManager
+    from ray_tpu_torch.models.convert import checkpoint_state, train_state
+    from ray_tpu_torch.models.training import (
+        build_train_step,
+        param_shardings,
+    )
+    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+
+    cfg = _text_config("b1")
+    mesh = build_mesh(MeshSpec(tp=PARALLEL_RANKS), device_type=device)
+    step, init_fn = build_train_step(cfg, mesh=mesh)
+    fresh_p, fresh_o = init_fn(torch.Generator(device=device).manual_seed(1))
+    like = checkpoint_state({"params": fresh_p, "opt_state": fresh_o},
+                            param_shardings(cfg, mesh), mesh)
+    _sync(device)
+    t0 = time.monotonic()
+    state = train_state(CheckpointManager(os.path.join(
+        work, MESH_CKPT)).restore(MESH_TP_STEPS, like))
+    _sync(device)
+    restore_s = time.monotonic() - t0
+    count = state["opt_state"]["count"]  # before the step moves it on
+    del like, fresh_p, fresh_o
+    _free_card(device)
+    tokens = torch.as_tensor(_train_batch("b1"), device=device)
+    _reset_counts()
+    rows = _mesh_steps(step, state["params"], state["opt_state"], tokens, 1,
+                       device)
+    return {"restore_s": restore_s, "count": count,
+            "steps": rows, "counts": _read_counts(),
+            "routes": _read_routes(), "peak_gib": _peak_gib(device)}
+
+
+def par_fsdp_rank(device: str) -> dict:
+    """A rank of dp 4 with fsdp=True: its 1/4 of b1's parameters and
+    moments, MESH_FSDP_STEPS steps."""
+    import torch
+
+    from ray_tpu_torch.models.training import build_train_step, make_optimizer
+    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+
+    cfg = _text_config("b1")
+    mesh = build_mesh(MeshSpec(dp=PARALLEL_RANKS), device_type=device)
+    opt = make_optimizer()
+    step, _ = build_train_step(cfg, mesh=mesh, fsdp=True, optimizer=opt)
+    params = _mesh_params(cfg, mesh, device, fsdp=True)
+    opt_state = opt.init(params)
+    tokens = torch.as_tensor(_train_batch("b1"), device=device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    rows = _mesh_steps(step, params, opt_state, tokens, MESH_FSDP_STEPS,
+                       device)
+    return {"steps": rows, "counts": _read_counts(),
+            "routes": _read_routes(),
+            "state_bytes": _state_bytes(params, opt_state),
+            "peak_gib": _peak_gib(device)}
+
+
+def par_ep_rank(device: str) -> dict:
+    """A rank of dp 4: the bench MoE model with its 8 experts over dp (2
+    a rank), MESH_EP_STEPS steps on MOE_TRAIN_TOKENS (2 groups of 4096
+    tokens a rank)."""
+    import torch
+
+    from ray_tpu_torch.models.training import build_train_step, make_optimizer
+    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+
+    cfg = _text_config("moe")
+    mesh = build_mesh(MeshSpec(dp=PARALLEL_RANKS), device_type=device)
+    opt = make_optimizer()
+    step, _ = build_train_step(cfg, mesh=mesh, optimizer=opt)
+    params = _mesh_params(cfg, mesh, device)
+    opt_state = opt.init(params)
+    tokens = torch.as_tensor(_train_batch("moe"), device=device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    rows = _mesh_steps(step, params, opt_state, tokens, MESH_EP_STEPS,
+                       device)
+    return {"steps": rows, "counts": _read_counts(),
+            "routes": _read_routes(),
+            "state_bytes": _state_bytes(params, opt_state),
+            "peak_gib": _peak_gib(device)}
+
+
+def _one_rank_steps(model: str, steps: int, device: str) -> list:
+    """(loss, grad norm) of ``steps`` steps of ``model`` on one rank of
+    this process, from the seeded weights, on its train batch."""
+    import torch
+
+    from ray_tpu_torch.models.training import build_train_step
+
+    step, init_fn = build_train_step(_text_config(model), device=device)
+    params, opt_state = init_fn(torch.Generator(device=device).manual_seed(0))
+    tokens = torch.as_tensor(_train_batch(model), device=device)
+    out = []
+    for _ in range(steps):
+        params, opt_state, m = step(params, opt_state, tokens)
+        out.append((m["loss"].item(), m["grad_norm"].item()))
+    del params, opt_state, step
+    _free_card(device)
+    return out
+
+
+def _check_mesh_steps(part: str, results: list, single: list) -> None:
+    """Every rank's (loss, grad norm) per step against one rank's: loss
+    within PARALLEL_LOSS_TOL, grad norm within GRAD_REL_L2_TOL
+    relative."""
+    for rank, r in enumerate(results):
+        for (loss, norm), row in zip(single, r["steps"]):
+            if not abs(row["loss"] - loss) <= PARALLEL_LOSS_TOL or \
+                    not abs(row["grad_norm"] - norm) <= \
+                    GRAD_REL_L2_TOL * norm:
+                raise AssertionError(
+                    f"parallel {part} rank {rank}: steps "
+                    f"{[(x['loss'], x['grad_norm']) for x in r['steps']]} "
+                    f"off one rank's {single}")
+
+
+def _mesh_summary(results: list, steps: int) -> dict:
+    return {
+        "step_s": [max(r["steps"][i]["step_s"] for r in results)
+                   for i in range(steps)],
+        "steps": results[0]["steps"],
+        "collective_s_by_rank": [[x["collective_s"] for x in r["steps"]]
+                                 for r in results],
+        "staged_bytes_by_rank": [[x["staged_bytes"] for x in r["steps"]]
+                                 for r in results],
+        "peak_gib_by_rank": [r["peak_gib"] for r in results],
+        "kernel_launches_by_rank": [r["counts"] for r in results]}
+
+
+def _parallel_mesh(device: str, work: str, card: str) -> tuple:
+    """tp_serve, tp_train, reshard, fsdp and ep in one pool of
+    PARALLEL_RANKS ranks, each held against one rank's work first."""
+    cfg, moe = _text_config("b1"), _text_config("moe")
+    with open(os.path.join(work, "b1_single.json")) as f:
+        b1 = json.load(f)
+    b1_single = [tuple(x) for x in b1["steps"]]
+    full_bytes = b1["state_bytes"]
+    moe_single = _one_rank_steps("moe", MESH_EP_STEPS, device)
+    ref_paths = [os.path.join(work, f"serve_ref_{i}.npy")
+                 for i in range(PARALLEL_SERVE_REQUESTS)]
+    pool = _parallel_pool(device)
+    out, routes = {}, []
+    t0 = time.monotonic()
+    try:
+        pool.start()
+        out["rank_start_s"] = time.monotonic() - t0
+        parts = (("tp_serve", par_tp_serve_rank, (ref_paths,)),
+                 ("tp_train", par_tp_train_rank, (work,)),
+                 ("reshard", par_reshard_rank, (work,)),
+                 ("fsdp", par_fsdp_rank, ()),
+                 ("ep", par_ep_rank, ()))
+        results = {}
+        for name, fn, args in parts:
+            t1 = time.monotonic()
+            results[name] = pool.run(fn, device, *args)
+            out[name] = {"wall_s": time.monotonic() - t1}
+    finally:
+        pool.close()
+    n_req = PARALLEL_SERVE_REQUESTS
+
+    serve = results["tp_serve"]
+    for rank, r in enumerate(serve):
+        _check_launches(f"parallel tp_serve rank {rank}", r["counts"],
+                        r["routes"], {"fwd": cfg.layers * n_req, "dq": 0,
+                                      "dkdv": 0}, cfg.head_dim)
+    _check_served("tp_serve", serve[0]["checks"], cfg)
+    out["tp_serve"].update({
+        "mesh": f"tp={PARALLEL_RANKS}",
+        "latency_s": [max(r["latency_s"][i] for r in serve)
+                      for i in range(n_req)],
+        "checks": serve[0]["checks"],
+        "staged_bytes_by_rank": [r["staged_bytes"] for r in serve],
+        "collective_s_by_rank": [r["collective_s"] for r in serve],
+        "peak_gib_by_rank": [r["peak_gib"] for r in serve],
+        "kernel_launches_by_rank": [r["counts"] for r in serve]})
+    routes += [r["routes"] for r in serve]
+
+    def train_want(c, steps):
+        return {"fwd": 2 * c.layers * steps, "dq": c.layers * steps,
+                "dkdv": c.layers * steps}
+
+    for name, c, steps, single in (
+            ("tp_train", cfg, MESH_TP_STEPS, b1_single[:MESH_TP_STEPS]),
+            ("reshard", cfg, 1, b1_single[MESH_TP_STEPS:MESH_TP_STEPS + 1]),
+            ("fsdp", cfg, MESH_FSDP_STEPS, b1_single[:MESH_FSDP_STEPS]),
+            ("ep", moe, MESH_EP_STEPS, moe_single)):
+        res = results[name]
+        for rank, r in enumerate(res):
+            _check_launches(f"parallel {name} rank {rank}", r["counts"],
+                            r["routes"], train_want(c, steps), c.head_dim)
+        _check_mesh_steps(name, res, single)
+        out[name].update({"single_rank": single, **_mesh_summary(res, steps)})
+        routes += [r["routes"] for r in res]
+    out["tp_train"].update({
+        "mesh": "dp=2 x tp=2",
+        "state_bytes_by_rank": [r["state_bytes"]
+                                for r in results["tp_train"]],
+        "save_s": max(r["save_s"] for r in results["tp_train"])})
+    out["reshard"].update({
+        "mesh": f"dp=2 x tp=2 -> tp={PARALLEL_RANKS}",
+        "restore_s": max(r["restore_s"] for r in results["reshard"]),
+        "count": results["reshard"][0]["count"]})
+    if results["reshard"][0]["count"] != MESH_TP_STEPS:
+        raise AssertionError("the restored optimizer count is not the "
+                             "saved one")
+    out["fsdp"].update({"mesh": f"dp={PARALLEL_RANKS}, fsdp",
+                        "state_bytes_by_rank": [
+                            r["state_bytes"] for r in results["fsdp"]]})
+    out["ep"].update({"mesh": f"dp={PARALLEL_RANKS} (experts over dp)",
+                      "tokens": list(MOE_TRAIN_TOKENS)})
+    out["one_rank_state_bytes"] = full_bytes
+    for name in ("tp_train", "reshard", "fsdp", "ep"):
+        o = out[name]
+        extra = (f"; state bytes a rank {o['state_bytes_by_rank'][0]} vs "
+                 f"{full_bytes} on one rank" if "state_bytes_by_rank" in o
+                 else "")
+        print(f"parallel {name}: {o['mesh']}: losses "
+              f"{[round(x['loss'], 5) for x in o['steps']]} vs one rank "
+              f"{[round(x, 5) for x, _ in o['single_rank']]}; step s "
+              f"{[round(x, 3) for x in o['step_s']]} (in collectives, rank "
+              f"0 {[round(x, 3) for x in o['collective_s_by_rank'][0]]}); "
+              f"staged bytes rank 0 {o['staged_bytes_by_rank'][0]}; peak "
+              f"GiB by rank {[round(x, 2) for x in o['peak_gib_by_rank']]}"
+              f"{extra}; launches rank 0 {o['kernel_launches_by_rank'][0]}"
+              f" on {card}", flush=True)
+    o = out["tp_serve"]
+    print(f"parallel tp_serve: b1 at tp={PARALLEL_RANKS}, {n_req} requests "
+          f"of {list(SERVE_TOKENS)}: latency s "
+          f"{[round(x, 4) for x in o['latency_s']]}; gathered logits vs one "
+          f"rank rel L2 {[round(c['rel_l2'], 6) for c in o['checks']]}; "
+          f"staged bytes rank 0 {o['staged_bytes_by_rank'][0]}; K1 launches"
+          f" by rank {[c['fwd'] for c in o['kernel_launches_by_rank']]} on "
+          f"{card}", flush=True)
+    print(f"parallel reshard: restored at tp={PARALLEL_RANKS} in "
+          f"{out['reshard']['restore_s']:.2f} s (saved at dp2 x tp2 in "
+          f"{out['tp_train']['save_s']:.2f} s)", flush=True)
+    return out, _merge_routes(*routes)
+
+
 def _parallel_nccl_refused(device: str, work: str, card: str) -> tuple:
     """Two NCCL ranks on card 0 must refuse to start: NCCL takes one rank
     per card, and nothing switches to gloo on its own."""
@@ -6025,9 +6484,12 @@ def _parallel_nccl_refused(device: str, work: str, card: str) -> tuple:
 def phase_parallel(report: dict, device: str = "cuda") -> dict:
     """parallel/ and collective/ on the card: four gloo ranks on card 0
     serve b1 sequence-parallel (Ulysses through K1, and ring), run one
-    Ulysses forward and backward at b1's train shape, and train b1 as a
-    4-stage GPipe pipeline through K1-K3, each held against the same
-    work on one rank of this process first."""
+    Ulysses forward and backward at b1's train shape, train b1 as a
+    4-stage GPipe pipeline through K1-K3, then (one pool for the mesh
+    parts) serve b1 at tp 4, train it at dp 2 x tp 2, restore that
+    state at tp 4 and take the next step, train it at FSDP dp 4, and
+    train the bench MoE model with its experts over dp 4; each held
+    against the same work on one rank of this process first."""
     import shutil
     import tempfile
 
@@ -6045,6 +6507,7 @@ def phase_parallel(report: dict, device: str = "cuda") -> dict:
         for name, run in (("serve", _parallel_serve),
                           ("ulysses", _parallel_ulysses),
                           ("pipeline", _parallel_pipeline),
+                          ("mesh", _parallel_mesh),
                           ("nccl", _parallel_nccl_refused)):
             t0 = time.monotonic()
             out[name], part = run(device, work, card)

@@ -9,24 +9,31 @@ Port of ``ray_tpu/models/training.py``:
                      takes one optimizer step on the next-token loss and
                      returns (params, opt_state, {"loss", "grad_norm"});
                      on one device, or with ``mesh=`` on each rank of a
-                     dp x sp DeviceMesh (ring or Ulysses attention over
-                     sp);
+                     dp x sp x tp DeviceMesh (ring or Ulysses attention
+                     over sp, heads/mlp/vocab over tp, experts over dp,
+                     and with ``fsdp=True`` the parameters' hidden axis
+                     and AdamW's moments over dp);
   build_pipeline_train_step
                      pp > 1: each rank holds its stage's slice of the
                      layer stack and runs the GPipe schedule
-                     (parallel/pipeline.py); embed/unembed replicated;
+                     (parallel/pipeline.py); embed/unembed replicated
+                     over pp; dp x pp x tp;
   build_forward      the inference forward, on one device or with
-                     ``mesh=`` on each rank's sequence shard.
+                     ``mesh=`` on each rank's [B/dp, S/sp] window.
 
 Every rank of a mesh runs the same program on its local shard, the JAX
-package's shard_map regions made whole-program: a step takes the full
-[B, S + 1] tokens on every rank and keeps its own [B/dp, S/sp + 1]
-window; the loss a rank differentiates is its share of the global mean
-(its tokens' summed cross entropy over the global token count, divided
-by the pp stages that compute it), and the gradient of a parameter
-replicated over an axis is the sum of the ranks' along it. Tensor
-parallelism (tp > 1) and FSDP are not ported (ROADMAP item 6): a mesh
-that asks for them raises, as does a MoE config with a mesh.
+package's GSPMD and shard_map regions made whole-program: a step takes
+the full [B, S + 1] tokens on every rank and keeps its own
+[B/dp, S/sp + 1] window, and its parameters are its shards
+(``param_shardings``, ``models/convert.py::local_params``). The layers
+issue the collectives GSPMD would (``parallel.mesh.RankLayout``). The
+loss a rank differentiates is its share of the global loss: its tokens'
+summed cross entropy over the global token count plus its share of the
+MoE aux loss, divided by the tp ranks and pp stages that compute the
+same value; each collective's backward is its transpose, and the
+gradient of a parameter replicated over an axis is the sum of the
+ranks' along it. What the port does not shard raises: MoE with sp > 1
+or on the pipeline, and MoE groups that straddle dp ranks.
 """
 
 from __future__ import annotations
@@ -41,14 +48,11 @@ from ray_tpu_torch._private.device import resolve_device
 from ray_tpu_torch.models import transformer as tfm
 from ray_tpu_torch.parallel.mesh import (
     DEFAULT_RULES,
+    RankLayout,
     fsdp_rules,
     shard_map,
     sharding_for,
 )
-
-# what a mesh that needs an unported sharding names
-_UNPORTED = ("is not ported: tensor parallelism (tp > 1) and FSDP over "
-             "DTensor wait for ROADMAP Queue A item 6 (A11)")
 
 ADAM_EPS = 1e-8  # optax.adamw's default, which make_optimizer keeps
 
@@ -160,19 +164,23 @@ def _sizes(mesh) -> Dict[str, int]:
     return dict(zip(mesh.mesh_dim_names, mesh.shape))
 
 
-def _check_mesh(cfg: tfm.ModelConfig, mesh, fsdp: bool,
-                allowed: Tuple[str, ...]) -> None:
-    """Raises for what the port does not shard: tp > 1, FSDP, MoE on a
-    mesh, and axes past ``allowed`` with more than one rank."""
-    sizes = _sizes(mesh) if mesh is not None else {}
-    if sizes.get("tp", 1) > 1:
-        raise NotImplementedError(f"tp = {sizes['tp']}: {_UNPORTED}")
-    if fsdp:
-        raise NotImplementedError(f"fsdp=True: {_UNPORTED}")
-    if mesh is not None and cfg.num_experts > 0:
+def _check_mesh(cfg: tfm.ModelConfig, mesh, allowed: Tuple[str, ...],
+                sp_strategy: str = "ring") -> None:
+    """Raises for a mesh the model cannot take: tp not dividing heads, sp
+    not dividing a rank's heads under Ulysses, MoE with sp > 1, and axes
+    past ``allowed`` with more than one rank."""
+    sizes = _sizes(mesh)
+    tp, sp = sizes.get("tp", 1), sizes.get("sp", 1)
+    if cfg.heads % tp:
+        raise ValueError(f"tp = {tp} does not divide heads = {cfg.heads}")
+    if sp_strategy == "ulysses" and (cfg.heads // tp) % sp:
+        raise ValueError(f"ulysses needs sp = {sp} to divide a rank's "
+                         f"heads (heads / tp = {cfg.heads // tp})")
+    if cfg.num_experts > 0 and sp > 1:
         raise NotImplementedError(
-            f"MoE (num_experts > 0) on a mesh {_UNPORTED} (experts ride "
-            f"the dp axis)")
+            f"MoE (num_experts > 0) with sp = {sp} is not ported: a "
+            f"rank's tokens must be whole rows for the routing's global "
+            f"order (ROADMAP Queue A item 6)")
     for name, n in sizes.items():
         if n > 1 and name not in allowed:
             raise NotImplementedError(
@@ -296,33 +304,39 @@ def build_train_step(cfg: tfm.ModelConfig, device=None,
                      sp_strategy: str = "ring"
                      ) -> Tuple[Callable, Callable]:
     """Train step on ``device`` (CUDA unless the caller asks for the
-    CPU), or on each rank of ``mesh`` (a dp x sp DeviceMesh; its device
-    type unless ``device`` is given) -> (step, init_fn).
+    CPU), or on each rank of ``mesh`` (a dp x sp x tp DeviceMesh; its
+    device type unless ``device`` is given) -> (step, init_fn).
 
     ``init_fn(generator=None)`` -> (params, opt_state), weights drawn by
-    ``tfm.init_params`` (replicated on a mesh: every rank draws the same
-    from the same seed). ``step(params, opt_state, tokens [B, S+1])`` ->
-    (params, opt_state, {"loss", "grad_norm"}), both 0-dim float32
-    tensors: the loss before the update and the global grad norm before
-    the clip. On a mesh each rank takes its window of the tokens, the
-    sequence-parallel attention runs over sp (``sp_strategy``), the
-    gradients are summed over dp and sp (the loss is the global mean, so
-    that is dp's average) and every rank applies the same update; the
-    loss and its gradients equal the unsharded step's. Parameters and
-    optimizer state are updated IN PLACE (the returned objects are the
-    ones passed in), which keeps one copy of the weights on the card
-    where the JAX step donates its buffers."""
-    if mesh is not None or fsdp:
-        _check_mesh(cfg, mesh, fsdp, ("dp", "sp"))
+    ``tfm.init_params`` (on a mesh every rank draws the same from the
+    same seed and keeps its shard). ``step(params, opt_state, tokens
+    [B, S+1])`` -> (params, opt_state, {"loss", "grad_norm"}), both 0-dim
+    float32 tensors: the loss before the update and the global grad norm
+    before the clip. On a mesh each rank takes its window of the tokens
+    and its shards of the parameters (``param_shardings(cfg, mesh,
+    fsdp)``): the sequence-parallel attention runs over sp
+    (``sp_strategy``), heads, mlp columns and the vocab over tp, experts
+    over dp, and with ``fsdp`` the parameters' hidden axis over dp, each
+    layer gathering its weights at use (AdamW's moments stay shards:
+    ZeRO's 1/dp). The loss and its gradients equal the unsharded step's.
+    Parameters and optimizer state are updated IN PLACE (the returned
+    objects are the ones passed in), which keeps one copy of the weights
+    on the card where the JAX step donates its buffers. A mesh step's
+    ``step.loss_and_grads(params, tokens)`` is the step without the
+    update: (the loss, this rank's reduced gradients in
+    ``tree_leaves(params)`` order, the global grad norm)."""
+    if fsdp and mesh is None:
+        raise ValueError("fsdp=True shards over a mesh's dp axis: pass "
+                         "mesh=")
     device = (resolve_device(device) if mesh is None
               else _mesh_device(mesh, device))
     optimizer = optimizer or make_optimizer()
 
-    def init_fn(generator: Optional[torch.Generator] = None):
-        params = tfm.init_params(cfg, generator, device=device)
-        return params, optimizer.init(params)
-
     if mesh is None:
+        def init_fn(generator: Optional[torch.Generator] = None):
+            params = tfm.init_params(cfg, generator, device=device)
+            return params, optimizer.init(params)
+
         def step(params, opt_state, tokens):
             tokens = torch.as_tensor(tokens, device=device).long()
             leaves = tree_leaves(params)
@@ -336,11 +350,14 @@ def build_train_step(cfg: tfm.ModelConfig, device=None,
 
         return step, init_fn
 
+    _check_mesh(cfg, mesh, ("dp", "sp", "tp"), sp_strategy)
     attention_fn = _make_attention_fn(mesh, cfg, sp_strategy)
-    shardings = param_shardings(cfg, mesh)
+    shardings = param_shardings(cfg, mesh, fsdp)
+    layout = RankLayout.of(mesh, fsdp)
     data_axes = tuple(a for a in ("dp", "sp") if _sizes(mesh)[a] > 1)
+    init_fn = _mesh_init(cfg, mesh, device, shardings, optimizer)
 
-    def mesh_step(params, opt_state, tokens):
+    def loss_and_grads(params, tokens):
         from ray_tpu_torch.collective.api import ici
 
         tokens = torch.as_tensor(tokens, device=device).long()
@@ -349,19 +366,40 @@ def build_train_step(cfg: tfm.ModelConfig, device=None,
         leaves = tree_leaves(params)
         for p in leaves:
             p.requires_grad_(True)
-        x, _ = tfm.hidden_states(params, window[:, :-1], cfg, attention_fn,
-                                 offset)
-        loss = tfm.token_nll_sum(x, window[:, 1:], params, cfg) / n_tokens
+        x, aux = tfm.hidden_states(params, window[:, :-1], cfg,
+                                   attention_fn, offset, layout)
+        loss = tfm.token_nll_sum(x, window[:, 1:], params, cfg,
+                                 layout) / n_tokens + 0.01 * aux
         placements = _leaf_placements(params, shardings)
-        grads = _reduce_grads(_grads(loss, leaves), placements, mesh)
-        grad_norm = optimizer.update(params, grads, opt_state,
-                                     norm=_global_norm(grads, placements,
-                                                       mesh))
+        # the tp ranks compute the same loss: each differentiates 1/tp
+        grads = _reduce_grads(_grads(loss / layout.tp, leaves), placements,
+                              mesh)
         with shard_map(mesh):
             loss = ici.allreduce(loss.detach(), data_axes)
+        return loss, grads, _global_norm(grads, placements, mesh)
+
+    def mesh_step(params, opt_state, tokens):
+        loss, grads, norm = loss_and_grads(params, tokens)
+        grad_norm = optimizer.update(params, grads, opt_state, norm=norm)
         return params, opt_state, {"loss": loss, "grad_norm": grad_norm}
 
+    mesh_step.loss_and_grads = loss_and_grads
     return mesh_step, init_fn
+
+
+def _mesh_init(cfg: tfm.ModelConfig, mesh, device, shardings,
+               optimizer: ClippedAdamW) -> Callable:
+    """``init_fn`` of a mesh step: the full weights drawn on every rank,
+    this rank's shards kept (``models/convert.py::local_params``), and
+    the optimizer's moments shaped like them."""
+    from ray_tpu_torch.models.convert import local_params
+
+    def init_fn(generator: Optional[torch.Generator] = None):
+        params = local_params(tfm.init_params(cfg, generator, device=device),
+                              shardings, mesh)
+        return params, optimizer.init(params)
+
+    return init_fn
 
 
 def build_forward(cfg: tfm.ModelConfig, device=None,
@@ -372,14 +410,18 @@ def build_forward(cfg: tfm.ModelConfig, device=None,
     moved to the device; no autograd graph is kept. ``attention_fn``
     (default: the flash-attention kernel path) swaps the attention.
 
-    With ``mesh`` (dp x sp; its device type unless ``device`` is given)
-    every rank takes the full tokens and returns the logits of its own
-    [B/dp, S/sp] window, attention over sp by ``sp_strategy``."""
+    With ``mesh`` (dp x sp x tp; its device type unless ``device`` is
+    given) every rank takes the full tokens and its parameter shards
+    (``param_shardings(cfg, mesh)``) and returns the full-vocab logits
+    of its own [B/dp, S/sp] window (gathered over tp), attention over sp
+    by ``sp_strategy``."""
+    layout = None
     if mesh is not None:
-        _check_mesh(cfg, mesh, False, ("dp", "sp"))
+        _check_mesh(cfg, mesh, ("dp", "sp", "tp"), sp_strategy)
         device = _mesh_device(mesh, device)
         attention_fn = attention_fn or _make_attention_fn(mesh, cfg,
                                                           sp_strategy)
+        layout = RankLayout.of(mesh)
     else:
         device = resolve_device(device)
 
@@ -389,7 +431,8 @@ def build_forward(cfg: tfm.ModelConfig, device=None,
         offset = 0
         if mesh is not None:
             tokens, offset = _window(tokens, mesh, 0)
-        logits, _ = tfm.forward(params, tokens, cfg, attention_fn, offset)
+        logits, _ = tfm.forward(params, tokens, cfg, attention_fn, offset,
+                                layout)
         return logits
 
     return fwd
@@ -404,7 +447,8 @@ def build_pipeline_train_step(cfg: tfm.ModelConfig, mesh, *,
                               ) -> Tuple[Callable, Callable]:
     """pp > 1: layer stack sharded over ``pp``, GPipe schedule
     (parallel/pipeline.py); embed/unembed replicated across stages, dp
-    shards the batch. -> (step, init_fn) as ``build_train_step``'s, on
+    shards the batch, tp the heads, mlp columns and vocab as in
+    ``build_train_step``. -> (step, init_fn) as ``build_train_step``'s, on
     each rank of ``mesh``: ``init_fn`` draws the full weights and keeps
     this rank's stage (``models/convert.py::local_params``), and ``step``
     takes the full tokens. Each stage runs its ``layers/pp`` layers (the
@@ -413,7 +457,6 @@ def build_pipeline_train_step(cfg: tfm.ModelConfig, mesh, *,
     without the update: (the loss, this rank's reduced gradients in
     ``tree_leaves(params)`` order, the global grad norm)."""
     from ray_tpu_torch.collective.api import ici
-    from ray_tpu_torch.models.convert import local_params
     from ray_tpu_torch.ops.layers import rms_norm, rope_frequencies
     from ray_tpu_torch.parallel.pipeline import pipeline_spmd
 
@@ -427,18 +470,15 @@ def build_pipeline_train_step(cfg: tfm.ModelConfig, mesh, *,
         raise ValueError(
             "MoE (num_experts > 0) is not supported on the pipeline path; "
             "use build_train_step for MoE configs")
-    _check_mesh(cfg, mesh, False, ("dp", "pp"))
+    _check_mesh(cfg, mesh, ("dp", "pp", "tp"))
     optimizer = optimizer or make_optimizer()
     num_microbatches = num_microbatches or pp
     device = _mesh_device(mesh, None)
     shardings = param_shardings(cfg, mesh)  # layers axis -> pp
+    layout = RankLayout.of(mesh)
     n_local = cfg.layers // pp
     dp_axes = ("dp",) if _sizes(mesh)["dp"] > 1 else ()
-
-    def init_fn(generator: Optional[torch.Generator] = None):
-        params = local_params(
-            tfm.init_params(cfg, generator, device=device), shardings, mesh)
-        return params, optimizer.init(params)
+    init_fn = _mesh_init(cfg, mesh, device, shardings, optimizer)
 
     cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                                 device=device)
@@ -454,21 +494,21 @@ def build_pipeline_train_step(cfg: tfm.ModelConfig, mesh, *,
 
         def stage_fn(stage_layers, x):
             return tfm.run_layers(x, stage_layers, cfg, cos, sin,
-                                  first_layer=first)[0]
+                                  first_layer=first, layout=layout)[0]
 
         with shard_map(mesh):
-            x = params["embed"][window[:, :-1]]
+            x = tfm.embed_tokens(params, window[:, :-1], cfg, layout)
             x = pipeline_spmd(stage_fn, tfm.per_layer(params["layers"],
                                                       n_local),
                               x, "pp", num_microbatches)
             x = rms_norm(x, params["final_norm"], cfg.norm_eps)
-            loss = tfm.token_nll_sum(x, window[:, 1:], params,
-                                     cfg) / n_tokens
-            # every stage computes the same loss from the replicated
-            # outputs: each differentiates its 1/pp share of it
+            loss = tfm.token_nll_sum(x, window[:, 1:], params, cfg,
+                                     layout) / n_tokens
+            # every stage and tp rank computes the same loss from the
+            # replicated outputs: each differentiates its share of it
             placements = _leaf_placements(params, shardings)
-            grads = _reduce_grads(_grads(loss / pp, leaves), placements,
-                                  mesh)
+            grads = _reduce_grads(_grads(loss / (pp * layout.tp), leaves),
+                                  placements, mesh)
             loss = ici.allreduce(loss.detach(), dp_axes)
         return loss, grads, _global_norm(grads, placements, mesh)
 

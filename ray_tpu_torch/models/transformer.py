@@ -12,7 +12,11 @@ and backward), SwiGLU MLP, optional top-k MoE layers (GShard-style
 capacity-bounded einsum dispatch, optionally in checkpointed token
 groups); ``loss_fn`` with optional chunked cross entropy and the MoE
 auxiliary loss, and remat of each layer through
-``torch.utils.checkpoint``.
+``torch.utils.checkpoint``. Given a ``parallel.mesh.RankLayout`` the
+functions take a mesh rank's shards of the parameters (heads, mlp
+columns and vocab rows over tp, experts over dp, the hidden axis over dp
+under FSDP) and issue the collectives that GSPMD inserts in the JAX
+package, so that they compute the unsharded model's function.
 """
 
 from __future__ import annotations
@@ -211,7 +215,8 @@ def logical_axes(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def moe_layer(x: torch.Tensor, moe_params: Dict[str, torch.Tensor],
-              cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+              cfg: ModelConfig, layout=None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Top-k capacity-bounded MoE (GShard-style einsum dispatch).
 
     x: [B, S, H] -> ([B, S, H], aux_loss scalar). With
@@ -219,45 +224,67 @@ def moe_layer(x: torch.Tensor, moe_params: Dict[str, torch.Tensor],
     independent groups, each under ``torch.utils.checkpoint`` when
     autograd is on (without it the backward would keep every group's
     [g, E, C] dispatch residuals live at once); the aux loss is averaged
-    over groups."""
+    over groups.
+
+    ``layout`` (a ``parallel.mesh.RankLayout``): x is this rank's
+    [B/dp, S] rows of the global batch, the experts its [E/dp] shard
+    (their mlp columns cut over tp), and the layer computes what it
+    computes on the global batch: B*S, the grouping, the capacity, the
+    slot positions and the aux loss are the global ones. The aux loss
+    returned is this rank's share of it (the shares sum to it over dp).
+    A group must lie within one rank's rows."""
     b, s, h = x.shape
     t = b * s
+    dp = layout.dp if layout is not None else 1
+    total = t * dp
     g = cfg.moe_group_size
     xt = x.reshape(t, h)
-    if g and t > g:
-        if t % g == 0:
+    if g and total > g:
+        if total % g == 0:
+            if t % g:
+                raise NotImplementedError(
+                    f"moe_group_size={g} over {dp} dp ranks of {t} tokens: "
+                    f"a group would straddle two ranks (groups that span "
+                    f"ranks are not ported; ROADMAP Queue A item 6)")
             grad = torch.is_grad_enabled()
             aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
             outs = []
             for xg in xt.split(g):
                 if grad:
                     out, aux = checkpoint(_moe_tokens, xg, moe_params, cfg,
+                                          layout, False,
                                           use_reentrant=False)
                 else:
-                    out, aux = _moe_tokens(xg, moe_params, cfg)
+                    out, aux = _moe_tokens(xg, moe_params, cfg, layout,
+                                           False)
                 outs.append(out)
                 aux_sum = aux_sum + aux
-            return torch.cat(outs).reshape(b, s, h), aux_sum / (t // g)
+            return torch.cat(outs).reshape(b, s, h), aux_sum / (total // g)
         # dropping the grouping silently would reintroduce the ungrouped
         # [T, E, capacity] dispatch tensors this option exists to prevent
         logging.getLogger(__name__).warning(
             "moe_group_size=%d does not divide token count %d; "
             "falling back to UNGROUPED routing (dispatch tensors "
             "scale with the full batch — may OOM at large batch)",
-            g, t)
-    out, aux = _moe_tokens(xt, moe_params, cfg)
-    return out.reshape(b, s, h), aux
+            g, total)
+    out, aux = _moe_tokens(xt, moe_params, cfg, layout, dp > 1)
+    return out.reshape(b, s, h), aux / dp
 
 
 def _moe_tokens(xt: torch.Tensor, moe_params: Dict[str, torch.Tensor],
-                cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+                cfg: ModelConfig, layout=None, spread: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Route one token set [T, H] -> ([T, H], aux). The router, the
     dispatch and the combine run in fp32, the experts in ``xt``'s
-    dtype."""
+    dtype. ``spread``: the token set is this rank's part of one that
+    spans the dp ranks in rank order (ungrouped routing on a mesh), so
+    the capacity, the slot positions and the aux loss's means are over
+    all of it."""
     t, h = xt.shape
     e = cfg.num_experts
     k = cfg.experts_per_token
-    cap = max(1, int(cfg.capacity_factor * t * k / e))
+    n = t * layout.dp if spread else t
+    cap = max(1, int(cfg.capacity_factor * n * k / e))
     xf = xt.float()
     logits = xf @ moe_params["router"]
     probs = torch.softmax(logits, dim=-1)
@@ -265,16 +292,25 @@ def _moe_tokens(xt: torch.Tensor, moe_params: Dict[str, torch.Tensor],
     gate_vals = gate_vals / torch.clamp(
         gate_vals.sum(-1, keepdim=True), min=1e-9)
     # load-balancing auxiliary loss (Switch Transformer eq. 4)
-    me = probs.mean(dim=0)
+    if spread:
+        me = layout.psum(probs.sum(dim=0), "dp") / n
+    else:
+        me = probs.mean(dim=0)
     ce = torch.zeros(e, dtype=torch.float32, device=xt.device).index_add(
         0, gate_idx.reshape(-1),
-        torch.full((t * k,), 1.0 / (t * k), device=xt.device))
+        torch.full((t * k,), 1.0 / (n * k), device=xt.device))
+    if spread:
+        ce = layout.psum(ce, "dp")
     aux = e * torch.sum(me * ce)
     # position of each (token, choice) within its expert's capacity:
     # choice 0 of token t counts before its choice 1
     onehot = F.one_hot(gate_idx, e).float()                 # [T, k, E]
     flat = onehot.reshape(t * k, e)
-    pos = (torch.cumsum(flat, dim=0) - flat).reshape(t, k, e)
+    pos = torch.cumsum(flat, dim=0) - flat
+    if spread:  # behind the choices of the ranks before this one
+        counts = layout.stack(flat.sum(dim=0), "dp")        # [dp, E]
+        pos = pos + counts[:layout.dp_rank].sum(dim=0)
+    pos = pos.reshape(t, k, e)
     within = (pos * onehot).sum(-1)                         # [T, k]
     keep = within < cap
     gate_vals = gate_vals * keep
@@ -290,55 +326,138 @@ def _moe_tokens(xt: torch.Tensor, moe_params: Dict[str, torch.Tensor],
     combine = torch.einsum("tke,tkc->tec", onehot * gate_vals[..., None],
                            pos_onehot)
     expert_in = torch.einsum("tec,th->ech", dispatch, xf).to(xt.dtype)
-    # SwiGLU per expert: batched over E by the stacked expert weights
-    expert_out = swiglu(expert_in, moe_params["w_gate"],
-                        moe_params["w_up"], moe_params["w_down"])  # [E, C, H]
+    if layout is None:
+        # SwiGLU per expert: batched over E by the stacked expert weights
+        expert_out = swiglu(expert_in, moe_params["w_gate"],
+                            moe_params["w_up"],
+                            moe_params["w_down"])           # [E, C, H]
+    else:
+        expert_out = _experts_on_mesh(expert_in, moe_params, layout, spread)
     out = torch.einsum("tec,ech->th", combine,
                        expert_out.float()).to(xt.dtype)
     return out, aux
+
+
+def _experts_on_mesh(expert_in: torch.Tensor,
+                     moe_params: Dict[str, torch.Tensor], layout,
+                     spread: bool) -> torch.Tensor:
+    """The experts' SwiGLU on [E, C, H] slots when each dp rank holds
+    E/dp experts (their mlp columns cut over tp): the slots go to their
+    expert's rank and the outputs come back. Spread slots are filled by
+    at most one token across the ranks, so their sum over dp is exact,
+    in any dtype; a rank's own groups' slots are swapped all-to-all."""
+    if layout.dp > 1 and spread:
+        x = layout.reduce_scatter(expert_in, "dp")        # [E/dp, C, H]
+    elif layout.dp > 1:
+        x = layout.alltoall(expert_in, "dp", 0, 1)        # [E/dp, dp*C, H]
+    else:
+        x = expert_in
+    y = layout.psum(swiglu(x, moe_params["w_gate"], moe_params["w_up"],
+                           moe_params["w_down"]), "tp")
+    if layout.dp > 1 and spread:
+        return layout.gather(y, "dp", 0)
+    if layout.dp > 1:
+        return layout.alltoall(y, "dp", 1, 0)
+    return y
 
 
 # -- transformer block -------------------------------------------------------
 
 
 def attention_block(x, layer, cfg: ModelConfig, cos, sin,
-                    attention_fn: Callable) -> torch.Tensor:
+                    attention_fn: Callable, layout=None) -> torch.Tensor:
+    """x + attention(x). With ``layout`` (tp > 1) ``wq``/``wk``/``wv``
+    are this rank's column shards, so its heads are heads / tp of them,
+    and ``wo`` its row shard, whose output is summed over tp. When tp
+    does not divide kv_heads a kv head's columns span ranks: ``wk`` and
+    ``wv`` are gathered over tp and each local q head takes its kv head
+    (``h // group``)."""
     b, s, h = x.shape
     hd = cfg.head_dim
+    tp = layout.tp if layout is not None else 1
+    heads = cfg.heads // tp
     xn = rms_norm(x, layer["attn_norm"], cfg.norm_eps)
-    q = (xn @ layer["wq"]).reshape(b, s, cfg.heads, hd)
-    k = (xn @ layer["wk"]).reshape(b, s, cfg.kv_heads, hd)
-    v = (xn @ layer["wv"]).reshape(b, s, cfg.kv_heads, hd)
+    q = (xn @ layer["wq"]).reshape(b, s, heads, hd)
+    if cfg.kv_heads % tp:
+        wk, wv = (layout.gather(layer[n], "tp", -1) for n in ("wk", "wv"))
+        kv_heads = cfg.kv_heads
+    else:
+        wk, wv, kv_heads = layer["wk"], layer["wv"], cfg.kv_heads // tp
+    k = (xn @ wk).reshape(b, s, kv_heads, hd)
+    v = (xn @ wv).reshape(b, s, kv_heads, hd)
     q = apply_rope(q, cos, sin)
     k = apply_rope(k, cos, sin)
-    if cfg.kv_heads != cfg.heads:
-        rep = cfg.heads // cfg.kv_heads
+    if cfg.kv_heads % tp:
+        group = cfg.heads // cfg.kv_heads
+        idx = torch.arange(layout.tp_rank * heads,
+                           (layout.tp_rank + 1) * heads,
+                           device=x.device) // group
+        k, v = k[:, :, idx], v[:, :, idx]
+    elif kv_heads != heads:
+        rep = heads // kv_heads
         k = torch.repeat_interleave(k, rep, dim=2)
         v = torch.repeat_interleave(v, rep, dim=2)
     attn = attention_fn(q, k, v)
-    attn = attn.reshape(b, s, cfg.heads * hd)
-    return x + attn @ layer["wo"]
+    attn = attn.reshape(b, s, heads * hd)
+    out = attn @ layer["wo"]
+    return x + (out if layout is None else layout.psum(out, "tp"))
 
 
-def mlp_block(x, layer, layer_idx: int, cfg: ModelConfig
+def mlp_block(x, layer, layer_idx: int, cfg: ModelConfig, layout=None
               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """-> (x + MLP(x), aux). Layer ``layer_idx`` is a MoE layer when the
     config has experts and it is the last of each ``moe_every``; only the
-    branch taken runs (``lax.cond`` in the JAX package)."""
+    branch taken runs (``lax.cond`` in the JAX package). With ``layout``
+    the dense MLP's ``w_gate``/``w_up`` are column shards and ``w_down``
+    a row shard, its output summed over tp."""
     xn = rms_norm(x, layer["mlp_norm"], cfg.norm_eps)
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if cfg.num_experts > 0 and "moe" in layer and \
             layer_idx % cfg.moe_every == cfg.moe_every - 1:
-        out, aux = moe_layer(xn, layer["moe"], cfg)
+        out, aux = moe_layer(xn, layer["moe"], cfg, layout)
     else:
         out = swiglu(xn, layer["w_gate"], layer["w_up"], layer["w_down"])
+        if layout is not None:
+            out = layout.psum(out, "tp")
     return x + out, aux
 
 
+def _fsdp_gather(tree: Dict[str, Any], axes: Dict[str, Any], layout
+                 ) -> Dict[str, Any]:
+    """Under FSDP each leaf of ``tree`` gathered over dp along its
+    "hidden" dimension (``axes``: the leaves' logical axes); else
+    ``tree``. Called where the weights are used, inside a checkpointed
+    layer, so that its recompute gathers again instead of keeping the
+    full weights."""
+    if layout is None or not layout.fsdp:
+        return tree
+    return {name: (_fsdp_gather(value, axes[name], layout)
+                   if isinstance(value, dict)
+                   else _fsdp_leaf(value, axes[name], layout))
+            for name, value in tree.items()}
+
+
+def _fsdp_leaf(value: torch.Tensor, axes: tuple, layout) -> torch.Tensor:
+    if layout is None or not layout.fsdp or "hidden" not in axes:
+        return value
+    return layout.gather(value, "dp", axes.index("hidden"))
+
+
+def _layer_axes(cfg: ModelConfig) -> Dict[str, Any]:
+    """The logical axes of one layer's leaves (``logical_axes``' layer
+    stack without its leading "layers" axis)."""
+    def strip(tree):
+        return {k: strip(v) if isinstance(v, dict) else v[1:]
+                for k, v in tree.items()}
+
+    return strip(logical_axes(cfg)["layers"])
+
+
 def _block(x, layer, layer_idx: int, cfg: ModelConfig, cos, sin,
-           attention_fn):
-    x = attention_block(x, layer, cfg, cos, sin, attention_fn)
-    return mlp_block(x, layer, layer_idx, cfg)
+           attention_fn, layout=None):
+    layer = _fsdp_gather(layer, _layer_axes(cfg), layout)
+    x = attention_block(x, layer, cfg, cos, sin, attention_fn, layout)
+    return mlp_block(x, layer, layer_idx, cfg, layout)
 
 
 # "dots": matmuls without batch dims (x @ W reaches aten.mm), as JAX's
@@ -357,26 +476,47 @@ def _remat_kwargs(cfg: ModelConfig) -> Dict[str, Any]:
 def hidden_states(params: Dict[str, Any], tokens: torch.Tensor,
                   cfg: ModelConfig,
                   attention_fn: Optional[Callable] = None,
-                  position_offset: int = 0
+                  position_offset: int = 0, layout=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """tokens [B, S] int -> (final hidden states [B, S, H], aux). ``aux``
     is the MoE auxiliary loss summed over the layers (0 without MoE
     layers). ``position_offset``: the position of tokens[:, 0] in the
-    sequence (a sequence-parallel rank's shard starts past 0)."""
+    sequence (a sequence-parallel rank's shard starts past 0).
+    ``layout``: a ``parallel.mesh.RankLayout`` when ``params`` are a
+    mesh rank's shards (tp, FSDP, experts over dp); the hidden states
+    are then replicated over tp."""
     embed = params["embed"]
     cos, sin = rope_frequencies(cfg.head_dim, cfg.max_seq, cfg.rope_theta,
                                 device=embed.device)
-    x, aux = run_layers(embed[tokens], per_layer(params["layers"],
-                                                 cfg.layers),
+    x, aux = run_layers(embed_tokens(params, tokens, cfg, layout),
+                        per_layer(params["layers"], cfg.layers),
                         cfg, cos[position_offset:], sin[position_offset:],
-                        attention_fn)
-    return rms_norm(x, params["final_norm"], cfg.norm_eps), aux
+                        attention_fn, layout=layout)
+    final_norm = _fsdp_leaf(params["final_norm"],
+                            logical_axes(cfg)["final_norm"], layout)
+    return rms_norm(x, final_norm, cfg.norm_eps), aux
+
+
+def embed_tokens(params: Dict[str, Any], tokens: torch.Tensor,
+                 cfg: ModelConfig, layout=None) -> torch.Tensor:
+    """The embedding rows of ``tokens``. With ``layout`` (tp > 1) the
+    table is this rank's [V/tp] rows: the lookup is masked to them and
+    summed over tp (one nonzero term: exact)."""
+    embed = _fsdp_leaf(params["embed"], logical_axes(cfg)["embed"], layout)
+    if layout is None or layout.tp == 1:
+        return embed[tokens]
+    rows = embed.shape[0]
+    local = tokens - layout.tp_rank * rows
+    owned = (local >= 0) & (local < rows)
+    x = embed[local.clamp(0, rows - 1)] * owned[..., None].to(embed.dtype)
+    return layout.psum(x, "tp")
 
 
 def run_layers(x: torch.Tensor, layers: List[Dict[str, Any]],
                cfg: ModelConfig, cos, sin,
                attention_fn: Optional[Callable] = None,
-               first_layer: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+               first_layer: int = 0, layout=None
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x [B, S, H] through ``layers`` (per-layer dicts, ``per_layer``),
     the first of them the model's layer ``first_layer`` -> (x, aux
     summed over them). With ``cfg.remat`` and autograd on, each layer
@@ -390,10 +530,10 @@ def run_layers(x: torch.Tensor, layers: List[Dict[str, Any]],
     for idx, layer in enumerate(layers, start=first_layer):
         if remat:
             x, layer_aux = checkpoint(_block, x, layer, idx, cfg, cos, sin,
-                                      attention_fn, **kw)
+                                      attention_fn, layout, **kw)
         else:
             x, layer_aux = _block(x, layer, idx, cfg, cos, sin,
-                                  attention_fn)
+                                  attention_fn, layout)
         aux = aux + layer_aux
     return x, aux
 
@@ -412,19 +552,24 @@ def per_layer(stacked: Dict[str, Any], n: int) -> List[Dict[str, Any]]:
     return layers
 
 
-def _unembed(params, cfg: ModelConfig):
-    return (params["embed"].T if cfg.tie_embeddings
-            else params["unembed"])
+def _unembed(params, cfg: ModelConfig, layout=None):
+    """[H, V] (this rank's [H, V/tp] columns under tp)."""
+    name = "embed" if cfg.tie_embeddings else "unembed"
+    w = _fsdp_leaf(params[name], logical_axes(cfg)[name], layout)
+    return w.T if cfg.tie_embeddings else w
 
 
 def forward(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,
             attention_fn: Optional[Callable] = None,
-            position_offset: int = 0
+            position_offset: int = 0, layout=None
             ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """tokens [B, S] int -> (logits [B, S, V] float32, aux_loss)."""
+    """tokens [B, S] int -> (logits [B, S, V] float32, aux_loss); with
+    ``layout`` the vocab-sharded logits gathered over tp."""
     x, aux = hidden_states(params, tokens, cfg, attention_fn,
-                           position_offset)
-    logits = x.float() @ _unembed(params, cfg).float()
+                           position_offset, layout)
+    logits = x.float() @ _unembed(params, cfg, layout).float()
+    if layout is not None:
+        logits = layout.gather(logits, "tp", -1)
     return logits, aux
 
 
@@ -434,16 +579,36 @@ def _chunk_nll(x_c, t_c, unembed):
     return -logp.gather(-1, t_c[..., None])[..., 0].sum()
 
 
+def _chunk_nll_tp(x_c, t_c, unembed, layout):
+    """``_chunk_nll`` of vocab-sharded logits (this rank's [V/tp]
+    columns): the row max and the summed exponentials are reduced over
+    tp, and the target's logit comes from the rank that holds it. The
+    max only steadies the exponentials (its gradient cancels), so it is
+    taken outside autograd."""
+    logits = x_c.float() @ unembed.float()
+    cols = logits.shape[-1]
+    m = layout.pmax(logits.max(dim=-1).values, "tp")
+    sumexp = layout.psum(torch.exp(logits - m[..., None]).sum(-1), "tp")
+    local = t_c - layout.tp_rank * cols
+    owned = (local >= 0) & (local < cols)
+    target = logits.gather(-1, local.clamp(0, cols - 1)[..., None])[..., 0]
+    target = layout.psum(target * owned, "tp")
+    return (m + torch.log(sumexp) - target).sum()
+
+
 def token_nll_sum(x: torch.Tensor, targets: torch.Tensor,
-                  params: Dict[str, Any], cfg: ModelConfig) -> torch.Tensor:
+                  params: Dict[str, Any], cfg: ModelConfig,
+                  layout=None) -> torch.Tensor:
     """Summed next-token cross entropy of final hidden states x [B, S, H]
-    against targets [B, S].
+    against targets [B, S]; vocab-parallel under ``layout``'s tp.
 
     When ``cfg.logits_chunk`` divides the sequence, the vocab projection
     and log-softmax run one sequence chunk at a time under checkpoint, so
     the fp32 [B, S, V] logits never materialize; the backward recomputes
     one [B, C, V] chunk at a time."""
-    unembed = _unembed(params, cfg)
+    unembed = _unembed(params, cfg, layout)
+    nll = (functools.partial(_chunk_nll_tp, layout=layout)
+           if layout is not None and layout.tp > 1 else _chunk_nll)
     s = x.shape[1]
     chunk = cfg.logits_chunk
     if chunk and (s % chunk != 0 and s > chunk):
@@ -457,10 +622,10 @@ def token_nll_sum(x: torch.Tensor, targets: torch.Tensor,
         total = torch.zeros((), dtype=torch.float32, device=x.device)
         for c in range(0, s, chunk):
             total = total + checkpoint(
-                _chunk_nll, x[:, c:c + chunk], targets[:, c:c + chunk],
+                nll, x[:, c:c + chunk], targets[:, c:c + chunk],
                 unembed, use_reentrant=False)
         return total
-    return _chunk_nll(x, targets, unembed)
+    return nll(x, targets, unembed)
 
 
 def loss_fn(params: Dict[str, Any], tokens: torch.Tensor, cfg: ModelConfig,

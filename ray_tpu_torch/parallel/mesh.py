@@ -19,7 +19,10 @@ package's ``PartitionSpec``, as a tuple) and ``sharding_for`` the DTensor
 placements of that record, one per mesh dimension. ``shard_map`` is the
 counterpart of ``jax.shard_map`` in a program whose ranks already hold
 their local shards: it binds the mesh whose axis names the collectives
-(``collective.api.ici``) resolve.
+(``collective.api.ici``) resolve. ``RankLayout`` is what the model's
+layers read of a mesh (dp and tp sizes and ranks, FSDP) and the
+collectives they issue where GSPMD would insert them in the JAX
+package; ``local_shard`` cuts a rank's shard of a full tensor.
 """
 
 from __future__ import annotations
@@ -172,6 +175,86 @@ def local_shard(x: torch.Tensor, placements: tuple, mesh) -> torch.Tensor:
                     f"axis {mesh.mesh_dim_names[dim]} of size {n}")
             x = x.chunk(n, dim=placement.dim)[coord[dim]]
     return x.contiguous()
+
+
+@dataclass(frozen=True)
+class RankLayout:
+    """What the model's layers need of a mesh: the dp and tp sizes, this
+    rank's place along each, whether the parameters' hidden axis is
+    sharded over dp (FSDP), and the collectives over those axes that the
+    layers call. Each collective binds the mesh itself, so a
+    checkpointed layer's recompute (in autograd's thread) finds it.
+    Under GSPMD the JAX package gets these collectives from XLA."""
+
+    mesh: object
+    dp: int = 1
+    dp_rank: int = 0
+    tp: int = 1
+    tp_rank: int = 0
+    fsdp: bool = False
+
+    @classmethod
+    def of(cls, mesh, fsdp: bool = False) -> "RankLayout":
+        sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
+        dp, tp = sizes.get("dp", 1), sizes.get("tp", 1)
+        return cls(mesh, dp, mesh.get_local_rank("dp") if dp > 1 else 0,
+                   tp, mesh.get_local_rank("tp") if tp > 1 else 0,
+                   fsdp and dp > 1)
+
+    def psum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """``x`` summed over ``axis`` (differentiable; as is when the
+        axis has one rank)."""
+        if self._size(axis) == 1:
+            return x
+        from ray_tpu_torch.collective.api import ici
+
+        with shard_map(self.mesh):
+            return ici.allreduce(x, axis)
+
+    def pmax(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """The elementwise max over ``axis``, outside autograd."""
+        if self._size(axis) == 1:
+            return x.detach()
+        from ray_tpu_torch.collective.api import ici
+
+        with shard_map(self.mesh):
+            return ici.allreduce(x, axis, op="max")
+
+    def gather(self, x: torch.Tensor, axis: str, dim: int) -> torch.Tensor:
+        """The ranks' ``x`` along ``axis`` concatenated on ``dim`` in rank
+        order; its backward is the reduce-scatter."""
+        if self._size(axis) == 1:
+            return x
+        from ray_tpu_torch.collective.api import ici
+
+        with shard_map(self.mesh):
+            out = ici.allgather(x.movedim(dim, 0), axis, tiled=True)
+        return out.movedim(0, dim)
+
+    def stack(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """The ranks' ``x`` along ``axis`` stacked on a new leading dim."""
+        from ray_tpu_torch.collective.api import ici
+
+        with shard_map(self.mesh):
+            return ici.allgather(x, axis)
+
+    def reduce_scatter(self, x: torch.Tensor, axis: str) -> torch.Tensor:
+        """The sum over ``axis``, this rank's chunk of dim 0; its
+        backward is the all-gather."""
+        from ray_tpu_torch.collective.api import ici
+
+        with shard_map(self.mesh):
+            return ici.reducescatter(x, axis)
+
+    def alltoall(self, x: torch.Tensor, axis: str, split: int,
+                 concat: int) -> torch.Tensor:
+        from ray_tpu_torch.collective.api import ici
+
+        with shard_map(self.mesh):
+            return ici.alltoall(x, axis, split, concat)
+
+    def _size(self, axis: str) -> int:
+        return {"dp": self.dp, "tp": self.tp}[axis]
 
 
 # -- the counterpart of shard_map --------------------------------------------

@@ -43,14 +43,15 @@ def ulysses_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       axis_name: str, causal: bool = True,
                       sm_scale: Optional[float] = None) -> torch.Tensor:
     """Attention over sequence-sharded q/k/v ([batch, seq_local, heads,
-    head_dim], same layout as ring_attention). heads must divide by the
-    axis size."""
+    head_dim], same layout as ring_attention). The heads this rank holds
+    (heads / tp under tensor parallelism) must divide by the axis
+    size."""
     sp = axis_size(axis_name)
     heads = q.shape[2]
     if heads % sp != 0:
         raise ValueError(
-            f"ulysses needs heads ({heads}) divisible by the sequence-"
-            f"parallel axis size ({sp})")
+            f"ulysses needs this rank's heads ({heads}) divisible by the "
+            f"sequence-parallel axis size ({sp})")
     q_h = _heads_to_seq(q, axis_name)
     k_h = _heads_to_seq(k, axis_name)
     v_h = _heads_to_seq(v, axis_name)

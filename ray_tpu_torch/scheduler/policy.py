@@ -162,7 +162,8 @@ class BatchedHybridPolicy:
             # counts pull must not wait behind a model forward
             if self.device.type == "cuda":
                 self.stream = torch.cuda.Stream(self.device)
-        # device solves launched (schedule_tick_fused + per-class)
+        # device solves launched (schedule_tick_fused, pipelined_step and
+        # per-class)
         self.device_solves = 0
 
     # ---- numpy reference of the batched solve ---------------------------
@@ -336,6 +337,51 @@ class BatchedHybridPolicy:
                                   device=self.device)
             self.device_solves += 1
             return PendingCounts.start(out, self.stream)
+
+    def pipelined_step(self, avail_dev, freed_dev, delta_dev, reqs, ks,
+                       total_dev, alive_dev, local_slot: int,
+                       opts: SchedulingOptions):
+        """One double-buffered drain step, queued without a host sync:
+        fold last tick's freed usage and the host's correction into the
+        device-resident availability IN PLACE (the JAX package donates
+        the buffer), solve the whole tick class by class, and
+        pre-subtract this tick's usage. ``avail_dev`` [N, R] float32 on
+        the policy's device is updated in place and returned; ``freed_dev``
+        (the previous step's usage), ``delta_dev`` [N, R], ``total_dev``
+        and ``alive_dev`` are on the device; ``reqs`` [C, R] and ``ks``
+        [C] come from the host. Returns (avail', usage [N, R],
+        :class:`PendingCounts` of the [C, N] int32 counts): the caller
+        commits the previous tick while this one solves, and syncs only
+        on ``pull()``; the pulled counts go through
+        ``repair_oversubscription`` as ``schedule_tick_fused``'s do."""
+        import torch
+
+        if self.device is None:
+            raise ValueError("pipelined_step needs a policy device")
+        if avail_dev.device.type != self.device.type or \
+                avail_dev.dtype != torch.float32:
+            raise ValueError(f"avail_dev must be float32 on {self.device} "
+                             f"(got {avail_dev.dtype} on "
+                             f"{avail_dev.device}): it is updated in place")
+        reqs, ks = self._to_f32(reqs, ks)
+        with self._stream_ctx():
+            reqs, ks = self._as_device(reqs, ks)
+            avail = avail_dev.add_(freed_dev).add_(delta_dev)
+            perm1 = self._perm1(total_dev.shape[0], local_slot, self.device)
+            acc, rows = avail, []
+            for c in range(reqs.shape[0]):
+                counts = self._device_class_solve(
+                    reqs[c], ks[c], total_dev, acc, alive_dev, perm1,
+                    opts.spread_threshold, self._CAP_MAX)
+                acc = acc - counts[:, None] * reqs[c][None, :]
+                rows.append(counts)
+            counts = (torch.stack(rows) if rows else torch.zeros(
+                (0, total_dev.shape[0]), device=self.device))
+            usage = torch.einsum("cn,cr->nr", counts, reqs)
+            avail.sub_(usage)
+            self.device_solves += 1
+            return avail, usage, PendingCounts.start(
+                counts.to(torch.int32), self.stream)
 
     @staticmethod
     def repair_oversubscription(reqs: np.ndarray, counts: np.ndarray,

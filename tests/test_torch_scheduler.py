@@ -113,6 +113,68 @@ def test_fused_tick_huge_magnitudes_repair_equal():
     np.testing.assert_array_equal(tc, jc)
 
 
+@pytest.mark.parametrize("seed", range(3))
+def test_pipelined_step_matches_jax(seed):
+    """Three chained pipelined drain steps (bench.py's device-resident
+    drain, with a host correction folded in at the second): the counts,
+    the usage and the availability left on the device equal the JAX
+    package's donated-buffer step's at every tick; the torch step
+    updates its availability in place; and each tick's counts equal
+    schedule_tick_fused's on the availability the step folded."""
+    import jax
+    import torch
+
+    total, _, alive, reqs, ks = _seeded_instance(seed, n_nodes=16, n_res=4,
+                                                 n_classes=5)
+    reqs, total = reqs[:, :4], total.astype(np.float32)
+    reqs_f = reqs.astype(np.float32)
+    opts, jopts = SchedulingOptions(), JOpts()
+    policy, jpolicy = BatchedHybridPolicy(CPU), JBatched(use_jax=True)
+    zeros = np.zeros_like(total)
+    avail_t = torch.from_numpy(total.copy())
+    freed_t, total_t = torch.from_numpy(zeros), torch.from_numpy(total)
+    alive_t = torch.from_numpy(alive)
+    avail_j, freed_j = jax.device_put(total.copy()), jax.device_put(zeros)
+    total_j, alive_j = jax.device_put(total), jax.device_put(alive)
+    pending = ks.astype(np.float32)
+    for tick in range(3):
+        delta = (np.random.default_rng(seed + tick).integers(0, 2, zeros.shape)
+                 * F(1)).astype(np.float32) if tick == 1 else zeros
+        folded = avail_t.numpy() + freed_t.numpy() + delta
+        before = avail_t
+        avail_t, usage_t, counts_t = policy.pipelined_step(
+            avail_t, freed_t, torch.from_numpy(delta), reqs_f, pending,
+            total_t, alive_t, 0, opts)
+        avail_j, usage_j, counts_j = jpolicy.pipelined_step(
+            avail_j, freed_j, jax.device_put(delta), reqs_f, pending,
+            total_j, alive_j, 0, jopts)
+        counts = counts_t.pull()
+        assert avail_t is before  # folded and pre-subtracted in place
+        np.testing.assert_array_equal(counts, np.asarray(counts_j))
+        np.testing.assert_array_equal(usage_t.numpy(), np.asarray(usage_j))
+        np.testing.assert_array_equal(avail_t.numpy(), np.asarray(avail_j))
+        np.testing.assert_array_equal(counts, policy.schedule_tick_fused(
+            reqs_f, pending, total, folded, alive, 0, opts).pull())
+        freed_t, freed_j = usage_t, usage_j
+        pending = pending - counts.sum(axis=1)
+    assert policy.device_solves == 6
+
+
+def test_pipelined_step_needs_its_device_buffer():
+    policy = BatchedHybridPolicy(CPU)
+    buf = np.zeros((2, 2), dtype=np.float32)
+    with pytest.raises(ValueError, match="policy device"):
+        BatchedHybridPolicy().pipelined_step(buf, buf, buf, buf, buf[0],
+                                             buf, buf[0] > 0, 0,
+                                             SchedulingOptions())
+    import torch
+
+    with pytest.raises(ValueError, match="in place"):
+        policy.pipelined_step(torch.zeros(2, 2, dtype=torch.float64),
+                              buf, buf, buf, buf[0], buf, buf[0] > 0, 0,
+                              SchedulingOptions())
+
+
 # ------------------------------------------------- mirror freshness protocol
 
 

@@ -141,6 +141,10 @@ def rank_train(params_np, tokens, sp_strategy, steps):
 
 
 def rank_unported_meshes():
+    """What the port's mesh steps still refuse, each with its message (or
+    None where nothing raised): MoE with sp > 1, a MoE group that would
+    straddle dp ranks (at the step), tp not dividing heads, and MoE on
+    the pipeline."""
     from ray_tpu_torch.models.training import (
         build_forward,
         build_pipeline_train_step,
@@ -149,20 +153,31 @@ def rank_unported_meshes():
     from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
 
     _, cfg = _cfgs()
-    dp_tp = build_mesh(MeshSpec(dp=2, tp=2), device_type="cpu")
-    pp_tp = build_mesh(MeshSpec(pp=2, tp=2), device_type="cpu")
+    moe = dataclasses.replace(cfg, num_experts=4)
     sp = build_mesh(MeshSpec(dp=2, sp=2), device_type="cpu")
+    dp4 = build_mesh(MeshSpec(dp=4), device_type="cpu")
+    tp4 = build_mesh(MeshSpec(tp=4), device_type="cpu")
+    pp = build_mesh(MeshSpec(pp=2, tp=2), device_type="cpu")
+    tokens = np.random.default_rng(0).integers(0, 128, (4, 33))
+
+    def straddle():
+        # 128 tokens in 64-token groups over 4 ranks of 32
+        step, init_fn = build_train_step(
+            dataclasses.replace(moe, moe_group_size=64), mesh=dp4)
+        step(*init_fn(), tokens)
+
     messages = []
-    for call in (lambda: build_train_step(cfg, mesh=dp_tp),
-                 lambda: build_train_step(cfg, mesh=sp, fsdp=True),
-                 lambda: build_forward(cfg, mesh=dp_tp),
-                 lambda: build_pipeline_train_step(cfg, pp_tp),
-                 lambda: build_train_step(
-                     dataclasses.replace(cfg, num_experts=4), mesh=sp)):
+    for call, kind in (
+            (lambda: build_train_step(moe, mesh=sp), NotImplementedError),
+            (straddle, NotImplementedError),
+            (lambda: build_forward(dataclasses.replace(cfg, heads=2,
+                                                       kv_heads=2),
+                                   mesh=tp4), ValueError),
+            (lambda: build_pipeline_train_step(moe, pp), ValueError)):
         try:
             call()
             messages.append(None)
-        except NotImplementedError as exc:
+        except kind as exc:
             messages.append(str(exc))
     return messages
 
@@ -276,10 +291,14 @@ def test_ring_and_ulysses_train_alike(ranks, jax_train):
 
 
 def test_unported_shardings_raise(ranks):
-    for messages in ranks.run(rank_unported_meshes):
-        assert all(m is not None and "ROADMAP" in m for m in messages[:4]), \
-            messages
-        assert messages[4] is not None and "MoE" in messages[4]
+    """tp, FSDP and MoE on dp x tp run since the tensor-parallel port
+    (tests/test_torch_tensor_parallel.py); these still raise."""
+    for sp_moe, straddle, heads, pipe_moe in ranks.run(
+            rank_unported_meshes):
+        assert sp_moe is not None and "sp = 2" in sp_moe
+        assert straddle is not None and "straddle" in straddle
+        assert heads is not None and "does not divide heads" in heads
+        assert pipe_moe is not None and "pipeline" in pipe_moe
 
 
 def test_multihost_mesh_and_barrier(ranks):
