@@ -292,10 +292,32 @@ if any failed, the script exits non-zero and prints no result. Phases:
               GRAD_REL_L2_TOL of one rank's, each step's loss within
               PARALLEL_LOSS_TOL and grad norm within GRAD_REL_L2_TOL of
               build_train_step's, and per rank exactly 2 x 7 x 6 K1 and
-              7 x 6 K2 and K3 launches a step (remat). Last, two NCCL
-              ranks on card 0 must refuse to start (one rank per card;
-              no switch to gloo). Latency, step time, staged bytes, peak
-              memory and rank start-up print beside the card line.
+              7 x 6 K2 and K3 launches a step (remat). Then the mesh
+              parts in one pool: b1 served at tp 4, trained at dp2 x
+              tp2 (saved with DCP, restored at tp 4 for the next step)
+              and at FSDP dp 4, the bench MoE model with its experts
+              over dp 4 (part ep) and at dp2 x sp2 with ring attention
+              (part ep_sp: each 4096-token group two 2048-token rows cut
+              over both sp ranks), each held against one rank's steps.
+              Last, two NCCL ranks on card 0 must refuse to start (one
+              rank per card; no switch to gloo). Latency, step time,
+              staged bytes, peak memory and rank start-up print beside
+              the card line;
+  18. dryrun — ray_tpu_torch.tools.multichip.dryrun_multichip(4) with
+              four gloo ranks on card 0: the dp x sp x tp MoE step, the
+              FSDP step, the pp 2 x tp 2 pipeline step and the train
+              runtime (Trainer(num_workers=2), a store collective group,
+              rank 0 driving the first step through the ranks), each
+              loss finite.
+
+    python3 chip_smoke.py --cards 4
+
+runs phases build, parallel and dryrun alone with four NCCL ranks, one
+a card (parallel.multihost.RankPool's cuda_device="per_rank"), and
+prints each rank's card (four distinct UUIDs), staged bytes (0: nothing
+stages), step seconds, the share of them inside the collectives (each
+op timed between two card synchronizations) and peak memory, and
+``nvidia-smi topo -m``; it ends with the same contract line.
 
 The line before the last is the card's name and power limit as
 nvidia-smi prints them; above it, one JSON line with the kernel table
@@ -382,6 +404,12 @@ KERNEL_SHAPES = [
     ("d192_noncausal", 2, 1000, 8, 192, False, "bfloat16"),
     ("d120_sq_gt_sk", 1, 1000, 4, 120, True, "bfloat16", 700),
     ("d224", 2, 2048, 8, 224, True, "bfloat16"),
+    # past 256, the chunked route: bf16 at 264 (a last chunk of 8
+    # columns), 320 and 512 (whole chunks), and fp32 at 320
+    ("d264", 1, 1000, 4, 264, True, "bfloat16"),
+    ("d320", 1, 1000, 4, 320, True, "bfloat16"),
+    ("d512", 1, 1000, 4, 512, True, "bfloat16"),
+    ("d320_f32", 1, 1000, 4, 320, True, "float32"),
 ]
 
 BWD_SHAPES = [
@@ -418,12 +446,18 @@ BWD_SHAPES = [
     ("d192_noncausal", 2, 1000, 1000, 8, 192, False, "bfloat16"),
     ("d120_sq_gt_sk", 1, 1000, 700, 4, 120, True, "bfloat16"),
     ("d224", 2, 2048, 2048, 8, 224, True, "bfloat16"),
+    # the chunked route's rows of the forward, backward too
+    ("d264", 1, 1000, 1000, 4, 264, True, "bfloat16"),
+    ("d320", 1, 1000, 1000, 4, 320, True, "bfloat16"),
+    ("d512", 1, 1000, 1000, 4, 512, True, "bfloat16"),
+    ("d320_f32", 1, 1000, 1000, 4, 320, True, "float32"),
 ]
 # the rows of KERNEL_SHAPES and BWD_SHAPES off the wgmma route, reported
 # beside the model shapes in the kernels line
 HEAD_DIM_SHAPES = ("debug_f32", "d16_bf16", "d20_ragged", "d160",
                    "d256_ragged", "xl16_train", "d80_sq_lt_sk",
-                   "d192_noncausal", "d120_sq_gt_sk", "d224")
+                   "d192_noncausal", "d120_sq_gt_sk", "d224", "d264",
+                   "d320", "d512", "d320_f32")
 
 SCHED = dict(nodes=256, tasks=100_000, classes=32)
 SCHED_PIPELINED_TICKS = 3
@@ -611,6 +645,22 @@ def _attention_work(kernel, b, sq, sk, h, d, causal, dtype):
             "operations" if t_ops >= t_bytes else "bytes")
 
 
+def _sdpa_backend(q, k, v, causal: bool) -> str:
+    """The SDPA backend PyTorch's dispatch picks for [B, H, S, D] q/k/v
+    (the flash backend stops at head dim 256)."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    try:
+        choice = torch._fused_sdp_choice(q, k, v, is_causal=causal)
+    except Exception as exc:  # noqa: BLE001 — reported, not fatal
+        return f"unknown ({type(exc).__name__})"
+    for backend in SDPBackend.__members__.values():
+        if int(backend) == int(choice):
+            return backend.name
+    return f"unknown ({choice})"
+
+
 def phase_kernel(report: dict) -> None:
     import torch
     import torch.nn.functional as F
@@ -648,6 +698,7 @@ def phase_kernel(report: dict) -> None:
         qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
         library_ms = cuda_ms(lambda: F.scaled_dot_product_attention(
             qt, kt, vt, is_causal=causal), 20)
+        library = _sdpa_backend(qt, kt, vt, causal)
         bound_ms, bound_by = _attention_work("fwd", b, s, sk, h, d, causal,
                                              dtype)
         route = attention.kernel_route("fwd", dt, d)
@@ -656,12 +707,12 @@ def phase_kernel(report: dict) -> None:
                "max_abs_err": err_out,
                "max_abs_err_lse": err_lse, "ms": ms, "plain_ms": plain_ms,
                "bound_ms": bound_ms, "bound_by": bound_by,
-               "library_ms": library_ms}
+               "library_ms": library_ms, "library_backend": library}
         rows.append(row)
         print(f"kernel: {name} B{b} S{s} Sk{sk} H{h} D{d} causal={causal} "
               f"{dtype} [{route}]: err out {err_out:.3g} lse {err_lse:.3g}; "
               f"ms {ms:.4f} plain {plain_ms:.4f} bound {bound_ms:.4f} "
-              f"({bound_by}) sdpa {library_ms:.4f}", flush=True)
+              f"({bound_by}) sdpa {library_ms:.4f} ({library})", flush=True)
         del q, k, v, out, lse, p_out, p_lse
     report["kernel_shapes"] = rows
     report["bwd_shapes"] = [_bwd_row(*shape) for shape in BWD_SHAPES]
@@ -716,7 +767,8 @@ def _bwd_row(name, b, sq, sk, h, d, causal, dtype):
     row = {"shape": name, "B": b, "Sq": sq, "Sk": sk, "H": h, "D": d,
            "causal": causal, "dtype": dtype, "routes": routes,
            "max_abs_err": errs, "dq_ms": dq_ms, "dkdv_ms": dkdv_ms,
-           "plain_ms": plain_ms, "library_ms": library_ms}
+           "plain_ms": plain_ms, "library_ms": library_ms,
+           "library_backend": _sdpa_backend(qt, kt, vt, causal)}
     for kernel in ("dq", "dkdv"):
         bound_ms, bound_by = _attention_work(kernel, b, sq, sk, h, d,
                                              causal, dtype)
@@ -727,7 +779,7 @@ def _bwd_row(name, b, sq, sk, h, d, causal, dtype):
           f"{errs['dk']:.3g} dv {errs['dv']:.3g}; ms dq {dq_ms:.4f} "
           f"(bound {row['dq_bound_ms']:.4f}) dk/dv {dkdv_ms:.4f} (bound "
           f"{row['dkdv_bound_ms']:.4f}) plain {plain_ms:.4f} sdpa-bwd "
-          f"{library_ms:.4f}", flush=True)
+          f"{library_ms:.4f} ({row['library_backend']})", flush=True)
     return row
 
 
@@ -5575,6 +5627,10 @@ def phase_dash(report: dict) -> dict:
 # ------------------------------------------------------------ phase 17
 
 PARALLEL_RANKS = 4
+# the cards the parallel and dryrun phases' ranks take: 1, all four gloo
+# ranks on card 0 (the default run), or PARALLEL_RANKS with --cards, one
+# NCCL rank a card
+PARALLEL_CARDS = 1
 PARALLEL_SERVE_REQUESTS = 2  # the serve phase's first two prompts
 PARALLEL_ULYSSES = (8, 2048, 16, 128)  # b1's train attention [B, S, H, D]
 PARALLEL_PIPE_STEPS = 3
@@ -5591,20 +5647,33 @@ PARALLEL_TIMEOUT_S = 240
 # the mesh parts (tensor, fully-sharded and expert parallelism): b1 steps
 # at dp2 x tp2 (saved after the last), the step after them restored at
 # tp 4, b1 steps at FSDP dp 4, and the bench MoE model's steps at dp 4
-# (experts over dp: 2 a rank) on MOE_TRAIN_TOKENS
-MESH_TP_STEPS = 3
-MESH_FSDP_STEPS = 2
+# (experts over dp: 2 a rank) and at dp2 x sp2 on MOE_TRAIN_TOKENS. The
+# b1 parts take 2 and 1 steps: with the MoE part at dp2 x sp2 and the
+# dryrun phase the whole run must stay well under its time limit
+MESH_TP_STEPS = 2
+MESH_FSDP_STEPS = 1
 MESH_EP_STEPS = 2
 MESH_CKPT = "mesh_ckpt"  # in the phase's work directory
 
 
+def _nccl(device: str) -> bool:
+    return device == "cuda" and PARALLEL_CARDS > 1
+
+
+def _ranks_text(device: str) -> str:
+    return (f"{PARALLEL_RANKS} NCCL ranks, one a card" if _nccl(device)
+            else f"{PARALLEL_RANKS} gloo ranks on card 0")
+
+
 def _parallel_pool(device: str):
     """PARALLEL_RANKS ranks joined by gloo, all on card 0 (NCCL takes one
-    rank per card)."""
+    rank per card), or with --cards joined by NCCL, rank r on card r."""
     from ray_tpu_torch.parallel.multihost import RankPool
 
-    return RankPool(PARALLEL_RANKS, backend="gloo",
-                    cuda_device=0 if device == "cuda" else None,
+    nccl = _nccl(device)
+    return RankPool(PARALLEL_RANKS, backend="nccl" if nccl else "gloo",
+                    cuda_device=("per_rank" if nccl else 0)
+                    if device == "cuda" else None,
                     env={"RAY_TPU_collective_op_timeout_s":
                          str(PARALLEL_TIMEOUT_S)},
                     timeout_s=PARALLEL_TIMEOUT_S)
@@ -5627,22 +5696,32 @@ def _peak_gib(device: str) -> float:
 class _CollectiveClock:
     """Seconds a rank spends inside the collectives (staging, gloo, and
     waiting for its peers), by wrapping ``collective.api._run`` for the
-    phase's measurement windows."""
+    phase's measurement windows. An NCCL op is enqueued on the card and
+    returns at once: it is timed between a synchronization before it
+    (the work queued ahead, outside the clock) and one after it."""
 
     def __init__(self):
         self.seconds = 0.0
 
     @contextlib.contextmanager
     def running(self):
+        import torch
+        import torch.distributed as dist
+
         from ray_tpu_torch.collective import api as coll
 
         run = coll._run
 
-        def timed(*args, **kwargs):
+        def timed(x, group, *args, **kwargs):
+            card = x.is_cuda and dist.get_backend(group) == "nccl"
+            if card:
+                torch.cuda.synchronize()
             t0 = time.monotonic()
             try:
-                return run(*args, **kwargs)
+                return run(x, group, *args, **kwargs)
             finally:
+                if card:
+                    torch.cuda.synchronize()
                 self.seconds += time.monotonic() - t0
 
         coll._run = timed
@@ -5935,7 +6014,7 @@ def _parallel_serve(device: str, work: str, card: str) -> tuple:
             "kernel_launches_by_rank": [r["counts"] for r in per_rank]}
         routes += [r["routes"] for r in per_rank]
         print(f"parallel serve {strategy}: b1 at sp={PARALLEL_RANKS} "
-              f"(4 gloo ranks on card 0), {n_req} requests of "
+              f"({_ranks_text(device)}), {n_req} requests of "
               f"{list(SERVE_TOKENS)}: latency s "
               f"{[round(x, 4) for x in latency]} (in collectives, rank 0 "
               f"{per_rank[0]['collective_s']:.4f} s over both); gathered "
@@ -6299,6 +6378,50 @@ def par_ep_rank(device: str) -> dict:
             "peak_gib": _peak_gib(device)}
 
 
+def par_ep_sp_rank(device: str) -> dict:
+    """A rank of dp 2 x sp 2 with ring attention: the bench MoE model,
+    its 8 experts over dp (4 a rank), MESH_EP_STEPS steps on
+    MOE_TRAIN_TOKENS; each 4096-token group is two 2048-token rows, cut
+    over both sp ranks (``transformer._moe_spread``)."""
+    import torch
+
+    from ray_tpu_torch.models.training import build_train_step, make_optimizer
+    from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
+
+    cfg = _text_config("moe")
+    mesh = build_mesh(MeshSpec(dp=2, sp=2), device_type=device)
+    opt = make_optimizer()
+    step, _ = build_train_step(cfg, mesh=mesh, optimizer=opt,
+                               sp_strategy="ring")
+    params = _mesh_params(cfg, mesh, device)
+    opt_state = opt.init(params)
+    tokens = torch.as_tensor(_train_batch("moe"), device=device)
+    if device == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    rows = _mesh_steps(step, params, opt_state, tokens, MESH_EP_STEPS,
+                       device)
+    return {"steps": rows, "counts": _read_counts(),
+            "routes": _read_routes(),
+            "state_bytes": _state_bytes(params, opt_state),
+            "peak_gib": _peak_gib(device)}
+
+
+def par_card_rank(device: str) -> dict:
+    """This rank's place and card: its CUDA device index, name and
+    UUID."""
+    import torch
+    import torch.distributed as dist
+
+    out = {"rank": dist.get_rank(), "backend": dist.get_backend()}
+    if device == "cuda":
+        index = torch.cuda.current_device()
+        props = torch.cuda.get_device_properties(index)
+        out.update({"cuda_device": index, "name": props.name,
+                    "uuid": str(getattr(props, "uuid", ""))})
+    return out
+
+
 def _one_rank_steps(model: str, steps: int, device: str) -> list:
     """(loss, grad norm) of ``steps`` steps of ``model`` on one rank of
     this process, from the seeded weights, on its train batch."""
@@ -6338,6 +6461,8 @@ def _mesh_summary(results: list, steps: int) -> dict:
         "step_s": [max(r["steps"][i]["step_s"] for r in results)
                    for i in range(steps)],
         "steps": results[0]["steps"],
+        "step_s_by_rank": [[x["step_s"] for x in r["steps"]]
+                           for r in results],
         "collective_s_by_rank": [[x["collective_s"] for x in r["steps"]]
                                  for r in results],
         "staged_bytes_by_rank": [[x["staged_bytes"] for x in r["steps"]]
@@ -6347,8 +6472,9 @@ def _mesh_summary(results: list, steps: int) -> dict:
 
 
 def _parallel_mesh(device: str, work: str, card: str) -> tuple:
-    """tp_serve, tp_train, reshard, fsdp and ep in one pool of
-    PARALLEL_RANKS ranks, each held against one rank's work first."""
+    """tp_serve, tp_train, reshard, fsdp, ep and ep_sp in one pool of
+    PARALLEL_RANKS ranks, each held against one rank's work first; the
+    ranks' cards first."""
     cfg, moe = _text_config("b1"), _text_config("moe")
     with open(os.path.join(work, "b1_single.json")) as f:
         b1 = json.load(f)
@@ -6363,11 +6489,13 @@ def _parallel_mesh(device: str, work: str, card: str) -> tuple:
     try:
         pool.start()
         out["rank_start_s"] = time.monotonic() - t0
+        out["cards"] = pool.run(par_card_rank, device)
         parts = (("tp_serve", par_tp_serve_rank, (ref_paths,)),
                  ("tp_train", par_tp_train_rank, (work,)),
                  ("reshard", par_reshard_rank, (work,)),
                  ("fsdp", par_fsdp_rank, ()),
-                 ("ep", par_ep_rank, ()))
+                 ("ep", par_ep_rank, ()),
+                 ("ep_sp", par_ep_sp_rank, ()))
         results = {}
         for name, fn, args in parts:
             t1 = time.monotonic()
@@ -6394,19 +6522,24 @@ def _parallel_mesh(device: str, work: str, card: str) -> tuple:
         "kernel_launches_by_rank": [r["counts"] for r in serve]})
     routes += [r["routes"] for r in serve]
 
-    def train_want(c, steps):
-        return {"fwd": 2 * c.layers * steps, "dq": c.layers * steps,
-                "dkdv": c.layers * steps}
+    def train_want(c, steps, kernels=True):
+        n = c.layers * steps if kernels else 0  # ring: fp32 block math
+        return {"fwd": 2 * n, "dq": n, "dkdv": n}
 
-    for name, c, steps, single in (
-            ("tp_train", cfg, MESH_TP_STEPS, b1_single[:MESH_TP_STEPS]),
-            ("reshard", cfg, 1, b1_single[MESH_TP_STEPS:MESH_TP_STEPS + 1]),
-            ("fsdp", cfg, MESH_FSDP_STEPS, b1_single[:MESH_FSDP_STEPS]),
-            ("ep", moe, MESH_EP_STEPS, moe_single)):
+    for name, c, steps, single, kernels in (
+            ("tp_train", cfg, MESH_TP_STEPS, b1_single[:MESH_TP_STEPS],
+             True),
+            ("reshard", cfg, 1, b1_single[MESH_TP_STEPS:MESH_TP_STEPS + 1],
+             True),
+            ("fsdp", cfg, MESH_FSDP_STEPS, b1_single[:MESH_FSDP_STEPS],
+             True),
+            ("ep", moe, MESH_EP_STEPS, moe_single, True),
+            ("ep_sp", moe, MESH_EP_STEPS, moe_single, False)):
         res = results[name]
         for rank, r in enumerate(res):
             _check_launches(f"parallel {name} rank {rank}", r["counts"],
-                            r["routes"], train_want(c, steps), c.head_dim)
+                            r["routes"], train_want(c, steps, kernels),
+                            c.head_dim)
         _check_mesh_steps(name, res, single)
         out[name].update({"single_rank": single, **_mesh_summary(res, steps)})
         routes += [r["routes"] for r in res]
@@ -6427,8 +6560,14 @@ def _parallel_mesh(device: str, work: str, card: str) -> tuple:
                             r["state_bytes"] for r in results["fsdp"]]})
     out["ep"].update({"mesh": f"dp={PARALLEL_RANKS} (experts over dp)",
                       "tokens": list(MOE_TRAIN_TOKENS)})
+    out["ep_sp"].update({"mesh": "dp=2 x sp=2, ring (experts over dp, "
+                                 "groups across sp)",
+                         "tokens": list(MOE_TRAIN_TOKENS)})
     out["one_rank_state_bytes"] = full_bytes
-    for name in ("tp_train", "reshard", "fsdp", "ep"):
+    print(f"parallel cards: {_ranks_text(device)}: "
+          + "; ".join(f"rank {c['rank']} {c.get('cuda_device')} "
+                      f"{c.get('uuid')}" for c in out["cards"]), flush=True)
+    for name in ("tp_train", "reshard", "fsdp", "ep", "ep_sp"):
         o = out[name]
         extra = (f"; state bytes a rank {o['state_bytes_by_rank'][0]} vs "
                  f"{full_bytes} on one rank" if "state_bytes_by_rank" in o
@@ -6501,8 +6640,9 @@ def phase_parallel(report: dict, device: str = "cuda") -> dict:
     card = report.get("card") or card_line()
     work = tempfile.mkdtemp(prefix="chip_smoke_parallel_")
     out, routes = {"card": card, "ranks": PARALLEL_RANKS,
-                   "transport": "gloo, staged through pinned host memory"
-                   }, []
+                   "transport": ("nccl, one rank a card" if _nccl(device)
+                                 else "gloo, staged through pinned host "
+                                      "memory")}, []
     try:
         for name, run in (("serve", _parallel_serve),
                           ("ulysses", _parallel_ulysses),
@@ -6519,7 +6659,71 @@ def phase_parallel(report: dict, device: str = "cuda") -> dict:
     finally:
         shutil.rmtree(work, ignore_errors=True)
         report["parallel"] = out
+    if _nccl(device):
+        _check_nccl_ranks(out)
     return _merge_routes(*routes)
+
+
+def _staged(tree, path: str = "") -> dict:
+    """{path: value} of every staged-bytes entry in a report tree."""
+    found = {}
+    if isinstance(tree, dict):
+        for key, value in tree.items():
+            where = f"{path}.{key}" if path else key
+            if key.startswith("staged_bytes"):
+                found[where] = value
+            else:
+                found.update(_staged(value, where))
+    return found
+
+
+def _check_nccl_ranks(out: dict) -> None:
+    """With one NCCL rank a card: four distinct cards, nothing staged
+    through host memory; each mesh part's per-rank step seconds, share
+    inside the collectives and peak memory printed."""
+    uuids = [c.get("uuid") for c in out["mesh"]["cards"]]
+    if len(set(uuids)) != PARALLEL_RANKS or None in uuids:
+        raise AssertionError(f"parallel: ranks' cards {uuids}: not "
+                             f"{PARALLEL_RANKS} distinct")
+
+    def nonzero(v):
+        return any(nonzero(x) for x in v) if isinstance(v, list) else v != 0
+
+    staged = {k: v for k, v in _staged(out).items() if nonzero(v)}
+    if staged:
+        raise AssertionError(f"parallel over NCCL staged bytes: {staged}")
+    for name in ("tp_train", "reshard", "fsdp", "ep", "ep_sp"):
+        o = out["mesh"][name]
+        for rank in range(PARALLEL_RANKS):
+            step_s = o["step_s_by_rank"][rank]
+            coll_s = o["collective_s_by_rank"][rank]
+            print(f"parallel {name} rank {rank} ({uuids[rank]}): step s "
+                  f"{[round(x, 4) for x in step_s]}, in collectives "
+                  f"{100 * sum(coll_s) / sum(step_s):.1f} %, staged bytes "
+                  f"0, peak GiB {o['peak_gib_by_rank'][rank]:.2f}",
+                  flush=True)
+
+
+def phase_dryrun(report: dict) -> None:
+    """The multichip dry run (tools/multichip.py) on PARALLEL_RANKS
+    ranks: gloo on card 0, or NCCL one a card with --cards."""
+    import ray_tpu_torch
+    from ray_tpu_torch.tools.multichip import dryrun_multichip
+
+    if ray_tpu_torch.is_initialized():
+        ray_tpu_torch.shutdown()
+    _free_card("cuda")
+    backend = "nccl" if _nccl("cuda") else "gloo"
+    t0 = time.monotonic()
+    rows = dryrun_multichip(PARALLEL_RANKS, device="cuda", backend=backend)
+    report["dryrun"] = {"backend": backend, "rows": rows,
+                        "wall_s": time.monotonic() - t0}
+    if backend == "nccl":
+        cards = rows[0]["cards"]
+        staged = [r["staged_bytes_by_rank"] for r in rows[:3]]
+        if len(set(cards)) != PARALLEL_RANKS or any(map(any, staged)):
+            raise AssertionError(f"dryrun over NCCL: cards {cards}, "
+                                 f"staged bytes {staged}")
 
 
 def _at_shapes(report: dict, kernel: str) -> dict:
@@ -6530,14 +6734,17 @@ def _at_shapes(report: dict, kernel: str) -> dict:
     for name in ("moe", "vit", *HEAD_DIM_SHAPES):
         if kernel == "fwd":
             r = next(r for r in report["kernel_shapes"] if r["shape"] == name)
-            out[name] = {k: r[k] for k in ("ms", "plain_ms", "bound_ms",
-                                           "bound_by", "library_ms")}
+            out[name] = {k: r[k] for k in ("route", "ms", "plain_ms",
+                                           "bound_ms", "bound_by",
+                                           "library_ms", "library_backend")}
         else:
             r = next(r for r in report["bwd_shapes"] if r["shape"] == name)
-            out[name] = {"ms": r[f"{kernel}_ms"], "plain_ms": r["plain_ms"],
+            out[name] = {"route": r["routes"][kernel],
+                         "ms": r[f"{kernel}_ms"], "plain_ms": r["plain_ms"],
                          "bound_ms": r[f"{kernel}_bound_ms"],
                          "bound_by": r[f"{kernel}_bound_by"],
-                         "library_ms": r["library_ms"]}
+                         "library_ms": r["library_ms"],
+                         "library_backend": r["library_backend"]}
     return out
 
 
@@ -6573,12 +6780,14 @@ def _kernel_table(report: dict, paths: dict) -> list:
         "name": "flash_attention_fwd", "route": "cuda",
         "kernel_route": fwd["route"],
         "source": csrc + "flash_attn_fwd.cu",
-        # the wgmma kernel and C entry, then the padded wgmma, mma.sync
-        # and FMA routes
+        # the wgmma kernel and C entry, then the padded wgmma, mma.sync,
+        # FMA and chunked routes
         "sources": [csrc + f for f in ("flash_attn_fwd.cu",
                                        "flash_attn_fwd_padded.cu",
                                        "flash_attn_fwd_mma.cu",
-                                       "flash_attn_fwd_fma.cu")],
+                                       "flash_attn_fwd_fma.cu",
+                                       "flash_attn_dchunk.cu",
+                                       "flash_attn_dchunk_fma.cu")],
         "replaces": "ray_tpu/ops/attention.py:202",
         **launches("fwd"), "head_dims_by_route": head_dims("fwd"),
         "max_abs_err": max(r["max_abs_err"]
@@ -6598,7 +6807,8 @@ def _kernel_table(report: dict, paths: dict) -> list:
             "sources": [csrc + f for f in (
                 "flash_attn_bwd.cu", f"flash_attn_bwd_{kernel}_padded.cu",
                 f"flash_attn_bwd_{kernel}_mma.cu",
-                "flash_attn_bwd_fma.cu")],
+                "flash_attn_bwd_fma.cu", "flash_attn_dchunk.cu",
+                "flash_attn_dchunk_fma.cu")],
             "replaces": f"ray_tpu/ops/attention.py:{line}",
             **launches(kernel), "head_dims_by_route": head_dims(kernel),
             "max_abs_err": max(r["max_abs_err"][e]
@@ -6615,18 +6825,34 @@ def _kernel_table(report: dict, paths: dict) -> list:
     return kernels
 
 
-def main() -> int:
+def main(argv=None) -> int:
+    import argparse
+
     import torch
 
+    global PARALLEL_CARDS
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--cards", type=int, default=1,
+                        choices=(1, PARALLEL_RANKS),
+                        help="cards for the parallel and dryrun phases: "
+                             "with 4, only those phases (and build) run, "
+                             "one NCCL rank a card")
+    args = parser.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device visible", file=sys.stderr)
         return 2
+    if torch.cuda.device_count() < args.cards:
+        print(f"chip_smoke: --cards {args.cards} with "
+              f"{torch.cuda.device_count()} visible CUDA cards",
+              file=sys.stderr)
+        return 2
     import ray_tpu_torch  # noqa: F401 — a bare directory fails here
 
-    report: dict = {"phase_s": {}}
+    PARALLEL_CARDS = args.cards
+    report: dict = {"phase_s": {}, "cards": args.cards}
     paths, failed = {}, []
     t_start = time.monotonic()
-    for name, phase in (
+    phases = (
             ("build", phase_build), ("kernel", phase_kernel),
             ("debug", phase_debug),
             ("sched", phase_sched), ("serve", phase_serve),
@@ -6648,7 +6874,15 @@ def main() -> int:
             ("util", phase_util),
             ("ops", phase_ops),
             ("dash", phase_dash),
-            ("parallel", phase_parallel)):
+            ("parallel", phase_parallel),
+            ("dryrun", phase_dryrun))
+    if args.cards > 1:
+        phases = tuple(p for p in phases
+                       if p[0] in ("build", "parallel", "dryrun"))
+        print(subprocess.run(["nvidia-smi", "topo", "-m"],
+                             capture_output=True, text=True).stdout,
+              flush=True)
+    for name, phase in phases:
         t0 = time.monotonic()
         try:
             routes = phase(report)
@@ -6666,7 +6900,7 @@ def main() -> int:
           f", total {report['total_s']:.1f}", flush=True)
     if failed:
         report["failed"] = failed
-    else:
+    elif args.cards == 1:
         report["kernels"] = _kernel_table(report, paths)
     report.pop("_serve_last_logits", None)
     os.makedirs("chiprun_out", exist_ok=True)
@@ -6676,7 +6910,12 @@ def main() -> int:
         print("chip_smoke: failed phases:\n  " + "\n  ".join(failed),
               file=sys.stderr)
         return 1
-    print(json.dumps({"kernels": report["kernels"]}))
+    if args.cards == 1:
+        print(json.dumps({"kernels": report["kernels"]}))
+    else:
+        print(json.dumps({"parallel_nccl": {
+            "cards": report["parallel"]["mesh"]["cards"],
+            "dryrun": report["dryrun"]["rows"]}}, default=str))
     print(report["card"])
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

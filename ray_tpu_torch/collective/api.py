@@ -119,7 +119,11 @@ def _all_gather(x, group, n: int, dim: Optional[int]):
 
     def run(t):
         out = t.new_empty((n, *t.shape))
-        dist.all_gather(list(out.unbind(0)), t, group=group)
+        if dist.get_backend(group) == "nccl":
+            # one contiguous output, no per-rank views to fill
+            dist.all_gather_into_tensor(out, t, group=group)
+        else:
+            dist.all_gather(list(out.unbind(0)), t, group=group)
         return out
 
     out = _run(x, group, run)

@@ -32,8 +32,7 @@ summed cross entropy over the global token count plus its share of the
 MoE aux loss, divided by the tp ranks and pp stages that compute the
 same value; each collective's backward is its transpose, and the
 gradient of a parameter replicated over an axis is the sum of the
-ranks' along it. What the port does not shard raises: MoE with sp > 1
-or on the pipeline, and MoE groups that straddle dp ranks.
+ranks' along it. MoE on the pipeline raises, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -167,8 +166,8 @@ def _sizes(mesh) -> Dict[str, int]:
 def _check_mesh(cfg: tfm.ModelConfig, mesh, allowed: Tuple[str, ...],
                 sp_strategy: str = "ring") -> None:
     """Raises for a mesh the model cannot take: tp not dividing heads, sp
-    not dividing a rank's heads under Ulysses, MoE with sp > 1, and axes
-    past ``allowed`` with more than one rank."""
+    not dividing a rank's heads under Ulysses, and axes past ``allowed``
+    with more than one rank."""
     sizes = _sizes(mesh)
     tp, sp = sizes.get("tp", 1), sizes.get("sp", 1)
     if cfg.heads % tp:
@@ -176,11 +175,6 @@ def _check_mesh(cfg: tfm.ModelConfig, mesh, allowed: Tuple[str, ...],
     if sp_strategy == "ulysses" and (cfg.heads // tp) % sp:
         raise ValueError(f"ulysses needs sp = {sp} to divide a rank's "
                          f"heads (heads / tp = {cfg.heads // tp})")
-    if cfg.num_experts > 0 and sp > 1:
-        raise NotImplementedError(
-            f"MoE (num_experts > 0) with sp = {sp} is not ported: a "
-            f"rank's tokens must be whole rows for the routing's global "
-            f"order (ROADMAP Queue A item 6)")
     for name, n in sizes.items():
         if n > 1 and name not in allowed:
             raise NotImplementedError(

@@ -16,7 +16,8 @@ auxiliary loss, and remat of each layer through
 functions take a mesh rank's shards of the parameters (heads, mlp
 columns and vocab rows over tp, experts over dp, the hidden axis over dp
 under FSDP) and issue the collectives that GSPMD inserts in the JAX
-package, so that they compute the unsharded model's function.
+package, so that they compute the unsharded model's function (MoE
+groups that span ranks included).
 """
 
 from __future__ import annotations
@@ -221,45 +222,27 @@ def moe_layer(x: torch.Tensor, moe_params: Dict[str, torch.Tensor],
 
     x: [B, S, H] -> ([B, S, H], aux_loss scalar). With
     ``cfg.moe_group_size`` set and dividing B*S, tokens route in
-    independent groups, each under ``torch.utils.checkpoint`` when
-    autograd is on (without it the backward would keep every group's
-    [g, E, C] dispatch residuals live at once); the aux loss is averaged
-    over groups.
+    independent groups of that many consecutive tokens of the row-major
+    [B, S] order, each under ``torch.utils.checkpoint`` when autograd is
+    on (without it the backward would keep every group's [g, E, C]
+    dispatch residuals live at once); the aux loss is averaged over
+    groups.
 
     ``layout`` (a ``parallel.mesh.RankLayout``): x is this rank's
-    [B/dp, S] rows of the global batch, the experts its [E/dp] shard
+    [B/dp, S/sp] window of the global batch, the experts its [E/dp] shard
     (their mlp columns cut over tp), and the layer computes what it
     computes on the global batch: B*S, the grouping, the capacity, the
-    slot positions and the aux loss are the global ones. The aux loss
-    returned is this rank's share of it (the shares sum to it over dp).
-    A group must lie within one rank's rows."""
+    slot positions and the aux loss are the global ones. A group that
+    lies within one of the rank's runs of consecutive tokens (its rows,
+    or under sp its row segments) routes there; otherwise the groups
+    span ranks (``_moe_spread``). The aux loss returned is this rank's
+    share of it (the shares sum to it over dp and sp)."""
     b, s, h = x.shape
     t = b * s
-    dp = layout.dp if layout is not None else 1
-    total = t * dp
+    dp, sp = (layout.dp, layout.sp) if layout is not None else (1, 1)
+    total = t * dp * sp
     g = cfg.moe_group_size
-    xt = x.reshape(t, h)
-    if g and total > g:
-        if total % g == 0:
-            if t % g:
-                raise NotImplementedError(
-                    f"moe_group_size={g} over {dp} dp ranks of {t} tokens: "
-                    f"a group would straddle two ranks (groups that span "
-                    f"ranks are not ported; ROADMAP Queue A item 6)")
-            grad = torch.is_grad_enabled()
-            aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
-            outs = []
-            for xg in xt.split(g):
-                if grad:
-                    out, aux = checkpoint(_moe_tokens, xg, moe_params, cfg,
-                                          layout, False,
-                                          use_reentrant=False)
-                else:
-                    out, aux = _moe_tokens(xg, moe_params, cfg, layout,
-                                           False)
-                outs.append(out)
-                aux_sum = aux_sum + aux
-            return torch.cat(outs).reshape(b, s, h), aux_sum / (total // g)
+    if g and total > g and total % g:
         # dropping the grouping silently would reintroduce the ungrouped
         # [T, E, capacity] dispatch tensors this option exists to prevent
         logging.getLogger(__name__).warning(
@@ -267,51 +250,40 @@ def moe_layer(x: torch.Tensor, moe_params: Dict[str, torch.Tensor],
             "falling back to UNGROUPED routing (dispatch tensors "
             "scale with the full batch — may OOM at large batch)",
             g, total)
-    out, aux = _moe_tokens(xt, moe_params, cfg, layout, dp > 1)
-    return out.reshape(b, s, h), aux / dp
+    group = g if g and total > g and total % g == 0 else total
+    run = s if sp > 1 else t  # consecutive global tokens a rank holds
+    if run % group:
+        return _moe_spread(x, moe_params, cfg, layout, group)
+    xt = x.reshape(t, h)
+    grad = torch.is_grad_enabled() and group < total
+    aux_sum = torch.zeros((), dtype=torch.float32, device=x.device)
+    outs = []
+    for xg in xt.split(group):
+        if grad:
+            out, aux = checkpoint(_moe_tokens, xg, moe_params, cfg, layout,
+                                  use_reentrant=False)
+        else:
+            out, aux = _moe_tokens(xg, moe_params, cfg, layout)
+        outs.append(out)
+        aux_sum = aux_sum + aux
+    return torch.cat(outs).reshape(b, s, h), aux_sum / (total // group)
 
 
-def _moe_tokens(xt: torch.Tensor, moe_params: Dict[str, torch.Tensor],
-                cfg: ModelConfig, layout=None, spread: bool = False
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Route one token set [T, H] -> ([T, H], aux). The router, the
-    dispatch and the combine run in fp32, the experts in ``xt``'s
-    dtype. ``spread``: the token set is this rank's part of one that
-    spans the dp ranks in rank order (ungrouped routing on a mesh), so
-    the capacity, the slot positions and the aux loss's means are over
-    all of it."""
-    t, h = xt.shape
-    e = cfg.num_experts
-    k = cfg.experts_per_token
-    n = t * layout.dp if spread else t
-    cap = max(1, int(cfg.capacity_factor * n * k / e))
-    xf = xt.float()
-    logits = xf @ moe_params["router"]
-    probs = torch.softmax(logits, dim=-1)
+def _route(xt: torch.Tensor, router: torch.Tensor, k: int):
+    """The router in fp32 -> (probs [T, E], top-k gates renormalised
+    [T, k], their experts [T, k])."""
+    probs = torch.softmax(xt.float() @ router, dim=-1)
     gate_vals, gate_idx = torch.topk(probs, k, dim=-1)      # [T, k]
     gate_vals = gate_vals / torch.clamp(
         gate_vals.sum(-1, keepdim=True), min=1e-9)
-    # load-balancing auxiliary loss (Switch Transformer eq. 4)
-    if spread:
-        me = layout.psum(probs.sum(dim=0), "dp") / n
-    else:
-        me = probs.mean(dim=0)
-    ce = torch.zeros(e, dtype=torch.float32, device=xt.device).index_add(
-        0, gate_idx.reshape(-1),
-        torch.full((t * k,), 1.0 / (n * k), device=xt.device))
-    if spread:
-        ce = layout.psum(ce, "dp")
-    aux = e * torch.sum(me * ce)
-    # position of each (token, choice) within its expert's capacity:
-    # choice 0 of token t counts before its choice 1
-    onehot = F.one_hot(gate_idx, e).float()                 # [T, k, E]
-    flat = onehot.reshape(t * k, e)
-    pos = torch.cumsum(flat, dim=0) - flat
-    if spread:  # behind the choices of the ranks before this one
-        counts = layout.stack(flat.sum(dim=0), "dp")        # [dp, E]
-        pos = pos + counts[:layout.dp_rank].sum(dim=0)
-    pos = pos.reshape(t, k, e)
-    within = (pos * onehot).sum(-1)                         # [T, k]
+    return probs, gate_vals, gate_idx
+
+
+def _dispatch(xt: torch.Tensor, onehot: torch.Tensor,
+              gate_vals: torch.Tensor, within: torch.Tensor, cap: int):
+    """(expert_in [E, C, H] in xt's dtype, combine [T, E, C] fp32) of
+    tokens xt [T, H] whose (token, choice) pairs take slot ``within`` of
+    their expert's ``cap``; a pair past the capacity is dropped."""
     keep = within < cap
     gate_vals = gate_vals * keep
     pos_onehot = F.one_hot(
@@ -325,40 +297,170 @@ def _moe_tokens(xt: torch.Tensor, moe_params: Dict[str, torch.Tensor],
                             pos_onehot)
     combine = torch.einsum("tke,tkc->tec", onehot * gate_vals[..., None],
                            pos_onehot)
-    expert_in = torch.einsum("tec,th->ech", dispatch, xf).to(xt.dtype)
+    expert_in = torch.einsum("tec,th->ech", dispatch,
+                             xt.float()).to(xt.dtype)
+    return expert_in, combine
+
+
+def _combine(combine: torch.Tensor, expert_out: torch.Tensor,
+             dtype: torch.dtype) -> torch.Tensor:
+    return torch.einsum("tec,ech->th", combine,
+                        expert_out.float()).to(dtype)
+
+
+def _moe_tokens(xt: torch.Tensor, moe_params: Dict[str, torch.Tensor],
+                cfg: ModelConfig, layout=None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Route one token set [T, H] that lies on this rank -> ([T, H],
+    aux). The router, the dispatch and the combine run in fp32, the
+    experts in ``xt``'s dtype."""
+    t, h = xt.shape
+    e = cfg.num_experts
+    k = cfg.experts_per_token
+    cap = max(1, int(cfg.capacity_factor * t * k / e))
+    probs, gate_vals, gate_idx = _route(xt, moe_params["router"], k)
+    # load-balancing auxiliary loss (Switch Transformer eq. 4)
+    me = probs.mean(dim=0)
+    ce = torch.zeros(e, dtype=torch.float32, device=xt.device).index_add(
+        0, gate_idx.reshape(-1),
+        torch.full((t * k,), 1.0 / (t * k), device=xt.device))
+    aux = e * torch.sum(me * ce)
+    # position of each (token, choice) within its expert's capacity:
+    # choice 0 of token t counts before its choice 1
+    onehot = F.one_hot(gate_idx, e).float()                 # [T, k, E]
+    flat = onehot.reshape(t * k, e)
+    pos = (torch.cumsum(flat, dim=0) - flat).reshape(t, k, e)
+    within = (pos * onehot).sum(-1)                         # [T, k]
+    expert_in, combine = _dispatch(xt, onehot, gate_vals, within, cap)
     if layout is None:
         # SwiGLU per expert: batched over E by the stacked expert weights
         expert_out = swiglu(expert_in, moe_params["w_gate"],
                             moe_params["w_up"],
                             moe_params["w_down"])           # [E, C, H]
     else:
-        expert_out = _experts_on_mesh(expert_in, moe_params, layout, spread)
-    out = torch.einsum("tec,ech->th", combine,
-                       expert_out.float()).to(xt.dtype)
-    return out, aux
+        expert_out = _experts_on_mesh(expert_in, moe_params, layout)
+    return _combine(combine, expert_out, xt.dtype), aux
 
 
 def _experts_on_mesh(expert_in: torch.Tensor,
-                     moe_params: Dict[str, torch.Tensor], layout,
-                     spread: bool) -> torch.Tensor:
-    """The experts' SwiGLU on [E, C, H] slots when each dp rank holds
-    E/dp experts (their mlp columns cut over tp): the slots go to their
-    expert's rank and the outputs come back. Spread slots are filled by
-    at most one token across the ranks, so their sum over dp is exact,
-    in any dtype; a rank's own groups' slots are swapped all-to-all."""
-    if layout.dp > 1 and spread:
-        x = layout.reduce_scatter(expert_in, "dp")        # [E/dp, C, H]
-    elif layout.dp > 1:
-        x = layout.alltoall(expert_in, "dp", 0, 1)        # [E/dp, dp*C, H]
-    else:
-        x = expert_in
+                     moe_params: Dict[str, torch.Tensor], layout
+                     ) -> torch.Tensor:
+    """The experts' SwiGLU on a rank's own [E, C, H] slots when each dp
+    rank holds E/dp experts (their mlp columns cut over tp): the slots
+    are swapped all-to-all over dp to their expert's rank and the
+    outputs swapped back."""
+    x = expert_in
+    if layout.dp > 1:
+        x = layout.alltoall(x, "dp", 0, 1)                # [E/dp, dp*C, H]
     y = layout.psum(swiglu(x, moe_params["w_gate"], moe_params["w_up"],
                            moe_params["w_down"]), "tp")
-    if layout.dp > 1 and spread:
-        return layout.gather(y, "dp", 0)
     if layout.dp > 1:
         return layout.alltoall(y, "dp", 1, 0)
     return y
+
+
+def _moe_spread(x: torch.Tensor, moe_params: Dict[str, torch.Tensor],
+                cfg: ModelConfig, layout, group: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``moe_layer`` on a mesh when its groups of ``group`` consecutive
+    tokens of the global row-major [B, S] order span ranks (every token
+    in one group when the routing is ungrouped). A rank (d, s) holds rows
+    d·B/dp… and columns s·S/sp… of that order, so a group's tokens may lie
+    on ranks of both axes; the tokens stay where they are and the group
+    is routed from counts:
+
+      - the slot of a (token, choice) is the count of its expert among
+        the group's earlier tokens: the per-expert counts of every
+        earlier row segment (gathered over dp and sp, in the global
+        order), plus the earlier tokens of its own segment, less the
+        count at the group's first token (taken from the rank that holds
+        it, summed over the ranks);
+      - the capacity comes from the group size; the aux loss's means are
+        each group's, summed over the ranks; the rank returns its
+        1/(dp·sp) share of their average;
+      - a group's slots are filled by at most one token across the
+        ranks, so summing the ranks' [E, C, H] slots (over sp, then a
+        reduce-scatter to the experts' dp rank) is exact, in any dtype;
+        the expert outputs are gathered back over dp and each rank
+        combines its own tokens.
+
+    Every rank steps through every group in order (a rank holding none
+    of a group's tokens adds zeros), so all build the same graph and
+    issue the same collectives, each group under ``checkpoint`` when
+    grouped and autograd is on; the backward of each collective is its
+    transpose."""
+    b, s, h = x.shape
+    t = b * s
+    e, k = cfg.num_experts, cfg.experts_per_token
+    dp, sp = layout.dp, layout.sp
+    total = t * dp * sp
+    n_groups = total // group
+    cap = max(1, int(cfg.capacity_factor * group * k / e))
+    xt = x.reshape(t, h)
+    dev = x.device
+    probs, gate_vals, gate_idx = _route(xt, moe_params["router"], k)
+    onehot = F.one_hot(gate_idx, e).float()                 # [T, k, E]
+    rows = layout.dp_rank * b + torch.arange(b, device=dev)
+    index = (rows[:, None] * (s * sp) + layout.sp_rank * s
+             + torch.arange(s, device=dev)[None]).reshape(t)
+    gid = index // group  # non-decreasing: a group's tokens are a run
+    with torch.no_grad():
+        within = _spread_slots(onehot, index, gid, b, s, n_groups, group,
+                               layout)
+        ce = layout.psum_data(torch.zeros(
+            (n_groups, e), device=dev).index_add(0, gid, onehot.sum(1)))
+    # load-balancing auxiliary loss (Switch Transformer eq. 4), per group
+    me = layout.psum_data(torch.zeros(
+        (n_groups, e), device=dev).index_add(0, gid, probs)) / group
+    aux = e * (me * ce / (group * k)).sum(-1).mean()
+    sizes = torch.bincount(gid, minlength=n_groups).tolist()
+    grad = torch.is_grad_enabled() and group < total
+    outs = []
+    for part in zip(xt.split(sizes), onehot.split(sizes),
+                    gate_vals.split(sizes), within.split(sizes)):
+        if grad:
+            outs.append(checkpoint(_spread_group, *part, cap, moe_params,
+                                   layout, use_reentrant=False))
+        else:
+            outs.append(_spread_group(*part, cap, moe_params, layout))
+    return torch.cat(outs).reshape(b, s, h), aux / (dp * sp)
+
+
+def _spread_slots(onehot: torch.Tensor, index: torch.Tensor,
+                  gid: torch.Tensor, b: int, s: int, n_groups: int,
+                  group: int, layout) -> torch.Tensor:
+    """The slot [T, k] of each local (token, choice) within its group
+    (``_moe_spread``): counts are exact in fp32 below 2^24."""
+    t, _, e = onehot.shape
+    per_token = onehot.sum(1).reshape(b, s, e)
+    every = layout.stack_data(per_token.sum(1))             # [dp, sp, b, E]
+    segments = every.permute(0, 2, 1, 3).reshape(-1, e)     # global order
+    before = (segments.cumsum(0) - segments).reshape(
+        layout.dp, b, layout.sp, e)[layout.dp_rank, :, layout.sp_rank]
+    count = (per_token.cumsum(1) - per_token
+             + before[:, None]).reshape(t, e)  # each earlier token's
+    first = index % group == 0
+    starts = layout.psum_data(torch.zeros(
+        (n_groups, e), device=onehot.device).index_add(
+            0, gid[first], count[first]))
+    return ((count - starts[gid])[:, None, :] * onehot).sum(-1)
+
+
+def _spread_group(xg: torch.Tensor, onehot: torch.Tensor,
+                  gate_vals: torch.Tensor, within: torch.Tensor, cap: int,
+                  moe_params: Dict[str, torch.Tensor], layout
+                  ) -> torch.Tensor:
+    """One group of ``_moe_spread`` through the experts -> this rank's
+    tokens' outputs [T_g, H] (T_g may be 0)."""
+    expert_in, combine = _dispatch(xg, onehot, gate_vals, within, cap)
+    slots = layout.psum(expert_in, "sp")
+    if layout.dp > 1:
+        slots = layout.reduce_scatter(slots, "dp")        # [E/dp, C, H]
+    y = layout.psum(swiglu(slots, moe_params["w_gate"], moe_params["w_up"],
+                           moe_params["w_down"]), "tp")
+    if layout.dp > 1:
+        y = layout.gather(y, "dp", 0)
+    return _combine(combine, y, xg.dtype)
 
 
 # -- transformer block -------------------------------------------------------

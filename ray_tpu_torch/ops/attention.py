@@ -44,13 +44,15 @@ _NEG_INF = -1e30
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # one nvcc per source, all started together, then one link: the padded
-# wgmma, mma.sync and FMA routes are instantiated at every padded head dim
+# wgmma, mma.sync and FMA routes are instantiated at every padded head
+# dim up to 256, the chunked route past it is one kernel per dtype
 _SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu",
             "flash_attn_fwd_padded.cu", "flash_attn_bwd_dq_padded.cu",
             "flash_attn_bwd_dkdv_padded.cu",
             "flash_attn_fwd_mma.cu", "flash_attn_fwd_fma.cu",
             "flash_attn_bwd_dq_mma.cu", "flash_attn_bwd_dkdv_mma.cu",
-            "flash_attn_bwd_fma.cu")
+            "flash_attn_bwd_fma.cu", "flash_attn_dchunk.cu",
+            "flash_attn_dchunk_fma.cu")
 _HEADERS = ("flash_attn_common.cuh", "flash_attn_routes.cuh",
             "flash_attn_bwd_dq_ws.cuh", "hopper_common.cuh")
 # kernel builds land here (listed in .gitignore), keyed by source digest
@@ -59,10 +61,10 @@ _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
 NVCC_FLAGS = (_ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
               "-Xptxas=-v")
 
-# head dims 1..MAX_HEAD_DIM take a kernel; past it the 64-row tile rings
-# and fp32 slabs of a block do not fit the H100's 227 KB of shared memory
-# (the JAX package has no configuration above 256)
-MAX_HEAD_DIM = 256
+# the widest head dim of the per-head-dim routes; past it the 64-row tile
+# rings and fp32 slabs of a block do not fit the H100's 227 KB of shared
+# memory at full width, and the chunked route takes over
+DCHUNK_PAST = 256
 _WGMMA_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -86,11 +88,17 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #          % 8 != 0 or under 64) -- mma.sync tiles, instantiated at the
 #          head dim rounded up to 16;
 #   FMA: float32, all three, at every head_dim up to 256 -- exact FMAs on
-#          the CUDA cores, instantiated at the head dim rounded up to 32.
+#          the CUDA cores, instantiated at the head dim rounded up to 32;
+#   DCHUNK: bf16 (mma.sync) and float32 (FMA), all three, at every head_dim
+#          past 256 with no upper bound -- the head dim cut into 64-column
+#          chunks, a block per (tile, output chunk) that recomputes S (and
+#          dP) over every chunk and accumulates its own chunk of the
+#          output (csrc/flash_attn_dchunk.cu, flash_attn_dchunk_fma.cu).
 WGMMA = "wgmma_tma_ws"
 WGMMA_PADDED = "wgmma_tma_ws_padded"
 MMA_SYNC = "mma_sync"
 FMA = "fma_f32"
+DCHUNK = "dchunk"
 _KERNELS = ("fwd", "dq", "dkdv")
 # the flat lse/delta rows K3's tensor map walks are indexed in int32
 _MAX_ROWS = 2**31 - 1
@@ -108,12 +116,10 @@ def kernel_route(kernel: str, dtype: torch.dtype, head_dim: int) -> str:
     if dtype not in _DTYPE_CODES:
         raise TypeError(f"the CUDA flash_attention kernels take bfloat16 or "
                         f"float32; got {dtype}")
-    if not 1 <= head_dim <= MAX_HEAD_DIM:
-        raise ValueError(
-            f"the CUDA flash_attention kernels take head_dim 1..."
-            f"{MAX_HEAD_DIM}; got {head_dim} (past {MAX_HEAD_DIM} the "
-            f"64-row tile rings of a block do not fit the H100's 227 KB of "
-            f"shared memory)")
+    if head_dim < 1:
+        raise ValueError(f"head_dim must be at least 1; got {head_dim}")
+    if head_dim > DCHUNK_PAST:
+        return DCHUNK
     if dtype == torch.float32:
         return FMA
     if head_dim in _WGMMA_HEAD_DIMS:
@@ -126,7 +132,7 @@ def kernel_route(kernel: str, dtype: torch.dtype, head_dim: int) -> str:
 def wgmma_padded_head_dim(head_dim: int) -> bool:
     """The bf16 head dims K1, K2 and K3 take on WGMMA_PADDED
     (``rtt::wgmma_padded_head_dim`` in csrc/flash_attn_routes.cuh)."""
-    return (head_dim % 8 == 0 and 64 < head_dim <= MAX_HEAD_DIM
+    return (head_dim % 8 == 0 and 64 < head_dim <= DCHUNK_PAST
             and head_dim not in _WGMMA_HEAD_DIMS)
 
 

@@ -122,8 +122,12 @@
 //   - fp32, every head_dim 1..256: exact FMAs on the CUDA cores (the
 //     tensor cores would round to tf32), warps of 8 rows, the forward's
 //     fp32 layout (flash_attn_bwd_fma.cu).
-//   Past 256 no route is built (the tile rings of a block no longer fit
-//   its 227 KB of shared memory).
+//   - K2 and K3 in bf16 and fp32 past 256 (route "dchunk"): the tile
+//     rings of a block no longer fit its 227 KB of shared memory at full
+//     width, so the head dim is cut into 64-column chunks and a block owns
+//     one chunk of dq (K2: q tile) or of dk and dv (K3: key tile),
+//     recomputing p and ds over every chunk (flash_attn_dchunk.cu on
+//     mma.sync, flash_attn_dchunk_fma.cu on FMAs).
 // Causal tiles are skipped by the loop bounds; ragged edges are masked
 // in the kernels (rows past the sequence load as zeros and are never
 // written), Sq != Sk takes top-left causal alignment as the forward does.
@@ -441,6 +445,12 @@ extern "C" int rtt_flash_attn_bwd_dq(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
+  if (rtt::dchunk_head_dim(D) && dtype == 0)
+    return rtt::bwd_dq_dchunk_fma(q, k, v, dout, l, dl, dq, B, H, Sq, Sk, D,
+                                  causal, scale, s);
+  if (rtt::dchunk_head_dim(D) && dtype == 1)
+    return rtt::bwd_dq_dchunk_mma(q, k, v, dout, l, dl, dq, B, H, Sq, Sk, D,
+                                  causal, scale, s);
   if (dtype == 0)
     return rtt::bwd_dq_fma(q, k, v, dout, l, dl, dq, B, H, Sq, Sk, D, causal,
                            scale, s);
@@ -474,6 +484,12 @@ extern "C" int rtt_flash_attn_bwd_dkdv(const void* q, const void* k,
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* l = static_cast<const float*>(lse);
   const float* dl = static_cast<const float*>(delta);
+  if (rtt::dchunk_head_dim(D) && dtype == 0)
+    return rtt::bwd_dkdv_dchunk_fma(q, k, v, dout, l, dl, dk, dv, B, H, Sq,
+                                    Sk, D, causal, scale, s);
+  if (rtt::dchunk_head_dim(D) && dtype == 1)
+    return rtt::bwd_dkdv_dchunk_mma(q, k, v, dout, l, dl, dk, dv, B, H, Sq,
+                                    Sk, D, causal, scale, s);
   if (dtype == 0)
     return rtt::bwd_dkdv_fma(q, k, v, dout, l, dl, dk, dv, B, H, Sq, Sk, D,
                              causal, scale, s);

@@ -19,7 +19,7 @@
 
 namespace {
 
-constexpr int ROWS_PER_WARP = 8;
+constexpr int ROWS_PER_WARP = FMA_ROWS;
 constexpr size_t MAX_SMEM = 232448;  // bytes a block may have on sm_90
 
 constexpr size_t smem_bytes(int DP, int TILE, bool dkdv) {
@@ -32,55 +32,6 @@ constexpr size_t smem_bytes(int DP, int TILE, bool dkdv) {
 
 constexpr int tile_rows(int DP, bool dkdv) {
   return smem_bytes(DP, 64, dkdv) <= MAX_SMEM ? 64 : 32;
-}
-
-// rows x columns (lane + 32 j) dot products of two row sets sharing the
-// head dim: out[r][j] = A[r0 + r] . B[lane + 32 j]
-template <int DP, int NC>
-__device__ __forceinline__ void row_dots(float (&out)[ROWS_PER_WARP][NC],
-                                         const float* A, int r0,
-                                         const float* B, int lane) {
-  constexpr int LD = DP + PAD;
-#pragma unroll 4
-  for (int c = 0; c < DP; c += 4) {
-    float4 bv[NC];
-#pragma unroll
-    for (int j = 0; j < NC; ++j) bv[j] = ld4(B + (lane + 32 * j) * LD + c);
-#pragma unroll
-    for (int r = 0; r < ROWS_PER_WARP; ++r) {
-      const float4 x = ld4(A + (r0 + r) * LD + c);
-#pragma unroll
-      for (int j = 0; j < NC; ++j) {
-        out[r][j] = fmaf(x.x, bv[j].x, out[r][j]);
-        out[r][j] = fmaf(x.y, bv[j].y, out[r][j]);
-        out[r][j] = fmaf(x.z, bv[j].z, out[r][j]);
-        out[r][j] = fmaf(x.w, bv[j].w, out[r][j]);
-      }
-    }
-  }
-}
-
-// acc[r][i] += sum_j W[r][j] * X[j][lane*DPL + i] over a TILE-wide slab W
-// (this warp's rows) and a row set X
-template <int DP, int TILE>
-__device__ __forceinline__ void slab_product(
-    float (&acc)[ROWS_PER_WARP][DP / 32], const float* W, const float* X,
-    int lane) {
-  constexpr int LD = DP + PAD;
-  constexpr int DPL = DP / 32;
-#pragma unroll 2
-  for (int j = 0; j < TILE; ++j) {
-    const float* x = X + j * LD + lane * DPL;
-    float xv[DPL];
-#pragma unroll
-    for (int i = 0; i < DPL; ++i) xv[i] = x[i];
-#pragma unroll
-    for (int r = 0; r < ROWS_PER_WARP; ++r) {
-      const float w = W[r * TILE + j];
-#pragma unroll
-      for (int i = 0; i < DPL; ++i) acc[r][i] = fmaf(w, xv[i], acc[r][i]);
-    }
-  }
 }
 
 template <int DP, int TILE>

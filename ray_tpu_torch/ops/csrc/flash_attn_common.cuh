@@ -236,6 +236,60 @@ __device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
   }
 }
 
+// The FMA routes' two products, for warps of FMA_ROWS rows over fp32 row
+// tiles of DP + PAD floats in shared memory (flash_attn_bwd_fma.cu, and
+// every kernel of flash_attn_dchunk_fma.cu at DP 64).
+constexpr int FMA_ROWS = 8;
+
+// rows x columns (lane + 32 j) dot products of two row sets sharing the
+// head dim: out[r][j] += A[r0 + r] . B[lane + 32 j]
+template <int DP, int NC>
+__device__ __forceinline__ void row_dots(float (&out)[FMA_ROWS][NC],
+                                         const float* A, int r0,
+                                         const float* B, int lane) {
+  constexpr int LD = DP + PAD;
+#pragma unroll 4
+  for (int c = 0; c < DP; c += 4) {
+    float4 bv[NC];
+#pragma unroll
+    for (int j = 0; j < NC; ++j) bv[j] = ld4(B + (lane + 32 * j) * LD + c);
+#pragma unroll
+    for (int r = 0; r < FMA_ROWS; ++r) {
+      const float4 x = ld4(A + (r0 + r) * LD + c);
+#pragma unroll
+      for (int j = 0; j < NC; ++j) {
+        out[r][j] = fmaf(x.x, bv[j].x, out[r][j]);
+        out[r][j] = fmaf(x.y, bv[j].y, out[r][j]);
+        out[r][j] = fmaf(x.z, bv[j].z, out[r][j]);
+        out[r][j] = fmaf(x.w, bv[j].w, out[r][j]);
+      }
+    }
+  }
+}
+
+// acc[r][i] += sum_j W[r][j] * X[j][lane*DPL + i] over a TILE-wide slab W
+// (this warp's rows) and a row set X
+template <int DP, int TILE>
+__device__ __forceinline__ void slab_product(
+    float (&acc)[FMA_ROWS][DP / 32], const float* W, const float* X,
+    int lane) {
+  constexpr int LD = DP + PAD;
+  constexpr int DPL = DP / 32;
+#pragma unroll 2
+  for (int j = 0; j < TILE; ++j) {
+    const float* x = X + j * LD + lane * DPL;
+    float xv[DPL];
+#pragma unroll
+    for (int i = 0; i < DPL; ++i) xv[i] = x[i];
+#pragma unroll
+    for (int r = 0; r < FMA_ROWS; ++r) {
+      const float w = W[r * TILE + j];
+#pragma unroll
+      for (int i = 0; i < DPL; ++i) acc[r][i] = fmaf(w, xv[i], acc[r][i]);
+    }
+  }
+}
+
 // columns c and c + 1 (c even) of a bf16 row of D values: one 4-byte
 // store when D is even (the row then starts 4-byte aligned), else one
 // element at a time; columns past D are dropped

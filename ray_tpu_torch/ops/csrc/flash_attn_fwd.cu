@@ -57,7 +57,11 @@
 //     under the 128-byte swizzle box the wgmma routes are built on, and
 //     TMA needs a row stride of a multiple of 16 bytes;
 //   - fp32, every head_dim 1..256: exact fp32 FMAs on the CUDA cores in
-//     flash_attn_fwd_fma.cu (the tensor cores would round fp32 to tf32).
+//     flash_attn_fwd_fma.cu (the tensor cores would round fp32 to tf32);
+//   - bf16 and fp32, every head_dim past 256 (route "dchunk"): the head
+//     dim cut into 64-column chunks, a block per (q tile, output chunk)
+//     recomputing S over every chunk (flash_attn_dchunk.cu on mma.sync,
+//     flash_attn_dchunk_fma.cu on FMAs).
 //   Past 256 no route is built: the 64-row K/V tile rings and the fp32
 //   slabs of a block no longer fit the 227 KB of shared memory it may
 //   have (the JAX package has no configuration above 256).
@@ -348,6 +352,12 @@ extern "C" int rtt_flash_attn_fwd(const void* q, const void* k,
   if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0) return cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* lse_f = static_cast<float*>(lse);
+  if (rtt::dchunk_head_dim(D) && dtype == 0)
+    return rtt::fwd_dchunk_fma(q, k, v, out, lse_f, B, H, Sq, Sk, D, causal,
+                               scale, s);
+  if (rtt::dchunk_head_dim(D) && dtype == 1)
+    return rtt::fwd_dchunk_mma(q, k, v, out, lse_f, B, H, Sq, Sk, D, causal,
+                               scale, s);
   if (dtype == 0)
     return rtt::fwd_fma(q, k, v, out, lse_f, B, H, Sq, Sk, D, causal, scale,
                         s);

@@ -179,8 +179,8 @@ def local_shard(x: torch.Tensor, placements: tuple, mesh) -> torch.Tensor:
 
 @dataclass(frozen=True)
 class RankLayout:
-    """What the model's layers need of a mesh: the dp and tp sizes, this
-    rank's place along each, whether the parameters' hidden axis is
+    """What the model's layers need of a mesh: the dp, tp and sp sizes,
+    this rank's place along each, whether the parameters' hidden axis is
     sharded over dp (FSDP), and the collectives over those axes that the
     layers call. Each collective binds the mesh itself, so a
     checkpointed layer's recompute (in autograd's thread) finds it.
@@ -192,14 +192,17 @@ class RankLayout:
     tp: int = 1
     tp_rank: int = 0
     fsdp: bool = False
+    sp: int = 1
+    sp_rank: int = 0
 
     @classmethod
     def of(cls, mesh, fsdp: bool = False) -> "RankLayout":
         sizes = dict(zip(mesh.mesh_dim_names, mesh.shape))
-        dp, tp = sizes.get("dp", 1), sizes.get("tp", 1)
+        dp, tp, sp = (sizes.get(a, 1) for a in ("dp", "tp", "sp"))
         return cls(mesh, dp, mesh.get_local_rank("dp") if dp > 1 else 0,
                    tp, mesh.get_local_rank("tp") if tp > 1 else 0,
-                   fsdp and dp > 1)
+                   fsdp and dp > 1, sp,
+                   mesh.get_local_rank("sp") if sp > 1 else 0)
 
     def psum(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """``x`` summed over ``axis`` (differentiable; as is when the
@@ -233,10 +236,21 @@ class RankLayout:
 
     def stack(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """The ranks' ``x`` along ``axis`` stacked on a new leading dim."""
+        if self._size(axis) == 1:
+            return x[None]
         from ray_tpu_torch.collective.api import ici
 
         with shard_map(self.mesh):
             return ici.allgather(x, axis)
+
+    def stack_data(self, x: torch.Tensor) -> torch.Tensor:
+        """The ranks' ``x`` over the data axes, [dp, sp, ...] in rank
+        order."""
+        return self.stack(self.stack(x, "sp"), "dp")
+
+    def psum_data(self, x: torch.Tensor) -> torch.Tensor:
+        """``x`` summed over the data axes, dp and sp."""
+        return self.psum(self.psum(x, "sp"), "dp")
 
     def reduce_scatter(self, x: torch.Tensor, axis: str) -> torch.Tensor:
         """The sum over ``axis``, this rank's chunk of dim 0; its
@@ -254,7 +268,7 @@ class RankLayout:
             return ici.alltoall(x, axis, split, concat)
 
     def _size(self, axis: str) -> int:
-        return {"dp": self.dp, "tp": self.tp}[axis]
+        return {"dp": self.dp, "tp": self.tp, "sp": self.sp}[axis]
 
 
 # -- the counterpart of shard_map --------------------------------------------

@@ -13,9 +13,11 @@ tensor/sequence-parallel axes within a node.
 
 ``RankPool`` is the port's own: it starts N ranks of one host as
 spawned processes that join one group and run functions on request, the
-job a cluster launcher does for ``jax.distributed``'s hosts. With gloo
-and one card, four ranks can share ``cuda:0`` (NCCL refuses two ranks on
-one device; ``initialize`` checks that before NCCL starts).
+job a cluster launcher does for ``jax.distributed``'s hosts. Over NCCL
+each rank takes a card of its own (``cuda_device="per_rank"``: rank r on
+card r), the counterpart of a JAX mesh's n chips. With gloo and one card,
+four ranks can share ``cuda:0`` (NCCL refuses two ranks on one device;
+``initialize`` checks that before NCCL starts).
 """
 
 from __future__ import annotations
@@ -233,6 +235,39 @@ def _rank_main(rank: int, world: int, init_method: str, backend: str,
             dist.destroy_process_group()
 
 
+def rank_devices(world: int, cuda_device) -> List[Optional[int]]:
+    """The card each of ``world`` ranks sets before it joins: None (no
+    ``set_device``), one index for every rank, or ``"per_rank"`` (rank r
+    on card r)."""
+    if cuda_device == "per_rank":
+        return list(range(world))
+    if cuda_device is None or isinstance(cuda_device, int):
+        return [cuda_device] * world
+    raise ValueError(f"cuda_device must be None, a card index or "
+                     f"'per_rank'; got {cuda_device!r}")
+
+
+def check_cards(world: int, devices: Sequence[Optional[int]],
+                backend: Optional[str]) -> None:
+    """Raises, before any rank starts, when the cards the ranks name are
+    not all visible, naming both counts when NCCL ranks have a card of
+    their own each."""
+    named = [d for d in devices if d is not None]
+    if not named:
+        return
+    import torch
+
+    visible = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    per_rank = len(set(named)) == world
+    if (backend or "nccl") == "nccl" and per_rank and visible < world:
+        raise RuntimeError(
+            f"NCCL with one card a rank: {world} ranks need {world} "
+            f"visible CUDA cards, {visible} visible")
+    if max(named) >= visible:
+        raise RuntimeError(f"the ranks name card {max(named)}; {visible} "
+                           f"visible CUDA cards")
+
+
 class RankPool:
     """``world`` ranks of this host as spawned processes in one process
     group; ``run(fn, *args)`` calls ``fn(*args)`` on every rank and
@@ -242,19 +277,21 @@ class RankPool:
     ``cloudpickle.register_pickle_by_value`` names, or of ``__main__``,
     travels by value). The group rendezvous in a file of a temporary
     directory, so pools never race for a port. ``cuda_device``: each
-    rank's ``torch.cuda.set_device`` before it joins. The ranks split
-    the host's cores for their intra-op threads. ``env``: set in
-    each rank before it joins. A rank that raises, or no answer within
-    ``timeout_s``, ends every rank and raises here; the next ``run``
-    starts them anew."""
+    rank's ``torch.cuda.set_device`` before it joins: one card for all,
+    or ``"per_rank"`` (rank r on card r: NCCL's one rank a card); cards
+    the host does not show raise before any rank starts
+    (``check_cards``). The ranks split the host's cores for their
+    intra-op threads. ``env``: set in each rank before it joins. A rank
+    that raises, or no answer within ``timeout_s``, ends every rank and
+    raises here; the next ``run`` starts them anew."""
 
     def __init__(self, world: int, *, backend: Optional[str] = None,
-                 cuda_device: Optional[int] = None,
+                 cuda_device=None,
                  env: Optional[Dict[str, str]] = None,
                  timeout_s: float = 600.0):
         self.world = world
         self.backend = backend
-        self.cuda_device = cuda_device
+        self.devices = rank_devices(world, cuda_device)
         self.env = dict(env or {})
         self.timeout_s = timeout_s
         self._procs: List[Any] = []
@@ -266,6 +303,7 @@ class RankPool:
 
         if self._procs:
             return self
+        check_cards(self.world, self.devices, self.backend)
         ctx = multiprocessing.get_context("spawn")
         self._dir = tempfile.mkdtemp(prefix="ray_tpu_torch_ranks_")
         init = f"file://{os.path.join(self._dir, 'store')}"
@@ -274,7 +312,7 @@ class RankPool:
             proc = ctx.Process(
                 target=_rank_main, daemon=True,
                 args=(rank, self.world, init, self.backend,
-                      self.cuda_device, self.env, child))
+                      self.devices[rank], self.env, child))
             proc.start()
             child.close()
             self._procs.append(proc)

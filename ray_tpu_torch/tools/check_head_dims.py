@@ -1,6 +1,6 @@
 """K1, K2 and K3 at head dims off the wgmma route's 64 and 128, against
 their plain versions: the short first call after the padded wgmma,
-mma.sync or FMA kernels change.
+mma.sync, FMA or chunked (past 256) kernels change.
 
     python3 -m ray_tpu_torch.tools.check_head_dims
 
@@ -35,8 +35,13 @@ import time
 # padding by 24) -- and the debug configs' 16
 CASES = [
     ("bfloat16", (1, 8, 16, 20, 24, 32, 40, 48, 72, 80, 96, 100, 112, 136,
-                  160, 176, 192, 200, 224, 250, 256)),
-    ("float32", (1, 3, 16, 20, 33, 64, 100, 128, 160, 161, 192, 224, 256)),
+                  160, 176, 192, 200, 224, 250, 256,
+                  # the chunked route past 256: a last chunk of one column
+                  # (element-wise rows), of 8, of 44 (D % 8 == 4), whole
+                  # chunks, and nine of them
+                  257, 264, 300, 320, 512, 576)),
+    ("float32", (1, 3, 16, 20, 33, 64, 100, 128, 160, 161, 192, 224, 256,
+                 257, 264, 300, 320, 512)),
 ]
 SHAPE = (2, 300, 237, 3)  # B, Sq, Sk, H
 # chip_smoke.py's KERNEL_TOL and BWD_TOL, (atol, rtol)
@@ -55,6 +60,8 @@ def ptxas_summary(log: str) -> dict:
         elif name and ("mma_kernel" in name or "f32_kernel" in name):
             if "Used" in ln and "registers" in ln:
                 route = "mma" if "mma_kernel" in name else "fma"
+                if "dchunk" in name:
+                    route = f"dchunk_{route}"
                 regs = int(ln.split("Used")[1].split()[0])
                 most[route] = max(most.get(route, 0), regs)
             elif "spill stores" in ln and not ln.strip().startswith(

@@ -197,6 +197,44 @@ def test_blockwise_fwd_bwd_match_jax_at_head_dims_off_64_and_128(d, causal):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), **GRAD_TOL)
 
 
+# bf16 out and grads: both sides accumulate in fp32 and round once to
+# bf16, so they differ by up to a bf16 step (2^-8 relative) of values up to
+# a few in magnitude; the lse stays fp32 on both
+BF16_TOL = dict(atol=2e-2, rtol=2e-2)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [264, 320, 512])
+def test_flash_attention_past_head_dim_256_matches_jax(d, dtype):
+    """The plain versions the chunked kernels (route "dchunk") are held
+    against on the card take every head dim past 256: the port's
+    flash_attention on the CPU, forward and grads, against the JAX
+    package's flash_attention and jax.grad at [1, 128, 2, D] causal (the
+    JAX blockwise path here)."""
+    import jax
+
+    rng = np.random.default_rng(d)
+    q, k, v, g = (rng.standard_normal((1, 128, 2, d)).astype(np.float32)
+                  for _ in range(4))
+    jdt, tdt = getattr(jnp, dtype), getattr(torch, dtype)
+    jq, jk, jv = (jnp.asarray(x, jdt) for x in (q, k, v))
+    j_out, vjp = jax.vjp(lambda a, b, c: A.flash_attention(a, b, c, True),
+                         jq, jk, jv)
+    j_grads = vjp(jnp.asarray(g, jdt))
+    tq, tk, tv = (torch.from_numpy(x).to(tdt).requires_grad_()
+                  for x in (q, k, v))
+    out = T.flash_attention(tq, tk, tv, causal=True)
+    out.backward(torch.from_numpy(g).to(tdt))
+    tol = TOL if dtype == "float32" else BF16_TOL
+    gtol = GRAD_TOL if dtype == "float32" else BF16_TOL
+    assert out.dtype == tdt and T.kernel_route("fwd", tdt, d) == T.DCHUNK
+    np.testing.assert_allclose(out.detach().float().numpy(),
+                               np.asarray(j_out, np.float32), **tol)
+    for got, want in zip((tq.grad, tk.grad, tv.grad), j_grads):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), **gtol)
+
+
 @pytest.mark.parametrize("causal", [False, True])
 @pytest.mark.parametrize("d", [64, 128])
 def test_bwd_matches_pallas_kernels_interpret(causal, d):

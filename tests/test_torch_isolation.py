@@ -233,9 +233,11 @@ def test_kernel_wrapper_raises_for_unsupported_cuda_input():
     tensor it does not take raises (no plain-path fallback)."""
     from ray_tpu_torch.ops import attention as T
 
-    q = torch.zeros((1, 8, 2, 264))  # head_dim 264: past the 256 limit
-    with pytest.raises(ValueError, match="head_dim"):
-        T._check_kernel_inputs(q, q, q)
+    q = torch.zeros((1, 8, 2, 264))  # head_dim 264: the chunked route
+    T._check_kernel_inputs(q, q, q)
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        h = q.half()  # no kernel takes fp16, at any head dim
+        T._check_kernel_inputs(h, h, h)
     with pytest.raises(TypeError, match="bfloat16 or float32"):
         h = q[..., :32].half().contiguous()
         T._check_kernel_inputs(h, h, h)
@@ -251,8 +253,8 @@ def test_backward_wrapper_raises_for_unsupported_cuda_input():
 
     q = torch.zeros((1, 8, 2, 32))
     lse = torch.zeros((1, 2, 8))
-    with pytest.raises(ValueError, match="head_dim"):
-        w = torch.zeros((1, 8, 2, 264))
+    with pytest.raises(TypeError, match="bfloat16 or float32"):
+        w = torch.zeros((1, 8, 2, 264)).half()
         T._kernel_bwd(w, w, w, w, lse, w, True, 1.0)
     with pytest.raises(ValueError, match="dout must match q"):
         T._kernel_bwd(q, q, q, q, lse, q.double(), True, 1.0)

@@ -62,6 +62,14 @@ ROOT = Path(__file__).resolve().parents[1]
     ("fwd", torch.float32, 128, T.FMA),
     ("dq", torch.float32, 64, T.FMA),
     ("dkdv", torch.float32, 32, T.FMA),
+    # past 256, both dtypes: the head-dim-chunked kernels (the kernel
+    # phase's rows at 264, 320 and 512)
+    ("fwd", torch.bfloat16, 264, T.DCHUNK),
+    ("dq", torch.bfloat16, 320, T.DCHUNK),
+    ("dkdv", torch.bfloat16, 512, T.DCHUNK),
+    ("fwd", torch.float32, 320, T.DCHUNK),
+    ("dq", torch.float32, 264, T.DCHUNK),
+    ("dkdv", torch.float32, 257, T.DCHUNK),
 ])
 def test_kernel_route(kernel, dtype, head_dim, route):
     assert T.kernel_route(kernel, dtype, head_dim) == route
@@ -70,29 +78,31 @@ def test_kernel_route(kernel, dtype, head_dim, route):
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkdv"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_kernel_route_takes_every_head_dim_to_256(kernel, dtype):
-    """Every head dim 1..256 has a kernel: bf16 keeps wgmma at 64 and 128;
-    K1, K2 and K3 take the padded wgmma kernels at every other multiple
-    of 8 past 64 and mma.sync below 64 and off the multiples of 8; fp32
-    takes the FMA kernels at all; 257 and past raise, naming the
-    shared-memory reason."""
-    padded = [d for d in range(1, T.MAX_HEAD_DIM + 1)
+    """Every head dim has a kernel: bf16 keeps wgmma at 64 and 128; K1,
+    K2 and K3 take the padded wgmma kernels at every other multiple of 8
+    past 64 up to 256 and mma.sync below 64 and off the multiples of 8;
+    fp32 takes the FMA kernels at all up to 256; past 256 both dtypes take
+    the chunked route, with no upper bound; 0 raises."""
+    padded = [d for d in range(1, T.DCHUNK_PAST + 1)
               if d % 8 == 0 and d > 64 and d != 128]
     assert len(padded) == 23 and padded[0] == 72 and padded[-1] == 256
-    for d in range(1, T.MAX_HEAD_DIM + 1):
+    for d in range(1, T.DCHUNK_PAST + 1):
         want = (T.FMA if dtype == torch.float32 else
                 T.WGMMA if d in (64, 128) else
                 T.WGMMA_PADDED if d in padded else
                 T.MMA_SYNC)
         assert T.kernel_route(kernel, dtype, d) == want, d
         assert T.wgmma_padded_head_dim(d) == (d in padded), d
-    for d in (0, T.MAX_HEAD_DIM + 1, 512):
-        with pytest.raises(ValueError, match="227 KB of shared memory"):
-            T.kernel_route(kernel, dtype, d)
+    for d in (T.DCHUNK_PAST + 1, 264, 300, 320, 512, 4096):
+        assert T.kernel_route(kernel, dtype, d) == T.DCHUNK, d
+        assert not T.wgmma_padded_head_dim(d)
+    with pytest.raises(ValueError, match="head_dim"):
+        T.kernel_route(kernel, dtype, 0)
 
 
 @pytest.mark.parametrize("kernel,dtype,head_dim,error", [
     ("fwd", torch.float16, 128, TypeError),
-    ("dkdv", torch.bfloat16, 264, ValueError),
+    ("dkdv", torch.float16, 264, TypeError),
     ("fwd", torch.bfloat16, 0, ValueError),
     ("bwd", torch.bfloat16, 128, ValueError),
 ])
@@ -326,7 +336,7 @@ def test_padded_forward_source_is_built_and_instantiated_at_each_width():
     assert "flash_attn_fwd_padded.cu" in T._SOURCES
     src = (ROOT / "ray_tpu_torch" / "ops" / "csrc"
            / "flash_attn_fwd_padded.cu").read_text()
-    widths = {(d + 31) // 32 * 32 for d in range(1, T.MAX_HEAD_DIM + 1)
+    widths = {(d + 31) // 32 * 32 for d in range(1, T.DCHUNK_PAST + 1)
               if T.wgmma_padded_head_dim(d)}
     assert widths == {96, 128, 160, 192, 224, 256}
     launched = {int(w) for w in
@@ -436,3 +446,34 @@ def test_compare_kernels_times_the_padded_route_at_its_rows():
         for row in ("xl16_train", "d256_ragged", "d80_sq_lt_sk",
                     "d192_noncausal"):
             assert (kernel, *bwd[row][:6]) in got, row
+
+
+def test_chunked_route_is_built_dispatched_and_held_on_the_card():
+    """Route "dchunk" (past 256): both sources are built, every C entry
+    dispatches to it before the per-head-dim kernels of either dtype, and
+    the kernel phase holds K1, K2 and K3 at 264, 320 and 512 in bf16 and
+    at 320 in fp32, listed with the head-dim rows."""
+    assert {"flash_attn_dchunk.cu", "flash_attn_dchunk_fma.cu"} <= set(
+        T._SOURCES)
+    csrc = ROOT / "ray_tpu_torch" / "ops" / "csrc"
+    fwd = (csrc / "flash_attn_fwd.cu").read_text()
+    bwd = (csrc / "flash_attn_bwd.cu").read_text()
+    assert fwd.index("rtt::fwd_dchunk_fma(") < fwd.index("rtt::fwd_fma(")
+    assert fwd.index("rtt::fwd_dchunk_mma(") < fwd.index("launch_ws<64>(")
+    for kernel in ("dq", "dkdv"):
+        assert bwd.index(f"rtt::bwd_{kernel}_dchunk_fma(") < bwd.index(
+            f"rtt::bwd_{kernel}_fma(")
+        assert bwd.index(f"rtt::bwd_{kernel}_dchunk_mma(") < bwd.index(
+            f"rtt::bwd_{kernel}_mma(")
+    cs = _chip_smoke()
+    fwd_rows = {row[0]: row[1:] for row in cs.KERNEL_SHAPES}
+    bwd_rows = {row[0]: row[1:] for row in cs.BWD_SHAPES}
+    want = {"d264": (264, "bfloat16"), "d320": (320, "bfloat16"),
+            "d512": (512, "bfloat16"), "d320_f32": (320, "float32")}
+    for name, (d, dtype) in want.items():
+        assert fwd_rows[name] == (1, 1000, 4, d, True, dtype)
+        assert bwd_rows[name] == (1, 1000, 1000, 4, d, True, dtype)
+        assert name in cs.HEAD_DIM_SHAPES
+        for kernel in ("fwd", "dq", "dkdv"):
+            assert T.kernel_route(kernel, getattr(torch, dtype),
+                                  d) == T.DCHUNK

@@ -118,3 +118,42 @@ def test_single_process_and_the_nccl_default(tmp_path, monkeypatch):
         pytest.skip("this box has a card: the NCCL default would start")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         initialize(f"file://{tmp_path / 'store'}", 2, 0)
+
+
+@pytest.mark.parametrize("cuda_device,want", [
+    (None, [None] * 4),
+    (0, [0] * 4),
+    ("per_rank", [0, 1, 2, 3]),
+])
+def test_rank_pool_device_rule(cuda_device, want):
+    """The card each rank sets before it joins: none, one for all, or
+    rank r on card r (NCCL's one rank a card)."""
+    from ray_tpu_torch.parallel.multihost import RankPool, rank_devices
+
+    assert rank_devices(4, cuda_device) == want
+    assert RankPool(4, cuda_device=cuda_device).devices == want
+
+
+@pytest.mark.parametrize("cuda_device", [[0, 1, 2, 3], "card0"])
+def test_rank_pool_refuses_a_device_rule_it_cannot_read(cuda_device):
+    from ray_tpu_torch.parallel.multihost import RankPool
+
+    with pytest.raises(ValueError, match="cuda_device"):
+        RankPool(4, cuda_device=cuda_device)
+
+
+@pytest.mark.parametrize("cuda_device,backend,match", [
+    (0, "gloo", "the ranks name card 0; 0 visible"),
+    (1, "nccl", "the ranks name card 1; 0 visible"),
+    ("per_rank", None, "4 ranks need 4 visible CUDA cards, 0 visible"),
+])
+def test_rank_pool_refuses_cards_it_cannot_see(cuda_device, backend, match):
+    """A device rule that names cards the host does not show raises
+    before any rank starts (here no card is visible); NCCL with one card
+    a rank names both counts."""
+    from ray_tpu_torch.parallel.multihost import RankPool
+
+    pool = RankPool(4, backend=backend, cuda_device=cuda_device)
+    with pytest.raises(RuntimeError, match=match):
+        pool.start()
+    assert pool._procs == [] and pool._dir is None

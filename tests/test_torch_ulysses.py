@@ -142,34 +142,21 @@ def rank_train(params_np, tokens, sp_strategy, steps):
 
 def rank_unported_meshes():
     """What the port's mesh steps still refuse, each with its message (or
-    None where nothing raised): MoE with sp > 1, a MoE group that would
-    straddle dp ranks (at the step), tp not dividing heads, and MoE on
-    the pipeline."""
+    None where nothing raised): tp not dividing heads, and MoE on the
+    pipeline (the JAX package refuses both)."""
     from ray_tpu_torch.models.training import (
         build_forward,
         build_pipeline_train_step,
-        build_train_step,
     )
     from ray_tpu_torch.parallel.mesh import MeshSpec, build_mesh
 
     _, cfg = _cfgs()
     moe = dataclasses.replace(cfg, num_experts=4)
-    sp = build_mesh(MeshSpec(dp=2, sp=2), device_type="cpu")
-    dp4 = build_mesh(MeshSpec(dp=4), device_type="cpu")
     tp4 = build_mesh(MeshSpec(tp=4), device_type="cpu")
     pp = build_mesh(MeshSpec(pp=2, tp=2), device_type="cpu")
-    tokens = np.random.default_rng(0).integers(0, 128, (4, 33))
-
-    def straddle():
-        # 128 tokens in 64-token groups over 4 ranks of 32
-        step, init_fn = build_train_step(
-            dataclasses.replace(moe, moe_group_size=64), mesh=dp4)
-        step(*init_fn(), tokens)
 
     messages = []
     for call, kind in (
-            (lambda: build_train_step(moe, mesh=sp), NotImplementedError),
-            (straddle, NotImplementedError),
             (lambda: build_forward(dataclasses.replace(cfg, heads=2,
                                                        kv_heads=2),
                                    mesh=tp4), ValueError),
@@ -292,11 +279,10 @@ def test_ring_and_ulysses_train_alike(ranks, jax_train):
 
 def test_unported_shardings_raise(ranks):
     """tp, FSDP and MoE on dp x tp run since the tensor-parallel port
-    (tests/test_torch_tensor_parallel.py); these still raise."""
-    for sp_moe, straddle, heads, pipe_moe in ranks.run(
-            rank_unported_meshes):
-        assert sp_moe is not None and "sp = 2" in sp_moe
-        assert straddle is not None and "straddle" in straddle
+    (tests/test_torch_tensor_parallel.py), MoE with sp > 1 and groups
+    across ranks since tests/test_torch_moe_mesh.py; these still raise,
+    as they do in the JAX package."""
+    for heads, pipe_moe in ranks.run(rank_unported_meshes):
         assert heads is not None and "does not divide heads" in heads
         assert pipe_moe is not None and "pipeline" in pipe_moe
 
