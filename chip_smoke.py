@@ -24,6 +24,12 @@ if any failed, the script exits non-zero and prints no result. Phases:
               and 256 hold K1, K2 and K3 on the padded wgmma kernels,
               rows at 16 and 20 (Sq != Sk) on mma.sync in bf16, and the
               FMA kernels (ModelConfig.debug's fp32 d 16) the same way;
+              past 256, K1 on wgmma in bf16 at D % 8 == 0 (d 264, 320,
+              512 at B1 S1000 H4, 512 at B2 S2048 H8, 384 non-causal
+              with Sq != Sk), on the ring-fed FMA kernel in fp32 (d 320,
+              at both sizes), and on mma.sync at bf16 d 300; K2 and K3
+              on the chunked route (d 264, 320, 512 at both sizes, fp32
+              320);
   2b. debug — the JAX package's test configs on the card through the
               kernels (head_dim 16, float32: the FMA route):
               ModelConfig.debug() and tiny_moe() (routed alike) served
@@ -41,7 +47,12 @@ if any failed, the script exits non-zero and prints no result. Phases:
               requests; the kernel's launch count over those requests
               must be 24 per request, all on the wgmma route, and one
               request's logits must agree with the same model on the
-              plain attention;
+              plain attention; then phase b1_h4_serve does the same
+              for b1's widths at 4 heads over 4 kv heads (head dim 512):
+              24 K1 launches a request, all on the wgmma kernel past 256
+              (route dchunk_wgmma_tma_ws), logits within
+              SERVE_REL_L2_TOL of plain attention, its request seconds
+              printed beside b1's;
   4a. serve_lib — the serving library: ray_tpu_torch.serve deploys b1
               (full width and depth, weights from seed 0 on the card) as
               2 replicas sharing card 0 (num_gpus 0.5 each), each
@@ -404,12 +415,21 @@ KERNEL_SHAPES = [
     ("d192_noncausal", 2, 1000, 8, 192, False, "bfloat16"),
     ("d120_sq_gt_sk", 1, 1000, 4, 120, True, "bfloat16", 700),
     ("d224", 2, 2048, 8, 224, True, "bfloat16"),
-    # past 256, the chunked route: bf16 at 264 (a last chunk of 8
-    # columns), 320 and 512 (whole chunks), and fp32 at 320
+    # past 256: K1 on wgmma in bf16 at 264 (two slices of 136 columns),
+    # 320 and 512, on the ring-fed FMA kernel in fp32 at 320, each also at
+    # a size where the work is bound by the arithmetic (B2 S2048 H8; the
+    # B1 S1000 H4 rows take 64-row tiles to fill the card); d 384
+    # non-causal with Sq != Sk (the masks of keys past Sk and rows past
+    # Sq); d 300 in bf16 (D % 8 != 0: TMA cannot take the row stride)
+    # stays on the mma.sync chunked kernel
     ("d264", 1, 1000, 4, 264, True, "bfloat16"),
     ("d320", 1, 1000, 4, 320, True, "bfloat16"),
     ("d512", 1, 1000, 4, 512, True, "bfloat16"),
     ("d320_f32", 1, 1000, 4, 320, True, "float32"),
+    ("d512_wide", 2, 2048, 8, 512, True, "bfloat16"),
+    ("d320_f32_wide", 2, 2048, 8, 320, True, "float32"),
+    ("d384_noncausal", 2, 1000, 8, 384, False, "bfloat16", 700),
+    ("d300", 1, 1000, 4, 300, True, "bfloat16"),
 ]
 
 BWD_SHAPES = [
@@ -446,18 +466,22 @@ BWD_SHAPES = [
     ("d192_noncausal", 2, 1000, 1000, 8, 192, False, "bfloat16"),
     ("d120_sq_gt_sk", 1, 1000, 700, 4, 120, True, "bfloat16"),
     ("d224", 2, 2048, 2048, 8, 224, True, "bfloat16"),
-    # the chunked route's rows of the forward, backward too
+    # the chunked route's rows of the forward, backward too, and K2 and
+    # K3 at B2 S2048 H8 D512 (b1 at 4 heads' attention, 8 heads)
     ("d264", 1, 1000, 1000, 4, 264, True, "bfloat16"),
     ("d320", 1, 1000, 1000, 4, 320, True, "bfloat16"),
     ("d512", 1, 1000, 1000, 4, 512, True, "bfloat16"),
     ("d320_f32", 1, 1000, 1000, 4, 320, True, "float32"),
+    ("d512_wide", 2, 2048, 2048, 8, 512, True, "bfloat16"),
 ]
 # the rows of KERNEL_SHAPES and BWD_SHAPES off the wgmma route, reported
-# beside the model shapes in the kernels line
+# beside the model shapes in the kernels line (each kernel at the rows it
+# has)
 HEAD_DIM_SHAPES = ("debug_f32", "d16_bf16", "d20_ragged", "d160",
                    "d256_ragged", "xl16_train", "d80_sq_lt_sk",
                    "d192_noncausal", "d120_sq_gt_sk", "d224", "d264",
-                   "d320", "d512", "d320_f32")
+                   "d320", "d512", "d320_f32", "d512_wide", "d320_f32_wide",
+                   "d384_noncausal", "d300")
 
 SCHED = dict(nodes=256, tasks=100_000, classes=32)
 SCHED_PIPELINED_TICKS = 3
@@ -594,13 +618,16 @@ def phase_build(report: dict) -> None:
     print(f"build: kernels built in {report['build_s']:.1f} s on "
           f"{report['card']}", flush=True)
     for row in report["ptxas"]:
-        if "_ws_kernel" in row["kernel"] or "padded_kernel" in row["kernel"]:
+        if any(tag in row["kernel"] for tag in ("_ws_kernel", "padded_kernel",
+                                                 "dchunk_wgmma_kernel",
+                                                 "ring_f32_kernel")):
             print(f"build: ptxas {kernel_name(row['kernel'])[-60:]}: "
                   f"{row.get('registers')} registers at entry, "
                   f"{row.get('spill')} {row['notes']}", flush=True)
     # the mma.sync and FMA kernels: one instantiation per padded head dim
     small = [r for r in report["ptxas"]
-             if "mma_kernel" in r["kernel"] or "f32_kernel" in r["kernel"]]
+             if ("mma_kernel" in r["kernel"] or "f32_kernel" in r["kernel"])
+             and "ring_f32_kernel" not in r["kernel"]]
     spilling = [r for r in small if _spill_bytes(r.get("spill", ""))]
     report["ptxas_mma_fma"] = {
         "kernels": len(small),
@@ -1043,12 +1070,16 @@ XL16 = dict(vocab_size=32000, hidden=2560, layers=16, heads=16, kv_heads=8,
 
 
 def _text_config(model: str):
-    """b1, bench.py's xl at 16 heads, or the bench's MoE model (bench.py's
-    sparse row)."""
+    """b1, b1's widths at 4 heads (head dim 512), bench.py's xl at 16
+    heads, or the bench's MoE model (bench.py's sparse row)."""
+    import dataclasses
+
     from ray_tpu_torch.models.transformer import ModelConfig
 
     if model == "b1":
         return ModelConfig.b1()
+    if model == "b1_h4":
+        return dataclasses.replace(ModelConfig.b1(), heads=4, kv_heads=4)
     if model == "xl16":
         return ModelConfig(**XL16)
     return ModelConfig.moe_bench()
@@ -1057,6 +1088,8 @@ def _text_config(model: str):
 MODEL_DESC = {
     "b1": "ModelConfig.b1 (hidden 2048, 24 layers, 16 heads, d 128, inter "
           "5632, vocab 32000, bf16)",
+    "b1_h4": "ModelConfig.b1's widths at 4 heads (hidden 2048, 24 layers, 4 "
+             "heads, d 512, inter 5632, vocab 32000, bf16)",
     "xl16": "bench.py's xl at 16 heads (hidden 2560, 16 layers, 16 heads "
             "over 8 kv heads, d 160, inter 6912, vocab 32000, bf16)",
     "moe": "bench MoE (hidden 1024, 8 layers, 16 heads over 8 kv heads, d "
@@ -1320,6 +1353,11 @@ def phase_serve(report: dict, model: str = "b1") -> dict:
               f"{[round(x, 4) for x in latencies]}; kernel launches "
               f"{routes['fwd']}; logits vs plain attention{pinned} rel L2 "
               f"{rel:.3g}, argmax agreement {agree:.4f}", flush=True)
+        if model == "b1_h4" and "serve" in report:
+            print(f"b1_h4: request s {[round(x, 4) for x in latencies]} "
+                  f"beside b1's (16 heads, d 128) "
+                  f"{[round(x, 4) for x in report['serve']['latency_s']]}",
+                  flush=True)
         del first, plain
     finally:
         cluster.shutdown()
@@ -6731,14 +6769,17 @@ def _at_shapes(report: dict, kernel: str) -> dict:
     vit train shapes and at the head dims off 64 and 128 (kernel phase
     rows)."""
     out = {}
+    rows = {r["shape"]: r for r in report[
+        "kernel_shapes" if kernel == "fwd" else "bwd_shapes"]}
     for name in ("moe", "vit", *HEAD_DIM_SHAPES):
+        if name not in rows:  # a forward-only row
+            continue
+        r = rows[name]
         if kernel == "fwd":
-            r = next(r for r in report["kernel_shapes"] if r["shape"] == name)
             out[name] = {k: r[k] for k in ("route", "ms", "plain_ms",
                                            "bound_ms", "bound_by",
                                            "library_ms", "library_backend")}
         else:
-            r = next(r for r in report["bwd_shapes"] if r["shape"] == name)
             out[name] = {"route": r["routes"][kernel],
                          "ms": r[f"{kernel}_ms"], "plain_ms": r["plain_ms"],
                          "bound_ms": r[f"{kernel}_bound_ms"],
@@ -6781,11 +6822,12 @@ def _kernel_table(report: dict, paths: dict) -> list:
         "kernel_route": fwd["route"],
         "source": csrc + "flash_attn_fwd.cu",
         # the wgmma kernel and C entry, then the padded wgmma, mma.sync,
-        # FMA and chunked routes
+        # FMA and, past 256, the wgmma, chunked and ring-fed FMA routes
         "sources": [csrc + f for f in ("flash_attn_fwd.cu",
                                        "flash_attn_fwd_padded.cu",
                                        "flash_attn_fwd_mma.cu",
                                        "flash_attn_fwd_fma.cu",
+                                       "flash_attn_dchunk_fwd_wgmma.cu",
                                        "flash_attn_dchunk.cu",
                                        "flash_attn_dchunk_fma.cu")],
         "replaces": "ray_tpu/ops/attention.py:202",
@@ -6856,6 +6898,7 @@ def main(argv=None) -> int:
             ("build", phase_build), ("kernel", phase_kernel),
             ("debug", phase_debug),
             ("sched", phase_sched), ("serve", phase_serve),
+            ("b1_h4_serve", lambda r: phase_serve(r, "b1_h4")),
             ("serve_lib", phase_serve_lib),
             ("proc_serve", phase_proc_serve),
             ("cluster", phase_cluster),

@@ -45,14 +45,14 @@ _NEG_INF = -1e30
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # one nvcc per source, all started together, then one link: the padded
 # wgmma, mma.sync and FMA routes are instantiated at every padded head
-# dim up to 256, the chunked route past it is one kernel per dtype
+# dim up to 256; past it K1's wgmma kernel at each slice width
 _SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu",
             "flash_attn_fwd_padded.cu", "flash_attn_bwd_dq_padded.cu",
             "flash_attn_bwd_dkdv_padded.cu",
             "flash_attn_fwd_mma.cu", "flash_attn_fwd_fma.cu",
             "flash_attn_bwd_dq_mma.cu", "flash_attn_bwd_dkdv_mma.cu",
             "flash_attn_bwd_fma.cu", "flash_attn_dchunk.cu",
-            "flash_attn_dchunk_fma.cu")
+            "flash_attn_dchunk_fma.cu", "flash_attn_dchunk_fwd_wgmma.cu")
 _HEADERS = ("flash_attn_common.cuh", "flash_attn_routes.cuh",
             "flash_attn_bwd_dq_ws.cuh", "hopper_common.cuh")
 # kernel builds land here (listed in .gitignore), keyed by source digest
@@ -89,16 +89,30 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #          head dim rounded up to 16;
 #   FMA: float32, all three, at every head_dim up to 256 -- exact FMAs on
 #          the CUDA cores, instantiated at the head dim rounded up to 32;
-#   DCHUNK: bf16 (mma.sync) and float32 (FMA), all three, at every head_dim
-#          past 256 with no upper bound -- the head dim cut into 64-column
-#          chunks, a block per (tile, output chunk) that recomputes S (and
-#          dP) over every chunk and accumulates its own chunk of the
-#          output (csrc/flash_attn_dchunk.cu, flash_attn_dchunk_fma.cu).
+#   Past 256, with no upper bound, where a block cannot hold full-width
+#   tiles beside its rings (K1's two Hopper designs have names of their
+#   own, as WGMMA_PADDED has):
+#   DCHUNK_WGMMA: K1 in bf16 at head_dim % 8 == 0 -- a block per (q tile,
+#          slice of up to 256 output columns), S = Q K^T on wgmma over the
+#          whole head dim in 64-column TMA boxes (Q resident, or streamed
+#          beside K past what fits), so S is computed ceil(D / 256) times
+#          a tile pair (csrc/flash_attn_dchunk_fwd_wgmma.cu);
+#   DCHUNK_FMA: K1 in float32 -- a block per (q tile, slice of up to 320
+#          output columns: S computed once up to D 320) on register-blocked
+#          exact FMAs fed by a cp.async ring (csrc/flash_attn_dchunk_fma.cu);
+#   DCHUNK: K2 and K3 in bf16 (mma.sync) and float32 (FMA), and K1 in bf16
+#          at head_dim % 8 != 0 (a row stride TMA cannot take) -- the head
+#          dim cut into 64-column chunks, a block per (tile, output chunk)
+#          that recomputes S (and dP) over every chunk and accumulates its
+#          own chunk of the output (csrc/flash_attn_dchunk.cu,
+#          flash_attn_dchunk_fma.cu).
 WGMMA = "wgmma_tma_ws"
 WGMMA_PADDED = "wgmma_tma_ws_padded"
 MMA_SYNC = "mma_sync"
 FMA = "fma_f32"
 DCHUNK = "dchunk"
+DCHUNK_WGMMA = "dchunk_wgmma_tma_ws"
+DCHUNK_FMA = "dchunk_fma_f32_ring"
 _KERNELS = ("fwd", "dq", "dkdv")
 # the flat lse/delta rows K3's tensor map walks are indexed in int32
 _MAX_ROWS = 2**31 - 1
@@ -119,7 +133,11 @@ def kernel_route(kernel: str, dtype: torch.dtype, head_dim: int) -> str:
     if head_dim < 1:
         raise ValueError(f"head_dim must be at least 1; got {head_dim}")
     if head_dim > DCHUNK_PAST:
-        return DCHUNK
+        if kernel != "fwd":
+            return DCHUNK
+        if dtype == torch.float32:
+            return DCHUNK_FMA
+        return DCHUNK_WGMMA if head_dim % 8 == 0 else DCHUNK
     if dtype == torch.float32:
         return FMA
     if head_dim in _WGMMA_HEAD_DIMS:

@@ -1,6 +1,8 @@
 // K1, K2 and K3 (flash-attention forward, dq and dk/dv backward) in bf16 on
-// mma.sync at every head dim past 256, with no upper bound: the route
-// "dchunk". Replace ray_tpu/ops/attention.py::_flash_kernel,
+// mma.sync past head dim 256, with no upper bound: the route "dchunk".
+// K2 and K3 take every bf16 D past 256; K1 only the D % 8 != 0 ones (a row
+// stride TMA cannot take), since flash_attn_dchunk_fwd_wgmma.cu serves K1
+// at D % 8 == 0. Replace ray_tpu/ops/attention.py::_flash_kernel,
 // ::_bwd_dq_kernel and ::_bwd_dkdv_kernel for those bf16 inputs;
 // flash_attn_fwd.cu and flash_attn_bwd.cu describe the kernel family and
 // its numerics, which these keep (bf16 operands, fp32 accumulators, P and

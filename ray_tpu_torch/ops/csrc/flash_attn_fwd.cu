@@ -58,13 +58,17 @@
 //     TMA needs a row stride of a multiple of 16 bytes;
 //   - fp32, every head_dim 1..256: exact fp32 FMAs on the CUDA cores in
 //     flash_attn_fwd_fma.cu (the tensor cores would round fp32 to tf32);
-//   - bf16 and fp32, every head_dim past 256 (route "dchunk"): the head
-//     dim cut into 64-column chunks, a block per (q tile, output chunk)
-//     recomputing S over every chunk (flash_attn_dchunk.cu on mma.sync,
-//     flash_attn_dchunk_fma.cu on FMAs).
-//   Past 256 no route is built: the 64-row K/V tile rings and the fp32
-//   slabs of a block no longer fit the 227 KB of shared memory it may
-//   have (the JAX package has no configuration above 256).
+//   - bf16 and fp32, every head_dim past 256, where a block no longer
+//     holds full-width tiles beside its rings in the 227 KB of shared
+//     memory it may have: a block owns a slice of O's columns, up to 256
+//     wide, and computes S over the whole head dim, ceil(D / 256) times a
+//     tile pair. bf16 at D % 8 == 0 on wgmma with S's operands streamed
+//     through TMA rings in 64-column boxes (route "dchunk_wgmma_tma_ws",
+//     flash_attn_dchunk_fwd_wgmma.cu); fp32 on register-blocked FMAs fed
+//     by a cp.async ring ("dchunk_fma_f32_ring", flash_attn_dchunk_fma.cu);
+//     bf16 at D % 8 != 0 (a row stride TMA cannot take) on mma.sync with
+//     the head dim in 64-column chunks and S recomputed in each chunk's
+//     block (route "dchunk", flash_attn_dchunk.cu).
 // All skip every tile above the causal diagonal by making it the loop
 // bound (the TPU kernel's index-map clamp has no counterpart), schedule
 // the longest q tiles first, and mask ragged lengths themselves
@@ -341,7 +345,7 @@ cudaError_t launch_ws(const void* q, const void* k, const void* v, void* out,
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16; head_dim D in [1, 256]. q [B,Sq,H,D],
+// dtype: 0 = float32, 1 = bfloat16; head_dim D >= 1. q [B,Sq,H,D],
 // k/v [B,Sk,H,D], out [B,Sq,H,D], all contiguous with 16-byte aligned
 // bases; lse [B,H,Sq] float32.
 // Returns a cudaError_t (0 on success).
@@ -355,6 +359,9 @@ extern "C" int rtt_flash_attn_fwd(const void* q, const void* k,
   if (rtt::dchunk_head_dim(D) && dtype == 0)
     return rtt::fwd_dchunk_fma(q, k, v, out, lse_f, B, H, Sq, Sk, D, causal,
                                scale, s);
+  if (rtt::dchunk_wgmma_head_dim(D) && dtype == 1)
+    return rtt::fwd_dchunk_wgmma(q, k, v, out, lse_f, B, H, Sq, Sk, D,
+                                 causal, scale, s);
   if (rtt::dchunk_head_dim(D) && dtype == 1)
     return rtt::fwd_dchunk_mma(q, k, v, out, lse_f, B, H, Sq, Sk, D, causal,
                                scale, s);

@@ -5,8 +5,9 @@
 // both dtypes. The C entry points in flash_attn_fwd.cu and
 // flash_attn_bwd.cu dispatch to them. The mma.sync and FMA routes take
 // any head dim D in [1, MAX_HEAD_DIM] (flash_attn_common.cuh), the padded
-// wgmma route the D that wgmma_padded_head_dim admits, the chunked route
-// every D past 256; each returns a cudaError_t (cudaErrorInvalidValue for
+// wgmma route the D that wgmma_padded_head_dim admits, the chunked routes
+// every D past 256 (K1 in bf16 on wgmma at the D dchunk_wgmma_head_dim
+// admits); each returns a cudaError_t (cudaErrorInvalidValue for
 // a D outside its set).
 //
 // Layouts as the C entry points': q/dout/out/dq [B,Sq,H,D], k/v/dk/dv
@@ -74,11 +75,20 @@ cudaError_t bwd_dkdv_fma(const void* q, const void* k, const void* v,
                          int H, int Sq, int Sk, int D, int causal,
                          float scale, cudaStream_t stream);
 
-// The head dims K1, K2 and K3 take on the chunked route: every D past 256
-// (the per-head-dim routes' widest), in bf16 and in fp32
+// The head dims K1, K2 and K3 take on the chunked routes: every D past
+// 256 (the per-head-dim routes' widest), in bf16 and in fp32
 constexpr bool dchunk_head_dim(int D) { return D > 256; }
-// K1, K2 and K3 in bf16 on mma.sync at those head dims
-// (flash_attn_dchunk.cu)
+// The bf16 head dims K1 takes on wgmma past 256: D % 8 == 0 (TMA's
+// 16-byte row stride); the rest stay on fwd_dchunk_mma
+constexpr bool dchunk_wgmma_head_dim(int D) { return D > 256 && D % 8 == 0; }
+// K1 in bf16 on wgmma at those head dims, a block per output slice of up
+// to 256 columns (flash_attn_dchunk_fwd_wgmma.cu)
+cudaError_t fwd_dchunk_wgmma(const void* q, const void* k, const void* v,
+                             void* out, float* lse, int B, int H, int Sq,
+                             int Sk, int D, int causal, float scale,
+                             cudaStream_t stream);
+// K1 in bf16 on mma.sync at the other head dims past 256, K2 and K3 in
+// bf16 at every head dim past 256 (flash_attn_dchunk.cu)
 cudaError_t fwd_dchunk_mma(const void* q, const void* k, const void* v,
                            void* out, float* lse, int B, int H, int Sq,
                            int Sk, int D, int causal, float scale,
@@ -94,7 +104,8 @@ cudaError_t bwd_dkdv_dchunk_mma(const void* q, const void* k, const void* v,
                                 int H, int Sq, int Sk, int D, int causal,
                                 float scale, cudaStream_t stream);
 // K1, K2 and K3 in fp32 on the CUDA cores at those head dims
-// (flash_attn_dchunk_fma.cu)
+// (flash_attn_dchunk_fma.cu; K1 a block per output slice of up to 256
+// columns)
 cudaError_t fwd_dchunk_fma(const void* q, const void* k, const void* v,
                            void* out, float* lse, int B, int H, int Sq,
                            int Sk, int D, int causal, float scale,

@@ -6,11 +6,11 @@ mma.sync, FMA or chunked (past 256) kernels change.
 
 Builds the kernels (printing the build time; for the mma.sync and FMA
 kernels the most registers any instantiation uses and every one that
-spills; for each instantiation of K1's padded wgmma kernel and of K2's
-and K3's wgmma kernels its registers, spills and ptxas's performance
-notes, such as wgmmas serialised for want of registers), then for each
-(dtype, head dim) in
-``CASES`` runs the forward,
+spills; for each instantiation of K1's padded wgmma kernel, of K2's
+and K3's wgmma kernels and of K1's two kernels past 256 its registers,
+spills and ptxas's performance notes, such as wgmmas serialised for want
+of registers), then for each (dtype, head dim) in ``CASES`` (and
+``WIDE_CASES`` at their own shapes) runs the forward,
 then K2 and K3 on its lse, at a ragged shape with Sq != Sk (causal at
 even head dims, non-causal at odd ones), and holds out/lse against
 ``_blockwise_fwd`` and dq/dk/dv against ``_blockwise_bwd`` within
@@ -44,6 +44,20 @@ CASES = [
                  257, 264, 300, 320, 512)),
 ]
 SHAPE = (2, 300, 237, 3)  # B, Sq, Sk, H
+# (dtype, head dim, (B, Sq, Sk, H)): K1's kernels past 256 at shapes whose
+# grids choose their other layouts. At SHAPE the bf16 wgmma kernel takes
+# one consumer warpgroup (64-row tiles: 128-row ones would leave SMs
+# idle); here two, with Q resident (D 512) and streamed beside K (D 640,
+# ten 64-column boxes), and Sq != Sk both ways; fp32 at slices of 320 and
+# of 256 columns, with 16- and 4-byte copies (D 302)
+WIDE_CASES = [
+    ("bfloat16", 512, (2, 1000, 700, 8)),
+    ("bfloat16", 640, (2, 700, 1000, 8)),
+    ("bfloat16", 384, (2, 1000, 700, 8)),
+    ("float32", 320, (2, 700, 1000, 8)),
+    ("float32", 302, (2, 1000, 700, 8)),
+    ("float32", 512, (1, 1000, 1000, 8)),
+]
 # chip_smoke.py's KERNEL_TOL and BWD_TOL, (atol, rtol)
 FWD_TOL = {"bfloat16": {"out": (2e-2, 2e-2), "lse": (1e-3, 1e-4)},
            "float32": {"out": (1e-4, 1e-4), "lse": (1e-4, 1e-4)}}
@@ -87,14 +101,17 @@ def kernel_name(mangled: str) -> str:
 
 
 # the wgmma kernels of K1 and K3 at the padded widths, and of K2 (every
-# width)
+# width); K1's two kernels past 256 at each slice width (the bf16 one also
+# by consumer warpgroups and Q resident or not)
 _WGMMA_ROWS = ("flash_fwd_padded_kernel<", "bwd_dq_ws_kernel<",
-               "bwd_dkdv_padded_kernel<")
+               "bwd_dkdv_padded_kernel<", "fwd_dchunk_wgmma_kernel<",
+               "fwd_dchunk_ring_f32_kernel<")
 
 
 def wgmma_rows(log: str) -> list:
     """One row per instantiation of K1's, K2's and K3's padded wgmma
-    kernels in ``nvcc -Xptxas=-v``'s report: its name and width,
+    kernels and of K1's kernels past 256 in ``nvcc -Xptxas=-v``'s
+    report: its name and width,
     registers, spill line and any performance note (ptxas may print a
     note before its function's rows)."""
     rows, notes, row = [], {}, None
@@ -118,12 +135,12 @@ def wgmma_rows(log: str) -> list:
     return rows
 
 
-def run_case(dtype: str, d: int) -> dict:
+def run_case(dtype: str, d: int, shape: tuple = SHAPE) -> dict:
     import torch
 
     from ray_tpu_torch.ops import attention as T
 
-    b, sq, sk, h = SHAPE
+    b, sq, sk, h = shape
     causal = d % 2 == 0
     dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(d)
@@ -137,7 +154,7 @@ def run_case(dtype: str, d: int) -> dict:
     torch.cuda.synchronize()
     p_out, p_lse = T._blockwise_fwd(q, k, v, causal, scale)
     want = T._blockwise_bwd(q, k, v, out, lse, do, causal, scale)
-    row = {"dtype": dtype, "D": d, "causal": causal,
+    row = {"dtype": dtype, "D": d, "shape": list(shape), "causal": causal,
            "routes": {kernel: T.kernel_route(kernel, dt, d)
                       for kernel in ("fwd", "dq", "dkdv")},
            "err": {}, "agree": True}
@@ -169,15 +186,15 @@ def main(argv=None) -> int:
     for row in wgmma_rows(log):
         print(json.dumps(row), flush=True)
     failed = 0
-    for dtype, dims in CASES:
-        for d in dims:
-            try:
-                row = run_case(dtype, d)
-            except Exception as exc:  # report the rest of the cases too
-                row = {"dtype": dtype, "D": d, "error": repr(exc)[:300],
-                       "agree": False}
-            failed += not row["agree"]
-            print(json.dumps(row), flush=True)
+    cases = [(dtype, d, SHAPE) for dtype, dims in CASES for d in dims]
+    for dtype, d, shape in cases + WIDE_CASES:
+        try:
+            row = run_case(dtype, d, shape)
+        except Exception as exc:  # report the rest of the cases too
+            row = {"dtype": dtype, "D": d, "shape": list(shape),
+                   "error": repr(exc)[:300], "agree": False}
+        failed += not row["agree"]
+        print(json.dumps(row), flush=True)
     return 1 if failed else 0
 
 

@@ -10,7 +10,8 @@ standalone modules; each builds its own kernels from its own sources into
 its own ``_build`` directory. At each of ``SHAPES`` (b1's served forward
 and train step, bench.py's xl head dim 160 at B2 and at its train step's
 B8, and chip_smoke.py's d 256, d 80 and d 192 rows, for K1 and for K2
-and K3; bf16) the script checks that
+and K3, in bf16; K1 past 256 at chip_smoke.py's rows, in bf16 and fp32,
+each row's dtype given with it) the script checks that
 the two trees' outputs agree, then times the forward (K1), the dq
 backward (K2) or the dk/dv backward (K3) with CUDA events in the order
 baseline, current, current, baseline, repeated ``--rounds`` times, and
@@ -32,35 +33,43 @@ from pathlib import Path
 from ray_tpu_torch.tools.profile_serving import card_line
 
 SHAPES = [
-    # name, kernel, B, Sq, Sk, H, D, causal (bf16) — b1's served forward,
+    # name, kernel, B, Sq, Sk, H, D, causal, dtype — b1's served forward,
     # its train step's forward, dq and dk/dv backward; K1, K2 and K3 at
     # bench.py's xl head dim 160 (B2, and B8: the xl16 train step), and at
-    # chip_smoke.py's d256_ragged, d80_sq_lt_sk and d192_noncausal rows
-    ("served_fwd", "fwd", 2, 2048, 2048, 16, 128, True),
-    ("train_fwd", "fwd", 8, 2048, 2048, 16, 128, True),
-    ("d160_fwd", "fwd", 2, 2048, 2048, 16, 160, True),
-    ("xl16_fwd", "fwd", 8, 2048, 2048, 16, 160, True),
-    ("d256_fwd", "fwd", 1, 1000, 1000, 4, 256, True),
-    ("d80_fwd", "fwd", 1, 700, 1000, 4, 80, True),
-    ("d192_fwd", "fwd", 2, 1000, 1000, 8, 192, False),
-    ("train_dq", "dq", 8, 2048, 2048, 16, 128, True),
-    ("train_dkdv", "dkdv", 8, 2048, 2048, 16, 128, True),
-    ("d160_dq", "dq", 2, 2048, 2048, 16, 160, True),
-    ("d160_dkdv", "dkdv", 2, 2048, 2048, 16, 160, True),
-    ("xl16_dq", "dq", 8, 2048, 2048, 16, 160, True),
-    ("xl16_dkdv", "dkdv", 8, 2048, 2048, 16, 160, True),
-    ("d256_dq", "dq", 1, 1000, 1000, 4, 256, True),
-    ("d256_dkdv", "dkdv", 1, 1000, 1000, 4, 256, True),
-    ("d80_dq", "dq", 1, 700, 1000, 4, 80, True),
-    ("d80_dkdv", "dkdv", 1, 700, 1000, 4, 80, True),
-    ("d192_dq", "dq", 2, 1000, 1000, 8, 192, False),
-    ("d192_dkdv", "dkdv", 2, 1000, 1000, 8, 192, False),
+    # chip_smoke.py's d256_ragged, d80_sq_lt_sk and d192_noncausal rows;
+    # K1 past 256 at chip_smoke.py's rows: d264, d320, d512 and d512_wide
+    # in bf16, d320_f32 and d320_f32_wide in fp32
+    ("served_fwd", "fwd", 2, 2048, 2048, 16, 128, True, "bfloat16"),
+    ("train_fwd", "fwd", 8, 2048, 2048, 16, 128, True, "bfloat16"),
+    ("d160_fwd", "fwd", 2, 2048, 2048, 16, 160, True, "bfloat16"),
+    ("xl16_fwd", "fwd", 8, 2048, 2048, 16, 160, True, "bfloat16"),
+    ("d256_fwd", "fwd", 1, 1000, 1000, 4, 256, True, "bfloat16"),
+    ("d80_fwd", "fwd", 1, 700, 1000, 4, 80, True, "bfloat16"),
+    ("d192_fwd", "fwd", 2, 1000, 1000, 8, 192, False, "bfloat16"),
+    ("d264_fwd", "fwd", 1, 1000, 1000, 4, 264, True, "bfloat16"),
+    ("d320_fwd", "fwd", 1, 1000, 1000, 4, 320, True, "bfloat16"),
+    ("d512_fwd", "fwd", 1, 1000, 1000, 4, 512, True, "bfloat16"),
+    ("d512_wide_fwd", "fwd", 2, 2048, 2048, 8, 512, True, "bfloat16"),
+    ("d320_f32_fwd", "fwd", 1, 1000, 1000, 4, 320, True, "float32"),
+    ("d320_f32_wide_fwd", "fwd", 2, 2048, 2048, 8, 320, True, "float32"),
+    ("train_dq", "dq", 8, 2048, 2048, 16, 128, True, "bfloat16"),
+    ("train_dkdv", "dkdv", 8, 2048, 2048, 16, 128, True, "bfloat16"),
+    ("d160_dq", "dq", 2, 2048, 2048, 16, 160, True, "bfloat16"),
+    ("d160_dkdv", "dkdv", 2, 2048, 2048, 16, 160, True, "bfloat16"),
+    ("xl16_dq", "dq", 8, 2048, 2048, 16, 160, True, "bfloat16"),
+    ("xl16_dkdv", "dkdv", 8, 2048, 2048, 16, 160, True, "bfloat16"),
+    ("d256_dq", "dq", 1, 1000, 1000, 4, 256, True, "bfloat16"),
+    ("d256_dkdv", "dkdv", 1, 1000, 1000, 4, 256, True, "bfloat16"),
+    ("d80_dq", "dq", 1, 700, 1000, 4, 80, True, "bfloat16"),
+    ("d80_dkdv", "dkdv", 1, 700, 1000, 4, 80, True, "bfloat16"),
+    ("d192_dq", "dq", 2, 1000, 1000, 8, 192, False, "bfloat16"),
+    ("d192_dkdv", "dkdv", 2, 1000, 1000, 8, 192, False, "bfloat16"),
 ]
 ITERS = 20
 # the two trees round p (and ds) to bf16 in the same places but sum in
 # other orders: a few bf16 steps of values up to ~6 (as chip_smoke's
-# KERNEL_TOL / BWD_TOL)
-AGREE_ATOL = 5e-2
+# KERNEL_TOL / BWD_TOL); in fp32 summation order only (KERNEL_TOL's 1e-4)
+AGREE_ATOL = {"bfloat16": 5e-2, "float32": 1e-4}
 
 
 def load_attention(root: Path, name: str):
@@ -72,14 +81,15 @@ def load_attention(root: Path, name: str):
     return module
 
 
-def _inputs(b, sq, sk, h, d):
+def _inputs(b, sq, sk, h, d, dtype):
     import torch
 
+    dt = getattr(torch, dtype)
     g = torch.Generator(device="cuda").manual_seed(sq + d)
-    q, do = (torch.randn((b, sq, h, d), generator=g, device="cuda")
-             .bfloat16() for _ in range(2))
-    k, v = (torch.randn((b, sk, h, d), generator=g, device="cuda")
-            .bfloat16() for _ in range(2))
+    q, do = (torch.randn((b, sq, h, d), generator=g, device="cuda").to(dt)
+             for _ in range(2))
+    k, v = (torch.randn((b, sk, h, d), generator=g, device="cuda").to(dt)
+            for _ in range(2))
     return q, k, v, do
 
 
@@ -150,33 +160,37 @@ def main(argv=None) -> int:
                                        "attention_baseline"),
             "current": load_attention(here, "attention_current")}
     rows = []
-    for name, kernel, b, sq, sk, h, d, causal in SHAPES:
-        q, k, v, do = _inputs(b, sq, sk, h, d)
+    for name, kernel, b, sq, sk, h, d, causal, dtype in SHAPES:
+        q, k, v, do = _inputs(b, sq, sk, h, d, dtype)
         calls = {tag: _call(mod, kernel, q, k, v, do, causal)
                  for tag, mod in mods.items()}
         outs = {tag: fn() for tag, fn in calls.items()}
         err = max((x.float() - y.float()).abs().max().item()
                   for x, y in zip(outs["baseline"], outs["current"]))
-        if not err <= AGREE_ATOL:
+        if not err <= AGREE_ATOL[dtype]:
             raise AssertionError(f"{name}: the two trees disagree, max abs "
-                                 f"{err} > {AGREE_ATOL}")
+                                 f"{err} > {AGREE_ATOL[dtype]}")
         times = {"baseline": [], "current": []}
         for _ in range(args.rounds):
             for tag in ("baseline", "current", "current", "baseline"):
                 times[tag].append(_ms(calls[tag]))
         mean = {tag: sum(x) / len(x) for tag, x in times.items()}
         library_ms = _ms(_library(kernel, q, k, v, do, causal))
+        routes = {tag: mod.kernel_route(kernel, q.dtype, d)
+                  for tag, mod in mods.items()}
         rows.append({"shape": name, "kernel": kernel, "B": b, "Sq": sq,
                      "Sk": sk, "H": h, "D": d, "causal": causal,
+                     "dtype": dtype, "routes": routes,
                      "max_abs_diff": err, "ms": times,
                      "mean_ms": mean,
                      "baseline_over_current": mean["baseline"]
                      / mean["current"],
                      "library_ms": library_ms})
-        print(f"{name}: baseline {mean['baseline']:.4f} ms, current "
-              f"{mean['current']:.4f} ms, x{rows[-1]['baseline_over_current']:.3f}"
-              f" (max abs diff {err:.3g}); library {library_ms:.4f} ms",
-              flush=True)
+        print(f"{name} ({dtype}; {routes['baseline']} -> "
+              f"{routes['current']}): baseline {mean['baseline']:.4f} ms, "
+              f"current {mean['current']:.4f} ms, "
+              f"x{rows[-1]['baseline_over_current']:.3f} (max abs diff "
+              f"{err:.3g}); library {library_ms:.4f} ms", flush=True)
         del q, k, v, do, outs, calls
     print(json.dumps({"card": card_line(), "baseline": str(args.baseline),
                       "order": "baseline, current, current, baseline",

@@ -204,13 +204,15 @@ BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [264, 320, 512])
+@pytest.mark.parametrize("d", [264, 320, 512, 300])
 def test_flash_attention_past_head_dim_256_matches_jax(d, dtype):
-    """The plain versions the chunked kernels (route "dchunk") are held
-    against on the card take every head dim past 256: the port's
-    flash_attention on the CPU, forward and grads, against the JAX
-    package's flash_attention and jax.grad at [1, 128, 2, D] causal (the
-    JAX blockwise path here)."""
+    """The plain versions the kernels past 256 are held against on the
+    card take every head dim past 256: the port's flash_attention on the
+    CPU, forward and grads, against the JAX package's flash_attention and
+    jax.grad at [1, 128, 2, D] causal (the JAX blockwise path here). On
+    the card K1 takes its wgmma kernel in bf16 at D % 8 == 0 (the chunked
+    mma.sync one at 300) and its ring-fed FMA kernel in fp32; K2 and K3
+    the chunked route."""
     import jax
 
     rng = np.random.default_rng(d)
@@ -227,7 +229,11 @@ def test_flash_attention_past_head_dim_256_matches_jax(d, dtype):
     out.backward(torch.from_numpy(g).to(tdt))
     tol = TOL if dtype == "float32" else BF16_TOL
     gtol = GRAD_TOL if dtype == "float32" else BF16_TOL
-    assert out.dtype == tdt and T.kernel_route("fwd", tdt, d) == T.DCHUNK
+    k1 = (T.DCHUNK_FMA if dtype == "float32" else
+          T.DCHUNK_WGMMA if d % 8 == 0 else T.DCHUNK)
+    assert out.dtype == tdt and T.kernel_route("fwd", tdt, d) == k1
+    assert T.kernel_route("dq", tdt, d) == T.kernel_route(
+        "dkdv", tdt, d) == T.DCHUNK
     np.testing.assert_allclose(out.detach().float().numpy(),
                                np.asarray(j_out, np.float32), **tol)
     for got, want in zip((tq.grad, tk.grad, tv.grad), j_grads):

@@ -62,14 +62,25 @@ ROOT = Path(__file__).resolve().parents[1]
     ("fwd", torch.float32, 128, T.FMA),
     ("dq", torch.float32, 64, T.FMA),
     ("dkdv", torch.float32, 32, T.FMA),
-    # past 256, both dtypes: the head-dim-chunked kernels (the kernel
-    # phase's rows at 264, 320 and 512)
-    ("fwd", torch.bfloat16, 264, T.DCHUNK),
+    # past 256, both dtypes (the kernel phase's rows at 264, 320 and
+    # 512): K1 on its Hopper kernels, wgmma in bf16 and the ring-fed FMA
+    # kernel in fp32; K2 and K3 on the head-dim-chunked kernels
+    ("fwd", torch.bfloat16, 264, T.DCHUNK_WGMMA),
     ("dq", torch.bfloat16, 320, T.DCHUNK),
     ("dkdv", torch.bfloat16, 512, T.DCHUNK),
-    ("fwd", torch.float32, 320, T.DCHUNK),
+    ("fwd", torch.float32, 320, T.DCHUNK_FMA),
     ("dq", torch.float32, 264, T.DCHUNK),
     ("dkdv", torch.float32, 257, T.DCHUNK),
+    # K1 in bf16 past 256 off the multiples of 8 (a row stride TMA cannot
+    # take) stays on the mma.sync chunked kernel; fp32 K1 takes every D
+    ("fwd", torch.bfloat16, 300, T.DCHUNK),
+    ("fwd", torch.bfloat16, 257, T.DCHUNK),
+    ("fwd", torch.bfloat16, 512, T.DCHUNK_WGMMA),
+    ("fwd", torch.bfloat16, 384, T.DCHUNK_WGMMA),
+    ("fwd", torch.float32, 257, T.DCHUNK_FMA),
+    ("fwd", torch.float32, 300, T.DCHUNK_FMA),
+    ("dq", torch.bfloat16, 512, T.DCHUNK),
+    ("dkdv", torch.float32, 320, T.DCHUNK),
 ])
 def test_kernel_route(kernel, dtype, head_dim, route):
     assert T.kernel_route(kernel, dtype, head_dim) == route
@@ -81,8 +92,10 @@ def test_kernel_route_takes_every_head_dim_to_256(kernel, dtype):
     """Every head dim has a kernel: bf16 keeps wgmma at 64 and 128; K1,
     K2 and K3 take the padded wgmma kernels at every other multiple of 8
     past 64 up to 256 and mma.sync below 64 and off the multiples of 8;
-    fp32 takes the FMA kernels at all up to 256; past 256 both dtypes take
-    the chunked route, with no upper bound; 0 raises."""
+    fp32 takes the FMA kernels at all up to 256; past 256, with no upper
+    bound, K2 and K3 take the chunked route in both dtypes and K1 its
+    wgmma kernel in bf16 at D % 8 == 0 (the chunked mma.sync one
+    otherwise) and its ring-fed FMA kernel in fp32; 0 raises."""
     padded = [d for d in range(1, T.DCHUNK_PAST + 1)
               if d % 8 == 0 and d > 64 and d != 128]
     assert len(padded) == 23 and padded[0] == 72 and padded[-1] == 256
@@ -94,7 +107,10 @@ def test_kernel_route_takes_every_head_dim_to_256(kernel, dtype):
         assert T.kernel_route(kernel, dtype, d) == want, d
         assert T.wgmma_padded_head_dim(d) == (d in padded), d
     for d in (T.DCHUNK_PAST + 1, 264, 300, 320, 512, 4096):
-        assert T.kernel_route(kernel, dtype, d) == T.DCHUNK, d
+        want = (T.DCHUNK if kernel != "fwd" else
+                T.DCHUNK_FMA if dtype == torch.float32 else
+                T.DCHUNK_WGMMA if d % 8 == 0 else T.DCHUNK)
+        assert T.kernel_route(kernel, dtype, d) == want, d
         assert not T.wgmma_padded_head_dim(d)
     with pytest.raises(ValueError, match="head_dim"):
         T.kernel_route(kernel, dtype, 0)
@@ -436,7 +452,8 @@ def test_compare_kernels_times_the_padded_route_at_its_rows():
 
     cs = _chip_smoke()
     bwd = {row[0]: row[1:] for row in cs.BWD_SHAPES}
-    got = {(kernel, *rest) for _, kernel, *rest in SHAPES}
+    got = {(kernel, *rest[:6]) for _, kernel, *rest in SHAPES
+           if rest[6] == "bfloat16"}
     names = {name for name, *_ in SHAPES}
     assert {"d160_fwd", "xl16_fwd", "d256_fwd", "d80_fwd",
             "d192_fwd"} <= names
@@ -449,17 +466,27 @@ def test_compare_kernels_times_the_padded_route_at_its_rows():
 
 
 def test_chunked_route_is_built_dispatched_and_held_on_the_card():
-    """Route "dchunk" (past 256): both sources are built, every C entry
-    dispatches to it before the per-head-dim kernels of either dtype, and
-    the kernel phase holds K1, K2 and K3 at 264, 320 and 512 in bf16 and
-    at 320 in fp32, listed with the head-dim rows."""
-    assert {"flash_attn_dchunk.cu", "flash_attn_dchunk_fma.cu"} <= set(
-        T._SOURCES)
+    """Past 256: the three sources are built, every C entry dispatches
+    there before the per-head-dim kernels of either dtype (K1 to its
+    wgmma kernel before the chunked mma.sync one), and the kernel phase
+    holds K1, K2 and K3 at 264, 320 and 512 in bf16 and at 320 in fp32,
+    K1 and K2/K3 at B2 S2048 H8 D512 too, and K1 at fp32 d 320 at that
+    size, at d 384 non-causal with Sq != Sk and at bf16 d 300 (the
+    chunked mma.sync kernel), all listed with the head-dim rows and timed
+    in both dtypes by tools/compare_kernels."""
+    from ray_tpu_torch.tools.compare_kernels import SHAPES
+
+    assert {"flash_attn_dchunk.cu", "flash_attn_dchunk_fma.cu",
+            "flash_attn_dchunk_fwd_wgmma.cu"} <= set(T._SOURCES)
     csrc = ROOT / "ray_tpu_torch" / "ops" / "csrc"
     fwd = (csrc / "flash_attn_fwd.cu").read_text()
     bwd = (csrc / "flash_attn_bwd.cu").read_text()
     assert fwd.index("rtt::fwd_dchunk_fma(") < fwd.index("rtt::fwd_fma(")
     assert fwd.index("rtt::fwd_dchunk_mma(") < fwd.index("launch_ws<64>(")
+    assert fwd.index("rtt::fwd_dchunk_wgmma(") < fwd.index(
+        "rtt::fwd_dchunk_mma(")
+    assert fwd.index("rtt::fwd_dchunk_fma(") < fwd.index(
+        "rtt::fwd_dchunk_mma(")
     for kernel in ("dq", "dkdv"):
         assert bwd.index(f"rtt::bwd_{kernel}_dchunk_fma(") < bwd.index(
             f"rtt::bwd_{kernel}_fma(")
@@ -470,10 +497,147 @@ def test_chunked_route_is_built_dispatched_and_held_on_the_card():
     bwd_rows = {row[0]: row[1:] for row in cs.BWD_SHAPES}
     want = {"d264": (264, "bfloat16"), "d320": (320, "bfloat16"),
             "d512": (512, "bfloat16"), "d320_f32": (320, "float32")}
+    k1 = {"bfloat16": T.DCHUNK_WGMMA, "float32": T.DCHUNK_FMA}
     for name, (d, dtype) in want.items():
         assert fwd_rows[name] == (1, 1000, 4, d, True, dtype)
         assert bwd_rows[name] == (1, 1000, 1000, 4, d, True, dtype)
         assert name in cs.HEAD_DIM_SHAPES
-        for kernel in ("fwd", "dq", "dkdv"):
+        assert T.kernel_route("fwd", getattr(torch, dtype), d) == k1[dtype]
+        for kernel in ("dq", "dkdv"):
             assert T.kernel_route(kernel, getattr(torch, dtype),
                                   d) == T.DCHUNK
+    wide = {"d512_wide": (2, 2048, 8, 512, True, "bfloat16"),
+            "d320_f32_wide": (2, 2048, 8, 320, True, "float32"),
+            "d384_noncausal": (2, 1000, 8, 384, False, "bfloat16", 700),
+            "d300": (1, 1000, 4, 300, True, "bfloat16")}
+    for name, row in wide.items():
+        assert fwd_rows[name] == row and name in cs.HEAD_DIM_SHAPES
+    assert bwd_rows["d512_wide"] == (2, 2048, 2048, 8, 512, True,
+                                     "bfloat16")
+    assert T.kernel_route("fwd", torch.bfloat16, 384) == T.DCHUNK_WGMMA
+    assert T.kernel_route("fwd", torch.bfloat16, 300) == T.DCHUNK
+    # compare_kernels: K1 at each of these rows in its dtype, parent and
+    # new in one process
+    timed = {(kernel, *rest) for _, kernel, *rest in SHAPES}
+    for name in ("d264", "d320", "d512", "d320_f32", "d512_wide",
+                 "d320_f32_wide"):
+        b, s, h, d, causal, dtype = fwd_rows[name]
+        assert ("fwd", b, s, s, h, d, causal, dtype) in timed, name
+    assert {row[-1] for row in SHAPES} == {"bfloat16", "float32"}
+
+
+def test_dchunk_wgmma_source_instantiates_each_slice_width_without_trap():
+    """K1's wgmma kernel past 256 is launched at each slice width (the
+    slice rounded up to 32: 160..256), with one or two consumer
+    warpgroups and Q resident or streamed; every wait is
+    mbar_wait_no_trap (a trap keeps ptxas from allocating the consumers
+    within setmaxnreg's count); the C++ rule for its head dims is the
+    Python one."""
+    src = (ROOT / "ray_tpu_torch" / "ops" / "csrc"
+           / "flash_attn_dchunk_fwd_wgmma.cu").read_text()
+    code = re.sub(r"//[^\n]*", "", src)
+    assert "__trap" not in code and "mbar_wait(" not in code
+    assert "mbar_wait_no_trap(" in code
+    widths = {int(w) for w in
+              re.findall(r"integral_constant<int, (\d+)>", code)}
+    assert widths == {160, 192, 224, 256}
+    assert set(re.findall(r"launch_dw<SWP, (\d), (true|false)>", code)) == {
+        ("1", "true"), ("2", "true"), ("2", "false")}
+    routes = (ROOT / "ray_tpu_torch" / "ops" / "csrc"
+              / "flash_attn_routes.cuh").read_text()
+    assert ("return D > 256 && D % 8 == 0;" in routes)
+    for d in (257, 264, 300, 320, 512, 520, 4096):
+        assert (T.kernel_route("fwd", torch.bfloat16, d) == T.DCHUNK_WGMMA
+                ) == (d > 256 and d % 8 == 0), d
+
+
+@pytest.mark.parametrize("d,slices", [
+    # D 264: two slices of 136 (padded to 160), not 256 + 8
+    (264, [136, 128]),
+    (320, [160, 160]),
+    (512, [256, 256]),
+    # D 520: three of 176, the last one short
+    (520, [176, 176, 168]),
+])
+def test_dchunk_wgmma_slices_are_balanced_multiples_of_8(d, slices):
+    """The bf16 kernel's slice plan (rtt::fwd_dchunk_wgmma): ceil(D / 256)
+    slices of ceil(D / ns) rounded up to 8, the last one what is left."""
+    ns = -(-d // 256)
+    sw = (-(-d // ns) + 7) // 8 * 8
+    got = [min(sw, d - c0) for c0 in range(0, d, sw)]
+    assert got == slices and all(w % 8 == 0 for w in got)
+    src = (ROOT / "ray_tpu_torch" / "ops" / "csrc"
+           / "flash_attn_dchunk_fwd_wgmma.cu").read_text()
+    assert "const int sw = ((D + ns - 1) / ns + 7) / 8 * 8;" in src
+    assert "(D + sw - 1) / sw)" in src
+
+
+@pytest.mark.parametrize("kernel,shape,bound_ms,bound_by", [
+    # B2 S2048 H8 D512 causal bf16: 68.7 GFLOP over 989 TFLOP/s
+    ("fwd", (2, 2048, 2048, 8, 512, True, "bfloat16"), 0.0695,
+     "operations"),
+    # B2 S2048 H8 D320 causal fp32: 43.0 GFLOP over 67 TFLOP/s
+    ("fwd", (2, 2048, 2048, 8, 320, True, "float32"), 0.6414,
+     "operations"),
+    ("dq", (2, 2048, 2048, 8, 512, True, "bfloat16"), 0.1043,
+     "operations"),
+    ("dkdv", (2, 2048, 2048, 8, 512, True, "bfloat16"), 0.1390,
+     "operations"),
+])
+def test_attention_bound_at_the_wide_rows_past_256(kernel, shape, bound_ms,
+                                                   bound_by):
+    """The bounds chip_smoke.py reports, and PERF.md quotes, at the
+    kernel phase's rows sized so that the arithmetic bounds them."""
+    b, sq, sk, h, d, causal, dtype = shape
+    got, by = _chip_smoke()._attention_work(kernel, b, sq, sk, h, d, causal,
+                                            dtype)
+    assert by == bound_by
+    assert got == pytest.approx(bound_ms, abs=5e-5)
+
+
+def test_check_head_dims_reports_the_kernels_past_256():
+    """tools/check_head_dims prints a row per instantiation of K1's two
+    kernels past 256 (their template arguments named), and runs K1 at
+    shapes that reach each layout of the bf16 one: one and two consumer
+    warpgroups, Q resident and streamed."""
+    from ray_tpu_torch.tools.check_head_dims import WIDE_CASES, wgmma_rows
+
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123"
+        "fwd_dchunk_wgmma_kernelILi256ELi2ELb1EEEv14CUtensorMap_st' for "
+        "'sm_90a'",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_126"
+        "fwd_dchunk_ring_f32_kernelILi5ELb0EEEvPKfS2_S2_PfS3_iiiiif' for "
+        "'sm_90a'",
+        "ptxas info    : Used 230 registers, used 1 barriers",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+    ])
+    rows = wgmma_rows(log)
+    assert [r["kernel"] for r in rows] == [
+        "fwd_dchunk_wgmma_kernel<256, 2, 1>",
+        "fwd_dchunk_ring_f32_kernel<5, 0>"]
+    assert [r["registers"] for r in rows] == [168, 230]
+    # two consumer warpgroups need at least 132 blocks of 128 rows
+    for dtype, d, (b, sq, _, h) in WIDE_CASES:
+        if dtype == "bfloat16":
+            sw = (-(-d // -(-d // 256)) + 7) // 8 * 8
+            assert -(-sq // 128) * b * h * -(-d // sw) >= 132, d
+    assert {d for dtype, d, _ in WIDE_CASES if dtype == "bfloat16"} >= {
+        512, 640}
+    assert {d % 4 == 0 for dtype, d, _ in WIDE_CASES
+            if dtype == "float32"} == {True, False}
+
+
+def test_b1_h4_is_served_through_the_wgmma_kernel_past_256():
+    """chip_smoke.py serves b1's widths at 4 heads (head dim 512) as a
+    phase of its own, its K1 launches held to the bf16 wgmma kernel past
+    256."""
+    cs = _chip_smoke()
+    cfg = cs._text_config("b1_h4")
+    assert cs._main_path_routes("bfloat16", cfg.head_dim)["fwd"] == (
+        T.DCHUNK_WGMMA)
+    assert "b1_h4" in cs.MODEL_DESC
+    src = (ROOT / "chip_smoke.py").read_text()
+    assert '("b1_h4_serve", lambda r: phase_serve(r, "b1_h4"))' in src

@@ -209,6 +209,45 @@ def test_loss_fn_grads_match_jax_at_head_dim_160():
                                    **GRAD_TOL)
 
 
+def test_forward_logits_match_jax_at_head_dim_512():
+    """The CPU side of chip_smoke.py's b1_h4 path (b1's widths at 4
+    heads, head_dim 512, where K1 takes its wgmma kernel past 256 on the
+    card): the port's forward logits against the JAX package's at a
+    narrow config with that head dim (hidden 1024, 2 heads, 2 layers,
+    vocab 256, fp32), seeded numpy tokens, weights carried by
+    params_from_jax; within MODEL_TOL, fp32 summation order only."""
+    widths = dict(vocab_size=256, hidden=1024, layers=2, heads=2, kv_heads=2,
+                  intermediate=512, max_seq=64)
+    jcfg = jtfm.ModelConfig(dtype=jnp.float32, remat=False, **widths)
+    tcfg = ttfm.ModelConfig(dtype=torch.float32, **widths)
+    assert tcfg.head_dim == 512
+    params = jtfm.init_params(jcfg, jax.random.PRNGKey(6))
+    tokens = np.random.default_rng(6).integers(
+        0, jcfg.vocab_size, size=(2, 48)).astype(np.int32)
+    ref = np.asarray(j_build_forward(jcfg)(params, jnp.asarray(tokens)))
+    port = params_from_jax(jax.tree.map(np.asarray, params), tcfg,
+                           device="cpu")
+    logits = build_forward(tcfg, device="cpu")(port, tokens)
+    assert tuple(logits.shape) == (2, 48, 256)
+    np.testing.assert_allclose(logits.numpy(), ref, **MODEL_TOL)
+
+
+def test_chip_smoke_b1_h4_is_b1_at_4_heads():
+    """chip_smoke.py's b1_h4 model is ModelConfig.b1() with 4 heads over 4
+    kv heads (head_dim 512), every other width b1's."""
+    import importlib.util
+    from pathlib import Path
+
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
+    cs = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(cs)
+    cfg = cs._text_config("b1_h4")
+    assert (cfg.heads, cfg.kv_heads, cfg.head_dim) == (4, 4, 512)
+    assert dataclasses.replace(cfg, heads=16, kv_heads=16) == (
+        ttfm.ModelConfig.b1())
+
+
 def _small(**kw):
     """The JAX twin tests' model (test_models_extra.py), fp32."""
     base = dict(vocab_size=128, hidden=64, layers=2, heads=4, kv_heads=4,
