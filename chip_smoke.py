@@ -22,14 +22,17 @@ if any failed, the script exits non-zero and prints no result. Phases:
               took; rows at head dims 80 (Sq < Sk), 120 (Sq > Sk), 160
               (B2, and the xl16 train step's B8), 192 (non-causal), 224
               and 256 hold K1, K2 and K3 on the padded wgmma kernels,
-              rows at 16 and 20 (Sq != Sk) on mma.sync in bf16, and the
-              FMA kernels (ModelConfig.debug's fp32 d 16) the same way;
-              past 256, K1 on wgmma in bf16 at D % 8 == 0 (d 264, 320,
-              512 at B1 S1000 H4, 512 at B2 S2048 H8, 384 non-causal
-              with Sq != Sk), on the ring-fed FMA kernel in fp32 (d 320,
-              at both sizes), and on mma.sync at bf16 d 300; K2 and K3
-              on the chunked route (d 264, 320, 512 at both sizes, fp32
-              320);
+              rows at 16 and 20 (Sq != Sk) K2 and K3 on mma.sync in bf16
+              and K1 on its padded wgmma kernel fed by TMA (16) and by
+              cp.async (20; and 33, through registers, and 100 at B2
+              S2048 H16), and the FMA kernels (ModelConfig.debug's fp32
+              d 16) the same way; past 256, K1 on wgmma in bf16 fed by
+              TMA at D % 8 == 0 (d 264, 320, 512 at B1 S1000 H4, 512 at
+              B2 S2048 H8, 384 non-causal with Sq != Sk) and by cp.async
+              or through registers otherwise (d 300 at both sizes, 301),
+              on the ring-fed FMA kernel in fp32 (d 320, at both sizes);
+              K2 and K3 on the chunked route (d 264, 320, 512 at both
+              sizes, fp32 320);
   2b. debug — the JAX package's test configs on the card through the
               kernels (head_dim 16, float32: the FMA route):
               ModelConfig.debug() and tiny_moe() (routed alike) served
@@ -398,13 +401,16 @@ KERNEL_SHAPES = [
     # ViT-B/16 train step's (196 patches + CLS, non-causal)
     ("moe", 16, 2048, 16, 64, True, "bfloat16"),
     ("vit", 128, 197, 12, 64, False, "bfloat16"),
-    # head dims off the wgmma route's 64 and 128 (the padded wgmma route
-    # in bf16 at D % 8 == 0 past 64, mma.sync below, FMA in fp32):
-    # ModelConfig.debug's attention; d 16 in bf16 at a ragged length; d
-    # 20 (a 40-byte row: the element-wise loads) with Sq != Sk, given as
-    # an 8th field; bench.py's xl width at 16 heads; the widest; the xl16
-    # train step's shape; the backward rows' d 80 (Sq < Sk), d 192
-    # (non-causal), d 120 (padded to 128, Sq > Sk) and d 224 below
+    # head dims off the wgmma route's 64 and 128 (K1 on its padded wgmma
+    # kernel in bf16, fed by TMA at D % 8 == 0 and by cp.async off it; K2
+    # and K3 the same at D % 8 == 0 past 64, mma.sync below and off it;
+    # FMA in fp32): ModelConfig.debug's attention; d 16 in bf16 at a
+    # ragged length; d 20 (a 40-byte row) with Sq != Sk, given as an 8th
+    # field; bench.py's xl width at 16 heads; the widest; the xl16 train
+    # step's shape; the backward rows' d 80 (Sq < Sk), d 192
+    # (non-causal), d 120 (padded to 128, Sq > Sk) and d 224 below; K1
+    # fed through registers at an odd D (33), and by 8-byte cp.async at
+    # a size where the arithmetic bounds it (d 100, B2 S2048 H16)
     ("debug_f32", 2, 128, 4, 16, True, "float32"),
     ("d16_bf16", 2, 1000, 4, 16, True, "bfloat16"),
     ("d20_ragged", 1, 1000, 4, 20, False, "bfloat16", 700),
@@ -415,13 +421,16 @@ KERNEL_SHAPES = [
     ("d192_noncausal", 2, 1000, 8, 192, False, "bfloat16"),
     ("d120_sq_gt_sk", 1, 1000, 4, 120, True, "bfloat16", 700),
     ("d224", 2, 2048, 8, 224, True, "bfloat16"),
+    ("d33_odd", 1, 1000, 4, 33, True, "bfloat16"),
+    ("d100_wide", 2, 2048, 16, 100, True, "bfloat16"),
     # past 256: K1 on wgmma in bf16 at 264 (two slices of 136 columns),
     # 320 and 512, on the ring-fed FMA kernel in fp32 at 320, each also at
     # a size where the work is bound by the arithmetic (B2 S2048 H8; the
     # B1 S1000 H4 rows take 64-row tiles to fill the card); d 384
     # non-causal with Sq != Sk (the masks of keys past Sk and rows past
-    # Sq); d 300 in bf16 (D % 8 != 0: TMA cannot take the row stride)
-    # stays on the mma.sync chunked kernel
+    # Sq); d 300 in bf16 (D % 8 != 0: TMA cannot take the row stride) on
+    # the wgmma kernel fed by 8-byte cp.async, at both sizes, and d 301
+    # fed through registers
     ("d264", 1, 1000, 4, 264, True, "bfloat16"),
     ("d320", 1, 1000, 4, 320, True, "bfloat16"),
     ("d512", 1, 1000, 4, 512, True, "bfloat16"),
@@ -430,6 +439,8 @@ KERNEL_SHAPES = [
     ("d320_f32_wide", 2, 2048, 8, 320, True, "float32"),
     ("d384_noncausal", 2, 1000, 8, 384, False, "bfloat16", 700),
     ("d300", 1, 1000, 4, 300, True, "bfloat16"),
+    ("d300_wide", 2, 2048, 8, 300, True, "bfloat16"),
+    ("d301", 1, 1000, 4, 301, True, "bfloat16"),
 ]
 
 BWD_SHAPES = [
@@ -481,7 +492,8 @@ HEAD_DIM_SHAPES = ("debug_f32", "d16_bf16", "d20_ragged", "d160",
                    "d256_ragged", "xl16_train", "d80_sq_lt_sk",
                    "d192_noncausal", "d120_sq_gt_sk", "d224", "d264",
                    "d320", "d512", "d320_f32", "d512_wide", "d320_f32_wide",
-                   "d384_noncausal", "d300")
+                   "d384_noncausal", "d300", "d33_odd", "d100_wide",
+                   "d300_wide", "d301")
 
 SCHED = dict(nodes=256, tasks=100_000, classes=32)
 SCHED_PIPELINED_TICKS = 3
@@ -6821,14 +6833,17 @@ def _kernel_table(report: dict, paths: dict) -> list:
         "name": "flash_attention_fwd", "route": "cuda",
         "kernel_route": fwd["route"],
         "source": csrc + "flash_attn_fwd.cu",
-        # the wgmma kernel and C entry, then the padded wgmma, mma.sync,
-        # FMA and, past 256, the wgmma, chunked and ring-fed FMA routes
+        # the wgmma kernel and C entry, then the padded wgmma kernel and
+        # its TMA and cp.async feeds, FMA and, past 256, the wgmma kernel
+        # and its two feeds and the ring-fed FMA route
         "sources": [csrc + f for f in ("flash_attn_fwd.cu",
+                                       "flash_attn_fwd_padded.cuh",
                                        "flash_attn_fwd_padded.cu",
-                                       "flash_attn_fwd_mma.cu",
+                                       "flash_attn_fwd_padded_cp_async.cu",
                                        "flash_attn_fwd_fma.cu",
+                                       "flash_attn_dchunk_fwd_wgmma.cuh",
                                        "flash_attn_dchunk_fwd_wgmma.cu",
-                                       "flash_attn_dchunk.cu",
+                                       "flash_attn_dchunk_fwd_cp_async.cu",
                                        "flash_attn_dchunk_fma.cu")],
         "replaces": "ray_tpu/ops/attention.py:202",
         **launches("fwd"), "head_dims_by_route": head_dims("fwd"),

@@ -18,7 +18,7 @@
 // for the rest, so there the launcher runs the kernel twice, once for dv
 // (S^T alone) and once for dk (S^T and dP^T), each holding one
 // accumulator. Instantiated at DP = D rounded up to 16 and told the real
-// D, as the forward's mma.sync kernel (flash_attn_fwd_mma.cu).
+// D (flash_attn_common.cuh: with_padded_dim, load_rows_bf16).
 
 #include "flash_attn_common.cuh"
 #include "flash_attn_routes.cuh"

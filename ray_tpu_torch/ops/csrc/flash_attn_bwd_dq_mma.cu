@@ -16,7 +16,7 @@
 // ds = p (dP - delta) scale leaves the accumulators already in the A
 // layout of dq += ds K, whose B fragments come from the same K tile by
 // transposing ldmatrix. Instantiated at DP = D rounded up to 16 and told
-// the real D, as the forward's mma.sync kernel (flash_attn_fwd_mma.cu).
+// the real D (flash_attn_common.cuh: with_padded_dim, load_rows_bf16).
 
 #include "flash_attn_common.cuh"
 #include "flash_attn_routes.cuh"

@@ -290,17 +290,25 @@ __device__ __forceinline__ void slab_product(
   }
 }
 
-// columns c and c + 1 (c even) of a bf16 row of D values: one 4-byte
-// store when D is even (the row then starts 4-byte aligned), else one
-// element at a time; columns past D are dropped
+// columns c and c + 1 (c even) of a bf16 row, those under n: one 4-byte
+// store when `pairs` (the row starts 4-byte aligned and n is even), else
+// one element at a time
+__device__ __forceinline__ void store_pair_bf16(__nv_bfloat16* row, int c,
+                                                int n, bool pairs, float lo,
+                                                float hi) {
+  if (pairs) {
+    if (c < n) *reinterpret_cast<uint32_t*>(row + c) = pack_bf16(lo, hi);
+  } else {
+    if (c < n) row[c] = __float2bfloat16_rn(lo);
+    if (c + 1 < n) row[c + 1] = __float2bfloat16_rn(hi);
+  }
+}
+
+// the same over a whole row of D values: pairs when D is even (the row
+// then starts 4-byte aligned); columns past D are dropped
 __device__ __forceinline__ void store_pair_bf16(__nv_bfloat16* row, int c,
                                                 int D, float lo, float hi) {
-  if ((D & 1) == 0) {
-    if (c < D) *reinterpret_cast<uint32_t*>(row + c) = pack_bf16(lo, hi);
-  } else {
-    if (c < D) row[c] = __float2bfloat16_rn(lo);
-    if (c + 1 < D) row[c + 1] = __float2bfloat16_rn(hi);
-  }
+  store_pair_bf16(row, c, D, (D & 1) == 0, lo, hi);
 }
 
 }  // namespace

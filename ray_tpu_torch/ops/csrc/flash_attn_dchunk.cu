@@ -1,39 +1,31 @@
-// K1, K2 and K3 (flash-attention forward, dq and dk/dv backward) in bf16 on
-// mma.sync past head dim 256, with no upper bound: the route "dchunk".
-// K2 and K3 take every bf16 D past 256; K1 only the D % 8 != 0 ones (a row
-// stride TMA cannot take), since flash_attn_dchunk_fwd_wgmma.cu serves K1
-// at D % 8 == 0. Replace ray_tpu/ops/attention.py::_flash_kernel,
-// ::_bwd_dq_kernel and ::_bwd_dkdv_kernel for those bf16 inputs;
-// flash_attn_fwd.cu and flash_attn_bwd.cu describe the kernel family and
+// K2 and K3 (flash-attention dq and dk/dv backward) in bf16 on mma.sync
+// past head dim 256, every D with no upper bound: the route "dchunk".
+// (K1 past 256 runs on wgmma, flash_attn_dchunk_fwd_wgmma.cuh.) Replace
+// ray_tpu/ops/attention.py::_bwd_dq_kernel and ::_bwd_dkdv_kernel for
+// those bf16 inputs; flash_attn_bwd.cu describes the kernel family and
 // its numerics, which these keep (bf16 operands, fp32 accumulators, P and
-// ds rounded to bf16 before the products that consume them, the same lse,
-// causal skipping as a loop bound, the ragged edge masked).
+// ds rounded to bf16 before the products that consume them, causal
+// skipping as a loop bound, the ragged edge masked).
 //
 // Past 256 a block cannot hold a 64-row tile of every operand it reads at
 // full width (the per-head-dim routes keep Q or K/V resident and their
 // output rows in registers), so the head dim is cut into 64-column chunks
 // and each block owns one chunk of its output:
-//   K1   (query tile, output chunk c): per key tile it accumulates
-//        S = Q K^T over every chunk of Q and K, streamed through shared
-//        memory, runs the online softmax, and accumulates only chunk c of
-//        O = P V;
 //   K2   (query tile, dq chunk c): per key tile S = Q K^T and dP = dO V^T
 //        over every chunk, p from lse, ds = p (dP - delta) scale, and
 //        dq_c += ds K_c;
 //   K3   (key tile, dk/dv chunk c): per query tile S^T = K Q^T and
 //        dP^T = V dO^T over every chunk, then dv_c += p^T dO_c and
 //        dk_c += ds^T Q_c.
-// Every block of a tile computes S in the same order, so m and l (and p)
-// are bit-identical across its chunk blocks; chunk 0 writes lse. The
-// recompute costs D/64 times the S (and dP) products of one block per
+// The recompute costs D/64 times the S and dP products of one block per
 // tile: right first, fast later (PERF.md has the times).
 //
 // Each (tile, chunk) step's operand chunks go round a two-stage cp.async
 // ring (the next step's loads are issued before this step's products);
-// the chunk a block owns of V (K1), K (K2) or Q and dO (K3) is loaded
-// with a tile's first step into a buffer of its own, two of them by tile
+// the chunk a block owns of K (K2) or Q and dO (K3) is loaded with a
+// tile's first step into a buffer of its own, two of them by tile
 // parity. One block of 4 warps, 16 rows each; A and B fragments by
-// ldmatrix from padded shared rows, as flash_attn_fwd_mma.cu.
+// ldmatrix from padded shared rows, as flash_attn_bwd_dq_mma.cu.
 
 #include "flash_attn_common.cuh"
 #include "flash_attn_routes.cuh"
@@ -114,130 +106,6 @@ __device__ __forceinline__ void store_chunk(bf16* const (&row)[2],
       store_pair_bf16(row[r] + c0, j * 8 + 2 * t, D - c0,
                       acc[j][2 * r] * mul[r], acc[j][2 * r + 1] * mul[r]);
   }
-}
-
-__global__ void __launch_bounds__(THREADS)
-fwd_dchunk_mma_kernel(const bf16* __restrict__ q, const bf16* __restrict__ k,
-                      const bf16* __restrict__ v, bf16* __restrict__ out,
-                      float* __restrict__ lse, int H, int Sq, int Sk, int D,
-                      int causal, float scale) {
-  // two stages of (Q chunk, K chunk), then V's chunk c by key tile parity
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  bf16* stages = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Vs = stages + 4 * CT;
-
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-  const int g = lane >> 2;
-  const int t = lane & 3;
-  const int bh = blockIdx.y;
-  const int b = bh / H;
-  const int h = bh % H;
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * TILE;  // longest first
-  const int c0 = blockIdx.z * DC;
-  const int nc = (D + DC - 1) / DC;
-  const long row_stride = (long)H * D;
-  const bf16* qb = q + ((long)b * Sq * H + h) * D;
-  const bf16* kb = k + ((long)b * Sk * H + h) * D;
-  const bf16* vb = v + ((long)b * Sk * H + h) * D;
-
-  const int wr = warp * 16;
-  const int qp[2] = {q0 + wr + g, q0 + wr + g + 8};
-  float m[2] = {NEG_INF, NEG_INF}, l[2] = {0.f, 0.f};
-  float o[DT][4], s[NT][4];
-#pragma unroll
-  for (int j = 0; j < DT; ++j) o[j][0] = o[j][1] = o[j][2] = o[j][3] = 0.f;
-
-  const int q_last = min(q0 + TILE, Sq) - 1;
-  const int kv_len = causal ? min(Sk, q_last + 1) : Sk;
-  const int n_steps = (kv_len + TILE - 1) / TILE * nc;
-
-  auto load_step = [&](int i) {
-    const int tile = i / nc, dc = i % nc;
-    bf16* st = stages + (i & 1) * 2 * CT;
-    load_chunk(st, qb, row_stride, q0, Sq, dc * DC, D, tid);
-    load_chunk(st + CT, kb, row_stride, tile * TILE, Sk, dc * DC, D, tid);
-    if (dc == 0)
-      load_chunk(Vs + (tile & 1) * CT, vb, row_stride, tile * TILE, Sk, c0,
-                 D, tid);
-    cp_async_commit();
-  };
-  load_step(0);
-
-  for (int i = 0; i < n_steps; ++i) {
-    const int tile = i / nc, dc = i % nc;
-    // this step's stage has landed and every warp is done with the other
-    // one (the previous step's), which the next step's loads now refill
-    cp_async_wait<0>();
-    __syncthreads();
-    if (i + 1 < n_steps) load_step(i + 1);
-    const bf16* st = stages + (i & 1) * 2 * CT;
-    if (dc == 0) zero(s);
-    row_products<DC, NT>(s, st, st + CT, wr, 0, lane);
-    if (dc + 1 < nc) continue;
-
-    // the whole S tile: scale, mask, online softmax (as fwd_mma)
-    const int k0 = tile * TILE;
-    float mx[2] = {NEG_INF, NEG_INF};
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int kp = k0 + n * 8 + 2 * t + (e & 1);
-        const int row = e >> 1;
-        const bool ok = kp < Sk && (!causal || qp[row] >= kp);
-        s[n][e] = ok ? s[n][e] * scale : NEG_INF;
-        mx[row] = fmaxf(mx[row], s[n][e]);
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int row = 0; row < 2; ++row) {
-      mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 1));
-      mx[row] = fmaxf(mx[row], __shfl_xor_sync(0xffffffffu, mx[row], 2));
-      const float m_new = fmaxf(m[row], mx[row]);
-      alpha[row] = expf(m[row] - m_new);
-      m[row] = m_new;
-    }
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int n = 0; n < NT; ++n) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        s[n][e] = expf(s[n][e] - m[e >> 1]);
-        sum[e >> 1] += s[n][e];
-      }
-    }
-#pragma unroll
-    for (int row = 0; row < 2; ++row) {
-      sum[row] += __shfl_xor_sync(0xffffffffu, sum[row], 1);
-      sum[row] += __shfl_xor_sync(0xffffffffu, sum[row], 2);
-      l[row] = alpha[row] * l[row] + sum[row];
-    }
-#pragma unroll
-    for (int j = 0; j < DT; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
-    tile_product(o, s, Vs + (tile & 1) * CT, lane);  // O_c += P V_c
-  }
-  cp_async_wait<0>();
-
-  bf16* rows[2];
-  float inv[2];
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    const float l_safe = fmaxf(l[r], 1e-20f);
-    inv[r] = 1.f / l_safe;
-    rows[r] = qp[r] < Sq ? out + (((long)b * Sq + qp[r]) * H + h) * D
-                         : nullptr;
-    if (rows[r] && t == 0 && blockIdx.z == 0)
-      lse[((long)b * H + h) * Sq + qp[r]] = m[r] + logf(l_safe);
-  }
-  store_chunk(rows, o, inv, c0, D, t);
 }
 
 __global__ void __launch_bounds__(THREADS)
@@ -477,17 +345,6 @@ cudaError_t launch(void (*kernel)(Params...), int Sgrid, int BH, int D,
 constexpr size_t CHUNK_BYTES = (size_t)CT * sizeof(bf16);
 
 }  // namespace
-
-cudaError_t rtt::fwd_dchunk_mma(const void* q, const void* k, const void* v,
-                                void* out, float* lse, int B, int H, int Sq,
-                                int Sk, int D, int causal, float scale,
-                                cudaStream_t stream) {
-  if (!dchunk_head_dim(D)) return cudaErrorInvalidValue;
-  return launch(fwd_dchunk_mma_kernel, Sq, B * H, D, 6 * CHUNK_BYTES, stream,
-                static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-                static_cast<const bf16*>(v), static_cast<bf16*>(out), lse, H,
-                Sq, Sk, D, causal, scale);
-}
 
 cudaError_t rtt::bwd_dq_dchunk_mma(const void* q, const void* k,
                                    const void* v, const void* dout,

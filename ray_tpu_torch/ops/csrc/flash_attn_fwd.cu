@@ -10,7 +10,7 @@
 // What bounds it on an H100: at b1's shapes (B2 or B8, S2048 H16 D128,
 // causal) the work is ~500 FLOP per byte of HBM traffic, far above the
 // card's ~295 FLOP/byte ridge: operations bound it, so the bf16 path must
-// keep the tensor cores fed. Three routes, by dtype and head_dim
+// keep the tensor cores fed. The routes, by dtype and head_dim
 // (attention.py::kernel_route names the one each launch takes):
 //   - bf16, head_dim 64 and 128 (the served and trained route):
 //     flash_fwd_ws_kernel, wgmma on TMA-fed shared-memory rings with warp
@@ -38,37 +38,36 @@
 //     the tensor cores (ping-pong over named barriers) both ran slower
 //     here: with two accumulators in flight ptxas serialises the wgmmas
 //     for want of registers.
-//   - bf16, head_dim % 8 == 0, 64 < head_dim <= 256, head_dim != 128
-//     (the padded wgmma route; bench.py's xl width at 16 heads, d 160):
-//     flash_fwd_padded_kernel<DP> in flash_attn_fwd_padded.cu,
-//     instantiated at DP = D rounded up to 32 over rows padded with zeros
-//     to 64-column boxes: this kernel's warp roles and two-stage ring
-//     with K/V tiles as wide as shared memory allows beside resident Q
-//     (128 keys at a padded row of 128 columns, 96 at 192, 64 at 256;
-//     128-key tiles do not fit the 227 KB at 192), S over DP/16 k steps,
-//     O += P V in box-aligned N pieces (wgmma_rs_cols), software-
-//     pipelined inside each warpgroup (tile j's S beside tile j - 1's
-//     P V), every wait mbar_wait_no_trap. ptxas (sm_90a, on the H100
-//     host; tools/check_head_dims.py): 168 registers at entry, no spills
-//     and no serialised wgmmas at any DP;
-//   - bf16, every other head_dim 1..256 (the entry() shape's 32, the
-//     debug configs' 16, the head dims off the multiples of 8): the
-//     mma.sync kernel in flash_attn_fwd_mma.cu; a row under 128 bytes is
-//     under the 128-byte swizzle box the wgmma routes are built on, and
-//     TMA needs a row stride of a multiple of 16 bytes;
+//   - bf16, every other head_dim 1..256 (bench.py's xl width at 16
+//     heads, d 160; the entry() shape's 32, the debug configs' 16, the
+//     head dims off the multiples of 8): flash_fwd_padded_kernel<DP, NCW,
+//     FEED> in flash_attn_fwd_padded.cuh, instantiated at DP = D rounded
+//     up to 32 over rows padded with zeros to 64-column boxes: this
+//     kernel's warp roles and two-stage ring with K/V tiles as wide as
+//     shared memory allows beside resident Q (128 keys at a padded row of
+//     64 or 128 columns, 96 at 192, 64 at 256; 128-key tiles do not fit
+//     the 227 KB at 192), S over DP/16 k steps, O += P V in box-aligned N
+//     pieces (wgmma_rs_cols), software-pipelined inside each warpgroup
+//     (tile j's S beside tile j - 1's P V), 64-row tiles (one consumer
+//     warpgroup) where 128-row ones would leave SMs idle, every wait
+//     mbar_wait_no_trap. At D % 8 == 0 TMA fills its boxes (route
+//     "wgmma_tma_ws_padded", flash_attn_fwd_padded.cu); at D % 8 != 0,
+//     a row stride TMA cannot take, the producer warpgroup fills the
+//     same swizzled boxes by cp.async or, at odd D, through registers
+//     ("wgmma_cp_async_ws_padded", flash_attn_fwd_padded_cp_async.cu);
 //   - fp32, every head_dim 1..256: exact fp32 FMAs on the CUDA cores in
 //     flash_attn_fwd_fma.cu (the tensor cores would round fp32 to tf32);
 //   - bf16 and fp32, every head_dim past 256, where a block no longer
 //     holds full-width tiles beside its rings in the 227 KB of shared
 //     memory it may have: a block owns a slice of O's columns, up to 256
-//     wide, and computes S over the whole head dim, ceil(D / 256) times a
-//     tile pair. bf16 at D % 8 == 0 on wgmma with S's operands streamed
-//     through TMA rings in 64-column boxes (route "dchunk_wgmma_tma_ws",
-//     flash_attn_dchunk_fwd_wgmma.cu); fp32 on register-blocked FMAs fed
-//     by a cp.async ring ("dchunk_fma_f32_ring", flash_attn_dchunk_fma.cu);
-//     bf16 at D % 8 != 0 (a row stride TMA cannot take) on mma.sync with
-//     the head dim in 64-column chunks and S recomputed in each chunk's
-//     block (route "dchunk", flash_attn_dchunk.cu).
+//     wide (320 in fp32), and computes S over the whole head dim,
+//     ceil(D / 256) times a tile pair. bf16 on wgmma with S's operands
+//     streamed through rings of 64-column boxes
+//     (flash_attn_dchunk_fwd_wgmma.cuh), filled by TMA at D % 8 == 0
+//     (route "dchunk_wgmma_tma_ws") and by cp.async or through registers
+//     at D % 8 != 0 ("dchunk_wgmma_cp_async_ws"); fp32 on register-blocked
+//     FMAs fed by a cp.async ring ("dchunk_fma_f32_ring",
+//     flash_attn_dchunk_fma.cu).
 // All skip every tile above the causal diagonal by making it the loop
 // bound (the TPU kernel's index-map clamp has no counterpart), schedule
 // the longest q tiles first, and mask ragged lengths themselves
@@ -362,9 +361,9 @@ extern "C" int rtt_flash_attn_fwd(const void* q, const void* k,
   if (rtt::dchunk_wgmma_head_dim(D) && dtype == 1)
     return rtt::fwd_dchunk_wgmma(q, k, v, out, lse_f, B, H, Sq, Sk, D,
                                  causal, scale, s);
-  if (rtt::dchunk_head_dim(D) && dtype == 1)
-    return rtt::fwd_dchunk_mma(q, k, v, out, lse_f, B, H, Sq, Sk, D, causal,
-                               scale, s);
+  if (rtt::dchunk_cp_async_head_dim(D) && dtype == 1)
+    return rtt::fwd_dchunk_wgmma_cp_async(q, k, v, out, lse_f, B, H, Sq, Sk,
+                                          D, causal, scale, s);
   if (dtype == 0)
     return rtt::fwd_fma(q, k, v, out, lse_f, B, H, Sq, Sk, D, causal, scale,
                         s);
@@ -374,8 +373,9 @@ extern "C" int rtt_flash_attn_fwd(const void* q, const void* k,
   if (D == 128)
     return launch_ws<128>(q, k, v, out, lse_f, B, H, Sq, Sk, causal, scale,
                           s);
-  if (rtt::wgmma_padded_head_dim(D))
+  if (rtt::fwd_padded_head_dim(D))
     return rtt::fwd_padded(q, k, v, out, lse_f, B, H, Sq, Sk, D, causal,
                            scale, s);
-  return rtt::fwd_mma(q, k, v, out, lse_f, B, H, Sq, Sk, D, causal, scale, s);
+  return rtt::fwd_padded_cp_async(q, k, v, out, lse_f, B, H, Sq, Sk, D,
+                                  causal, scale, s);
 }

@@ -1,14 +1,16 @@
 // The routes of K1, K2 and K3 past the wgmma kernels at head_dim 64 and
 // 128, each in its own translation unit so that nvcc compiles them side by
-// side: all three on wgmma at the padded head dims, the mma.sync (bf16)
-// and FMA (fp32) kernels, and past 256 the head-dim-chunked kernels of
-// both dtypes. The C entry points in flash_attn_fwd.cu and
+// side: K1 in bf16 on wgmma at every other head dim (its boxes filled by
+// TMA where the row stride is a multiple of 16 bytes, by cp.async or
+// through registers where not; up to 256 and past it), K2 and K3 on wgmma
+// at the padded head dims, the mma.sync (bf16) and FMA (fp32) kernels,
+// and past 256 the head-dim-chunked kernels of K2 and K3 in both dtypes
+// and of K1 in fp32. The C entry points in flash_attn_fwd.cu and
 // flash_attn_bwd.cu dispatch to them. The mma.sync and FMA routes take
-// any head dim D in [1, MAX_HEAD_DIM] (flash_attn_common.cuh), the padded
-// wgmma route the D that wgmma_padded_head_dim admits, the chunked routes
-// every D past 256 (K1 in bf16 on wgmma at the D dchunk_wgmma_head_dim
-// admits); each returns a cudaError_t (cudaErrorInvalidValue for
-// a D outside its set).
+// any head dim D in [1, MAX_HEAD_DIM] (flash_attn_common.cuh), each wgmma
+// route the D its constexpr below admits, the chunked routes every D past
+// 256; each returns a cudaError_t (cudaErrorInvalidValue for a D outside
+// its set). attention.py::kernel_route is the same table in Python.
 //
 // Layouts as the C entry points': q/dout/out/dq [B,Sq,H,D], k/v/dk/dv
 // [B,Sk,H,D], contiguous with a 16-byte aligned base; lse and delta
@@ -20,10 +22,6 @@
 
 namespace rtt {
 
-// K1, bf16 on mma.sync (flash_attn_fwd_mma.cu)
-cudaError_t fwd_mma(const void* q, const void* k, const void* v, void* out,
-                    float* lse, int B, int H, int Sq, int Sk, int D,
-                    int causal, float scale, cudaStream_t stream);
 // K1, fp32 on the CUDA cores (flash_attn_fwd_fma.cu)
 cudaError_t fwd_fma(const void* q, const void* k, const void* v, void* out,
                     float* lse, int B, int H, int Sq, int Sk, int D,
@@ -40,17 +38,33 @@ cudaError_t bwd_dkdv_mma(const void* q, const void* k, const void* v,
                          const float* delta, void* dk, void* dv, int B,
                          int H, int Sq, int Sk, int D, int causal,
                          float scale, cudaStream_t stream);
-// The head dims K1, K2 and K3 take on wgmma at a padded width in bf16:
+// The head dims K2 and K3 take on wgmma at a padded width in bf16:
 // D % 8 == 0 (TMA's 16-byte row stride), 64 < D <= 256, D != 128 (64 and
-// 128 have their own instantiations in flash_attn_fwd.cu and
-// flash_attn_bwd.cu)
+// 128 have their own instantiations in flash_attn_bwd.cu)
 constexpr bool wgmma_padded_head_dim(int D) {
   return D % 8 == 0 && D > 64 && D <= 256 && D != 128;
 }
-// K1, bf16 on wgmma at those head dims (flash_attn_fwd_padded.cu)
+// The bf16 head dims K1 takes on its padded wgmma kernel fed by TMA: D %
+// 8 == 0 up to 256 but 64 and 128 (flash_attn_fwd.cu's own kernel), the
+// ones under 64 in a 64-column box that TMA fills with zeros past D
+constexpr bool fwd_padded_head_dim(int D) {
+  return D % 8 == 0 && D >= 1 && D <= 256 && D != 64 && D != 128;
+}
+// ... and fed by cp.async (or through registers at odd D): D % 8 != 0 up
+// to 256, a row stride TMA cannot take
+constexpr bool fwd_padded_cp_async_head_dim(int D) {
+  return D % 8 != 0 && D >= 1 && D <= 256;
+}
+// K1, bf16 on wgmma at those head dims (flash_attn_fwd_padded.cu and
+// flash_attn_fwd_padded_cp_async.cu, one kernel in
+// flash_attn_fwd_padded.cuh)
 cudaError_t fwd_padded(const void* q, const void* k, const void* v,
                        void* out, float* lse, int B, int H, int Sq, int Sk,
                        int D, int causal, float scale, cudaStream_t stream);
+cudaError_t fwd_padded_cp_async(const void* q, const void* k, const void* v,
+                                void* out, float* lse, int B, int H, int Sq,
+                                int Sk, int D, int causal, float scale,
+                                cudaStream_t stream);
 // K2, bf16 on wgmma at those head dims (flash_attn_bwd_dq_padded.cu)
 cudaError_t bwd_dq_padded(const void* q, const void* k, const void* v,
                           const void* dout, const float* lse,
@@ -78,21 +92,28 @@ cudaError_t bwd_dkdv_fma(const void* q, const void* k, const void* v,
 // The head dims K1, K2 and K3 take on the chunked routes: every D past
 // 256 (the per-head-dim routes' widest), in bf16 and in fp32
 constexpr bool dchunk_head_dim(int D) { return D > 256; }
-// The bf16 head dims K1 takes on wgmma past 256: D % 8 == 0 (TMA's
-// 16-byte row stride); the rest stay on fwd_dchunk_mma
+// The bf16 head dims K1 takes on wgmma past 256 fed by TMA: D % 8 == 0
+// (TMA's 16-byte row stride) ...
 constexpr bool dchunk_wgmma_head_dim(int D) { return D > 256 && D % 8 == 0; }
+// ... and fed by cp.async (or through registers at odd D): the rest
+constexpr bool dchunk_cp_async_head_dim(int D) {
+  return D > 256 && D % 8 != 0;
+}
 // K1 in bf16 on wgmma at those head dims, a block per output slice of up
-// to 256 columns (flash_attn_dchunk_fwd_wgmma.cu)
+// to 256 columns (flash_attn_dchunk_fwd_wgmma.cu and
+// flash_attn_dchunk_fwd_cp_async.cu, one kernel in
+// flash_attn_dchunk_fwd_wgmma.cuh)
 cudaError_t fwd_dchunk_wgmma(const void* q, const void* k, const void* v,
                              void* out, float* lse, int B, int H, int Sq,
                              int Sk, int D, int causal, float scale,
                              cudaStream_t stream);
-// K1 in bf16 on mma.sync at the other head dims past 256, K2 and K3 in
-// bf16 at every head dim past 256 (flash_attn_dchunk.cu)
-cudaError_t fwd_dchunk_mma(const void* q, const void* k, const void* v,
-                           void* out, float* lse, int B, int H, int Sq,
-                           int Sk, int D, int causal, float scale,
-                           cudaStream_t stream);
+cudaError_t fwd_dchunk_wgmma_cp_async(const void* q, const void* k,
+                                      const void* v, void* out, float* lse,
+                                      int B, int H, int Sq, int Sk, int D,
+                                      int causal, float scale,
+                                      cudaStream_t stream);
+// K2 and K3 in bf16 on mma.sync at every head dim past 256
+// (flash_attn_dchunk.cu)
 cudaError_t bwd_dq_dchunk_mma(const void* q, const void* k, const void* v,
                               const void* dout, const float* lse,
                               const float* delta, void* dq, int B, int H,
@@ -104,7 +125,7 @@ cudaError_t bwd_dkdv_dchunk_mma(const void* q, const void* k, const void* v,
                                 int H, int Sq, int Sk, int D, int causal,
                                 float scale, cudaStream_t stream);
 // K1, K2 and K3 in fp32 on the CUDA cores at those head dims
-// (flash_attn_dchunk_fma.cu; K1 a block per output slice of up to 256
+// (flash_attn_dchunk_fma.cu; K1 a block per output slice of up to 320
 // columns)
 cudaError_t fwd_dchunk_fma(const void* q, const void* k, const void* v,
                            void* out, float* lse, int B, int H, int Sq,

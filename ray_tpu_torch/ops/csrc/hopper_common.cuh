@@ -107,6 +107,19 @@ inline int encode_rows(CUtensorMap* map, const void* ptr, long n, int len) {
   return r == CUDA_SUCCESS ? 0 : TENSOR_MAP_ERROR + (int)r;
 }
 
+// the card's SM count (132 on an H100 SXM), read once
+inline int sm_count() {
+  static const int n = [] {
+    int dev = 0, count = 0;
+    if (cudaGetDevice(&dev) != cudaSuccess ||
+        cudaDeviceGetAttribute(&count, cudaDevAttrMultiProcessorCount,
+                               dev) != cudaSuccess)
+      count = 132;
+    return count;
+  }();
+  return n;
+}
+
 // ---------------------------------------------------------------------------
 // Device: shared-memory addresses, mbarriers, TMA.
 // ---------------------------------------------------------------------------
@@ -511,6 +524,165 @@ __device__ __forceinline__ void named_barrier_sync(int id, int threads) {
 // wgmmas that read them as operands)
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Device: boxes filled without TMA. TMA needs a row stride that is a
+// multiple of 16 bytes, and a bf16 row of D % 8 != 0 values is not one.
+// The producer warpgroup's FEED_THREADS threads then fill the same
+// boxes themselves: the 16-byte chunk ch of box row r goes to chunk
+// ch ^ (r & 7) of that row, the offset inside the chunk kept, which is
+// what TMA's 128-byte swizzle writes, so the sw128_desc descriptors read
+// either fill unchanged. At even D a row starts 4-byte aligned (8-byte
+// at D % 4 == 0): cp.async copies 4 or 8 bytes, in its zero-fill form
+// (src-size 0) for rows past S and columns past D, and each thread's
+// share of a stage completes on the stage's full barrier through
+// cp.async.mbarrier.arrive.noinc (one arrival a thread, so the barrier
+// counts FEED_THREADS). At odd D a row starts 2-byte aligned: each
+// thread loads two bf16 values through registers, stores them as one
+// word, fences its stores into the async proxy and arrives. wgmma reads
+// shared memory through the async proxy and these fills write through
+// the generic one, so a consumer fences again after each wait on a full
+// barrier (feed_acquire).
+// ---------------------------------------------------------------------------
+
+constexpr int FEED_TMA = 0;       // one thread issues TMA boxes
+constexpr int FEED_CP_ASYNC = 1;  // the producer warpgroup fills them
+constexpr int FEED_THREADS = 128;
+// Producer warpgroups of a block: one, but three beside one consumer
+// warpgroup where the boxes are filled without TMA. Each takes every
+// third fill of a stage: an odd-D fill waits for global memory once a
+// batch of rows, so one warpgroup kept one fill in flight at a time.
+__host__ __device__ constexpr int feed_producers(int feed, int ncw) {
+  return feed != FEED_TMA && ncw == 1 ? 3 : 1;
+}
+// setmaxnreg counts of each producer and consumer warpgroup, where a
+// block has more than two (the registers it starts with, dealt out
+// again: 384 x 168, or 512 x 128). A TMA producer runs in 24; one that
+// fills the boxes itself needs more (ptxas spilled 60-716 bytes in it at
+// 24, 104-444 at 40), which leaves two consumers 224 each (their code
+// takes 138-202 where no setmaxnreg bounds it)
+__host__ __device__ constexpr int producer_regs(int feed, int ncw) {
+  return feed == FEED_TMA ? 24 : ncw == 2 ? 56 : 88;
+}
+__host__ __device__ constexpr int consumer_regs(int feed, int ncw) {
+  return feed == FEED_TMA ? 240 : ncw == 2 ? 224 : 240;
+}
+
+// BYTES (4 or 8) from global to shared memory; zeros when !valid
+template <int BYTES>
+__device__ __forceinline__ void cp_async_ca(uint32_t dst, const void* src,
+                                            bool valid) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;\n" ::"r"(dst),
+               "l"(src), "n"(BYTES), "r"(valid ? BYTES : 0)
+               : "memory");
+}
+
+// one arrival on `bar` once every cp.async this thread issued so far has
+// landed (the barrier's count includes it: .noinc)
+__device__ __forceinline__ void cp_async_arrive_noinc(uint32_t bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(
+                   bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void st_shared_b32(uint32_t addr, uint32_t x) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(addr), "r"(x) : "memory");
+}
+
+// rows [r0, r0 + ROWS) x columns [c0, c0 + COLS) of one head of a
+// [S, H, D] bf16 tensor (`head` at the head's first element, rows
+// `stride` elements apart) into the box at shared address `box` (1024
+// aligned), by thread `pt` of FEED_THREADS; rows past S and columns past
+// D are zeros. COLS: the box's 64 columns, or the first 32 where a
+// product reads no more. c0 is a multiple of 8. BATCH: rows a thread
+// loads through registers (odd D) before it stores them, as many as its
+// registers allow: each batch waits once for global memory.
+template <int ROWS, int COLS, int BATCH>
+__device__ __forceinline__ void fill_box(uint32_t box,
+                                         const __nv_bfloat16* head,
+                                         long stride, int r0, int S, int c0,
+                                         int D, int pt) {
+  static_assert(COLS == 64 || COLS == 32, "COLS: 64 or 32");
+  // recomputed at each call: values derived from pt, hoisted out of the
+  // producer's loops for every box, spilled its few registers
+  pt = static_cast<int>(opaque(static_cast<uint32_t>(pt)));
+  if ((D & 3) == 0) {
+    // 8-byte copies of 4 columns; a thread's rows are STEP apart, a
+    // multiple of 8, so they share r & 7 and one swizzled offset
+    constexpr int PER_ROW = COLS / 4, STEP = FEED_THREADS / PER_ROW;
+    static_assert(ROWS % STEP == 0 && STEP % 8 == 0, "rows a thread");
+    const int ch = pt % PER_ROW, r1 = pt / PER_ROW;
+    const int c = c0 + 4 * ch;
+    const uint32_t at = box + r1 * SWIZZLE_ROW_BYTES +
+                        ((((ch >> 1) ^ (r1 & 7)) << 4) | ((ch & 1) << 3));
+    const __nv_bfloat16* src = head + (long)(r0 + r1) * stride + c;
+#pragma unroll
+    for (int i = 0; i < ROWS / STEP; ++i) {
+      const bool ok = c < D && r0 + r1 + i * STEP < S;
+      cp_async_ca<8>(at + i * STEP * SWIZZLE_ROW_BYTES,
+                     ok ? src + (long)i * STEP * stride : head, ok);
+    }
+    return;
+  }
+  // two columns a thread: one 4-byte copy at even D, two 2-byte loads
+  // through registers at odd D
+  constexpr int PER_ROW = COLS / 2, STEP = FEED_THREADS / PER_ROW;
+  constexpr int N = ROWS / STEP;
+  static_assert(ROWS % STEP == 0, "rows a thread");
+  const int ch = pt % PER_ROW, r1 = pt / PER_ROW;
+  const int c = c0 + 2 * ch;
+  const __nv_bfloat16* src = head + (long)(r0 + r1) * stride + c;
+  const auto at = [&](int i) {
+    const int r = r1 + i * STEP;
+    return box + r * SWIZZLE_ROW_BYTES +
+           ((((ch >> 2) ^ (r & 7)) << 4) | ((ch & 3) << 2));
+  };
+  if ((D & 1) == 0) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) {
+      const bool ok = c < D && r0 + r1 + i * STEP < S;
+      cp_async_ca<4>(at(i), ok ? src + (long)i * STEP * stride : head, ok);
+    }
+    return;
+  }
+  // loads of a batch of rows in flight before their stores
+#pragma unroll
+  for (int i0 = 0; i0 < N; i0 += BATCH) {
+    uint32_t x[BATCH];
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i) {
+      x[i] = 0;
+      if (i0 + i >= N || r0 + r1 + (i0 + i) * STEP >= S) continue;
+      const unsigned short* p = reinterpret_cast<const unsigned short*>(
+          src + (long)(i0 + i) * STEP * stride);
+      if (c < D) x[i] = p[0];
+      if (c + 1 < D) x[i] |= (uint32_t)p[1] << 16;
+    }
+#pragma unroll
+    for (int i = 0; i < BATCH; ++i)
+      if (i0 + i < N) st_shared_b32(at(i0 + i), x[i]);
+  }
+}
+
+// this producer thread's share of a stage is issued: its arrival on the
+// stage's full barrier (see above)
+__device__ __forceinline__ void fill_done(uint32_t full, int D) {
+  if (D & 1) {
+    fence_proxy_async();
+    mbar_arrive(full);
+  } else {
+    cp_async_arrive_noinc(full);
+  }
+}
+
+// a consumer's wait on a full barrier, then (boxes filled without TMA)
+// the proxy fence before wgmma reads them
+template <int FEED>
+__device__ __forceinline__ void feed_acquire(uint32_t full,
+                                             uint32_t parity) {
+  mbar_wait_no_trap(full, parity);
+  if constexpr (FEED != FEED_TMA) fence_proxy_async();
 }
 
 }  // namespace

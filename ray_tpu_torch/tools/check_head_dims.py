@@ -1,15 +1,16 @@
 """K1, K2 and K3 at head dims off the wgmma route's 64 and 128, against
-their plain versions: the short first call after the padded wgmma,
-mma.sync, FMA or chunked (past 256) kernels change.
+their plain versions: the short first call after the padded wgmma
+(K1's fed by TMA or by cp.async), mma.sync, FMA or chunked (past 256)
+kernels change.
 
     python3 -m ray_tpu_torch.tools.check_head_dims
 
 Builds the kernels (printing the build time; for the mma.sync and FMA
 kernels the most registers any instantiation uses and every one that
-spills; for each instantiation of K1's padded wgmma kernel, of K2's
-and K3's wgmma kernels and of K1's two kernels past 256 its registers,
-spills and ptxas's performance notes, such as wgmmas serialised for want
-of registers), then for each (dtype, head dim) in ``CASES`` (and
+spills; for each instantiation of K1's padded wgmma kernel (each width,
+consumer warpgroups and feed), of K2's and K3's wgmma kernels and of
+K1's two kernels past 256 its registers, spills and ptxas's performance
+notes, such as wgmmas serialised for want of registers), then for each (dtype, head dim) in ``CASES`` (and
 ``WIDE_CASES`` at their own shapes) runs the forward,
 then K2 and K3 on its lse, at a ragged shape with Sq != Sk (causal at
 even head dims, non-causal at odd ones), and holds out/lse against
@@ -32,28 +33,40 @@ import time
 # past 128, fp32's 32-row tiles past 160, and in bf16 the padded wgmma
 # widths of K1, K2 and K3 (D rounded up to 32: 96, 128, 160, 192, 224, 256; a
 # 32-column piece at 80, 96, 160, 224; D 72 and 200 short of their
-# padding by 24) -- and the debug configs' 16
+# padding by 24; K1 also at 32 and 64, fed by TMA under 64 at D % 8 == 0,
+# by cp.async of 8 bytes at D % 4 == 0 (20, 100), of 4 at D % 4 == 2
+# (58, 250, 258) and through registers at odd D (1, 33, 257, 301)) -- and
+# the debug configs' 16
 CASES = [
-    ("bfloat16", (1, 8, 16, 20, 24, 32, 40, 48, 72, 80, 96, 100, 112, 136,
-                  160, 176, 192, 200, 224, 250, 256,
+    ("bfloat16", (1, 8, 16, 20, 24, 32, 33, 40, 48, 58, 72, 80, 96, 100,
+                  112, 136, 160, 176, 192, 200, 224, 250, 256,
                   # the chunked route past 256: a last chunk of one column
                   # (element-wise rows), of 8, of 44 (D % 8 == 4), whole
                   # chunks, and nine of them
-                  257, 264, 300, 320, 512, 576)),
+                  257, 258, 264, 300, 301, 320, 512, 576)),
     ("float32", (1, 3, 16, 20, 33, 64, 100, 128, 160, 161, 192, 224, 256,
                  257, 264, 300, 320, 512)),
 ]
 SHAPE = (2, 300, 237, 3)  # B, Sq, Sk, H
-# (dtype, head dim, (B, Sq, Sk, H)): K1's kernels past 256 at shapes whose
-# grids choose their other layouts. At SHAPE the bf16 wgmma kernel takes
+# (dtype, head dim, (B, Sq, Sk, H)): K1's wgmma kernels at shapes whose
+# grids choose their other layouts. At SHAPE the bf16 wgmma kernels take
 # one consumer warpgroup (64-row tiles: 128-row ones would leave SMs
-# idle); here two, with Q resident (D 512) and streamed beside K (D 640,
-# ten 64-column boxes), and Sq != Sk both ways; fp32 at slices of 320 and
-# of 256 columns, with 16- and 4-byte copies (D 302)
+# idle); here two, past 256 with Q resident (D 512, and 300 and 301 fed
+# by cp.async and through registers) and streamed beside K (D 640, ten
+# 64-column boxes; D 650 fed by 4-byte cp.async), and Sq != Sk both ways;
+# up to 256 the padded kernel fed by TMA under 64 (16), by cp.async (100)
+# and through registers (33); fp32 at slices of 320 and of 256 columns,
+# with 16- and 4-byte copies (D 302)
 WIDE_CASES = [
     ("bfloat16", 512, (2, 1000, 700, 8)),
     ("bfloat16", 640, (2, 700, 1000, 8)),
     ("bfloat16", 384, (2, 1000, 700, 8)),
+    ("bfloat16", 300, (2, 1000, 700, 8)),
+    ("bfloat16", 301, (2, 1000, 1000, 8)),
+    ("bfloat16", 650, (2, 700, 1000, 8)),
+    ("bfloat16", 16, (2, 1000, 1000, 16)),
+    ("bfloat16", 33, (2, 1000, 1000, 16)),
+    ("bfloat16", 100, (2, 1000, 700, 16)),
     ("float32", 320, (2, 700, 1000, 8)),
     ("float32", 302, (2, 1000, 700, 8)),
     ("float32", 512, (1, 1000, 1000, 8)),

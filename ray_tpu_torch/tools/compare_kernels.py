@@ -11,7 +11,9 @@ its own ``_build`` directory. At each of ``SHAPES`` (b1's served forward
 and train step, bench.py's xl head dim 160 at B2 and at its train step's
 B8, and chip_smoke.py's d 256, d 80 and d 192 rows, for K1 and for K2
 and K3, in bf16; K1 past 256 at chip_smoke.py's rows, in bf16 and fp32,
-each row's dtype given with it) the script checks that
+each row's dtype given with it; K1 on its cp.async-fed wgmma kernels and
+at d 16 at chip_smoke.py's d16_bf16, d20_ragged, d33_odd, d100_wide,
+d300, d300_wide and d301 rows) the script checks that
 the two trees' outputs agree, then times the forward (K1), the dq
 backward (K2) or the dk/dv backward (K3) with CUDA events in the order
 baseline, current, current, baseline, repeated ``--rounds`` times, and
@@ -19,7 +21,11 @@ beside them one PyTorch library call on the same inputs as a yardstick
 (scaled_dot_product_attention's forward for K1, its whole backward for K2
 and K3), and prints one JSON line with every timing, the mean of each,
 the factor baseline/current, the library's time, and the card's name and
-power limit. Needs CUDA (exits 2 without it).
+power limit. CUDA events around back-to-back calls time the host's
+launch path too, which sets the time at the small rows; so each row also
+gets the device time of one call of each (``device_ms``: the kernels'
+durations in a torch.profiler trace of ITERS calls, summed, over ITERS).
+Needs CUDA (exits 2 without it).
 """
 
 from __future__ import annotations
@@ -38,7 +44,10 @@ SHAPES = [
     # bench.py's xl head dim 160 (B2, and B8: the xl16 train step), and at
     # chip_smoke.py's d256_ragged, d80_sq_lt_sk and d192_noncausal rows;
     # K1 past 256 at chip_smoke.py's rows: d264, d320, d512 and d512_wide
-    # in bf16, d320_f32 and d320_f32_wide in fp32
+    # in bf16, d320_f32 and d320_f32_wide in fp32; K1 where it left
+    # mma.sync: d 16 (fed by TMA), 20 and 100 (cp.async), 33 (through
+    # registers), past 256 d 300 (cp.async) and 301 (through registers)
+    # at chip_smoke.py's rows
     ("served_fwd", "fwd", 2, 2048, 2048, 16, 128, True, "bfloat16"),
     ("train_fwd", "fwd", 8, 2048, 2048, 16, 128, True, "bfloat16"),
     ("d160_fwd", "fwd", 2, 2048, 2048, 16, 160, True, "bfloat16"),
@@ -52,6 +61,13 @@ SHAPES = [
     ("d512_wide_fwd", "fwd", 2, 2048, 2048, 8, 512, True, "bfloat16"),
     ("d320_f32_fwd", "fwd", 1, 1000, 1000, 4, 320, True, "float32"),
     ("d320_f32_wide_fwd", "fwd", 2, 2048, 2048, 8, 320, True, "float32"),
+    ("d16_bf16_fwd", "fwd", 2, 1000, 1000, 4, 16, True, "bfloat16"),
+    ("d20_ragged_fwd", "fwd", 1, 1000, 700, 4, 20, False, "bfloat16"),
+    ("d100_wide_fwd", "fwd", 2, 2048, 2048, 16, 100, True, "bfloat16"),
+    ("d300_fwd", "fwd", 1, 1000, 1000, 4, 300, True, "bfloat16"),
+    ("d300_wide_fwd", "fwd", 2, 2048, 2048, 8, 300, True, "bfloat16"),
+    ("d33_odd_fwd", "fwd", 1, 1000, 1000, 4, 33, True, "bfloat16"),
+    ("d301_fwd", "fwd", 1, 1000, 1000, 4, 301, True, "bfloat16"),
     ("train_dq", "dq", 8, 2048, 2048, 16, 128, True, "bfloat16"),
     ("train_dkdv", "dkdv", 8, 2048, 2048, 16, 128, True, "bfloat16"),
     ("d160_dq", "dq", 2, 2048, 2048, 16, 160, True, "bfloat16"),
@@ -144,6 +160,22 @@ def _ms(fn) -> float:
     return start.elapsed_time(end) / ITERS
 
 
+def _device_ms(fn) -> float:
+    """The device time of one call of ``fn``: every kernel it launches,
+    by a torch.profiler trace (CUPTI) of ITERS calls."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(ITERS):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages())
+    return us / 1e3 / ITERS
+
+
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--baseline", required=True, type=Path)
@@ -175,7 +207,10 @@ def main(argv=None) -> int:
             for tag in ("baseline", "current", "current", "baseline"):
                 times[tag].append(_ms(calls[tag]))
         mean = {tag: sum(x) / len(x) for tag, x in times.items()}
-        library_ms = _ms(_library(kernel, q, k, v, do, causal))
+        library = _library(kernel, q, k, v, do, causal)
+        library_ms = _ms(library)
+        device_ms = {tag: _device_ms(fn) for tag, fn in
+                     (*calls.items(), ("library", library))}
         routes = {tag: mod.kernel_route(kernel, q.dtype, d)
                   for tag, mod in mods.items()}
         rows.append({"shape": name, "kernel": kernel, "B": b, "Sq": sq,
@@ -185,12 +220,14 @@ def main(argv=None) -> int:
                      "mean_ms": mean,
                      "baseline_over_current": mean["baseline"]
                      / mean["current"],
-                     "library_ms": library_ms})
+                     "library_ms": library_ms, "device_ms": device_ms})
         print(f"{name} ({dtype}; {routes['baseline']} -> "
               f"{routes['current']}): baseline {mean['baseline']:.4f} ms, "
               f"current {mean['current']:.4f} ms, "
               f"x{rows[-1]['baseline_over_current']:.3f} (max abs diff "
-              f"{err:.3g}); library {library_ms:.4f} ms", flush=True)
+              f"{err:.3g}); library {library_ms:.4f} ms; device ms "
+              + ", ".join(f"{t} {x:.4f}" for t, x in device_ms.items()),
+              flush=True)
         del q, k, v, do, outs, calls
     print(json.dumps({"card": card_line(), "baseline": str(args.baseline),
                       "order": "baseline, current, current, baseline",

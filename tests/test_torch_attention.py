@@ -171,6 +171,10 @@ def test_blockwise_bwd_matches_jax(causal, shape):
     (120, False),
     (192, True),
     (224, False),
+    # K1's padded wgmma kernel fed through registers (an odd D under 64)
+    # and by 8-byte cp.async (a row of 200 bytes)
+    (33, True),
+    (100, False),
 ])
 def test_blockwise_fwd_bwd_match_jax_at_head_dims_off_64_and_128(d, causal):
     """The plain versions the padded wgmma, mma.sync and FMA kernels are
@@ -204,15 +208,15 @@ BF16_TOL = dict(atol=2e-2, rtol=2e-2)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("d", [264, 320, 512, 300])
+@pytest.mark.parametrize("d", [264, 320, 512, 300, 301])
 def test_flash_attention_past_head_dim_256_matches_jax(d, dtype):
     """The plain versions the kernels past 256 are held against on the
     card take every head dim past 256: the port's flash_attention on the
     CPU, forward and grads, against the JAX package's flash_attention and
     jax.grad at [1, 128, 2, D] causal (the JAX blockwise path here). On
-    the card K1 takes its wgmma kernel in bf16 at D % 8 == 0 (the chunked
-    mma.sync one at 300) and its ring-fed FMA kernel in fp32; K2 and K3
-    the chunked route."""
+    the card K1 takes its wgmma kernel in bf16 (fed by TMA at D % 8 == 0,
+    by cp.async at 300 and through registers at 301) and its ring-fed FMA
+    kernel in fp32; K2 and K3 the chunked route."""
     import jax
 
     rng = np.random.default_rng(d)
@@ -230,7 +234,7 @@ def test_flash_attention_past_head_dim_256_matches_jax(d, dtype):
     tol = TOL if dtype == "float32" else BF16_TOL
     gtol = GRAD_TOL if dtype == "float32" else BF16_TOL
     k1 = (T.DCHUNK_FMA if dtype == "float32" else
-          T.DCHUNK_WGMMA if d % 8 == 0 else T.DCHUNK)
+          T.DCHUNK_WGMMA if d % 8 == 0 else T.DCHUNK_WGMMA_CP)
     assert out.dtype == tdt and T.kernel_route("fwd", tdt, d) == k1
     assert T.kernel_route("dq", tdt, d) == T.kernel_route(
         "dkdv", tdt, d) == T.DCHUNK

@@ -25,12 +25,13 @@ ROOT = Path(__file__).resolve().parents[1]
     ("fwd", torch.bfloat16, 64, T.WGMMA),
     ("dkdv", torch.bfloat16, 128, T.WGMMA),
     ("dkdv", torch.bfloat16, 64, T.WGMMA),
-    # a head_dim-32 row (64 bytes) is under the 128-byte swizzle box,
-    # and all three take mma.sync below 64 (the debug configs' 16, 48)
-    ("fwd", torch.bfloat16, 32, T.MMA_SYNC),
+    # under 64 K2 and K3 take mma.sync; K1 takes its padded wgmma kernel
+    # fed by TMA at D % 8 == 0 (one 64-column box, zeros past D: the
+    # debug configs' 16, 32, 48; more at the end)
+    ("fwd", torch.bfloat16, 32, T.WGMMA_PADDED),
     ("dkdv", torch.bfloat16, 32, T.MMA_SYNC),
-    ("fwd", torch.bfloat16, 16, T.MMA_SYNC),
-    ("fwd", torch.bfloat16, 48, T.MMA_SYNC),
+    ("fwd", torch.bfloat16, 16, T.WGMMA_PADDED),
+    ("fwd", torch.bfloat16, 48, T.WGMMA_PADDED),
     # K1, K2 and K3 take the padded wgmma kernels at D % 8 == 0 between
     # 64 and 256 (bench.py's xl width's 160, the widest 256, and 72, 96,
     # 192: a 24-column pad, a 32-column piece, three boxes) ...
@@ -47,9 +48,10 @@ ROOT = Path(__file__).resolve().parents[1]
     ("dkdv", torch.bfloat16, 96, T.WGMMA_PADDED),
     ("dq", torch.bfloat16, 192, T.WGMMA_PADDED),
     ("dkdv", torch.bfloat16, 192, T.WGMMA_PADDED),
-    # ... and mma.sync where a row is not a multiple of 16 bytes
-    ("fwd", torch.bfloat16, 100, T.MMA_SYNC),
-    ("fwd", torch.bfloat16, 250, T.MMA_SYNC),
+    # ... and where a row is not a multiple of 16 bytes K1 on its padded
+    # wgmma kernel fed by cp.async, K2 and K3 on mma.sync
+    ("fwd", torch.bfloat16, 100, T.WGMMA_PADDED_CP),
+    ("fwd", torch.bfloat16, 250, T.WGMMA_PADDED_CP),
     ("dq", torch.bfloat16, 100, T.MMA_SYNC),
     ("dkdv", torch.bfloat16, 100, T.MMA_SYNC),
     ("dq", torch.bfloat16, 250, T.MMA_SYNC),
@@ -72,15 +74,22 @@ ROOT = Path(__file__).resolve().parents[1]
     ("dq", torch.float32, 264, T.DCHUNK),
     ("dkdv", torch.float32, 257, T.DCHUNK),
     # K1 in bf16 past 256 off the multiples of 8 (a row stride TMA cannot
-    # take) stays on the mma.sync chunked kernel; fp32 K1 takes every D
-    ("fwd", torch.bfloat16, 300, T.DCHUNK),
-    ("fwd", torch.bfloat16, 257, T.DCHUNK),
+    # take) on its wgmma kernel fed by cp.async; fp32 K1 takes every D
+    ("fwd", torch.bfloat16, 300, T.DCHUNK_WGMMA_CP),
+    ("fwd", torch.bfloat16, 257, T.DCHUNK_WGMMA_CP),
     ("fwd", torch.bfloat16, 512, T.DCHUNK_WGMMA),
     ("fwd", torch.bfloat16, 384, T.DCHUNK_WGMMA),
     ("fwd", torch.float32, 257, T.DCHUNK_FMA),
     ("fwd", torch.float32, 300, T.DCHUNK_FMA),
     ("dq", torch.bfloat16, 512, T.DCHUNK),
     ("dkdv", torch.float32, 320, T.DCHUNK),
+    # K1 under 64 fed by TMA (8) and by cp.async off the multiples of 8
+    # (odd D through registers: 33, 1, and past 256 301)
+    ("fwd", torch.bfloat16, 8, T.WGMMA_PADDED),
+    ("fwd", torch.bfloat16, 33, T.WGMMA_PADDED_CP),
+    ("fwd", torch.bfloat16, 20, T.WGMMA_PADDED_CP),
+    ("fwd", torch.bfloat16, 1, T.WGMMA_PADDED_CP),
+    ("fwd", torch.bfloat16, 301, T.DCHUNK_WGMMA_CP),
 ])
 def test_kernel_route(kernel, dtype, head_dim, route):
     assert T.kernel_route(kernel, dtype, head_dim) == route
@@ -89,13 +98,15 @@ def test_kernel_route(kernel, dtype, head_dim, route):
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkdv"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_kernel_route_takes_every_head_dim_to_256(kernel, dtype):
-    """Every head dim has a kernel: bf16 keeps wgmma at 64 and 128; K1,
-    K2 and K3 take the padded wgmma kernels at every other multiple of 8
-    past 64 up to 256 and mma.sync below 64 and off the multiples of 8;
-    fp32 takes the FMA kernels at all up to 256; past 256, with no upper
-    bound, K2 and K3 take the chunked route in both dtypes and K1 its
-    wgmma kernel in bf16 at D % 8 == 0 (the chunked mma.sync one
-    otherwise) and its ring-fed FMA kernel in fp32; 0 raises."""
+    """Every head dim has a kernel: bf16 keeps wgmma at 64 and 128; K2
+    and K3 take the padded wgmma kernels at every other multiple of 8
+    past 64 up to 256 and mma.sync below 64 and off the multiples of 8,
+    K1 its padded wgmma kernel at every other head dim up to 256, fed by
+    TMA at the multiples of 8 and by cp.async off them; fp32 takes the
+    FMA kernels at all up to 256; past 256, with no upper bound, K2 and
+    K3 take the chunked route in both dtypes and K1 its wgmma kernel in
+    bf16 (fed by TMA at D % 8 == 0, by cp.async otherwise) and its
+    ring-fed FMA kernel in fp32; no K1 route is mma.sync; 0 raises."""
     padded = [d for d in range(1, T.DCHUNK_PAST + 1)
               if d % 8 == 0 and d > 64 and d != 128]
     assert len(padded) == 23 and padded[0] == 72 and padded[-1] == 256
@@ -103,13 +114,16 @@ def test_kernel_route_takes_every_head_dim_to_256(kernel, dtype):
         want = (T.FMA if dtype == torch.float32 else
                 T.WGMMA if d in (64, 128) else
                 T.WGMMA_PADDED if d in padded else
-                T.MMA_SYNC)
+                T.MMA_SYNC if kernel != "fwd" else
+                T.WGMMA_PADDED if d % 8 == 0 else T.WGMMA_PADDED_CP)
         assert T.kernel_route(kernel, dtype, d) == want, d
         assert T.wgmma_padded_head_dim(d) == (d in padded), d
+        if kernel == "fwd":
+            assert want != T.MMA_SYNC
     for d in (T.DCHUNK_PAST + 1, 264, 300, 320, 512, 4096):
         want = (T.DCHUNK if kernel != "fwd" else
                 T.DCHUNK_FMA if dtype == torch.float32 else
-                T.DCHUNK_WGMMA if d % 8 == 0 else T.DCHUNK)
+                T.DCHUNK_WGMMA if d % 8 == 0 else T.DCHUNK_WGMMA_CP)
         assert T.kernel_route(kernel, dtype, d) == want, d
         assert not T.wgmma_padded_head_dim(d)
     with pytest.raises(ValueError, match="head_dim"):
@@ -346,27 +360,32 @@ def test_padded_route_rows_reach_its_edges(shape, sq, sk, d, causal):
 
 
 def test_padded_forward_source_is_built_and_instantiated_at_each_width():
-    """The padded K1 is one of the sources every build compiles, and its
-    launcher instantiates the kernel at each width the padded head dims
-    round up to (D rounded up to 32)."""
-    assert "flash_attn_fwd_padded.cu" in T._SOURCES
+    """The padded K1 is built from one kernel header by two sources every
+    build compiles (fed by TMA, by cp.async), and its launcher
+    instantiates the kernel at each width the head dims it takes round up
+    to (D rounded up to 32)."""
+    assert {"flash_attn_fwd_padded.cu",
+            "flash_attn_fwd_padded_cp_async.cu"} <= set(T._SOURCES)
+    assert "flash_attn_fwd_padded.cuh" in T._HEADERS
     src = (ROOT / "ray_tpu_torch" / "ops" / "csrc"
-           / "flash_attn_fwd_padded.cu").read_text()
+           / "flash_attn_fwd_padded.cuh").read_text()
     widths = {(d + 31) // 32 * 32 for d in range(1, T.DCHUNK_PAST + 1)
-              if T.wgmma_padded_head_dim(d)}
-    assert widths == {96, 128, 160, 192, 224, 256}
+              if T.kernel_route("fwd", torch.bfloat16, d) in (
+                  T.WGMMA_PADDED, T.WGMMA_PADDED_CP)}
+    assert widths == {32, 64, 96, 128, 160, 192, 224, 256}
     launched = {int(w) for w in
-                re.findall(r"launch_fwd_padded<(\d+)>\)", src)}
+                re.findall(r"integral_constant<int, (\d+)>", src)}
     assert launched == widths
     # every wait is mbar_wait_no_trap: a trap anywhere in the kernel keeps
     # ptxas allocating its consumers within 168 registers
     code = re.sub(r"//[^\n]*", "", src)
     assert "__trap" not in code and "mbar_wait(" not in code
     assert "mbar_wait_no_trap(" in code
-    # the C entry dispatches to it before the mma.sync kernel
+    # the C entry dispatches to the TMA-fed kernel before the other feed
     entry = (ROOT / "ray_tpu_torch" / "ops" / "csrc"
              / "flash_attn_fwd.cu").read_text()
-    assert entry.index("rtt::fwd_padded(") < entry.index("rtt::fwd_mma(")
+    assert entry.index("rtt::fwd_padded(") < entry.index(
+        "rtt::fwd_padded_cp_async(")
 
 
 @pytest.mark.parametrize("kernel,bound_ms", [
@@ -466,27 +485,29 @@ def test_compare_kernels_times_the_padded_route_at_its_rows():
 
 
 def test_chunked_route_is_built_dispatched_and_held_on_the_card():
-    """Past 256: the three sources are built, every C entry dispatches
+    """Past 256: the four sources are built, every C entry dispatches
     there before the per-head-dim kernels of either dtype (K1 to its
-    wgmma kernel before the chunked mma.sync one), and the kernel phase
-    holds K1, K2 and K3 at 264, 320 and 512 in bf16 and at 320 in fp32,
-    K1 and K2/K3 at B2 S2048 H8 D512 too, and K1 at fp32 d 320 at that
-    size, at d 384 non-causal with Sq != Sk and at bf16 d 300 (the
-    chunked mma.sync kernel), all listed with the head-dim rows and timed
-    in both dtypes by tools/compare_kernels."""
+    TMA-fed wgmma kernel before the cp.async-fed one), and the kernel
+    phase holds K1, K2 and K3 at 264, 320 and 512 in bf16 and at 320 in
+    fp32, K1 and K2/K3 at B2 S2048 H8 D512 too, and K1 at fp32 d 320 at
+    that size, at d 384 non-causal with Sq != Sk and at bf16 d 300 (the
+    wgmma kernel fed by cp.async), all listed with the head-dim rows and
+    timed in both dtypes by tools/compare_kernels."""
     from ray_tpu_torch.tools.compare_kernels import SHAPES
 
     assert {"flash_attn_dchunk.cu", "flash_attn_dchunk_fma.cu",
-            "flash_attn_dchunk_fwd_wgmma.cu"} <= set(T._SOURCES)
+            "flash_attn_dchunk_fwd_wgmma.cu",
+            "flash_attn_dchunk_fwd_cp_async.cu"} <= set(T._SOURCES)
     csrc = ROOT / "ray_tpu_torch" / "ops" / "csrc"
     fwd = (csrc / "flash_attn_fwd.cu").read_text()
     bwd = (csrc / "flash_attn_bwd.cu").read_text()
     assert fwd.index("rtt::fwd_dchunk_fma(") < fwd.index("rtt::fwd_fma(")
-    assert fwd.index("rtt::fwd_dchunk_mma(") < fwd.index("launch_ws<64>(")
+    assert fwd.index("rtt::fwd_dchunk_wgmma_cp_async(") < fwd.index(
+        "launch_ws<64>(")
     assert fwd.index("rtt::fwd_dchunk_wgmma(") < fwd.index(
-        "rtt::fwd_dchunk_mma(")
+        "rtt::fwd_dchunk_wgmma_cp_async(")
     assert fwd.index("rtt::fwd_dchunk_fma(") < fwd.index(
-        "rtt::fwd_dchunk_mma(")
+        "rtt::fwd_dchunk_wgmma_cp_async(")
     for kernel in ("dq", "dkdv"):
         assert bwd.index(f"rtt::bwd_{kernel}_dchunk_fma(") < bwd.index(
             f"rtt::bwd_{kernel}_fma(")
@@ -515,12 +536,12 @@ def test_chunked_route_is_built_dispatched_and_held_on_the_card():
     assert bwd_rows["d512_wide"] == (2, 2048, 2048, 8, 512, True,
                                      "bfloat16")
     assert T.kernel_route("fwd", torch.bfloat16, 384) == T.DCHUNK_WGMMA
-    assert T.kernel_route("fwd", torch.bfloat16, 300) == T.DCHUNK
+    assert T.kernel_route("fwd", torch.bfloat16, 300) == T.DCHUNK_WGMMA_CP
     # compare_kernels: K1 at each of these rows in its dtype, parent and
     # new in one process
     timed = {(kernel, *rest) for _, kernel, *rest in SHAPES}
     for name in ("d264", "d320", "d512", "d320_f32", "d512_wide",
-                 "d320_f32_wide"):
+                 "d320_f32_wide", "d300"):
         b, s, h, d, causal, dtype = fwd_rows[name]
         assert ("fwd", b, s, s, h, d, causal, dtype) in timed, name
     assert {row[-1] for row in SHAPES} == {"bfloat16", "float32"}
@@ -529,19 +550,20 @@ def test_chunked_route_is_built_dispatched_and_held_on_the_card():
 def test_dchunk_wgmma_source_instantiates_each_slice_width_without_trap():
     """K1's wgmma kernel past 256 is launched at each slice width (the
     slice rounded up to 32: 160..256), with one or two consumer
-    warpgroups and Q resident or streamed; every wait is
+    warpgroups and Q resident or streamed, for each feed; every wait is
     mbar_wait_no_trap (a trap keeps ptxas from allocating the consumers
     within setmaxnreg's count); the C++ rule for its head dims is the
     Python one."""
     src = (ROOT / "ray_tpu_torch" / "ops" / "csrc"
-           / "flash_attn_dchunk_fwd_wgmma.cu").read_text()
+           / "flash_attn_dchunk_fwd_wgmma.cuh").read_text()
     code = re.sub(r"//[^\n]*", "", src)
     assert "__trap" not in code and "mbar_wait(" not in code
     assert "mbar_wait_no_trap(" in code
     widths = {int(w) for w in
               re.findall(r"integral_constant<int, (\d+)>", code)}
     assert widths == {160, 192, 224, 256}
-    assert set(re.findall(r"launch_dw<SWP, (\d), (true|false)>", code)) == {
+    assert set(re.findall(r"launch_dw<SWP, (\d), (true|false), FEED>",
+                          code)) == {
         ("1", "true"), ("2", "true"), ("2", "false")}
     routes = (ROOT / "ray_tpu_torch" / "ops" / "csrc"
               / "flash_attn_routes.cuh").read_text()
@@ -567,7 +589,7 @@ def test_dchunk_wgmma_slices_are_balanced_multiples_of_8(d, slices):
     got = [min(sw, d - c0) for c0 in range(0, d, sw)]
     assert got == slices and all(w % 8 == 0 for w in got)
     src = (ROOT / "ray_tpu_torch" / "ops" / "csrc"
-           / "flash_attn_dchunk_fwd_wgmma.cu").read_text()
+           / "flash_attn_dchunk_fwd_wgmma.cuh").read_text()
     assert "const int sw = ((D + ns - 1) / ns + 7) / 8 * 8;" in src
     assert "(D + sw - 1) / sw)" in src
 
@@ -641,3 +663,141 @@ def test_b1_h4_is_served_through_the_wgmma_kernel_past_256():
     assert "b1_h4" in cs.MODEL_DESC
     src = (ROOT / "chip_smoke.py").read_text()
     assert '("b1_h4_serve", lambda r: phase_serve(r, "b1_h4"))' in src
+
+
+def _header_rules() -> dict:
+    """The route constexprs of csrc/flash_attn_routes.cuh as Python
+    functions of D: {name: rule}."""
+    src = (ROOT / "ray_tpu_torch" / "ops" / "csrc"
+           / "flash_attn_routes.cuh").read_text()
+    rules = {}
+    for name, body in re.findall(
+            r"constexpr bool (\w+)\(int D\)\s*\{\s*return ([^;]+);\s*\}",
+            src):
+        expr = body.replace("&&", " and ").replace("||", " or ")
+        rules[name] = eval(f"lambda D: {expr}")  # noqa: S307 -- our header
+    return rules
+
+
+@pytest.mark.parametrize("rule,kernel,route", [
+    ("wgmma_padded_head_dim", "dq", T.WGMMA_PADDED),
+    ("wgmma_padded_head_dim", "dkdv", T.WGMMA_PADDED),
+    ("fwd_padded_head_dim", "fwd", T.WGMMA_PADDED),
+    ("fwd_padded_cp_async_head_dim", "fwd", T.WGMMA_PADDED_CP),
+    ("dchunk_wgmma_head_dim", "fwd", T.DCHUNK_WGMMA),
+    ("dchunk_cp_async_head_dim", "fwd", T.DCHUNK_WGMMA_CP),
+])
+def test_route_table_is_the_headers_constexprs(rule, kernel, route):
+    """attention.kernel_route in bf16 takes ``route`` at exactly the head
+    dims the C dispatch's constexpr of the same route admits."""
+    rules = _header_rules()
+    assert {"dchunk_head_dim", rule} <= set(rules)
+    for d in range(1, 1100):
+        got = T.kernel_route(kernel, torch.bfloat16, d) == route
+        assert got == bool(rules[rule](d)), (rule, d)
+        assert bool(rules["dchunk_head_dim"](d)) == (d > T.DCHUNK_PAST)
+
+
+@pytest.mark.parametrize("header,sources,launch", [
+    ("flash_attn_fwd_padded.cuh",
+     {"flash_attn_fwd_padded.cu": "fwd_padded_feed<FEED_TMA>",
+      "flash_attn_fwd_padded_cp_async.cu":
+      "fwd_padded_feed<FEED_CP_ASYNC>"},
+     r"launch_fwd_padded<DP, (\d), FEED>"),
+    ("flash_attn_dchunk_fwd_wgmma.cuh",
+     {"flash_attn_dchunk_fwd_wgmma.cu": "fwd_dchunk_feed<FEED_TMA>",
+      "flash_attn_dchunk_fwd_cp_async.cu":
+      "fwd_dchunk_feed<FEED_CP_ASYNC>"},
+     r"launch_dw<SWP, (\d), (?:true|false), FEED>"),
+])
+def test_each_feed_is_instantiated_at_each_width_without_trap(
+        header, sources, launch):
+    """Each of K1's two wgmma kernels is one template whose producer is a
+    parameter (TMA, or the warpgroup's own copies): one source a feed
+    instantiates it at every width and both consumer-warpgroup counts,
+    and nothing in the kernel, the feed helpers or the sources traps or
+    waits through the trapping mbar_wait."""
+    csrc = ROOT / "ray_tpu_torch" / "ops" / "csrc"
+    hdr = re.sub(r"//[^\n]*", "", (csrc / header).read_text())
+    assert set(re.findall(launch, hdr)) == {"1", "2"}
+    assert "int FEED>" in hdr and "feed_acquire<FEED>(" in hdr
+    assert "fill_box<" in hdr and "fill_done(" in hdr
+    for name, call in sources.items():
+        assert name in T._SOURCES
+        code = re.sub(r"//[^\n]*", "", (csrc / name).read_text())
+        assert f'#include "{header}"' in code and call in code
+        assert "__trap" not in code and "mbar_wait(" not in code
+    assert "__trap" not in hdr and "mbar_wait(" not in hdr
+    common = (csrc / "hopper_common.cuh").read_text()
+    feed = common[common.index("constexpr int FEED_TMA"):]
+    feed = re.sub(r"//[^\n]*", "", feed)
+    assert "__trap" not in feed and "mbar_wait(" not in feed
+    assert "cp.async.mbarrier.arrive.noinc" in feed
+    assert "fence_proxy_async();" in feed
+
+
+def test_no_source_names_a_removed_kernel():
+    """K1's mma.sync kernels are gone: no source, build list or smoke
+    list names them, every listed source exists, and every kernel source
+    in csrc/ is listed."""
+    csrc = ROOT / "ray_tpu_torch" / "ops" / "csrc"
+    gone = ("flash_attn_fwd_mma.cu", "flash_fwd_mma_kernel", "fwd_mma(",
+            "fwd_dchunk_mma", "rtt::fwd_mma")
+    for path in csrc.iterdir():
+        text = path.read_text()
+        assert not [g for g in gone if g in text], path.name
+    assert "flash_attn_fwd_mma.cu" not in T._SOURCES
+    assert {p.name for p in csrc.glob("*.cu")} == set(T._SOURCES)
+    assert {p.name for p in csrc.glob("*.cuh")} == set(T._HEADERS)
+    smoke = (ROOT / "chip_smoke.py").read_text()
+    assert not [g for g in gone if g in smoke]
+    assert T.MMA_SYNC not in {T.kernel_route("fwd", torch.bfloat16, d)
+                              for d in range(1, 700)}
+
+
+@pytest.mark.parametrize("name,shape,bound_ms", [
+    # B2 S2048 H8 D300 causal bf16: 2,098,176 kept pairs a head, 4 D
+    # FLOPs a pair, 40.3 GFLOP over 989 TFLOP/s
+    ("d300_wide", (2, 2048, 2048, 8, 300, True, "bfloat16"), 0.0407),
+    # B2 S2048 H16 D100 causal bf16: 26.9 GFLOP
+    ("d100_wide", (2, 2048, 2048, 16, 100, True, "bfloat16"), 0.02716),
+])
+def test_attention_bound_at_the_cp_async_rows(name, shape, bound_ms):
+    """The kernel phase's wide rows of K1's cp.async-fed kernels, sized so
+    that the arithmetic bounds them, and their bounds."""
+    cs = _chip_smoke()
+    fwd = {row[0]: row[1:] for row in cs.KERNEL_SHAPES}
+    b, sq, sk, h, d, causal, dtype = shape
+    assert fwd[name] == (b, sq, h, d, causal, dtype)
+    assert name in cs.HEAD_DIM_SHAPES
+    got, by = cs._attention_work("fwd", b, sq, sk, h, d, causal, dtype)
+    assert by == "operations"
+    assert got == pytest.approx(bound_ms, abs=5e-5)
+
+
+def test_kernel_phase_and_compare_reach_every_new_route():
+    """The kernel phase holds K1 on each new route (the padded kernel fed
+    by TMA under 64, by cp.async at D % 4 == 0 and through registers at
+    odd D; past 256 fed by cp.async and through registers), and
+    tools/compare_kernels times K1 at d16_bf16, d20_ragged, d100_wide,
+    d300 and d300_wide against the parent, each row at its kernel-phase
+    shape."""
+    from ray_tpu_torch.tools.compare_kernels import SHAPES
+
+    cs = _chip_smoke()
+    fwd = {row[0]: row[1:] for row in cs.KERNEL_SHAPES}
+    assert fwd["d33_odd"] == (1, 1000, 4, 33, True, "bfloat16")
+    assert fwd["d301"] == (1, 1000, 4, 301, True, "bfloat16")
+    routes = {T.kernel_route("fwd", getattr(torch, r[5]), r[3])
+              for r in fwd.values()}
+    assert {T.WGMMA_PADDED_CP, T.DCHUNK_WGMMA_CP, T.WGMMA_PADDED} <= routes
+    odd = {name for name, r in fwd.items() if r[5] == "bfloat16" and r[3] % 2}
+    assert {"d33_odd", "d301"} <= odd
+    assert all(name in cs.HEAD_DIM_SHAPES for name in
+               ("d33_odd", "d301", "d100_wide", "d300_wide"))
+    timed = {name: (kernel, *rest) for name, kernel, *rest in SHAPES}
+    for row in ("d16_bf16", "d20_ragged", "d100_wide", "d300",
+                "d300_wide"):
+        b, s, h, d, causal, dtype, *sk = fwd[row]
+        assert timed[f"{row}_fwd"] == (
+            "fwd", b, s, sk[0] if sk else s, h, d, causal, dtype), row
