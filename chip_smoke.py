@@ -31,8 +31,11 @@ if any failed, the script exits non-zero and prints no result. Phases:
               B2 S2048 H8, 384 non-causal with Sq != Sk) and by cp.async
               or through registers otherwise (d 300 at both sizes, 301),
               on the ring-fed FMA kernel in fp32 (d 320, at both sizes);
-              K2 and K3 on the chunked route (d 264, 320, 512 at both
-              sizes, fp32 320);
+              K2 and K3 on wgmma in bf16 at D % 8 == 0 (d 264, 320, 512
+              at both sizes and at the b1_h4 train step's B8 S2048 H4,
+              384 non-causal with Sq > Sk, 320 causal with Sq < Sk), on
+              the ring-fed FMA kernels in fp32 (d 320 at both sizes), on
+              the chunked mma.sync kernels at bf16 d 300;
   2b. debug — the JAX package's test configs on the card through the
               kernels (head_dim 16, float32: the FMA route):
               ModelConfig.debug() and tiny_moe() (routed alike) served
@@ -113,6 +116,9 @@ if any failed, the script exits non-zero and prints no result. Phases:
               6912, vocab 32000, remat full, logits_chunk 256, bf16) at
               full width and depth: K1 2 x 16 x 4 launches, K2 and K3
               16 x 4 each, all on the padded wgmma kernels;
+  5c. b1_h4_train — the same for b1's widths at 4 heads (head_dim 512):
+              K1 2 x 24 x 4 launches, K2 and K3 24 x 4 each, all on the
+              bf16 wgmma kernels past 256 (route dchunk_wgmma_tma_ws);
   6. moe    — the bench's sparse model (bench.py's MoE row: hidden 1024,
               8 layers, 16 heads over 8 kv heads, head_dim 64, inter
               2816, vocab 32000, top-2 of 8 experts on every second
@@ -441,6 +447,8 @@ KERNEL_SHAPES = [
     ("d300", 1, 1000, 4, 300, True, "bfloat16"),
     ("d300_wide", 2, 2048, 8, 300, True, "bfloat16"),
     ("d301", 1, 1000, 4, 301, True, "bfloat16"),
+    # b1's widths at 4 heads trained (phase b1_h4_train): its attention
+    ("b1_h4_train", 8, 2048, 4, 512, True, "bfloat16"),
 ]
 
 BWD_SHAPES = [
@@ -477,13 +485,26 @@ BWD_SHAPES = [
     ("d192_noncausal", 2, 1000, 1000, 8, 192, False, "bfloat16"),
     ("d120_sq_gt_sk", 1, 1000, 700, 4, 120, True, "bfloat16"),
     ("d224", 2, 2048, 2048, 8, 224, True, "bfloat16"),
-    # the chunked route's rows of the forward, backward too, and K2 and
-    # K3 at B2 S2048 H8 D512 (b1 at 4 heads' attention, 8 heads)
+    # past 256 the forward's rows, backward too: K2 and K3 on wgmma in
+    # bf16 (slices of dq padded to 160 at 264 and 320, 256 at 512; of dk
+    # and dv to 96 and 128) and on the ring-fed FMA kernels in fp32, each
+    # also at a size where the arithmetic bounds it (B2 S2048 H8), and at
+    # the b1_h4 train step's attention (B8 S2048 H4 D512); d 384 without
+    # the causal bound at Sq 1000 > Sk 700 (the keys past Sk masked, rows
+    # past Sk of dk/dv never written); d 320 causal at Sq 700 < Sk 1000
+    # (top-left aligned: the last key tiles see no query and write
+    # zeros); d 300 (D % 8 != 0: TMA cannot take the row stride) on the
+    # chunked mma.sync kernels that stay there
     ("d264", 1, 1000, 1000, 4, 264, True, "bfloat16"),
     ("d320", 1, 1000, 1000, 4, 320, True, "bfloat16"),
     ("d512", 1, 1000, 1000, 4, 512, True, "bfloat16"),
     ("d320_f32", 1, 1000, 1000, 4, 320, True, "float32"),
     ("d512_wide", 2, 2048, 2048, 8, 512, True, "bfloat16"),
+    ("d320_f32_wide", 2, 2048, 2048, 8, 320, True, "float32"),
+    ("b1_h4_train", 8, 2048, 2048, 4, 512, True, "bfloat16"),
+    ("d384_noncausal", 2, 1000, 700, 8, 384, False, "bfloat16"),
+    ("d320_sq_lt_sk", 1, 700, 1000, 4, 320, True, "bfloat16"),
+    ("d300", 1, 1000, 1000, 4, 300, True, "bfloat16"),
 ]
 # the rows of KERNEL_SHAPES and BWD_SHAPES off the wgmma route, reported
 # beside the model shapes in the kernels line (each kernel at the rows it
@@ -493,7 +514,7 @@ HEAD_DIM_SHAPES = ("debug_f32", "d16_bf16", "d20_ragged", "d160",
                    "d192_noncausal", "d120_sq_gt_sk", "d224", "d264",
                    "d320", "d512", "d320_f32", "d512_wide", "d320_f32_wide",
                    "d384_noncausal", "d300", "d33_odd", "d100_wide",
-                   "d300_wide", "d301")
+                   "d300_wide", "d301", "b1_h4_train", "d320_sq_lt_sk")
 
 SCHED = dict(nodes=256, tasks=100_000, classes=32)
 SCHED_PIPELINED_TICKS = 3
@@ -1662,7 +1683,7 @@ def _train_batch(model: str = "b1"):
 
 
 def train_text(config):
-    """The train function: ``config["model"]`` (b1 or xl16) at full
+    """The train function: ``config["model"]`` (b1, b1_h4 or xl16) at full
     width and depth on this worker's card, TRAIN_STEPS optimizer steps on
     one seeded batch, each step's loss, grad norm and wall time
     reported."""
@@ -1796,7 +1817,7 @@ def _check_launches(model: str, counts: dict, routes: dict, want: dict,
 
 
 def _text_train_phase(report: dict, model: str, shape: str) -> tuple:
-    """``model`` (b1 or xl16) trained TRAIN_STEPS steps through
+    """``model`` (b1, b1_h4 or xl16) trained TRAIN_STEPS steps through
     Trainer(num_workers=1, use_gpu=True): every K1, K2 and K3 launch on
     its route at the model's head dim, losses finite and falling, one
     step's gradients against the plain attention, the replayed first
@@ -1869,6 +1890,14 @@ def phase_xl16(report: dict) -> dict:
     padded wgmma kernels."""
     report["xl16"], routes = _text_train_phase(report, "xl16",
                                                "xl16_train")
+    return routes
+
+
+def phase_b1_h4_train(report: dict) -> dict:
+    """b1's widths at 4 heads (head_dim 512): K1, K2 and K3 on the bf16
+    wgmma kernels past 256."""
+    report["b1_h4_train"], routes = _text_train_phase(report, "b1_h4",
+                                                      "b1_h4_train")
     return routes
 
 
@@ -6844,7 +6873,8 @@ def _kernel_table(report: dict, paths: dict) -> list:
                                        "flash_attn_dchunk_fwd_wgmma.cuh",
                                        "flash_attn_dchunk_fwd_wgmma.cu",
                                        "flash_attn_dchunk_fwd_cp_async.cu",
-                                       "flash_attn_dchunk_fma.cu")],
+                                       "flash_attn_dchunk_fma.cu",
+                                       "flash_attn_dchunk_ring_f32.cuh")],
         "replaces": "ray_tpu/ops/attention.py:202",
         **launches("fwd"), "head_dims_by_route": head_dims("fwd"),
         "max_abs_err": max(r["max_abs_err"]
@@ -6861,11 +6891,18 @@ def _kernel_table(report: dict, paths: dict) -> list:
             "name": name, "route": "cuda",
             "kernel_route": bwd["routes"][kernel],
             "source": csrc + "flash_attn_bwd.cu",
+            # the wgmma kernels at d 64/128 and padded D, mma.sync, FMA,
+            # and past 256 the wgmma kernel, the ring-fed FMA kernel and
+            # the chunked mma.sync kernel (bf16 at D % 8 != 0)
             "sources": [csrc + f for f in (
                 "flash_attn_bwd.cu", f"flash_attn_bwd_{kernel}_padded.cu",
                 f"flash_attn_bwd_{kernel}_mma.cu",
-                "flash_attn_bwd_fma.cu", "flash_attn_dchunk.cu",
-                "flash_attn_dchunk_fma.cu")],
+                "flash_attn_bwd_fma.cu",
+                "flash_attn_dchunk_bwd_wgmma.cuh",
+                f"flash_attn_dchunk_bwd_{kernel}_wgmma.cu",
+                "flash_attn_dchunk_ring_f32.cuh",
+                f"flash_attn_dchunk_bwd_{kernel}_fma.cu",
+                "flash_attn_dchunk.cu")],
             "replaces": f"ray_tpu/ops/attention.py:{line}",
             **launches(kernel), "head_dims_by_route": head_dims(kernel),
             "max_abs_err": max(r["max_abs_err"][e]
@@ -6919,6 +6956,7 @@ def main(argv=None) -> int:
             ("cluster", phase_cluster),
             ("train", phase_train),
             ("xl16", phase_xl16),
+            ("b1_h4_train", phase_b1_h4_train),
             ("moe_serve", lambda r: phase_serve(r, "moe")),
             ("moe", phase_moe),
             ("vit_serve", lambda r: phase_serve(r, "vit")),

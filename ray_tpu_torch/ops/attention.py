@@ -45,9 +45,10 @@ _NEG_INF = -1e30
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # one nvcc per source, all started together, then one link: the padded
 # wgmma, mma.sync and FMA routes are instantiated at every padded head
-# dim up to 256; past it K1's wgmma kernel at each slice width; K1's two
-# wgmma kernels once for each feed (TMA, cp.async), so that the two
-# halves of their instantiations compile side by side
+# dim up to 256; past it the wgmma and ring kernels at each slice width;
+# K1's two wgmma kernels once for each feed (TMA, cp.async), and the
+# backward ones past 256 once for K2 and once for K3, so that the halves
+# of their instantiations compile side by side
 _SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu",
             "flash_attn_fwd_padded.cu", "flash_attn_fwd_padded_cp_async.cu",
             "flash_attn_bwd_dq_padded.cu", "flash_attn_bwd_dkdv_padded.cu",
@@ -55,10 +56,16 @@ _SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu",
             "flash_attn_bwd_dq_mma.cu", "flash_attn_bwd_dkdv_mma.cu",
             "flash_attn_bwd_fma.cu", "flash_attn_dchunk.cu",
             "flash_attn_dchunk_fma.cu", "flash_attn_dchunk_fwd_wgmma.cu",
-            "flash_attn_dchunk_fwd_cp_async.cu")
+            "flash_attn_dchunk_fwd_cp_async.cu",
+            "flash_attn_dchunk_bwd_dq_wgmma.cu",
+            "flash_attn_dchunk_bwd_dkdv_wgmma.cu",
+            "flash_attn_dchunk_bwd_dq_fma.cu",
+            "flash_attn_dchunk_bwd_dkdv_fma.cu")
 _HEADERS = ("flash_attn_common.cuh", "flash_attn_routes.cuh",
             "flash_attn_bwd_dq_ws.cuh", "flash_attn_fwd_padded.cuh",
-            "flash_attn_dchunk_fwd_wgmma.cuh", "hopper_common.cuh")
+            "flash_attn_dchunk_fwd_wgmma.cuh",
+            "flash_attn_dchunk_bwd_wgmma.cuh",
+            "flash_attn_dchunk_ring_f32.cuh", "hopper_common.cuh")
 # kernel builds land here (listed in .gitignore), keyed by source digest
 BUILD_DIR = Path(__file__).resolve().parent / "_build"
 _ARCH = "-gencode=arch=compute_90a,code=sm_90a"
@@ -103,23 +110,26 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #   FMA: float32, all three, at every head_dim up to 256 -- exact FMAs on
 #          the CUDA cores, instantiated at the head dim rounded up to 32;
 #   Past 256, with no upper bound, where a block cannot hold full-width
-#   tiles beside its rings (K1's Hopper designs have names of their own,
+#   tiles beside its rings (the Hopper designs have names of their own,
 #   as WGMMA_PADDED has):
-#   DCHUNK_WGMMA: K1 in bf16 at head_dim % 8 == 0 -- a block per (q tile,
-#          slice of up to 256 output columns), S = Q K^T on wgmma over the
-#          whole head dim in 64-column TMA boxes (Q resident, or streamed
-#          beside K past what fits), so S is computed ceil(D / 256) times
-#          a tile pair (csrc/flash_attn_dchunk_fwd_wgmma.cuh);
+#   DCHUNK_WGMMA: bf16 at head_dim % 8 == 0, all three -- a block per
+#          (tile, slice of the output's columns: up to 256 for K1's out
+#          and K2's dq, 128 for K3's dk and dv), S = Q K^T (and for K2/K3
+#          dP = dO V^T) on wgmma over the whole head dim in 64-column TMA
+#          boxes (the block's own rows resident, or streamed past what
+#          fits), so S is computed ceil(D / W) times a tile pair
+#          (csrc/flash_attn_dchunk_fwd_wgmma.cuh,
+#          csrc/flash_attn_dchunk_bwd_wgmma.cuh);
 #   DCHUNK_WGMMA_CP: K1 in bf16 at head_dim % 8 != 0 -- DCHUNK_WGMMA's
 #          kernel with its boxes filled by cp.async;
-#   DCHUNK_FMA: K1 in float32 -- a block per (q tile, slice of up to 320
-#          output columns: S computed once up to D 320) on register-blocked
-#          exact FMAs fed by a cp.async ring (csrc/flash_attn_dchunk_fma.cu);
-#   DCHUNK: K2 and K3 in bf16 (mma.sync) and float32 (FMA) -- the head dim
-#          cut into 64-column chunks, a block per (tile, output chunk)
+#   DCHUNK_FMA: float32, all three -- a block per (tile, slice of up to
+#          320 output columns: S and dP computed once up to D 320) on
+#          register-blocked exact FMAs fed by a cp.async ring
+#          (csrc/flash_attn_dchunk_fma.cu, flash_attn_dchunk_ring_f32.cuh);
+#   DCHUNK: K2 and K3 in bf16 at head_dim % 8 != 0 (mma.sync) -- the head
+#          dim cut into 64-column chunks, a block per (tile, output chunk)
 #          that recomputes S and dP over every chunk and accumulates its
-#          own chunk of the output (csrc/flash_attn_dchunk.cu,
-#          flash_attn_dchunk_fma.cu).
+#          own chunk of the output (csrc/flash_attn_dchunk.cu).
 # No K1 route runs mma.sync.
 WGMMA = "wgmma_tma_ws"
 WGMMA_PADDED = "wgmma_tma_ws_padded"
@@ -150,11 +160,11 @@ def kernel_route(kernel: str, dtype: torch.dtype, head_dim: int) -> str:
     if head_dim < 1:
         raise ValueError(f"head_dim must be at least 1; got {head_dim}")
     if head_dim > DCHUNK_PAST:
-        if kernel != "fwd":
-            return DCHUNK
         if dtype == torch.float32:
             return DCHUNK_FMA
-        return DCHUNK_WGMMA if head_dim % 8 == 0 else DCHUNK_WGMMA_CP
+        if head_dim % 8 == 0:
+            return DCHUNK_WGMMA
+        return DCHUNK_WGMMA_CP if kernel == "fwd" else DCHUNK
     if dtype == torch.float32:
         return FMA
     if head_dim in _WGMMA_HEAD_DIMS:

@@ -122,12 +122,18 @@
 //   - fp32, every head_dim 1..256: exact FMAs on the CUDA cores (the
 //     tensor cores would round to tf32), warps of 8 rows, the forward's
 //     fp32 layout (flash_attn_bwd_fma.cu).
-//   - K2 and K3 in bf16 and fp32 past 256 (route "dchunk"): the tile
-//     rings of a block no longer fit its 227 KB of shared memory at full
-//     width, so the head dim is cut into 64-column chunks and a block owns
-//     one chunk of dq (K2: q tile) or of dk and dv (K3: key tile),
-//     recomputing p and ds over every chunk (flash_attn_dchunk.cu on
-//     mma.sync, flash_attn_dchunk_fma.cu on FMAs).
+//   - past 256 (the tile rings of a block no longer fit its 227 KB of
+//     shared memory at full width): K2 and K3 in bf16 at D % 8 == 0 on
+//     wgmma (route "dchunk_wgmma_tma_ws", flash_attn_dchunk_bwd_wgmma.cuh:
+//     a block per tile and slice of its output's columns, up to 256 of dq
+//     and 128 of dk/dv, S and dP over the whole head dim in TMA boxes);
+//     in fp32 on register-blocked FMAs fed by a cp.async ring
+//     ("dchunk_fma_f32_ring", flash_attn_dchunk_ring_f32.cuh, slices of
+//     up to 320 columns); in bf16 off the multiples of 8 (a row stride
+//     TMA cannot take) the head dim cut into 64-column chunks, a block
+//     owning one chunk of dq (K2: q tile) or of dk and dv (K3: key tile)
+//     and recomputing p and ds over every chunk ("dchunk",
+//     flash_attn_dchunk.cu on mma.sync).
 // Causal tiles are skipped by the loop bounds; ragged edges are masked
 // in the kernels (rows past the sequence load as zeros and are never
 // written), Sq != Sk takes top-left causal alignment as the forward does.
@@ -448,7 +454,10 @@ extern "C" int rtt_flash_attn_bwd_dq(const void* q, const void* k,
   if (rtt::dchunk_head_dim(D) && dtype == 0)
     return rtt::bwd_dq_dchunk_fma(q, k, v, dout, l, dl, dq, B, H, Sq, Sk, D,
                                   causal, scale, s);
-  if (rtt::dchunk_head_dim(D) && dtype == 1)
+  if (rtt::dchunk_wgmma_head_dim(D) && dtype == 1)
+    return rtt::bwd_dq_dchunk_wgmma(q, k, v, dout, l, dl, dq, B, H, Sq, Sk,
+                                    D, causal, scale, s);
+  if (rtt::dchunk_unaligned_head_dim(D) && dtype == 1)
     return rtt::bwd_dq_dchunk_mma(q, k, v, dout, l, dl, dq, B, H, Sq, Sk, D,
                                   causal, scale, s);
   if (dtype == 0)
@@ -487,7 +496,10 @@ extern "C" int rtt_flash_attn_bwd_dkdv(const void* q, const void* k,
   if (rtt::dchunk_head_dim(D) && dtype == 0)
     return rtt::bwd_dkdv_dchunk_fma(q, k, v, dout, l, dl, dk, dv, B, H, Sq,
                                     Sk, D, causal, scale, s);
-  if (rtt::dchunk_head_dim(D) && dtype == 1)
+  if (rtt::dchunk_wgmma_head_dim(D) && dtype == 1)
+    return rtt::bwd_dkdv_dchunk_wgmma(q, k, v, dout, l, dl, dk, dv, B, H,
+                                      Sq, Sk, D, causal, scale, s);
+  if (rtt::dchunk_unaligned_head_dim(D) && dtype == 1)
     return rtt::bwd_dkdv_dchunk_mma(q, k, v, dout, l, dl, dk, dv, B, H, Sq,
                                     Sk, D, causal, scale, s);
   if (dtype == 0)

@@ -1,6 +1,8 @@
 // K2 and K3 (flash-attention dq and dk/dv backward) in bf16 on mma.sync
-// past head dim 256, every D with no upper bound: the route "dchunk".
-// (K1 past 256 runs on wgmma, flash_attn_dchunk_fwd_wgmma.cuh.) Replace
+// past head dim 256 at D % 8 != 0, a row stride TMA cannot take, with no
+// upper bound: the route "dchunk". (K1 past 256 runs on wgmma,
+// flash_attn_dchunk_fwd_wgmma.cuh; K2 and K3 at D % 8 == 0 too,
+// flash_attn_dchunk_bwd_wgmma.cuh.) Replace
 // ray_tpu/ops/attention.py::_bwd_dq_kernel and ::_bwd_dkdv_kernel for
 // those bf16 inputs; flash_attn_bwd.cu describes the kernel family and
 // its numerics, which these keep (bf16 operands, fp32 accumulators, P and
@@ -18,7 +20,8 @@
 //        dP^T = V dO^T over every chunk, then dv_c += p^T dO_c and
 //        dk_c += ds^T Q_c.
 // The recompute costs D/64 times the S and dP products of one block per
-// tile: right first, fast later (PERF.md has the times).
+// tile (PERF.md has the times): the wgmma kernels past 256 compute them
+// ceil(D / W) times, and feeding those by cp.async is still to do.
 //
 // Each (tile, chunk) step's operand chunks go round a two-stage cp.async
 // ring (the next step's loads are issued before this step's products);
@@ -352,7 +355,7 @@ cudaError_t rtt::bwd_dq_dchunk_mma(const void* q, const void* k,
                                    void* dq, int B, int H, int Sq, int Sk,
                                    int D, int causal, float scale,
                                    cudaStream_t stream) {
-  if (!dchunk_head_dim(D)) return cudaErrorInvalidValue;
+  if (!dchunk_unaligned_head_dim(D)) return cudaErrorInvalidValue;
   return launch(bwd_dq_dchunk_mma_kernel, Sq, B * H, D, 10 * CHUNK_BYTES,
                 stream, static_cast<const bf16*>(q),
                 static_cast<const bf16*>(k), static_cast<const bf16*>(v),
@@ -366,7 +369,7 @@ cudaError_t rtt::bwd_dkdv_dchunk_mma(const void* q, const void* k,
                                      void* dk, void* dv, int B, int H,
                                      int Sq, int Sk, int D, int causal,
                                      float scale, cudaStream_t stream) {
-  if (!dchunk_head_dim(D)) return cudaErrorInvalidValue;
+  if (!dchunk_unaligned_head_dim(D)) return cudaErrorInvalidValue;
   return launch(bwd_dkdv_dchunk_mma_kernel, Sk, B * H, D,
                 12 * CHUNK_BYTES + 4 * TILE * sizeof(float), stream,
                 static_cast<const bf16*>(q), static_cast<const bf16*>(k),

@@ -1,0 +1,33 @@
+// K3 (flash-attention dk/dv backward) in bf16 past head dim 256 on the
+// route "dchunk_wgmma_tma_ws": every D % 8 == 0 past 256, the kernel of
+// flash_attn_dchunk_bwd_wgmma.cuh at slices of dk and dv up to 128
+// columns. Replaces ray_tpu/ops/attention.py::_bwd_dkdv_kernel (launched
+// by _pallas_bwd) for those inputs.
+
+#include "flash_attn_dchunk_bwd_wgmma.cuh"
+
+namespace rtt {
+
+cudaError_t bwd_dkdv_dchunk_wgmma(const void* q, const void* k,
+                                  const void* v, const void* dout,
+                                  const float* lse, const float* delta,
+                                  void* dk, void* dv, int B, int H, int Sq,
+                                  int Sk, int D, int causal, float scale,
+                                  cudaStream_t stream) {
+  return bwd_dchunk_wgmma<true>(q, k, v, dout, lse, delta, dk, dv, B, H, Sq,
+                                Sk, D, causal, scale, stream);
+}
+
+}  // namespace rtt
+
+// The layout K3 launches past 256 at a shape, launching nothing
+// (bwd_dchunk_wgmma's ``layout``: six ints); tools/check_head_dims.py
+// reads it. Returns a cudaError_t (0 on success).
+extern "C" int rtt_flash_attn_bwd_dkdv_dchunk_layout(int B, int H,
+                                                     int Sq, int Sk, int D,
+                                                     int* layout) {
+  if (B <= 0 || H <= 0 || Sq <= 0 || Sk <= 0 || !layout)
+    return cudaErrorInvalidValue;
+  return bwd_dchunk_wgmma<true>(nullptr, nullptr, nullptr, nullptr, nullptr,
+      nullptr, nullptr, nullptr, B, H, Sq, Sk, D, 1, 1.0f, nullptr, layout);
+}

@@ -14,7 +14,7 @@ cudaError_t fwd_dchunk_wgmma_cp_async(const void* q, const void* k,
                                       int B, int H, int Sq, int Sk, int D,
                                       int causal, float scale,
                                       cudaStream_t stream) {
-  if (!dchunk_cp_async_head_dim(D)) return cudaErrorInvalidValue;
+  if (!dchunk_unaligned_head_dim(D)) return cudaErrorInvalidValue;
   return fwd_dchunk_feed<FEED_CP_ASYNC>(q, k, v, out, lse, B, H, Sq, Sk, D,
                                         causal, scale, stream);
 }

@@ -361,7 +361,7 @@ extern "C" int rtt_flash_attn_fwd(const void* q, const void* k,
   if (rtt::dchunk_wgmma_head_dim(D) && dtype == 1)
     return rtt::fwd_dchunk_wgmma(q, k, v, out, lse_f, B, H, Sq, Sk, D,
                                  causal, scale, s);
-  if (rtt::dchunk_cp_async_head_dim(D) && dtype == 1)
+  if (rtt::dchunk_unaligned_head_dim(D) && dtype == 1)
     return rtt::fwd_dchunk_wgmma_cp_async(q, k, v, out, lse_f, B, H, Sq, Sk,
                                           D, causal, scale, s);
   if (dtype == 0)

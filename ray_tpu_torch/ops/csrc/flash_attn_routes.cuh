@@ -3,14 +3,16 @@
 // side: K1 in bf16 on wgmma at every other head dim (its boxes filled by
 // TMA where the row stride is a multiple of 16 bytes, by cp.async or
 // through registers where not; up to 256 and past it), K2 and K3 on wgmma
-// at the padded head dims, the mma.sync (bf16) and FMA (fp32) kernels,
-// and past 256 the head-dim-chunked kernels of K2 and K3 in both dtypes
-// and of K1 in fp32. The C entry points in flash_attn_fwd.cu and
-// flash_attn_bwd.cu dispatch to them. The mma.sync and FMA routes take
-// any head dim D in [1, MAX_HEAD_DIM] (flash_attn_common.cuh), each wgmma
-// route the D its constexpr below admits, the chunked routes every D past
-// 256; each returns a cudaError_t (cudaErrorInvalidValue for a D outside
-// its set). attention.py::kernel_route is the same table in Python.
+// at the padded head dims and past 256 at D % 8 == 0, the mma.sync (bf16)
+// and FMA (fp32) kernels, past 256 K2 and K3 in bf16 off the multiples of
+// 8 on the head-dim-chunked mma.sync kernels, and K1, K2 and K3 in fp32
+// on the register-blocked ring kernels. The C entry points in
+// flash_attn_fwd.cu and flash_attn_bwd.cu dispatch to them. The mma.sync
+// and FMA routes take any head dim D in [1, MAX_HEAD_DIM]
+// (flash_attn_common.cuh), each other route the D its constexpr below
+// admits; each returns a cudaError_t (cudaErrorInvalidValue for a D
+// outside its set). attention.py::kernel_route is the same table in
+// Python.
 //
 // Layouts as the C entry points': q/dout/out/dq [B,Sq,H,D], k/v/dk/dv
 // [B,Sk,H,D], contiguous with a 16-byte aligned base; lse and delta
@@ -89,14 +91,16 @@ cudaError_t bwd_dkdv_fma(const void* q, const void* k, const void* v,
                          int H, int Sq, int Sk, int D, int causal,
                          float scale, cudaStream_t stream);
 
-// The head dims K1, K2 and K3 take on the chunked routes: every D past
-// 256 (the per-head-dim routes' widest), in bf16 and in fp32
+// The head dims past 256 (the per-head-dim routes' widest), in bf16 and
+// in fp32, with no upper bound
 constexpr bool dchunk_head_dim(int D) { return D > 256; }
-// The bf16 head dims K1 takes on wgmma past 256 fed by TMA: D % 8 == 0
-// (TMA's 16-byte row stride) ...
+// The bf16 head dims K1, K2 and K3 take on wgmma past 256 fed by TMA: D %
+// 8 == 0 (TMA's 16-byte row stride) ...
 constexpr bool dchunk_wgmma_head_dim(int D) { return D > 256 && D % 8 == 0; }
-// ... and fed by cp.async (or through registers at odd D): the rest
-constexpr bool dchunk_cp_async_head_dim(int D) {
+// ... and the rest, whose rows TMA cannot stride: K1 on wgmma fed by
+// cp.async (or through registers at odd D), K2 and K3 on the chunked
+// mma.sync kernels
+constexpr bool dchunk_unaligned_head_dim(int D) {
   return D > 256 && D % 8 != 0;
 }
 // K1 in bf16 on wgmma at those head dims, a block per output slice of up
@@ -112,8 +116,22 @@ cudaError_t fwd_dchunk_wgmma_cp_async(const void* q, const void* k,
                                       int B, int H, int Sq, int Sk, int D,
                                       int causal, float scale,
                                       cudaStream_t stream);
-// K2 and K3 in bf16 on mma.sync at every head dim past 256
-// (flash_attn_dchunk.cu)
+// K2 and K3 in bf16 on wgmma fed by TMA at the first set, a block per
+// slice of up to 256 columns of dq, 128 of dk and dv
+// (flash_attn_dchunk_bwd_dq_wgmma.cu and flash_attn_dchunk_bwd_dkdv_wgmma.cu,
+// one kernel in flash_attn_dchunk_bwd_wgmma.cuh)
+cudaError_t bwd_dq_dchunk_wgmma(const void* q, const void* k, const void* v,
+                                const void* dout, const float* lse,
+                                const float* delta, void* dq, int B, int H,
+                                int Sq, int Sk, int D, int causal,
+                                float scale, cudaStream_t stream);
+cudaError_t bwd_dkdv_dchunk_wgmma(const void* q, const void* k,
+                                  const void* v, const void* dout,
+                                  const float* lse, const float* delta,
+                                  void* dk, void* dv, int B, int H, int Sq,
+                                  int Sk, int D, int causal, float scale,
+                                  cudaStream_t stream);
+// K2 and K3 in bf16 on mma.sync at the second set (flash_attn_dchunk.cu)
 cudaError_t bwd_dq_dchunk_mma(const void* q, const void* k, const void* v,
                               const void* dout, const float* lse,
                               const float* delta, void* dq, int B, int H,
@@ -124,9 +142,11 @@ cudaError_t bwd_dkdv_dchunk_mma(const void* q, const void* k, const void* v,
                                 const float* delta, void* dk, void* dv, int B,
                                 int H, int Sq, int Sk, int D, int causal,
                                 float scale, cudaStream_t stream);
-// K1, K2 and K3 in fp32 on the CUDA cores at those head dims
-// (flash_attn_dchunk_fma.cu; K1 a block per output slice of up to 320
-// columns)
+// K1, K2 and K3 in fp32 on the CUDA cores at every head dim past 256,
+// register-blocked FMAs fed by cp.async rings, a block per output slice
+// of up to 320 columns (K1 flash_attn_dchunk_fma.cu; K2 and K3
+// flash_attn_dchunk_bwd_dq_fma.cu and flash_attn_dchunk_bwd_dkdv_fma.cu,
+// one kernel in flash_attn_dchunk_ring_f32.cuh)
 cudaError_t fwd_dchunk_fma(const void* q, const void* k, const void* v,
                            void* out, float* lse, int B, int H, int Sq,
                            int Sk, int D, int causal, float scale,

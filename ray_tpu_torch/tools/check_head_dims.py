@@ -9,15 +9,22 @@ Builds the kernels (printing the build time; for the mma.sync and FMA
 kernels the most registers any instantiation uses and every one that
 spills; for each instantiation of K1's padded wgmma kernel (each width,
 consumer warpgroups and feed), of K2's and K3's wgmma kernels and of
-K1's two kernels past 256 its registers, spills and ptxas's performance
-notes, such as wgmmas serialised for want of registers), then for each (dtype, head dim) in ``CASES`` (and
+the kernels past 256 (K1's two, and K2's and K3's wgmma and ring
+kernels) its registers, spills and ptxas's performance notes, such as
+wgmmas serialised for want of registers), then for each (dtype, head dim)
+in ``CASES`` (and
 ``WIDE_CASES`` at their own shapes) runs the forward,
 then K2 and K3 on its lse, at a ragged shape with Sq != Sk (causal at
 even head dims, non-causal at odd ones), and holds out/lse against
 ``_blockwise_fwd`` and dq/dk/dv against ``_blockwise_bwd`` within
-chip_smoke.py's tolerances. Prints the card's name and power limit, then
-one JSON line per case. Exits 1 if any case disagreed or failed, 2
-without CUDA.
+chip_smoke.py's tolerances. For K2's and K3's wgmma kernels past 256 it
+reads, from the C dispatch itself, the layout each case launches
+(consumer warpgroups, rows resident, ring stages), checks that the
+cases reach every layout in ``LAYOUTS`` and that every head dim of the
+route to 4096 has a layout that fits, and prints the layouts at
+``LAYOUT_SHAPES``. Prints the card's name and power limit, then one JSON
+line per case and one for the layouts. Exits 1 if any case disagreed or
+failed or a layout was not reached or did not fit, 2 without CUDA.
 """
 
 from __future__ import annotations
@@ -40,23 +47,27 @@ import time
 CASES = [
     ("bfloat16", (1, 8, 16, 20, 24, 32, 33, 40, 48, 58, 72, 80, 96, 100,
                   112, 136, 160, 176, 192, 200, 224, 250, 256,
-                  # the chunked route past 256: a last chunk of one column
-                  # (element-wise rows), of 8, of 44 (D % 8 == 4), whole
-                  # chunks, and nine of them
-                  257, 258, 264, 300, 301, 320, 512, 576)),
+                  # past 256: K2 and K3 on mma.sync at D % 8 != 0 (a
+                  # last chunk of one column, of 2, of 44), on wgmma at
+                  # D % 8 == 0, dq's slices padded to 160 (264, 320), 192
+                  # (576), 224 (448) and 256 (512), dk/dv's to 96 (264)
+                  # and 128
+                  257, 258, 264, 300, 301, 320, 448, 512, 576)),
     ("float32", (1, 3, 16, 20, 33, 64, 100, 128, 160, 161, 192, 224, 256,
-                 257, 264, 300, 320, 512)),
+                 257, 264, 300, 320, 384, 512)),
 ]
 SHAPE = (2, 300, 237, 3)  # B, Sq, Sk, H
-# (dtype, head dim, (B, Sq, Sk, H)): K1's wgmma kernels at shapes whose
+# (dtype, head dim, (B, Sq, Sk, H)): the wgmma kernels at shapes whose
 # grids choose their other layouts. At SHAPE the bf16 wgmma kernels take
 # one consumer warpgroup (64-row tiles: 128-row ones would leave SMs
-# idle); here two, past 256 with Q resident (D 512, and 300 and 301 fed
-# by cp.async and through registers) and streamed beside K (D 640, ten
-# 64-column boxes; D 650 fed by 4-byte cp.async), and Sq != Sk both ways;
-# up to 256 the padded kernel fed by TMA under 64 (16), by cp.async (100)
-# and through registers (33); fp32 at slices of 320 and of 256 columns,
-# with 16- and 4-byte copies (D 302)
+# idle); here K1 two, past 256 with Q resident (D 512, and 300 and 301
+# fed by cp.async and through registers) and streamed beside K (D 640,
+# ten 64-column boxes; D 650 fed by 4-byte cp.async), and Sq != Sk both
+# ways; K2 past 256 with two consumer warpgroups and its rows resident
+# (D 320, 384), K2 and K3 with one and their rows resident (512, 640) and
+# streamed (704: eleven boxes); up to 256 the padded kernel fed by TMA under 64
+# (16), by cp.async (100) and through registers (33); fp32 at slices of
+# 320 and of 256 columns, with 16- and 4-byte copies (D 302)
 WIDE_CASES = [
     ("bfloat16", 512, (2, 1000, 700, 8)),
     ("bfloat16", 640, (2, 700, 1000, 8)),
@@ -64,6 +75,8 @@ WIDE_CASES = [
     ("bfloat16", 300, (2, 1000, 700, 8)),
     ("bfloat16", 301, (2, 1000, 1000, 8)),
     ("bfloat16", 650, (2, 700, 1000, 8)),
+    ("bfloat16", 320, (2, 1000, 700, 8)),
+    ("bfloat16", 704, (2, 700, 1000, 4)),
     ("bfloat16", 16, (2, 1000, 1000, 16)),
     ("bfloat16", 33, (2, 1000, 1000, 16)),
     ("bfloat16", 100, (2, 1000, 700, 16)),
@@ -71,6 +84,16 @@ WIDE_CASES = [
     ("float32", 302, (2, 1000, 700, 8)),
     ("float32", 512, (1, 1000, 1000, 8)),
 ]
+# (consumer warpgroups, rows resident) of K2's and K3's wgmma kernels
+# past 256: the layouts the cases must reach (K3 takes one consumer
+# warpgroup)
+LAYOUTS = {"dq": {(1, True), (2, True), (1, False)},
+           "dkdv": {(1, True), (1, False)}}
+# (B, Sq, Sk, H) of b1_h4's train step and of the kernel phase's
+# d512_wide row, whose layouts are printed
+LAYOUT_SHAPES = {"b1_h4_train": (8, 2048, 2048, 4),
+                 "d512_wide": (2, 2048, 2048, 8)}
+_LAYOUT_KEYS = ("swp", "sw", "ncw", "resident", "kst", "sst")
 # chip_smoke.py's KERNEL_TOL and BWD_TOL, (atol, rtol)
 FWD_TOL = {"bfloat16": {"out": (2e-2, 2e-2), "lse": (1e-3, 1e-4)},
            "float32": {"out": (1e-4, 1e-4), "lse": (1e-4, 1e-4)}}
@@ -114,16 +137,18 @@ def kernel_name(mangled: str) -> str:
 
 
 # the wgmma kernels of K1 and K3 at the padded widths, and of K2 (every
-# width); K1's two kernels past 256 at each slice width (the bf16 one also
-# by consumer warpgroups and Q resident or not)
+# width); the kernels past 256 at each slice width: K1's two (the bf16 one
+# also by consumer warpgroups and Q resident or not), K2's and K3's wgmma
+# kernel (by consumer warpgroups and rows resident or not) and ring kernel
 _WGMMA_ROWS = ("flash_fwd_padded_kernel<", "bwd_dq_ws_kernel<",
                "bwd_dkdv_padded_kernel<", "fwd_dchunk_wgmma_kernel<",
-               "fwd_dchunk_ring_f32_kernel<")
+               "fwd_dchunk_ring_f32_kernel<", "bwd_dchunk_wgmma_kernel<",
+               "bwd_dchunk_ring_f32_kernel<")
 
 
 def wgmma_rows(log: str) -> list:
     """One row per instantiation of K1's, K2's and K3's padded wgmma
-    kernels and of K1's kernels past 256 in ``nvcc -Xptxas=-v``'s
+    kernels and of the kernels past 256 in ``nvcc -Xptxas=-v``'s
     report: its name and width,
     registers, spill line and any performance note (ptxas may print a
     note before its function's rows)."""
@@ -146,6 +171,50 @@ def wgmma_rows(log: str) -> list:
     for r in rows:
         r["notes"] = notes.get(r.pop("mangled"), [])
     return rows
+
+
+def dchunk_layout(kernel: str, d: int, shape: tuple):
+    """The layout the C dispatch of K2's (``kernel`` "dq") or K3's
+    ("dkdv") wgmma kernel past 256 takes at head dim ``d`` and ``shape``
+    (B, Sq, Sk, H), launching nothing: {"swp", "sw", "ncw", "resident",
+    "kst", "sst"}, or None where no layout fits. Needs the built
+    kernels."""
+    import ctypes
+
+    from ray_tpu_torch.ops import attention as T
+
+    fn = getattr(T._lib, f"rtt_flash_attn_bwd_{kernel}_dchunk_layout")
+    fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * len(_LAYOUT_KEYS))()
+    b, sq, sk, h = shape
+    if fn(b, h, sq, sk, d, out):
+        return None
+    row = dict(zip(_LAYOUT_KEYS, out))
+    row["resident"] = bool(row["resident"])
+    return row
+
+
+def layout_report(rows: list) -> dict:
+    """The (consumer warpgroups, rows resident) layouts ``rows`` reached
+    against LAYOUTS, the head dims of the wgmma route past 256 to 4096
+    (at B1 S1000 H4) with no layout that fits, and the layouts at
+    LAYOUT_SHAPES; "ok" when every layout was reached and every head dim
+    fits."""
+    reached = {kernel: set() for kernel in LAYOUTS}
+    for row in rows:
+        for kernel, got in row.get("layouts", {}).items():
+            if got:
+                reached[kernel].add((got["ncw"], got["resident"]))
+    no_fit = [(kernel, d) for d in range(264, 4097, 8) for kernel in LAYOUTS
+              if dchunk_layout(kernel, d, (1, 1000, 1000, 4)) is None]
+    return {"layouts_reached": {k: sorted(v) for k, v in reached.items()},
+            "layouts_wanted": {k: sorted(v) for k, v in LAYOUTS.items()},
+            "no_fit": no_fit,
+            "at": {name: {kernel: dchunk_layout(kernel, 512, shape)
+                          for kernel in LAYOUTS}
+                   for name, shape in LAYOUT_SHAPES.items()},
+            "ok": reached == LAYOUTS and not no_fit}
 
 
 def run_case(dtype: str, d: int, shape: tuple = SHAPE) -> dict:
@@ -175,6 +244,9 @@ def run_case(dtype: str, d: int, shape: tuple = SHAPE) -> dict:
              ("lse", lse, p_lse, FWD_TOL[dtype]["lse"])]
     pairs += [(n, x, y, BWD_TOL[dtype])
               for n, x, y in zip(("dq", "dk", "dv"), got, want)]
+    if dtype == "bfloat16" and row["routes"]["dq"] == T.DCHUNK_WGMMA:
+        row["layouts"] = {kernel: dchunk_layout(kernel, d, shape)
+                          for kernel in LAYOUTS}
     for name, x, y, (atol, rtol) in pairs:
         row["err"][name] = (x.float() - y.float()).abs().max().item()
         row["agree"] &= bool(torch.isfinite(x).all()) and torch.allclose(
@@ -198,7 +270,7 @@ def main(argv=None) -> int:
                       **ptxas_summary(log)}), flush=True)
     for row in wgmma_rows(log):
         print(json.dumps(row), flush=True)
-    failed = 0
+    failed, rows = 0, []
     cases = [(dtype, d, SHAPE) for dtype, dims in CASES for d in dims]
     for dtype, d, shape in cases + WIDE_CASES:
         try:
@@ -207,7 +279,11 @@ def main(argv=None) -> int:
             row = {"dtype": dtype, "D": d, "shape": list(shape),
                    "error": repr(exc)[:300], "agree": False}
         failed += not row["agree"]
+        rows.append(row)
         print(json.dumps(row), flush=True)
+    layouts = layout_report(rows)
+    failed += not layouts["ok"]
+    print(json.dumps(layouts), flush=True)
     return 1 if failed else 0
 
 

@@ -2,6 +2,7 @@
 one process on one card, alternated.
 
     python3 -m ray_tpu_torch.tools.compare_kernels --baseline DIR [--rounds N]
+        [--shapes NAME,NAME,...]
 
 DIR is another checkout of this repository (for example the parent
 commit, unpacked with ``git archive`` into a git-ignored directory). Both
@@ -13,7 +14,9 @@ B8, and chip_smoke.py's d 256, d 80 and d 192 rows, for K1 and for K2
 and K3, in bf16; K1 past 256 at chip_smoke.py's rows, in bf16 and fp32,
 each row's dtype given with it; K1 on its cp.async-fed wgmma kernels and
 at d 16 at chip_smoke.py's d16_bf16, d20_ragged, d33_odd, d100_wide,
-d300, d300_wide and d301 rows) the script checks that
+d300, d300_wide and d301 rows; K2 and K3 past 256 at chip_smoke.py's
+d264, d320, d512, d512_wide, b1_h4_train, d320_f32 and d320_f32_wide
+rows) the script checks that
 the two trees' outputs agree, then times the forward (K1), the dq
 backward (K2) or the dk/dv backward (K3) with CUDA events in the order
 baseline, current, current, baseline, repeated ``--rounds`` times, and
@@ -47,7 +50,9 @@ SHAPES = [
     # in bf16, d320_f32 and d320_f32_wide in fp32; K1 where it left
     # mma.sync: d 16 (fed by TMA), 20 and 100 (cp.async), 33 (through
     # registers), past 256 d 300 (cp.async) and 301 (through registers)
-    # at chip_smoke.py's rows
+    # at chip_smoke.py's rows; K2 and K3 past 256 at chip_smoke.py's rows
+    # (d264, d320, d512, d512_wide and b1_h4_train in bf16, d320_f32 and
+    # d320_f32_wide in fp32)
     ("served_fwd", "fwd", 2, 2048, 2048, 16, 128, True, "bfloat16"),
     ("train_fwd", "fwd", 8, 2048, 2048, 16, 128, True, "bfloat16"),
     ("d160_fwd", "fwd", 2, 2048, 2048, 16, 160, True, "bfloat16"),
@@ -80,6 +85,20 @@ SHAPES = [
     ("d80_dkdv", "dkdv", 1, 700, 1000, 4, 80, True, "bfloat16"),
     ("d192_dq", "dq", 2, 1000, 1000, 8, 192, False, "bfloat16"),
     ("d192_dkdv", "dkdv", 2, 1000, 1000, 8, 192, False, "bfloat16"),
+    ("d264_dq", "dq", 1, 1000, 1000, 4, 264, True, "bfloat16"),
+    ("d264_dkdv", "dkdv", 1, 1000, 1000, 4, 264, True, "bfloat16"),
+    ("d320_dq", "dq", 1, 1000, 1000, 4, 320, True, "bfloat16"),
+    ("d320_dkdv", "dkdv", 1, 1000, 1000, 4, 320, True, "bfloat16"),
+    ("d512_dq", "dq", 1, 1000, 1000, 4, 512, True, "bfloat16"),
+    ("d512_dkdv", "dkdv", 1, 1000, 1000, 4, 512, True, "bfloat16"),
+    ("d512_wide_dq", "dq", 2, 2048, 2048, 8, 512, True, "bfloat16"),
+    ("d512_wide_dkdv", "dkdv", 2, 2048, 2048, 8, 512, True, "bfloat16"),
+    ("b1_h4_train_dq", "dq", 8, 2048, 2048, 4, 512, True, "bfloat16"),
+    ("b1_h4_train_dkdv", "dkdv", 8, 2048, 2048, 4, 512, True, "bfloat16"),
+    ("d320_f32_dq", "dq", 1, 1000, 1000, 4, 320, True, "float32"),
+    ("d320_f32_dkdv", "dkdv", 1, 1000, 1000, 4, 320, True, "float32"),
+    ("d320_f32_wide_dq", "dq", 2, 2048, 2048, 8, 320, True, "float32"),
+    ("d320_f32_wide_dkdv", "dkdv", 2, 2048, 2048, 8, 320, True, "float32"),
 ]
 ITERS = 20
 # the two trees round p (and ds) to bf16 in the same places but sum in
@@ -180,7 +199,13 @@ def main(argv=None) -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--baseline", required=True, type=Path)
     parser.add_argument("--rounds", type=int, default=2)
+    parser.add_argument("--shapes", default="",
+                        help="comma-separated SHAPES names (default: all)")
     args = parser.parse_args(argv)
+    wanted = set(filter(None, args.shapes.split(",")))
+    unknown = wanted - {row[0] for row in SHAPES}
+    if unknown:
+        parser.error(f"unknown shapes {sorted(unknown)}")
 
     import torch
 
@@ -193,6 +218,8 @@ def main(argv=None) -> int:
             "current": load_attention(here, "attention_current")}
     rows = []
     for name, kernel, b, sq, sk, h, d, causal, dtype in SHAPES:
+        if wanted and name not in wanted:
+            continue
         q, k, v, do = _inputs(b, sq, sk, h, d, dtype)
         calls = {tag: _call(mod, kernel, q, k, v, do, causal)
                  for tag, mod in mods.items()}

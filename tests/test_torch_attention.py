@@ -216,7 +216,9 @@ def test_flash_attention_past_head_dim_256_matches_jax(d, dtype):
     jax.grad at [1, 128, 2, D] causal (the JAX blockwise path here). On
     the card K1 takes its wgmma kernel in bf16 (fed by TMA at D % 8 == 0,
     by cp.async at 300 and through registers at 301) and its ring-fed FMA
-    kernel in fp32; K2 and K3 the chunked route."""
+    kernel in fp32; K2 and K3 their wgmma kernels in bf16 at D % 8 == 0
+    (the chunked mma.sync ones at 300 and 301) and their ring-fed FMA
+    kernels in fp32."""
     import jax
 
     rng = np.random.default_rng(d)
@@ -236,8 +238,10 @@ def test_flash_attention_past_head_dim_256_matches_jax(d, dtype):
     k1 = (T.DCHUNK_FMA if dtype == "float32" else
           T.DCHUNK_WGMMA if d % 8 == 0 else T.DCHUNK_WGMMA_CP)
     assert out.dtype == tdt and T.kernel_route("fwd", tdt, d) == k1
+    bwd = (T.DCHUNK_FMA if dtype == "float32" else
+           T.DCHUNK_WGMMA if d % 8 == 0 else T.DCHUNK)
     assert T.kernel_route("dq", tdt, d) == T.kernel_route(
-        "dkdv", tdt, d) == T.DCHUNK
+        "dkdv", tdt, d) == bwd
     np.testing.assert_allclose(out.detach().float().numpy(),
                                np.asarray(j_out, np.float32), **tol)
     for got, want in zip((tq.grad, tk.grad, tv.grad), j_grads):

@@ -65,14 +65,14 @@ ROOT = Path(__file__).resolve().parents[1]
     ("dq", torch.float32, 64, T.FMA),
     ("dkdv", torch.float32, 32, T.FMA),
     # past 256, both dtypes (the kernel phase's rows at 264, 320 and
-    # 512): K1 on its Hopper kernels, wgmma in bf16 and the ring-fed FMA
-    # kernel in fp32; K2 and K3 on the head-dim-chunked kernels
+    # 512): all three on the Hopper kernels, wgmma in bf16 at D % 8 == 0
+    # and the ring-fed FMA kernels in fp32
     ("fwd", torch.bfloat16, 264, T.DCHUNK_WGMMA),
-    ("dq", torch.bfloat16, 320, T.DCHUNK),
-    ("dkdv", torch.bfloat16, 512, T.DCHUNK),
+    ("dq", torch.bfloat16, 320, T.DCHUNK_WGMMA),
+    ("dkdv", torch.bfloat16, 512, T.DCHUNK_WGMMA),
     ("fwd", torch.float32, 320, T.DCHUNK_FMA),
-    ("dq", torch.float32, 264, T.DCHUNK),
-    ("dkdv", torch.float32, 257, T.DCHUNK),
+    ("dq", torch.float32, 264, T.DCHUNK_FMA),
+    ("dkdv", torch.float32, 257, T.DCHUNK_FMA),
     # K1 in bf16 past 256 off the multiples of 8 (a row stride TMA cannot
     # take) on its wgmma kernel fed by cp.async; fp32 K1 takes every D
     ("fwd", torch.bfloat16, 300, T.DCHUNK_WGMMA_CP),
@@ -81,8 +81,8 @@ ROOT = Path(__file__).resolve().parents[1]
     ("fwd", torch.bfloat16, 384, T.DCHUNK_WGMMA),
     ("fwd", torch.float32, 257, T.DCHUNK_FMA),
     ("fwd", torch.float32, 300, T.DCHUNK_FMA),
-    ("dq", torch.bfloat16, 512, T.DCHUNK),
-    ("dkdv", torch.float32, 320, T.DCHUNK),
+    ("dq", torch.bfloat16, 512, T.DCHUNK_WGMMA),
+    ("dkdv", torch.float32, 320, T.DCHUNK_FMA),
     # K1 under 64 fed by TMA (8) and by cp.async off the multiples of 8
     # (odd D through registers: 33, 1, and past 256 301)
     ("fwd", torch.bfloat16, 8, T.WGMMA_PADDED),
@@ -90,6 +90,11 @@ ROOT = Path(__file__).resolve().parents[1]
     ("fwd", torch.bfloat16, 20, T.WGMMA_PADDED_CP),
     ("fwd", torch.bfloat16, 1, T.WGMMA_PADDED_CP),
     ("fwd", torch.bfloat16, 301, T.DCHUNK_WGMMA_CP),
+    # K2 and K3 in bf16 past 256 off the multiples of 8 keep the chunked
+    # mma.sync kernels
+    ("dq", torch.bfloat16, 300, T.DCHUNK),
+    ("dkdv", torch.bfloat16, 301, T.DCHUNK),
+    ("dkdv", torch.bfloat16, 264, T.DCHUNK_WGMMA),
 ])
 def test_kernel_route(kernel, dtype, head_dim, route):
     assert T.kernel_route(kernel, dtype, head_dim) == route
@@ -103,10 +108,11 @@ def test_kernel_route_takes_every_head_dim_to_256(kernel, dtype):
     past 64 up to 256 and mma.sync below 64 and off the multiples of 8,
     K1 its padded wgmma kernel at every other head dim up to 256, fed by
     TMA at the multiples of 8 and by cp.async off them; fp32 takes the
-    FMA kernels at all up to 256; past 256, with no upper bound, K2 and
-    K3 take the chunked route in both dtypes and K1 its wgmma kernel in
-    bf16 (fed by TMA at D % 8 == 0, by cp.async otherwise) and its
-    ring-fed FMA kernel in fp32; no K1 route is mma.sync; 0 raises."""
+    FMA kernels at all up to 256; past 256, with no upper bound, all
+    three take the wgmma kernels in bf16 at D % 8 == 0 and the ring-fed
+    FMA kernels in fp32, and off the multiples of 8 in bf16 K1 its wgmma
+    kernel fed by cp.async and K2 and K3 the chunked mma.sync route; no
+    K1 route is mma.sync; 0 raises."""
     padded = [d for d in range(1, T.DCHUNK_PAST + 1)
               if d % 8 == 0 and d > 64 and d != 128]
     assert len(padded) == 23 and padded[0] == 72 and padded[-1] == 256
@@ -121,9 +127,9 @@ def test_kernel_route_takes_every_head_dim_to_256(kernel, dtype):
         if kernel == "fwd":
             assert want != T.MMA_SYNC
     for d in (T.DCHUNK_PAST + 1, 264, 300, 320, 512, 4096):
-        want = (T.DCHUNK if kernel != "fwd" else
-                T.DCHUNK_FMA if dtype == torch.float32 else
-                T.DCHUNK_WGMMA if d % 8 == 0 else T.DCHUNK_WGMMA_CP)
+        want = (T.DCHUNK_FMA if dtype == torch.float32 else
+                T.DCHUNK_WGMMA if d % 8 == 0 else
+                T.DCHUNK_WGMMA_CP if kernel == "fwd" else T.DCHUNK)
         assert T.kernel_route(kernel, dtype, d) == want, d
         assert not T.wgmma_padded_head_dim(d)
     with pytest.raises(ValueError, match="head_dim"):
@@ -296,13 +302,17 @@ def test_check_dq_keeps_only_the_named_kernels_ptxas_lines():
 
 def test_check_bwd_rows_covers_every_row_alignment():
     """tools/check_bwd_rows runs K3 at Sq % 4 of 0, 1, 2 and 3 (the
-    offset of a tile's lse/delta rows off a 16-byte boundary), K2 beside
-    it, and ViT-B/16's train shape; without CUDA it exits 2."""
+    offset of a tile's lse/delta rows off a 16-byte boundary), past head
+    dim 256 too, K2 beside it, and ViT-B/16's train shape; without CUDA
+    it exits 2."""
     from ray_tpu_torch.tools import check_bwd_rows
 
     k3 = {s % 4 for kernel, _, s, *_ in check_bwd_rows.CASES
           if kernel == "dkdv"}
     assert k3 == {0, 1, 2, 3}
+    # K3's wgmma kernel past 256 copies its rows the same way
+    assert {s % 4 for kernel, _, s, _, d, _ in check_bwd_rows.CASES
+            if kernel == "dkdv" and d > 256} == {1, 3}
     assert {c[0] for c in check_bwd_rows.CASES} == {"dq", "dkdv"}
     assert ("dkdv", 128, 197, 12, 64, False) in check_bwd_rows.CASES
     if not torch.cuda.is_available():
@@ -485,14 +495,15 @@ def test_compare_kernels_times_the_padded_route_at_its_rows():
 
 
 def test_chunked_route_is_built_dispatched_and_held_on_the_card():
-    """Past 256: the four sources are built, every C entry dispatches
-    there before the per-head-dim kernels of either dtype (K1 to its
-    TMA-fed wgmma kernel before the cp.async-fed one), and the kernel
-    phase holds K1, K2 and K3 at 264, 320 and 512 in bf16 and at 320 in
-    fp32, K1 and K2/K3 at B2 S2048 H8 D512 too, and K1 at fp32 d 320 at
-    that size, at d 384 non-causal with Sq != Sk and at bf16 d 300 (the
-    wgmma kernel fed by cp.async), all listed with the head-dim rows and
-    timed in both dtypes by tools/compare_kernels."""
+    """Past 256: the sources are built, every C entry dispatches there
+    before the per-head-dim kernels of either dtype (K1 to its TMA-fed
+    wgmma kernel before the cp.async-fed one, K2 and K3 to theirs before
+    the chunked mma.sync ones), and the kernel phase holds K1, K2 and K3
+    at 264, 320 and 512 in bf16 and at 320 in fp32, K1 and K2/K3 at B2
+    S2048 H8 D512 too, and K1 at fp32 d 320 at that size, at d 384
+    non-causal with Sq != Sk and at bf16 d 300 (the wgmma kernel fed by
+    cp.async), all listed with the head-dim rows and timed in both dtypes
+    by tools/compare_kernels."""
     from ray_tpu_torch.tools.compare_kernels import SHAPES
 
     assert {"flash_attn_dchunk.cu", "flash_attn_dchunk_fma.cu",
@@ -511,6 +522,8 @@ def test_chunked_route_is_built_dispatched_and_held_on_the_card():
     for kernel in ("dq", "dkdv"):
         assert bwd.index(f"rtt::bwd_{kernel}_dchunk_fma(") < bwd.index(
             f"rtt::bwd_{kernel}_fma(")
+        assert bwd.index(f"rtt::bwd_{kernel}_dchunk_wgmma(") < bwd.index(
+            f"rtt::bwd_{kernel}_dchunk_mma(")
         assert bwd.index(f"rtt::bwd_{kernel}_dchunk_mma(") < bwd.index(
             f"rtt::bwd_{kernel}_mma(")
     cs = _chip_smoke()
@@ -518,15 +531,14 @@ def test_chunked_route_is_built_dispatched_and_held_on_the_card():
     bwd_rows = {row[0]: row[1:] for row in cs.BWD_SHAPES}
     want = {"d264": (264, "bfloat16"), "d320": (320, "bfloat16"),
             "d512": (512, "bfloat16"), "d320_f32": (320, "float32")}
-    k1 = {"bfloat16": T.DCHUNK_WGMMA, "float32": T.DCHUNK_FMA}
+    route = {"bfloat16": T.DCHUNK_WGMMA, "float32": T.DCHUNK_FMA}
     for name, (d, dtype) in want.items():
         assert fwd_rows[name] == (1, 1000, 4, d, True, dtype)
         assert bwd_rows[name] == (1, 1000, 1000, 4, d, True, dtype)
         assert name in cs.HEAD_DIM_SHAPES
-        assert T.kernel_route("fwd", getattr(torch, dtype), d) == k1[dtype]
-        for kernel in ("dq", "dkdv"):
+        for kernel in ("fwd", "dq", "dkdv"):
             assert T.kernel_route(kernel, getattr(torch, dtype),
-                                  d) == T.DCHUNK
+                                  d) == route[dtype]
     wide = {"d512_wide": (2, 2048, 8, 512, True, "bfloat16"),
             "d320_f32_wide": (2, 2048, 8, 320, True, "float32"),
             "d384_noncausal": (2, 1000, 8, 384, False, "bfloat16", 700),
@@ -685,7 +697,11 @@ def _header_rules() -> dict:
     ("fwd_padded_head_dim", "fwd", T.WGMMA_PADDED),
     ("fwd_padded_cp_async_head_dim", "fwd", T.WGMMA_PADDED_CP),
     ("dchunk_wgmma_head_dim", "fwd", T.DCHUNK_WGMMA),
-    ("dchunk_cp_async_head_dim", "fwd", T.DCHUNK_WGMMA_CP),
+    ("dchunk_unaligned_head_dim", "fwd", T.DCHUNK_WGMMA_CP),
+    ("dchunk_wgmma_head_dim", "dq", T.DCHUNK_WGMMA),
+    ("dchunk_wgmma_head_dim", "dkdv", T.DCHUNK_WGMMA),
+    ("dchunk_unaligned_head_dim", "dq", T.DCHUNK),
+    ("dchunk_unaligned_head_dim", "dkdv", T.DCHUNK),
 ])
 def test_route_table_is_the_headers_constexprs(rule, kernel, route):
     """attention.kernel_route in bf16 takes ``route`` at exactly the head
@@ -737,12 +753,13 @@ def test_each_feed_is_instantiated_at_each_width_without_trap(
 
 
 def test_no_source_names_a_removed_kernel():
-    """K1's mma.sync kernels are gone: no source, build list or smoke
-    list names them, every listed source exists, and every kernel source
-    in csrc/ is listed."""
+    """K1's mma.sync kernels and the chunked fp32 K2 and K3 kernels past
+    256 are gone: no source, build list or smoke list names them, every
+    listed source exists, and every kernel source in csrc/ is listed."""
     csrc = ROOT / "ray_tpu_torch" / "ops" / "csrc"
     gone = ("flash_attn_fwd_mma.cu", "flash_fwd_mma_kernel", "fwd_mma(",
-            "fwd_dchunk_mma", "rtt::fwd_mma")
+            "fwd_dchunk_mma", "rtt::fwd_mma", "bwd_dq_dchunk_f32_kernel",
+            "bwd_dkdv_dchunk_f32_kernel")
     for path in csrc.iterdir():
         text = path.read_text()
         assert not [g for g in gone if g in text], path.name
@@ -801,3 +818,241 @@ def test_kernel_phase_and_compare_reach_every_new_route():
         b, s, h, d, causal, dtype, *sk = fwd[row]
         assert timed[f"{row}_fwd"] == (
             "fwd", b, s, sk[0] if sk else s, h, d, causal, dtype), row
+
+
+def test_dchunk_bwd_wgmma_source_instantiates_each_slice_width_without_trap():
+    """K2's and K3's wgmma kernel past 256 is one template (DKDV) in one
+    header, instantiated by one source a kernel, each every build
+    compiles: K2 at dq's slice widths (160..256) with one or two consumer
+    warpgroups, K3 at dk/dv's (96, 128) with one, each with its rows
+    resident or streamed; no wait traps (a trap keeps ptxas from allocating the
+    consumers within setmaxnreg's count), and the C dispatch takes it at
+    the head dims the Python route table does."""
+    csrc = ROOT / "ray_tpu_torch" / "ops" / "csrc"
+    header = "flash_attn_dchunk_bwd_wgmma.cuh"
+    assert header in T._HEADERS
+    code = re.sub(r"//[^\n]*", "", (csrc / header).read_text())
+    assert "__trap" not in code and "mbar_wait(" not in code
+    assert "mbar_wait_no_trap(" in code
+    assert "launch_db<SWP, NCW, RES, DKDV>(" in code
+    assert set(re.findall(r"take\((One|Two)\{\}, std::(true|false)_type",
+                          code)) == {("One", "true"), ("Two", "true"),
+                                     ("One", "false")}
+    # K3 never takes two consumer warpgroups
+    assert "if constexpr (!DKDV) {\n      if (blocks128 >= sm_count() &&" \
+        in code
+    dkdv = code[code.index("if constexpr (DKDV) {\n    if (sw <= 96)"):]
+    widths = {int(w) for w in
+              re.findall(r"integral_constant<int, (\d+)>", dkdv)}
+    assert widths == {96, 128, 160, 192, 224, 256}
+    assert "dkdv ? 128 : 256" in code
+    for kernel, flag in (("dq", "false"), ("dkdv", "true")):
+        name = f"flash_attn_dchunk_bwd_{kernel}_wgmma.cu"
+        assert name in T._SOURCES
+        src = re.sub(r"//[^\n]*", "", (csrc / name).read_text())
+        assert f'#include "{header}"' in src
+        assert f"bwd_dchunk_wgmma<{flag}>(" in src
+        assert "__trap" not in src and "mbar_wait(" not in src
+    for d in (264, 300, 320, 512, 520, 4096):
+        for kernel in ("dq", "dkdv"):
+            assert (T.kernel_route(kernel, torch.bfloat16, d)
+                    == T.DCHUNK_WGMMA) == (d % 8 == 0), (kernel, d)
+
+
+def test_dchunk_bwd_ring_source_instantiates_each_width_and_copy_size():
+    """K2's and K3's fp32 kernel past 256 is one template in the header
+    K1's ring kernel shares (its ring copies and barrier), instantiated
+    by one source a kernel at each slice width (3, 4 or 5 groups of 64
+    columns) and both copy sizes (16 bytes at D % 4 == 0, else 4); it
+    sums on the CUDA cores alone (no mma, no tf32)."""
+    csrc = ROOT / "ray_tpu_torch" / "ops" / "csrc"
+    header = "flash_attn_dchunk_ring_f32.cuh"
+    assert header in T._HEADERS
+    code = re.sub(r"//[^\n]*", "", (csrc / header).read_text())
+    assert set(re.findall(r"launch_bwd_ring<(\d), VEC, DKDV>", code)) == {
+        "3", "4", "5"}
+    assert "RF_MAX_SLICE = 320" in code
+    assert "mma" not in code and "tf32" not in code.lower()
+    assert "pick(std::true_type{})" in code and (
+        "pick(std::false_type{})" in code)
+    for kernel, flag in (("dq", "false"), ("dkdv", "true")):
+        name = f"flash_attn_dchunk_bwd_{kernel}_fma.cu"
+        assert name in T._SOURCES
+        src = (csrc / name).read_text()
+        assert f'#include "{header}"' in src
+        assert f"bwd_dchunk_ring<{flag}>(" in src
+    k1 = (csrc / "flash_attn_dchunk_fma.cu").read_text()
+    assert f'#include "{header}"' in k1 and "bwd_" not in re.sub(
+        r"//[^\n]*", "", k1)
+
+
+@pytest.mark.parametrize("d,dq,dkdv", [
+    # D 264: dq two slices of 136 (padded to 160), dk/dv three of 88
+    # (padded to 96)
+    (264, [136, 128], [88, 88, 88]),
+    (320, [160, 160], [112, 112, 96]),
+    (512, [256, 256], [128, 128, 128, 128]),
+    (520, [176, 176, 168], [104, 104, 104, 104, 104]),
+])
+def test_dchunk_bwd_slices_are_balanced_multiples_of_8(d, dq, dkdv):
+    """K2's and K3's slice plan past 256 (bwd_dchunk_wgmma): ceil(D / W)
+    slices of ceil(D / ns) rounded up to 8, W 256 for dq and 128 for dk
+    and dv, the last slice what is left."""
+    for most, want in ((256, dq), (128, dkdv)):
+        ns = -(-d // most)
+        sw = (-(-d // ns) + 7) // 8 * 8
+        got = [min(sw, d - c0) for c0 in range(0, d, sw)]
+        assert got == want and all(w % 8 == 0 and w <= most for w in got)
+    src = (ROOT / "ray_tpu_torch" / "ops" / "csrc"
+           / "flash_attn_dchunk_bwd_wgmma.cuh").read_text()
+    assert "const int sw = ((D + ns - 1) / ns + 7) / 8 * 8;" in src
+    assert "(D + sw - 1) / sw)" in src
+
+
+def test_dchunk_bwd_layouts_fit_and_the_checks_reach_each():
+    """The wgmma backward past 256 plans its rings on the host and refuses
+    (launches nothing, returns an error) a layout over the H100's 227 KB;
+    the C dispatch reports the layout it would launch through one export
+    a kernel, and tools/check_head_dims reads it there: it fails unless
+    its cases reach every (consumer warpgroups, rows resident) layout the
+    dispatch instantiates and every head dim of the route to 4096 fits,
+    and it prints the layouts at b1_h4's train step and d512_wide."""
+    from ray_tpu_torch.tools import check_head_dims as chd
+
+    csrc = ROOT / "ray_tpu_torch" / "ops" / "csrc"
+    code = re.sub(r"//[^\n]*", "",
+                  (csrc / "flash_attn_dchunk_bwd_wgmma.cuh").read_text())
+    assert "constexpr int DB_SMEM_MAX = 232448;" in code
+    assert "if (alloc(nb, k, s) <= DB_SMEM_MAX) {" in code
+    assert "if (!L::plan(nb, &kst, &sst)) return cudaErrorInvalidValue;" \
+        in code
+    assert ("if (!DbLayout<SWP, NCW, RES, DKDV>::plan(nb, &kst, &sst))\n"
+            "          return cudaErrorInvalidValue;") in code
+    assert "const int chosen[6] = {SWP, sw, NCW, RES, kst, sst};" in code
+    assert len(chd._LAYOUT_KEYS) == 6
+    for kernel, flag in (("dq", "false"), ("dkdv", "true")):
+        src = (csrc / f"flash_attn_dchunk_bwd_{kernel}_wgmma.cu").read_text()
+        assert f"rtt_flash_attn_bwd_{kernel}_dchunk_layout(" in src
+        assert f"bwd_dchunk_wgmma<{flag}>(" in src and (
+            "nullptr, layout);" in src)
+    # what the dispatch instantiates: K2 at both consumer-warpgroup counts
+    # (two only with its rows resident), K3 at one
+    assert chd.LAYOUTS == {"dq": {(1, True), (2, True), (1, False)},
+                           "dkdv": {(1, True), (1, False)}}
+    tool = (ROOT / "ray_tpu_torch" / "tools"
+            / "check_head_dims.py").read_text()
+    assert "failed += not layouts[\"ok\"]" in tool
+    assert "range(264, 4097, 8)" in tool
+    # the shapes whose layouts it prints are the kernel phase's rows
+    fwd = {row[0]: row[1:] for row in _chip_smoke().KERNEL_SHAPES}
+    for name, (b, sq, sk, h) in chd.LAYOUT_SHAPES.items():
+        assert fwd[name][:4] == (b, sq, h, 512) and sq == sk, name
+    cases = [(d, chd.SHAPE) for dtype, dims in chd.CASES
+             if dtype == "bfloat16" for d in dims] + [
+        (d, shape) for dtype, d, shape in chd.WIDE_CASES
+        if dtype == "bfloat16"]
+    assert {d for d, _ in cases if d > 256 and d % 8 == 0} >= {
+        264, 320, 384, 448, 512, 576, 640, 704}
+
+
+@pytest.mark.parametrize("kernel,bound_ms", [
+    # b1's widths at 4 heads, B8 S2048 H4 D512 causal bf16: the same
+    # B*H*D as b1's train shape, so its operation bounds
+    ("fwd", 0.1390),
+    ("dq", 0.2086),
+    ("dkdv", 0.2781),
+])
+def test_attention_bound_at_the_b1_h4_train_shape(kernel, bound_ms):
+    cs = _chip_smoke()
+    fwd = {row[0]: row[1:] for row in cs.KERNEL_SHAPES}
+    bwd = {row[0]: row[1:] for row in cs.BWD_SHAPES}
+    assert fwd["b1_h4_train"] == (8, 2048, 4, 512, True, "bfloat16")
+    assert bwd["b1_h4_train"] == (8, 2048, 2048, 4, 512, True, "bfloat16")
+    got, bound_by = cs._attention_work(kernel, 8, 2048, 2048, 4, 512, True,
+                                       "bfloat16")
+    assert bound_by == "operations"
+    assert got == pytest.approx(bound_ms, abs=5e-5)
+
+
+def test_b1_h4_train_path_is_b1_at_4_heads():
+    """chip_smoke.py's b1_h4_train phase trains ModelConfig.b1's widths
+    (hidden 2048, 24 layers, inter 5632) at 4 heads over 4 kv heads:
+    head_dim 512, where K1, K2 and K3 all take the bf16 wgmma kernels
+    past 256; its kernel rows run at the train step's attention shape,
+    and the phase runs after xl16's."""
+    import dataclasses
+
+    cs = _chip_smoke()
+    cfg = cs._text_config("b1_h4")
+    b1 = cs._text_config("b1")
+    assert dataclasses.replace(b1, heads=4, kv_heads=4) == cfg
+    assert (cfg.hidden, cfg.layers, cfg.intermediate, cfg.vocab_size) == (
+        2048, 24, 5632, 32000)
+    assert (cfg.heads, cfg.kv_heads, cfg.head_dim) == (4, 4, 512)
+    assert cfg.remat and cfg.dtype == torch.bfloat16
+    assert cs._main_path_routes("bfloat16", cfg.head_dim) == {
+        "fwd": T.DCHUNK_WGMMA, "dq": T.DCHUNK_WGMMA,
+        "dkdv": T.DCHUNK_WGMMA}
+    assert tuple(cs._train_batch("b1_h4").shape) == cs.TRAIN_TOKENS
+    src = (ROOT / "chip_smoke.py").read_text()
+    assert ('_text_train_phase(report, "b1_h4",\n'
+            '                                                      '
+            '"b1_h4_train")') in src
+    assert src.index('("xl16", phase_xl16)') < src.index(
+        '("b1_h4_train", phase_b1_h4_train)')
+
+
+def test_kernel_phase_holds_the_backward_past_256_at_its_edges():
+    """The kernel phase's backward rows past 256: fp32 d 320 at the size
+    the forward has (B2 S2048 H8), d 384 non-causal with Sq 1000 > Sk
+    700, d 320 causal with Sq 700 < Sk 1000 (key tiles no query reaches),
+    and bf16 d 300 on the chunked mma.sync kernels that stay; each listed
+    with the head-dim rows; tools/compare_kernels times K2 and K3 at the
+    rows past 256 against the parent, each at its kernel-phase shape."""
+    from ray_tpu_torch.tools.compare_kernels import SHAPES
+
+    cs = _chip_smoke()
+    bwd = {row[0]: row[1:] for row in cs.BWD_SHAPES}
+    want = {
+        "d320_f32_wide": ((2, 2048, 2048, 8, 320, True, "float32"),
+                          T.DCHUNK_FMA),
+        "d384_noncausal": ((2, 1000, 700, 8, 384, False, "bfloat16"),
+                           T.DCHUNK_WGMMA),
+        "d320_sq_lt_sk": ((1, 700, 1000, 4, 320, True, "bfloat16"),
+                          T.DCHUNK_WGMMA),
+        "d300": ((1, 1000, 1000, 4, 300, True, "bfloat16"), T.DCHUNK),
+    }
+    for name, (row, route) in want.items():
+        assert bwd[name] == row and name in cs.HEAD_DIM_SHAPES, name
+        for kernel in ("dq", "dkdv"):
+            assert T.kernel_route(kernel, getattr(torch, row[-1]),
+                                  row[4]) == route
+    timed = {name: (kernel, *rest) for name, kernel, *rest in SHAPES}
+    for name in ("d264", "d320", "d512", "d512_wide", "d320_f32",
+                 "d320_f32_wide", "b1_h4_train"):
+        for kernel in ("dq", "dkdv"):
+            assert timed[f"{name}_{kernel}"] == (kernel, *bwd[name]), name
+
+
+def test_check_head_dims_reports_the_backward_kernels_past_256():
+    """tools/check_head_dims prints a row per instantiation of K2's and
+    K3's kernels past 256 (their template arguments named)."""
+    from ray_tpu_torch.tools.check_head_dims import wgmma_rows
+
+    log = "\n".join([
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_123"
+        "bwd_dchunk_wgmma_kernelILi256ELi1ELb1ELb0EEEv14CUtensorMap_st' "
+        "for 'sm_90a'",
+        "ptxas info    : Used 250 registers, used 1 barriers",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_126"
+        "bwd_dchunk_ring_f32_kernelILi5ELb1ELb1EEEvPKfS2_S2_S2_S2_S2_PfS3_"
+        "iiiiif' for 'sm_90a'",
+        "ptxas info    : Used 240 registers, used 1 barriers",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+    ])
+    rows = wgmma_rows(log)
+    assert [r["kernel"] for r in rows] == [
+        "bwd_dchunk_wgmma_kernel<256, 1, 1, 0>",
+        "bwd_dchunk_ring_f32_kernel<5, 1, 1>"]
+    assert [r["registers"] for r in rows] == [250, 240]

@@ -6,12 +6,15 @@ CPU, in float32.
   1e-6 absolute and 1e-5 relative (the same elementwise arithmetic, apart
   only in the summation order of the global norm and in the last bit of
   a pow or sqrt).
-- 3 steps of ``build_train_step`` for ``ModelConfig.debug()`` against
-  the JAX ``build_train_step`` on a one-device mesh, from the same
-  weights and tokens: loss and grad norm per step within 1e-4 relative
-  (the gradient tolerance of tests/test_model.py; each step's update
-  feeds the next, so the steps compound it).
+- 3 steps of ``build_train_step`` for ``ModelConfig.debug()``, and for
+  it at hidden 640 over 2 heads (head dim 320, past the per-head-dim
+  kernels' 256), against the JAX ``build_train_step`` on a one-device
+  mesh, from the same weights and tokens: loss and grad norm per step
+  within 1e-4 relative (the gradient tolerance of tests/test_model.py;
+  each step's update feeds the next, so the steps compound it).
 """
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -83,9 +86,17 @@ def test_optimizer_matches_optax(grad_scale):
     assert state["count"] == int(adam.count) == 3
 
 
-def test_train_steps_match_jax():
-    jcfg = jtfm.ModelConfig.debug()
-    tcfg = ttfm.ModelConfig.debug()
+# ModelConfig.debug()'s fields changed in both packages: its own, and
+# head dim 320 (the attention past 256 on the CPU's plain versions)
+CONFIGS = {"debug": {}, "d320": dict(hidden=640, heads=2, kv_heads=2)}
+
+
+@pytest.mark.parametrize("config", list(CONFIGS))
+def test_train_steps_match_jax(config):
+    jcfg = dataclasses.replace(jtfm.ModelConfig.debug(), **CONFIGS[config])
+    tcfg = dataclasses.replace(ttfm.ModelConfig.debug(), **CONFIGS[config])
+    assert jcfg.head_dim == tcfg.head_dim == (320 if config == "d320"
+                                              else 16)
     mesh = build_mesh(MeshSpec(dp=1, pp=1, sp=1, tp=1))
     j_step, j_init = j_build_train_step(jcfg, mesh)
     j_params, j_state = j_init(jax.random.PRNGKey(0))
