@@ -21,21 +21,18 @@ if any failed, the script exits non-zero and prints no result. Phases:
               each row names the route (``attention.kernel_route``) it
               took; rows at head dims 80 (Sq < Sk), 120 (Sq > Sk), 160
               (B2, and the xl16 train step's B8), 192 (non-causal), 224
-              and 256 hold K1, K2 and K3 on the padded wgmma kernels,
-              rows at 16 and 20 (Sq != Sk) K2 and K3 on mma.sync in bf16
-              and K1 on its padded wgmma kernel fed by TMA (16) and by
-              cp.async (20; and 33, through registers, and 100 at B2
-              S2048 H16), and the FMA kernels (ModelConfig.debug's fp32
-              d 16) the same way; past 256, K1 on wgmma in bf16 fed by
-              TMA at D % 8 == 0 (d 264, 320, 512 at B1 S1000 H4, 512 at
-              B2 S2048 H8, 384 non-causal with Sq != Sk) and by cp.async
-              or through registers otherwise (d 300 at both sizes, 301),
-              on the ring-fed FMA kernel in fp32 (d 320, at both sizes);
-              K2 and K3 on wgmma in bf16 at D % 8 == 0 (d 264, 320, 512
-              at both sizes and at the b1_h4 train step's B8 S2048 H4,
-              384 non-causal with Sq > Sk, 320 causal with Sq < Sk), on
-              the ring-fed FMA kernels in fp32 (d 320 at both sizes), on
-              the chunked mma.sync kernels at bf16 d 300;
+              and 256 hold K1, K2 and K3 on the padded wgmma kernels fed
+              by TMA, as do rows at 16 and 32 (the entry_train step's
+              B16 S512 H8), and on them fed by cp.async rows at 20 (Sq !=
+              Sk), 33 (through registers) and 100 at B2 S2048 H16; the
+              FMA kernels (ModelConfig.debug's fp32 d 16) the same way;
+              past 256, K1, K2 and K3 on wgmma in bf16 fed by TMA at D %
+              8 == 0 (d 264, 320, 512 at B1 S1000 H4, 512 at B2 S2048
+              H8, 384 non-causal with Sq != Sk; K2 and K3 also at the
+              b1_h4 train step's B8 S2048 H4 and 320 causal with Sq <
+              Sk) and by cp.async or through registers otherwise (d 300
+              at both sizes, 301), on the ring-fed FMA kernels in fp32
+              (d 320, at both sizes); no route runs mma.sync;
   2b. debug — the JAX package's test configs on the card through the
               kernels (head_dim 16, float32: the FMA route):
               ModelConfig.debug() and tiny_moe() (routed alike) served
@@ -119,6 +116,12 @@ if any failed, the script exits non-zero and prints no result. Phases:
   5c. b1_h4_train — the same for b1's widths at 4 heads (head_dim 512):
               K1 2 x 24 x 4 launches, K2 and K3 24 x 4 each, all on the
               bf16 wgmma kernels past 256 (route dchunk_wgmma_tma_ws);
+  5d. entry_train — the same for the entry point's model
+              (tools/multichip.py's ENTRY_MODEL: vocab 2048, hidden 256, 4
+              layers, 8 heads over 4 kv heads, head_dim 32, inter 704,
+              bf16, remat off) at [16, 513] tokens (its max_seq 512): K1,
+              K2 and K3 4 x 4 launches each, all on the padded wgmma
+              kernels fed by TMA (route wgmma_tma_ws_padded);
   6. moe    — the bench's sparse model (bench.py's MoE row: hidden 1024,
               8 layers, 16 heads over 8 kv heads, head_dim 64, inter
               2816, vocab 32000, top-2 of 8 experts on every second
@@ -407,16 +410,15 @@ KERNEL_SHAPES = [
     # ViT-B/16 train step's (196 patches + CLS, non-causal)
     ("moe", 16, 2048, 16, 64, True, "bfloat16"),
     ("vit", 128, 197, 12, 64, False, "bfloat16"),
-    # head dims off the wgmma route's 64 and 128 (K1 on its padded wgmma
-    # kernel in bf16, fed by TMA at D % 8 == 0 and by cp.async off it; K2
-    # and K3 the same at D % 8 == 0 past 64, mma.sync below and off it;
-    # FMA in fp32): ModelConfig.debug's attention; d 16 in bf16 at a
-    # ragged length; d 20 (a 40-byte row) with Sq != Sk, given as an 8th
-    # field; bench.py's xl width at 16 heads; the widest; the xl16 train
-    # step's shape; the backward rows' d 80 (Sq < Sk), d 192
-    # (non-causal), d 120 (padded to 128, Sq > Sk) and d 224 below; K1
-    # fed through registers at an odd D (33), and by 8-byte cp.async at
-    # a size where the arithmetic bounds it (d 100, B2 S2048 H16)
+    # head dims off the wgmma route's 64 and 128 (K1, K2 and K3 on their
+    # padded wgmma kernels in bf16, fed by TMA at D % 8 == 0 and by
+    # cp.async off it; FMA in fp32): ModelConfig.debug's attention; d 16
+    # in bf16 at a ragged length; d 20 (a 40-byte row) with Sq != Sk,
+    # given as an 8th field; bench.py's xl width at 16 heads; the widest;
+    # the xl16 train step's shape; the backward rows' d 80 (Sq < Sk), d
+    # 192 (non-causal), d 120 (padded to 128, Sq > Sk) and d 224 below;
+    # fed through registers at an odd D (33), and by 8-byte cp.async at a
+    # size where the arithmetic bounds it (d 100, B2 S2048 H16)
     ("debug_f32", 2, 128, 4, 16, True, "float32"),
     ("d16_bf16", 2, 1000, 4, 16, True, "bfloat16"),
     ("d20_ragged", 1, 1000, 4, 20, False, "bfloat16", 700),
@@ -449,6 +451,8 @@ KERNEL_SHAPES = [
     ("d301", 1, 1000, 4, 301, True, "bfloat16"),
     # b1's widths at 4 heads trained (phase b1_h4_train): its attention
     ("b1_h4_train", 8, 2048, 4, 512, True, "bfloat16"),
+    # the entry point's model trained (phase entry_train): its attention
+    ("entry_train", 16, 512, 8, 32, True, "bfloat16"),
 ]
 
 BWD_SHAPES = [
@@ -467,8 +471,9 @@ BWD_SHAPES = [
     ("moe", 16, 2048, 2048, 16, 64, True, "bfloat16"),
     ("vit", 128, 197, 197, 12, 64, False, "bfloat16"),
     # the kernel phase's rows at head dims off 64 and 128 (K2 and K3 on
-    # the padded wgmma kernels at d 160 and 256, mma.sync at 16 and 20);
-    # for the padded kernels: the xl16 train step's shape, d 80 (padded to
+    # the padded wgmma kernels at d 16, 160 and 256 fed by TMA, at 20, 33
+    # (through registers) and 100 at B2 S2048 H16 fed by cp.async); for
+    # the padded kernels: the xl16 train step's shape, d 80 (padded to
     # 96: a 64-column box, then a 32-column piece whose last 16 columns TMA
     # fills with zeros) at Sq < Sk (causal, top-left aligned: the last key
     # tiles see no query and write zeros), d 192 (one whole box past
@@ -485,6 +490,11 @@ BWD_SHAPES = [
     ("d192_noncausal", 2, 1000, 1000, 8, 192, False, "bfloat16"),
     ("d120_sq_gt_sk", 1, 1000, 700, 4, 120, True, "bfloat16"),
     ("d224", 2, 2048, 2048, 8, 224, True, "bfloat16"),
+    ("d33_odd", 1, 1000, 1000, 4, 33, True, "bfloat16"),
+    ("d100_wide", 2, 2048, 2048, 16, 100, True, "bfloat16"),
+    # the entry_train step's attention (one 64-column box: K3's two
+    # warpgroups split its two products)
+    ("entry_train", 16, 512, 512, 8, 32, True, "bfloat16"),
     # past 256 the forward's rows, backward too: K2 and K3 on wgmma in
     # bf16 (slices of dq padded to 160 at 264 and 320, 256 at 512; of dk
     # and dv to 96 and 128) and on the ring-fed FMA kernels in fp32, each
@@ -494,7 +504,8 @@ BWD_SHAPES = [
     # past Sk of dk/dv never written); d 320 causal at Sq 700 < Sk 1000
     # (top-left aligned: the last key tiles see no query and write
     # zeros); d 300 (D % 8 != 0: TMA cannot take the row stride) on the
-    # chunked mma.sync kernels that stay there
+    # wgmma kernels fed by cp.async, at both sizes, and d 301 fed through
+    # registers
     ("d264", 1, 1000, 1000, 4, 264, True, "bfloat16"),
     ("d320", 1, 1000, 1000, 4, 320, True, "bfloat16"),
     ("d512", 1, 1000, 1000, 4, 512, True, "bfloat16"),
@@ -505,6 +516,8 @@ BWD_SHAPES = [
     ("d384_noncausal", 2, 1000, 700, 8, 384, False, "bfloat16"),
     ("d320_sq_lt_sk", 1, 700, 1000, 4, 320, True, "bfloat16"),
     ("d300", 1, 1000, 1000, 4, 300, True, "bfloat16"),
+    ("d300_wide", 2, 2048, 2048, 8, 300, True, "bfloat16"),
+    ("d301", 1, 1000, 1000, 4, 301, True, "bfloat16"),
 ]
 # the rows of KERNEL_SHAPES and BWD_SHAPES off the wgmma route, reported
 # beside the model shapes in the kernels line (each kernel at the rows it
@@ -514,7 +527,8 @@ HEAD_DIM_SHAPES = ("debug_f32", "d16_bf16", "d20_ragged", "d160",
                    "d192_noncausal", "d120_sq_gt_sk", "d224", "d264",
                    "d320", "d512", "d320_f32", "d512_wide", "d320_f32_wide",
                    "d384_noncausal", "d300", "d33_odd", "d100_wide",
-                   "d300_wide", "d301", "b1_h4_train", "d320_sq_lt_sk")
+                   "d300_wide", "d301", "b1_h4_train", "d320_sq_lt_sk",
+                   "entry_train")
 
 SCHED = dict(nodes=256, tasks=100_000, classes=32)
 SCHED_PIPELINED_TICKS = 3
@@ -541,6 +555,8 @@ SERVE_LIB = dict(replicas=2, max_batch=4, wait_s=0.05, max_queries=8,
 SERVE_LIB_REL_TOL = 2e-2
 TRAIN_STEPS = 4
 TRAIN_TOKENS = (8, 2049)  # [B, S + 1]: next-token targets for S = 2048
+# the entry_train phase's batch: [B, S + 1] at the model's max_seq 512
+ENTRY_TRAIN_TOKENS = (16, 513)
 # the bench's MoE batch (RAY_TPU_BENCH_MODEL_MOE_BATCH's default, 16)
 MOE_TRAIN_TOKENS = (16, 2049)
 MOE_TRAIN_STEPS = 4
@@ -657,18 +673,18 @@ def phase_build(report: dict) -> None:
             print(f"build: ptxas {kernel_name(row['kernel'])[-60:]}: "
                   f"{row.get('registers')} registers at entry, "
                   f"{row.get('spill')} {row['notes']}", flush=True)
-    # the mma.sync and FMA kernels: one instantiation per padded head dim
+    # the FMA kernels: one instantiation per padded head dim
     small = [r for r in report["ptxas"]
-             if ("mma_kernel" in r["kernel"] or "f32_kernel" in r["kernel"])
+             if "f32_kernel" in r["kernel"]
              and "ring_f32_kernel" not in r["kernel"]]
     spilling = [r for r in small if _spill_bytes(r.get("spill", ""))]
-    report["ptxas_mma_fma"] = {
+    report["ptxas_fma"] = {
         "kernels": len(small),
         "max_registers": max((r.get("registers", 0) for r in small),
                              default=0),
         "spilling": [f"{r['kernel']}: {r.get('spill')}" for r in spilling]}
-    print(f"build: {len(small)} mma.sync and FMA instantiations, at most "
-          f"{report['ptxas_mma_fma']['max_registers']} registers, "
+    print(f"build: {len(small)} FMA instantiations, at most "
+          f"{report['ptxas_fma']['max_registers']} registers, "
           f"{len(spilling)} of them spill", flush=True)
 
 
@@ -1104,11 +1120,17 @@ XL16 = dict(vocab_size=32000, hidden=2560, layers=16, heads=16, kv_heads=8,
 
 def _text_config(model: str):
     """b1, b1's widths at 4 heads (head dim 512), bench.py's xl at 16
-    heads, or the bench's MoE model (bench.py's sparse row)."""
+    heads, the entry point's model, or the bench's MoE model (bench.py's
+    sparse row)."""
     import dataclasses
 
-    from ray_tpu_torch.models.transformer import ModelConfig
+    import torch
 
+    from ray_tpu_torch.models.transformer import ModelConfig
+    from ray_tpu_torch.tools.multichip import ENTRY_MODEL
+
+    if model == "entry":
+        return ModelConfig(**ENTRY_MODEL, dtype=torch.bfloat16)
     if model == "b1":
         return ModelConfig.b1()
     if model == "b1_h4":
@@ -1125,6 +1147,8 @@ MODEL_DESC = {
              "heads, d 512, inter 5632, vocab 32000, bf16)",
     "xl16": "bench.py's xl at 16 heads (hidden 2560, 16 layers, 16 heads "
             "over 8 kv heads, d 160, inter 6912, vocab 32000, bf16)",
+    "entry": "the entry point's model (hidden 256, 4 layers, 8 heads over "
+             "4 kv heads, d 32, inter 704, vocab 2048, max_seq 512, bf16)",
     "moe": "bench MoE (hidden 1024, 8 layers, 16 heads over 8 kv heads, d "
            "64, inter 2816, top-2 of 8 experts every 2nd layer, groups "
            "4096, vocab 32000, bf16)",
@@ -1673,19 +1697,24 @@ def phase_serve_lib(report: dict) -> dict:
 # --------------------------------------------------------------- phase 5
 
 
+def _train_tokens(model: str) -> tuple:
+    """[B, S + 1] of ``model``'s train batch."""
+    return {"moe": MOE_TRAIN_TOKENS,
+            "entry": ENTRY_TRAIN_TOKENS}.get(model, TRAIN_TOKENS)
+
+
 def _train_batch(model: str = "b1"):
     import numpy as np
 
     rng = np.random.default_rng(0)
     return rng.integers(0, _text_config(model).vocab_size,
-                        size=MOE_TRAIN_TOKENS if model == "moe"
-                        else TRAIN_TOKENS)
+                        size=_train_tokens(model))
 
 
 def train_text(config):
-    """The train function: ``config["model"]`` (b1, b1_h4 or xl16) at full
-    width and depth on this worker's card, TRAIN_STEPS optimizer steps on
-    one seeded batch, each step's loss, grad norm and wall time
+    """The train function: ``config["model"]`` (b1, b1_h4, xl16 or entry)
+    at full width and depth on this worker's card, TRAIN_STEPS optimizer
+    steps on one seeded batch, each step's loss, grad norm and wall time
     reported."""
     import torch
 
@@ -1817,9 +1846,10 @@ def _check_launches(model: str, counts: dict, routes: dict, want: dict,
 
 
 def _text_train_phase(report: dict, model: str, shape: str) -> tuple:
-    """``model`` (b1, b1_h4 or xl16) trained TRAIN_STEPS steps through
-    Trainer(num_workers=1, use_gpu=True): every K1, K2 and K3 launch on
-    its route at the model's head dim, losses finite and falling, one
+    """``model`` (b1, b1_h4, xl16 or entry) trained TRAIN_STEPS steps
+    through Trainer(num_workers=1, use_gpu=True): every K1, K2 and K3
+    launch on its route at the model's head dim (K1 twice a layer under
+    remat, for the recompute), losses finite and falling, one
     step's gradients against the plain attention, the replayed first
     loss the run's; the kernels' share of a step from the kernel phase's
     rows at ``shape``."""
@@ -1828,7 +1858,7 @@ def _text_train_phase(report: dict, model: str, shape: str) -> tuple:
     cfg = _text_config(model)
     rows, run_s, counts, routes = _run_trainer(train_text,
                                                config={"model": model})
-    want = {"fwd": 2 * cfg.layers * TRAIN_STEPS,
+    want = {"fwd": (2 if cfg.remat else 1) * cfg.layers * TRAIN_STEPS,
             "dq": cfg.layers * TRAIN_STEPS,
             "dkdv": cfg.layers * TRAIN_STEPS}
     _check_launches(f"{model} train", counts, routes, want, cfg.head_dim)
@@ -1848,7 +1878,8 @@ def _text_train_phase(report: dict, model: str, shape: str) -> tuple:
 
     steady = [r["step_s"] for r in rows[1:]]
     step_s = sum(steady) / len(steady)
-    tokens = TRAIN_TOKENS[0] * (TRAIN_TOKENS[1] - 1)
+    batch = _train_tokens(model)
+    tokens = batch[0] * (batch[1] - 1)
     kernel_ms = {"fwd": next(r["ms"] for r in report["kernel_shapes"]
                              if r["shape"] == shape)}
     bwd = next(r for r in report["bwd_shapes"] if r["shape"] == shape)
@@ -1856,8 +1887,9 @@ def _text_train_phase(report: dict, model: str, shape: str) -> tuple:
     share = {k: counts[k] / TRAIN_STEPS * kernel_ms[k] / (step_s * 1e3)
              for k in counts}
     out = {
-        "model": MODEL_DESC[model] + ", remat full",
-        "tokens": list(TRAIN_TOKENS), "steps": rows, "run_s": run_s,
+        "model": MODEL_DESC[model] + (", remat full" if cfg.remat
+                                      else ", remat off"),
+        "tokens": list(batch), "steps": rows, "run_s": run_s,
         "kernel_launches": counts, "kernel_launches_by_route": routes,
         "step_s_steady": step_s,
         "tokens_per_s": tokens / step_s,
@@ -1867,7 +1899,7 @@ def _text_train_phase(report: dict, model: str, shape: str) -> tuple:
         "loss_plain": loss_p,
     }
     print(f"{model} train: through Trainer(num_workers=1, use_gpu=True), "
-          f"{TRAIN_STEPS} steps on {TRAIN_TOKENS[0]}x{TRAIN_TOKENS[1]} "
+          f"{TRAIN_STEPS} steps on {batch[0]}x{batch[1]} "
           f"tokens: losses {[round(x, 4) for x in losses]}, grad norms "
           f"{[round(r['grad_norm'], 4) for r in rows]}, step s "
           f"{[round(r['step_s'], 4) for r in rows]}; steady {step_s:.4f} "
@@ -1898,6 +1930,15 @@ def phase_b1_h4_train(report: dict) -> dict:
     wgmma kernels past 256."""
     report["b1_h4_train"], routes = _text_train_phase(report, "b1_h4",
                                                       "b1_h4_train")
+    return routes
+
+
+def phase_entry_train(report: dict) -> dict:
+    """The entry point's model (head_dim 32): K1, K2 and K3 on the padded
+    wgmma kernels fed by TMA, K3's two warpgroups splitting its two
+    products (one 64-column box)."""
+    report["entry_train"], routes = _text_train_phase(report, "entry",
+                                                      "entry_train")
     return routes
 
 
@@ -6891,18 +6932,21 @@ def _kernel_table(report: dict, paths: dict) -> list:
             "name": name, "route": "cuda",
             "kernel_route": bwd["routes"][kernel],
             "source": csrc + "flash_attn_bwd.cu",
-            # the wgmma kernels at d 64/128 and padded D, mma.sync, FMA,
-            # and past 256 the wgmma kernel, the ring-fed FMA kernel and
-            # the chunked mma.sync kernel (bf16 at D % 8 != 0)
+            # the wgmma kernels at d 64/128 and padded D (the padded one
+            # and its TMA and cp.async feeds), FMA, and past 256 the wgmma
+            # kernel and its two feeds and the ring-fed FMA kernel
             "sources": [csrc + f for f in (
-                "flash_attn_bwd.cu", f"flash_attn_bwd_{kernel}_padded.cu",
-                f"flash_attn_bwd_{kernel}_mma.cu",
+                "flash_attn_bwd.cu",
+                "flash_attn_bwd_dq_ws.cuh" if kernel == "dq"
+                else "flash_attn_bwd_dkdv_padded.cuh",
+                f"flash_attn_bwd_{kernel}_padded.cu",
+                f"flash_attn_bwd_{kernel}_padded_cp_async.cu",
                 "flash_attn_bwd_fma.cu",
                 "flash_attn_dchunk_bwd_wgmma.cuh",
                 f"flash_attn_dchunk_bwd_{kernel}_wgmma.cu",
+                f"flash_attn_dchunk_bwd_{kernel}_cp_async.cu",
                 "flash_attn_dchunk_ring_f32.cuh",
-                f"flash_attn_dchunk_bwd_{kernel}_fma.cu",
-                "flash_attn_dchunk.cu")],
+                f"flash_attn_dchunk_bwd_{kernel}_fma.cu")],
             "replaces": f"ray_tpu/ops/attention.py:{line}",
             **launches(kernel), "head_dims_by_route": head_dims(kernel),
             "max_abs_err": max(r["max_abs_err"][e]
@@ -6957,6 +7001,7 @@ def main(argv=None) -> int:
             ("train", phase_train),
             ("xl16", phase_xl16),
             ("b1_h4_train", phase_b1_h4_train),
+            ("entry_train", phase_entry_train),
             ("moe_serve", lambda r: phase_serve(r, "moe")),
             ("moe", phase_moe),
             ("vit_serve", lambda r: phase_serve(r, "vit")),

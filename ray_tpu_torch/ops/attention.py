@@ -44,26 +44,29 @@ _NEG_INF = -1e30
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # one nvcc per source, all started together, then one link: the padded
-# wgmma, mma.sync and FMA routes are instantiated at every padded head
-# dim up to 256; past it the wgmma and ring kernels at each slice width;
-# K1's two wgmma kernels once for each feed (TMA, cp.async), and the
-# backward ones past 256 once for K2 and once for K3, so that the halves
-# of their instantiations compile side by side
+# wgmma and FMA routes are instantiated at every padded head dim up to
+# 256; past it the wgmma and ring kernels at each slice width; each
+# kernel's wgmma template once for each feed (TMA, cp.async), past 256
+# the backward's once for K2 and once for K3, so that the halves of their
+# instantiations compile side by side
 _SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu",
             "flash_attn_fwd_padded.cu", "flash_attn_fwd_padded_cp_async.cu",
-            "flash_attn_bwd_dq_padded.cu", "flash_attn_bwd_dkdv_padded.cu",
-            "flash_attn_fwd_fma.cu",
-            "flash_attn_bwd_dq_mma.cu", "flash_attn_bwd_dkdv_mma.cu",
-            "flash_attn_bwd_fma.cu", "flash_attn_dchunk.cu",
+            "flash_attn_bwd_dq_padded.cu",
+            "flash_attn_bwd_dq_padded_cp_async.cu",
+            "flash_attn_bwd_dkdv_padded.cu",
+            "flash_attn_bwd_dkdv_padded_cp_async.cu",
+            "flash_attn_fwd_fma.cu", "flash_attn_bwd_fma.cu",
             "flash_attn_dchunk_fma.cu", "flash_attn_dchunk_fwd_wgmma.cu",
             "flash_attn_dchunk_fwd_cp_async.cu",
             "flash_attn_dchunk_bwd_dq_wgmma.cu",
             "flash_attn_dchunk_bwd_dkdv_wgmma.cu",
+            "flash_attn_dchunk_bwd_dq_cp_async.cu",
+            "flash_attn_dchunk_bwd_dkdv_cp_async.cu",
             "flash_attn_dchunk_bwd_dq_fma.cu",
             "flash_attn_dchunk_bwd_dkdv_fma.cu")
 _HEADERS = ("flash_attn_common.cuh", "flash_attn_routes.cuh",
-            "flash_attn_bwd_dq_ws.cuh", "flash_attn_fwd_padded.cuh",
-            "flash_attn_dchunk_fwd_wgmma.cuh",
+            "flash_attn_bwd_dq_ws.cuh", "flash_attn_bwd_dkdv_padded.cuh",
+            "flash_attn_fwd_padded.cuh", "flash_attn_dchunk_fwd_wgmma.cuh",
             "flash_attn_dchunk_bwd_wgmma.cuh",
             "flash_attn_dchunk_ring_f32.cuh", "hopper_common.cuh")
 # kernel builds land here (listed in .gitignore), keyed by source digest
@@ -80,63 +83,55 @@ _WGMMA_HEAD_DIMS = (64, 128)
 _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
 # The kernel each launch takes, as the C launchers dispatch it (the
-# names of K1's wgmma routes say what fills their shared-memory boxes:
+# names of the wgmma routes say what fills their shared-memory boxes:
 # TMA, which needs a row stride of a multiple of 16 bytes, head_dim % 8
-# == 0 in bf16; or cp.async, by the producer warpgroup's threads, 8 or 4
+# == 0 in bf16; or cp.async, by the producer warpgroups' threads, 8 or 4
 # bytes a copy by the row's alignment and at odd head_dim 2-byte loads
-# through registers, into the same 128-byte-swizzled boxes):
-#   WGMMA: bf16, all three, at head_dim 64 and 128 -- wgmma on TMA-fed
-#          shared-memory rings, a producer warpgroup and two consumer
-#          warpgroups;
-#   WGMMA_PADDED: bf16 at head_dim % 8 == 0 up to 256 but 64 and 128: K1
-#          at every such head_dim (those under 64 in one 64-column box
-#          that TMA fills with zeros past it), K2 and K3 past 64 -- wgmma
-#          on TMA-fed rings as WGMMA, instantiated at the head dim rounded
-#          up to 32 over rows padded with zeros to 64-column boxes; K2 is
-#          WGMMA's kernel at that width, K1 that design with the
-#          forward's loop body (key tiles as wide as shared memory allows
-#          beside resident Q: 128, 96 or 64 keys; 64-row q tiles where
-#          128-row ones would leave SMs idle), K3 a kernel of its own (64
-#          keys a block, the two consumer warpgroups splitting each query
-#          tile's rows, then the head dim's columns). A name of its own,
-#          so that the launch counts show which of the two designs and
-#          which widths a path ran;
-#   WGMMA_PADDED_CP: K1 in bf16 at head_dim % 8 != 0 up to 256 -- K1's
-#          WGMMA_PADDED kernel with its boxes filled by cp.async
-#          (csrc/flash_attn_fwd_padded.cuh);
-#   MMA_SYNC: K2 and K3 in bf16 at the other head dims up to 256 (head_dim
-#          % 8 != 0 or under 64) -- mma.sync tiles, instantiated at the
-#          head dim rounded up to 16;
-#   FMA: float32, all three, at every head_dim up to 256 -- exact FMAs on
-#          the CUDA cores, instantiated at the head dim rounded up to 32;
+# through registers, into the same 128-byte-swizzled boxes). In bf16 a
+# head dim takes the same route for K1, K2 and K3:
+#   WGMMA: bf16 at head_dim 64 and 128 -- wgmma on TMA-fed shared-memory
+#          rings, a producer warpgroup and two consumer warpgroups;
+#   WGMMA_PADDED: bf16 at head_dim % 8 == 0 up to 256 but 64 and 128
+#          (those under 64 in one 64-column box that TMA fills with zeros
+#          past it) -- wgmma on TMA-fed rings as WGMMA, instantiated at
+#          the head dim rounded up to 32 over rows padded with zeros to
+#          64-column boxes; K2 is WGMMA's kernel at that width, K1 that
+#          design with the forward's loop body (key tiles as wide as
+#          shared memory allows beside resident Q: 128, 96 or 64 keys),
+#          both on 64-row q tiles where 128-row ones would leave SMs idle;
+#          K3 a kernel of its own (64 keys a block, the two consumer
+#          warpgroups splitting each query tile's rows, then the head
+#          dim's columns, or at head_dim <= 64 the two products). A name
+#          of its own, so that the launch counts show which of the two
+#          designs and which widths a path ran;
+#   WGMMA_PADDED_CP: bf16 at head_dim % 8 != 0 up to 256 -- the
+#          WGMMA_PADDED kernels with their boxes filled by cp.async
+#          (csrc/flash_attn_fwd_padded.cuh, flash_attn_bwd_dq_ws.cuh,
+#          flash_attn_bwd_dkdv_padded.cuh);
+#   FMA: float32 at every head_dim up to 256 -- exact FMAs on the CUDA
+#          cores, instantiated at the head dim rounded up to 32;
 #   Past 256, with no upper bound, where a block cannot hold full-width
 #   tiles beside its rings (the Hopper designs have names of their own,
 #   as WGMMA_PADDED has):
-#   DCHUNK_WGMMA: bf16 at head_dim % 8 == 0, all three -- a block per
-#          (tile, slice of the output's columns: up to 256 for K1's out
-#          and K2's dq, 128 for K3's dk and dv), S = Q K^T (and for K2/K3
-#          dP = dO V^T) on wgmma over the whole head dim in 64-column TMA
-#          boxes (the block's own rows resident, or streamed past what
-#          fits), so S is computed ceil(D / W) times a tile pair
+#   DCHUNK_WGMMA: bf16 at head_dim % 8 == 0 -- a block per (tile, slice
+#          of the output's columns: up to 256 for K1's out and K2's dq,
+#          128 for K3's dk and dv), S = Q K^T (and for K2/K3 dP = dO V^T)
+#          on wgmma over the whole head dim in 64-column TMA boxes (the
+#          block's own rows resident, or streamed past what fits), so S is
+#          computed ceil(D / W) times a tile pair
 #          (csrc/flash_attn_dchunk_fwd_wgmma.cuh,
 #          csrc/flash_attn_dchunk_bwd_wgmma.cuh);
-#   DCHUNK_WGMMA_CP: K1 in bf16 at head_dim % 8 != 0 -- DCHUNK_WGMMA's
-#          kernel with its boxes filled by cp.async;
-#   DCHUNK_FMA: float32, all three -- a block per (tile, slice of up to
-#          320 output columns: S and dP computed once up to D 320) on
+#   DCHUNK_WGMMA_CP: bf16 at head_dim % 8 != 0 -- the DCHUNK_WGMMA
+#          kernels with their boxes filled by cp.async;
+#   DCHUNK_FMA: float32 -- a block per (tile, slice of up to 320 output
+#          columns: S and dP computed once up to D 320) on
 #          register-blocked exact FMAs fed by a cp.async ring
-#          (csrc/flash_attn_dchunk_fma.cu, flash_attn_dchunk_ring_f32.cuh);
-#   DCHUNK: K2 and K3 in bf16 at head_dim % 8 != 0 (mma.sync) -- the head
-#          dim cut into 64-column chunks, a block per (tile, output chunk)
-#          that recomputes S and dP over every chunk and accumulates its
-#          own chunk of the output (csrc/flash_attn_dchunk.cu).
-# No K1 route runs mma.sync.
+#          (csrc/flash_attn_dchunk_fma.cu, flash_attn_dchunk_ring_f32.cuh).
+# No route runs mma.sync.
 WGMMA = "wgmma_tma_ws"
 WGMMA_PADDED = "wgmma_tma_ws_padded"
 WGMMA_PADDED_CP = "wgmma_cp_async_ws_padded"
-MMA_SYNC = "mma_sync"
 FMA = "fma_f32"
-DCHUNK = "dchunk"
 DCHUNK_WGMMA = "dchunk_wgmma_tma_ws"
 DCHUNK_WGMMA_CP = "dchunk_wgmma_cp_async_ws"
 DCHUNK_FMA = "dchunk_fma_f32_ring"
@@ -162,25 +157,18 @@ def kernel_route(kernel: str, dtype: torch.dtype, head_dim: int) -> str:
     if head_dim > DCHUNK_PAST:
         if dtype == torch.float32:
             return DCHUNK_FMA
-        if head_dim % 8 == 0:
-            return DCHUNK_WGMMA
-        return DCHUNK_WGMMA_CP if kernel == "fwd" else DCHUNK
+        return DCHUNK_WGMMA if head_dim % 8 == 0 else DCHUNK_WGMMA_CP
     if dtype == torch.float32:
         return FMA
     if head_dim in _WGMMA_HEAD_DIMS:
         return WGMMA
-    if kernel == "fwd":
-        return WGMMA_PADDED if head_dim % 8 == 0 else WGMMA_PADDED_CP
-    if wgmma_padded_head_dim(head_dim):
-        return WGMMA_PADDED
-    return MMA_SYNC
+    return WGMMA_PADDED if wgmma_padded_head_dim(head_dim) else WGMMA_PADDED_CP
 
 
 def wgmma_padded_head_dim(head_dim: int) -> bool:
-    """The bf16 head dims K2 and K3 take on WGMMA_PADDED
-    (``rtt::wgmma_padded_head_dim`` in csrc/flash_attn_routes.cuh; K1
-    takes every head dim up to 256 on wgmma)."""
-    return (head_dim % 8 == 0 and 64 < head_dim <= DCHUNK_PAST
+    """The bf16 head dims K1, K2 and K3 take on WGMMA_PADDED
+    (``rtt::wgmma_padded_head_dim`` in csrc/flash_attn_routes.cuh)."""
+    return (head_dim % 8 == 0 and 1 <= head_dim <= DCHUNK_PAST
             and head_dim not in _WGMMA_HEAD_DIMS)
 
 

@@ -3,8 +3,9 @@
 //
 //   dq   (K2) replaces ray_tpu/ops/attention.py::_bwd_dq_kernel
 //        one block per (batch*head, q tile: 128 rows on the wgmma routes,
-//        64 on the others); a loop over the key tiles up to the causal
-//        diagonal accumulates dq = sum_k ds.K in fp32 registers;
+//        64 where 128-row tiles would leave SMs idle); a loop over the
+//        key tiles up to the causal diagonal accumulates dq = sum_k ds.K
+//        in fp32 registers;
 //   dkdv (K3) replaces ray_tpu/ops/attention.py::_bwd_dkdv_kernel
 //        one block per (batch*head, key tile: 128 keys on the wgmma
 //        route at d 64/128, 64 on the others); a loop over the q tiles
@@ -77,48 +78,56 @@
 //     registers: that is what holds it back (each wgmma waits for the
 //     last, so the products of one warpgroup do not overlap its own
 //     elementwise work).
-//   - K2 and K3, bf16, head_dim % 8 == 0, 64 < head_dim <= 256, head_dim
-//     != 128 (the padded wgmma route; TMA needs rows of a multiple of 16
-//     bytes): instantiated at DP = D rounded up to 32 (96, 128, 160, 192,
-//     224, 256) over rows of DS = D rounded up to 64 columns, boxes of
-//     64 that TMA fills past D with zeros. The products that sum over
-//     the head dim run DP/16 k steps; those whose N is the head dim run
-//     in m64n128, m64n64 and m64n32 pieces, each from a box edge
-//     (hopper_common.cuh's wgmma_rs_cols / wgmma_ss_cols; a 32-column
-//     piece reads the first half of its box's 128-byte rows, held against
-//     the plain version at d 80 and 160). Every wait is mbar_wait_no_trap,
-//     so ptxas allocates the consumers within setmaxnreg's 240 registers.
-//     K2 is bwd_dq_ws_kernel<DP> (flash_attn_bwd_dq_ws.cuh, instantiated
-//     in flash_attn_bwd_dq_padded.cu): the d 64/128 design, its dq [64,
-//     DP] accumulator DP/2 registers a thread (80 at D 160, 128 at 256)
-//     beside S and dP's 64; two K and two V stages up to DS 192 (192 KB
-//     of shared memory there), one V stage at DS 256 (224 KB). K3 is
-//     bwd_dkdv_padded_kernel<DP> (flash_attn_bwd_dkdv_padded.cu): one
-//     block per (batch*head, 64-key tile), K and V resident, Q/dO tiles
-//     of 64 queries on a three-stage ring (two at DS 256); the consumer
+//   - K2 and K3, bf16, every other head_dim up to 256 (the padded wgmma
+//     routes): instantiated at DP = D rounded up to 32 (32 ... 256) over
+//     rows of DS = D rounded up to 64 columns, boxes of 64 whose columns
+//     past D are zeros. What fills the boxes is the FEED parameter: TMA
+//     at D % 8 == 0 (route "wgmma_tma_ws_padded"; TMA needs rows of a
+//     multiple of 16 bytes, and fills past D with zeros), else the
+//     producer warpgroup's threads ("wgmma_cp_async_ws_padded": cp.async
+//     of 8 or 4 bytes by the row's alignment, loads through registers at
+//     odd D; hopper_common.cuh's fill_box), whose full barriers count one
+//     arrival a producer thread. The products that sum over the head dim
+//     run DP/16 k steps; those whose N is the head dim run in m64n128,
+//     m64n64 and m64n32 pieces, each from a box edge (hopper_common.cuh's
+//     wgmma_rs_cols / wgmma_ss_cols; a 32-column piece reads the first
+//     half of its box's 128-byte rows, held against the plain version at
+//     d 80 and 160). Every wait is mbar_wait_no_trap, so ptxas allocates
+//     the consumers within setmaxnreg's count (240 fed by TMA; 224 beside
+//     a producer warpgroup that fills the boxes itself, which takes 56).
+//     K2 is bwd_dq_ws_kernel<DP, false, FEED, NCW>
+//     (flash_attn_bwd_dq_ws.cuh, instantiated in
+//     flash_attn_bwd_dq_padded.cu and flash_attn_bwd_dq_padded_cp_async.cu):
+//     the d 64/128 design, its dq [64, DP] accumulator DP/2 registers a
+//     thread (80 at D 160, 128 at 256) beside S and dP's 64; two K and two
+//     V stages up to DS 192 (192 KB of shared memory there), one V stage
+//     at DS 256 (224 KB); 64-row q tiles on one consumer warpgroup where
+//     128-row ones would leave SMs idle (three producer warpgroups beside
+//     it where they fill the boxes). K3 is bwd_dkdv_padded_kernel<DP,
+//     FEED> (flash_attn_bwd_dkdv_padded.cuh, instantiated in
+//     flash_attn_bwd_dkdv_padded.cu and
+//     flash_attn_bwd_dkdv_padded_cp_async.cu): one block per
+//     (batch*head, 64-key tile), K and V resident, Q/dO tiles of 64
+//     queries on a three-stage ring (two at DS 256); the consumer
 //     warpgroups split each tile's queries for S^T and dP^T (m64n32k16),
 //     exchange p^T and ds^T through two 64 x 64 bf16 tiles in shared
 //     memory and named barriers, and split the head dim's columns for
 //     dV += p^T dO and dK += ds^T Q (both operands in shared memory): NW
 //     columns each (96 at D 160, 128 at D 192..256), so dK and dV are NW
-//     registers a thread; the loop is software-pipelined (tile it - 1's
-//     products run while tile it's p^T and ds^T are computed); 211 KB of
-//     shared memory at DS 192, 210 at DS 256. ptxas (sm_90a, CUDA 12.9,
-//     on the H100 host; tools/check_head_dims.py): 168 registers at
-//     entry, no spills and no serialised wgmmas at any DP for either
-//     kernel. With mbar_wait's trap K2 spilled 128 / 260 / 388 / 836
-//     bytes at DP 160 / 192 / 224 / 256 with its wgmmas serialised, and
-//     K3 spilled at DP 192..256.
-//   - K2 and K3 in bf16 at the other head dims (under 64, or off the
-//     multiples of 8) up to 256: mma.sync.m16n8k16,
-//     bf16 operands, fp32 accumulators, ldmatrix fragment loads from
-//     16-byte padded rows, cp.async double buffering of the streamed
-//     tiles (flash_attn_bwd_dq_mma.cu, flash_attn_bwd_dkdv_mma.cu).
-//     K2: 4 warps of 16 q rows; ds leaves the accumulators already in
-//     the A layout of ds.K (as P does in the forward). K3: 4 warps of 16
-//     keys; the transposed tiles S^T = K Q^T and dP^T = V dO^T are
-//     computed, so p^T and ds^T leave the accumulators in the A layout of
-//     p^T.dO and ds^T.Q; the q tile is consumed in 32-query chunks.
+//     registers a thread; at D <= 64 (one box) they split the two
+//     products instead (warpgroup 0 dV, warpgroup 1 dK, DP columns each);
+//     the loop is software-pipelined (tile it - 1's products run while
+//     tile it's p^T and ds^T are computed); 211 KB of shared memory at DS
+//     192, 210 at DS 256. ptxas (sm_90a, CUDA 12.9, on the H100 host;
+//     tools/check_head_dims.py): 168 registers at entry with two consumer
+//     warpgroups (K2 fed by TMA with one: 106-218; beside three filling
+//     producer warpgroups: 128), no spills and no serialised wgmmas at
+//     any DP or feed for either kernel. With mbar_wait's trap K2 spilled
+//     128 / 260 / 388 / 836 bytes at DP 160 / 192 / 224 / 256 with its
+//     wgmmas serialised, and K3 spilled at DP 192..256. These routes
+//     replaced mma.sync kernels (m16n8k16 tiles in 64-row blocks of four
+//     warps), which served D under 64 and off the multiples of 8 at about
+//     1 % of their bound.
 //   - fp32, every head_dim 1..256: exact FMAs on the CUDA cores (the
 //     tensor cores would round to tf32), warps of 8 rows, the forward's
 //     fp32 layout (flash_attn_bwd_fma.cu).
@@ -130,10 +139,8 @@
 //     in fp32 on register-blocked FMAs fed by a cp.async ring
 //     ("dchunk_fma_f32_ring", flash_attn_dchunk_ring_f32.cuh, slices of
 //     up to 320 columns); in bf16 off the multiples of 8 (a row stride
-//     TMA cannot take) the head dim cut into 64-column chunks, a block
-//     owning one chunk of dq (K2: q tile) or of dk and dv (K3: key tile)
-//     and recomputing p and ds over every chunk ("dchunk",
-//     flash_attn_dchunk.cu on mma.sync).
+//     TMA cannot take) the same wgmma kernel with its boxes filled by the
+//     producer warpgroups ("dchunk_wgmma_cp_async_ws").
 // Causal tiles are skipped by the loop bounds; ragged edges are masked
 // in the kernels (rows past the sequence load as zeros and are never
 // written), Sq != Sk takes top-left causal alignment as the forward does.
@@ -458,8 +465,8 @@ extern "C" int rtt_flash_attn_bwd_dq(const void* q, const void* k,
     return rtt::bwd_dq_dchunk_wgmma(q, k, v, dout, l, dl, dq, B, H, Sq, Sk,
                                     D, causal, scale, s);
   if (rtt::dchunk_unaligned_head_dim(D) && dtype == 1)
-    return rtt::bwd_dq_dchunk_mma(q, k, v, dout, l, dl, dq, B, H, Sq, Sk, D,
-                                  causal, scale, s);
+    return rtt::bwd_dq_dchunk_wgmma_cp_async(q, k, v, dout, l, dl, dq, B, H,
+                                             Sq, Sk, D, causal, scale, s);
   if (dtype == 0)
     return rtt::bwd_dq_fma(q, k, v, dout, l, dl, dq, B, H, Sq, Sk, D, causal,
                            scale, s);
@@ -469,18 +476,19 @@ extern "C" int rtt_flash_attn_bwd_dq(const void* q, const void* k,
              *bv = static_cast<const bf16*>(v),
              *bdo = static_cast<const bf16*>(dout);
   if (D == 64)
-    return launch_dq_ws<64, true>(bq, bk, bv, bdo, l, dl,
-                                  static_cast<bf16*>(dq), B, H, Sq, Sk, 64,
-                                  causal, scale, s);
+    return launch_dq_ws<64, true, FEED_TMA, 2>(bq, bk, bv, bdo, l, dl,
+                                               static_cast<bf16*>(dq), B, H,
+                                               Sq, Sk, 64, causal, scale, s);
   if (D == 128)
-    return launch_dq_ws<128, true>(bq, bk, bv, bdo, l, dl,
-                                   static_cast<bf16*>(dq), B, H, Sq, Sk, 128,
-                                   causal, scale, s);
+    return launch_dq_ws<128, true, FEED_TMA, 2>(bq, bk, bv, bdo, l, dl,
+                                                static_cast<bf16*>(dq), B, H,
+                                                Sq, Sk, 128, causal, scale,
+                                                s);
   if (rtt::wgmma_padded_head_dim(D))
     return rtt::bwd_dq_padded(q, k, v, dout, l, dl, dq, B, H, Sq, Sk, D,
                               causal, scale, s);
-  return rtt::bwd_dq_mma(q, k, v, dout, l, dl, dq, B, H, Sq, Sk, D, causal,
-                         scale, s);
+  return rtt::bwd_dq_padded_cp_async(q, k, v, dout, l, dl, dq, B, H, Sq, Sk,
+                                     D, causal, scale, s);
 }
 
 extern "C" int rtt_flash_attn_bwd_dkdv(const void* q, const void* k,
@@ -500,8 +508,9 @@ extern "C" int rtt_flash_attn_bwd_dkdv(const void* q, const void* k,
     return rtt::bwd_dkdv_dchunk_wgmma(q, k, v, dout, l, dl, dk, dv, B, H,
                                       Sq, Sk, D, causal, scale, s);
   if (rtt::dchunk_unaligned_head_dim(D) && dtype == 1)
-    return rtt::bwd_dkdv_dchunk_mma(q, k, v, dout, l, dl, dk, dv, B, H, Sq,
-                                    Sk, D, causal, scale, s);
+    return rtt::bwd_dkdv_dchunk_wgmma_cp_async(q, k, v, dout, l, dl, dk, dv,
+                                               B, H, Sq, Sk, D, causal, scale,
+                                               s);
   if (dtype == 0)
     return rtt::bwd_dkdv_fma(q, k, v, dout, l, dl, dk, dv, B, H, Sq, Sk, D,
                              causal, scale, s);
@@ -523,6 +532,6 @@ extern "C" int rtt_flash_attn_bwd_dkdv(const void* q, const void* k,
   if (rtt::wgmma_padded_head_dim(D))
     return rtt::bwd_dkdv_padded(q, k, v, dout, l, dl, dk, dv, B, H, Sq, Sk,
                                 D, causal, scale, s);
-  return rtt::bwd_dkdv_mma(q, k, v, dout, l, dl, dk, dv, B, H, Sq, Sk, D,
-                           causal, scale, s);
+  return rtt::bwd_dkdv_padded_cp_async(q, k, v, dout, l, dl, dk, dv, B, H,
+                                       Sq, Sk, D, causal, scale, s);
 }

@@ -1,10 +1,24 @@
 // K2 and K3 (flash-attention dq and dk/dv backward) in bf16 on wgmma past
-// head dim 256 at D % 8 == 0 (TMA's 16-byte row stride), with no upper
-// bound: the route "dchunk_wgmma_tma_ws", as K1's kernel past 256
-// (flash_attn_dchunk_fwd_wgmma.cuh). Instantiated by
-// flash_attn_dchunk_bwd_dq_wgmma.cu (K2) and
-// flash_attn_dchunk_bwd_dkdv_wgmma.cu (K3). Replace
-// ray_tpu/ops/attention.py::_bwd_dq_kernel and ::_bwd_dkdv_kernel
+// head dim 256, every D with no upper bound, on two routes by what fills
+// the kernel's shared-memory boxes (the FEED parameter), as K1's kernel
+// past 256 (flash_attn_dchunk_fwd_wgmma.cuh):
+//   - "dchunk_wgmma_tma_ws" (FEED_TMA): D % 8 == 0, TMA's 16-byte row
+//     stride; instantiated by flash_attn_dchunk_bwd_dq_wgmma.cu (K2) and
+//     flash_attn_dchunk_bwd_dkdv_wgmma.cu (K3);
+//   - "dchunk_wgmma_cp_async_ws" (FEED_CP_ASYNC): D % 8 != 0. The
+//     producer warpgroups' threads fill the same 128-byte-swizzled boxes
+//     with cp.async (8 or 4 bytes by the row's alignment) or, at odd D,
+//     through registers (hopper_common.cuh: fill_box); each stage
+//     completes on its full barrier, one arrival a producer thread (K3's
+//     slice stage one more: its lse and delta rows stay 1-D TMA copies,
+//     whose expect_tx arrival the barrier counts too); beside one consumer
+//     warpgroup three producer warpgroups fill every third stage each.
+//     Instantiated by flash_attn_dchunk_bwd_dq_cp_async.cu and
+//     flash_attn_dchunk_bwd_dkdv_cp_async.cu. It replaced the chunked
+//     mma.sync kernels, whose blocks each owned a 64-column chunk of the
+//     output and recomputed S and dP over the whole head dim for it (5x
+//     the products at D 300).
+// Replace ray_tpu/ops/attention.py::_bwd_dq_kernel and ::_bwd_dkdv_kernel
 // (launched by _pallas_bwd) for those inputs; flash_attn_bwd.cu's header
 // describes the kernel family and its numerics, which these keep: bf16
 // operands, fp32 accumulators, p = exp2(S scale log2e - lse log2e) from
@@ -17,12 +31,11 @@
 // K2 6 D and K3 8 D FLOPs against rows that 64 or 128 of the other side
 // share, so operations bound them (the kernel phase's B2 S2048 H8 D512
 // row: 103 and 138 GFLOP, 0.1043 and 0.1390 ms at 989 TFLOP/s). The
-// mma.sync kernels they replaced (flash_attn_dchunk.cu, which keeps D % 8
-// != 0) gave each 64-column chunk of the output a block of its own, so
-// each block recomputed S and dP over the whole head dim: 8 times at D
-// 512. Here a block owns a slice of its outputs' columns as wide as its
-// accumulators allow, so S and dP are computed ceil(D / W) times a tile
-// pair:
+// mma.sync kernels they replaced gave each 64-column chunk of the output
+// a block of its own, so each block recomputed S and dP over the whole
+// head dim: 8 times at D 512. Here a block owns a slice of its outputs'
+// columns as wide as its accumulators allow, so S and dP are computed
+// ceil(D / W) times a tile pair:
 //   - K2 (DKDV false): a block per (q tile, batch*head, slice of dq); its
 //     rows are queries (R1 = Q, R2 = dO), its tiles 64 keys (T1 = K,
 //     T2 = V) up to the causal bound; dq [64, SWP] in fp32 is SWP/2
@@ -35,16 +48,20 @@
 //   - the slice width: ns balanced slices whose widths are multiples of 8
 //     (D 264: 2 x 136 for K2, 3 x 88 for K3), instantiated at the width
 //     rounded up to 32 (K2 160..256, K3 96 and 128);
-//   - a producer warpgroup (one thread of which issues every TMA load)
-//     and one or two consumer warpgroups of 64 rows each (NCW): K2 two
-//     (128 rows a block, each tile serving 128 rows) when that fills the
-//     card and its rows stay resident, else one; with two the producer
-//     lowers its registers to 24 and the consumers raise theirs to 240.
+//   - a producer warpgroup (one thread of which issues every TMA load,
+//     or all of whose threads fill the boxes; three beside one consumer
+//     warpgroup where they do) and one or two consumer warpgroups of 64
+//     rows each (NCW): K2 two (128 rows a block, each tile serving 128
+//     rows) when that fills the card and its rows stay resident, else
+//     one; with two the producer lowers its registers to 24 (56 where it
+//     fills the boxes, and then not at 256 columns, where the consumers'
+//     224 spilled) and the consumers raise theirs to 240 (224).
 //     K3 one: its dk and dv, 128 columns each, beside S^T and dP^T spill
-//     in 240;
+//     in 240 with two (beside three filling producer warpgroups, which
+//     take 72, its one takes 256);
 //   - per tile, X = R1 T1^T (K2: S; K3: S^T = K Q^T) and Y = R2 T2^T (dP;
 //     dP^T = V dO^T) run over the whole head dim in 64-column boxes of
-//     128-byte swizzle that TMA fills, past D with zeros: a ring stage
+//     128-byte swizzle filled past D with zeros: a ring stage
 //     holds box x of T1 and of T2 (and of R1 and R2 where those are not
 //     resident), each box's eight m64n64k16 wgmmas are issued as one
 //     group and the stage released once they have landed, while the next
@@ -66,16 +83,20 @@
 //   - a consumer warpgroup whose rows a tile does not reach (K2: the
 //     upper one at the causal diagonal, or one past Sq; K3: the upper one
 //     before it, or one past Sk) releases that tile's stages unread;
-//   - only the slice's real columns are written (4-byte stores); a key
-//     tile that no query reaches writes zeros;
+//   - only the slice's real columns are written (4-byte stores at even D,
+//     one element at a time at odd D); a key tile that no query reaches
+//     writes zeros;
 //   - every wait is mbar_wait_no_trap (a __trap() keeps ptxas from
 //     allocating the consumers within setmaxnreg's count).
-// ptxas (sm_90a, on the H100 host; tools/check_head_dims.py): K2 168
-// registers at entry with two consumer warpgroups (they run in 240),
-// 189-240 with one; K3 220-250; no spills and no serialised wgmma. Two
-// things did serialise them: p and ds written back into the X and Y
-// accumulators before packing (every instantiation), and K3 with two
-// consumer warpgroups (144 bytes spilled at 128 columns).
+// ptxas (sm_90a, on the H100 host; tools/check_head_dims.py): fed by TMA,
+// K2 168 registers at entry with two consumer warpgroups (they run in
+// 240), 189-240 with one, K3 220-250; fed by cp.async, 168 at entry with
+// two consumer warpgroups, 128 at the 512 threads beside three producer
+// warpgroups; no spills and no serialised wgmma. Three things did
+// serialise them: p and ds written back into the X and Y accumulators
+// before packing (every instantiation), K3 with two consumer warpgroups
+// (144 bytes spilled at 128 columns), and K3's one in 240 registers
+// beside three filling producer warpgroups (144 bytes).
 
 #pragma once
 
@@ -165,15 +186,21 @@ struct RingPos {
 // DKDV false (K2): R1 = q, R2 = dout (rows: queries), T1 = k, T2 = v
 // (tiles: keys), out1 = dq. DKDV true (K3): R1 = k, R2 = v (rows: keys),
 // T1 = q, T2 = dout (tiles: queries), out1 = dk, out2 = dv; tm_lse and
-// tm_delta the flat [B*H*Sq] lse and delta (unused by K2).
-template <int SWP, int NCW, bool RES, bool DKDV>
-__global__ void __launch_bounds__(128 * (NCW + 1), 1)
+// tm_delta the flat [B*H*Sq] lse and delta (unused by K2). The tile maps
+// tm_r1 ... tm_t2 for FEED_TMA, the pointers r1 ... t2 for the other feed.
+template <int SWP, int NCW, bool RES, bool DKDV, int FEED>
+__global__ void __launch_bounds__(128 * (NCW + feed_producers(FEED, NCW)),
+                                  1)
 bwd_dchunk_wgmma_kernel(const __grid_constant__ CUtensorMap tm_r1,
                         const __grid_constant__ CUtensorMap tm_r2,
                         const __grid_constant__ CUtensorMap tm_t1,
                         const __grid_constant__ CUtensorMap tm_t2,
                         const __grid_constant__ CUtensorMap tm_lse,
                         const __grid_constant__ CUtensorMap tm_delta,
+                        const bf16* __restrict__ r1,
+                        const bf16* __restrict__ r2,
+                        const bf16* __restrict__ t1,
+                        const bf16* __restrict__ t2,
                         const float* __restrict__ lse,
                         const float* __restrict__ delta,
                         bf16* __restrict__ out1, bf16* __restrict__ out2,
@@ -182,6 +209,17 @@ bwd_dchunk_wgmma_kernel(const __grid_constant__ CUtensorMap tm_r1,
   using L = DbLayout<SWP, NCW, RES, DKDV>;
   constexpr int BM = L::BM, BN = DB_BN;
   constexpr int CONSUMERS = 128 * NCW;
+  constexpr int NPROD = feed_producers(FEED, NCW);
+  // K3 beside producers that fill the boxes: its consumer warpgroup's dk,
+  // dv, S^T and dP^T take 250 registers where nothing bounds them (fed
+  // by TMA), and in consumer_regs' 240 ptxas spilled 144 bytes and
+  // serialised the wgmmas; so 256, its three producers 72
+  constexpr bool WIDE = DKDV && FEED != FEED_TMA;
+  constexpr int PRODUCER_REGS = WIDE ? 72 : producer_regs(FEED, NCW);
+  constexpr int CONSUMER_REGS = WIDE ? 256 : consumer_regs(FEED, NCW);
+  // rows of odd-D loads a producer thread keeps in flight (fill_box):
+  // fewer in the 56 (72) registers beside two consumer warpgroups (K3's)
+  constexpr int FILL_BATCH = NCW == 2 || WIDE ? 8 : 16;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t base = (smem_u32(smem_raw) + 1023) & ~1023u;
   unsigned char* base_ptr = smem_raw + (base - smem_u32(smem_raw));
@@ -221,13 +259,16 @@ bwd_dchunk_wgmma_kernel(const __grid_constant__ CUtensorMap tm_r1,
   const int wg = warpgroup_index();
 
   if (threadIdx.x == 0) {
-    mbar_init(r_full, 1);
+    // TMA: one expect_tx arrival a fill; the other feed one a producer
+    // thread, and K3's slice stage one more for its lse/delta copies
+    const int fills = FEED == FEED_TMA ? 1 : FEED_THREADS;
+    mbar_init(r_full, fills);
     for (int s = 0; s < kst; ++s) {
-      mbar_init(full(s), 1);
+      mbar_init(full(s), fills);
       mbar_init(empty(s), CONSUMERS);
     }
     for (int s = 0; s < sst; ++s) {
-      mbar_init(s_full(s), 1);
+      mbar_init(s_full(s), fills + (FEED != FEED_TMA && DKDV ? 1 : 0));
       mbar_init(s_empty(s), CONSUMERS);
     }
     fence_barrier_init();
@@ -236,9 +277,87 @@ bwd_dchunk_wgmma_kernel(const __grid_constant__ CUtensorMap tm_r1,
 
   // the boxes of the slice tile this slice reaches (none wholly past D)
   const int v_boxes = min(L::VBOXES, (D - c0 + BOX_COLS - 1) / BOX_COLS);
-  if (wg == NCW) {
-    // ---- producer: one thread keeps both rings full
-    if constexpr (NCW == 2) setmaxnreg_dec<24>();
+  // K3's lse/delta rows of the tile at t0 into a slice stage, as one flat
+  // array: a tile past Sq reads the next head's rows (or zeros past the
+  // end), masked below
+  const auto load_rows = [&](uint32_t ss, uint32_t bar, int t0) {
+    const int row0 = (bh * Sq + t0) & ~3;
+    tma_load_1d(ss + L::SLICE_ROWS, &tm_lse, bar, row0);
+    tma_load_1d(ss + L::SLICE_ROWS + DB_DELTA_OFF, &tm_delta, bar, row0);
+  };
+  if (wg >= NCW) {
+    // ---- producers: keep both rings full
+    if constexpr (NCW + NPROD > 2) setmaxnreg_dec<PRODUCER_REGS>();
+  }
+  if (wg >= NCW && FEED != FEED_TMA) {
+    // every thread fills its share of each box, in the order of the TMA
+    // producer below; each of the NPROD warpgroups takes every NPROD-th
+    // fill of the sequence R, then per tile T box 0, T box 1, ..., slice
+    if (n_tiles > 0) {
+      const int p = wg - NCW;
+      const int pt = threadIdx.x % FEED_THREADS;
+      const long stride = (long)H * D;  // elements between rows
+      const bf16* r1h = r1 + ((long)b * Sr * H + h) * D;
+      const bf16* r2h = r2 + ((long)b * Sr * H + h) * D;
+      const bf16* t1h = t1 + ((long)b * St * H + h) * D;
+      const bf16* t2h = t2 + ((long)b * St * H + h) * D;
+      int f = 0;  // fills in sequence
+      if constexpr (RES) {
+        if (f++ % NPROD == p) {
+          for (int x = 0; x < nb; ++x) {
+            fill_box<BM, BOX_COLS, FILL_BATCH>(base + x * L::RBOX, r1h,
+                                               stride, r0, Sr, x * BOX_COLS,
+                                               D, pt);
+            fill_box<BM, BOX_COLS, FILL_BATCH>(base + (nb + x) * L::RBOX,
+                                               r2h, stride, r0, Sr,
+                                               x * BOX_COLS, D, pt);
+          }
+          fill_done(r_full, D);
+        }
+      }
+      RingPos kp, sp;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int t0 = (t_first + j) * BN;
+        for (int x = 0; x < nb; ++x, kp.next(kst)) {
+          if (f++ % NPROD != p) continue;
+          const uint32_t st = ring + kp.s * L::STAGE;
+          mbar_wait_no_trap(empty(kp.s), kp.ph ^ 1);
+          fill_box<BN, BOX_COLS, FILL_BATCH>(st, t1h, stride, t0, St,
+                                             x * BOX_COLS, D, pt);
+          fill_box<BN, BOX_COLS, FILL_BATCH>(st + DB_TBOX, t2h, stride, t0,
+                                             St, x * BOX_COLS, D, pt);
+          if constexpr (!RES) {
+            fill_box<BM, BOX_COLS, FILL_BATCH>(st + 2 * DB_TBOX, r1h, stride,
+                                               r0, Sr, x * BOX_COLS, D, pt);
+            fill_box<BM, BOX_COLS, FILL_BATCH>(st + 2 * DB_TBOX + L::RBOX,
+                                               r2h, stride, r0, Sr,
+                                               x * BOX_COLS, D, pt);
+          }
+          fill_done(full(kp.s), D);
+        }
+        if (f++ % NPROD == p) {
+          const uint32_t ss = slice + sp.s * L::SLICE;
+          mbar_wait_no_trap(s_empty(sp.s), sp.ph ^ 1);
+          if (DKDV && pt == 0) {
+            mbar_expect_tx(s_full(sp.s), 2 * DB_ROWS * 4);
+            load_rows(ss, s_full(sp.s), t0);
+          }
+          for (int y = 0; y < v_boxes; ++y) {
+            fill_box<BN, BOX_COLS, FILL_BATCH>(ss + y * DB_TBOX, t1h, stride,
+                                               t0, St, c0 + y * BOX_COLS, D,
+                                               pt);
+            if constexpr (DKDV)
+              fill_box<BN, BOX_COLS, FILL_BATCH>(
+                  ss + (L::VBOXES + y) * DB_TBOX, t2h, stride, t0, St,
+                  c0 + y * BOX_COLS, D, pt);
+          }
+          fill_done(s_full(sp.s), D);
+        }
+        sp.next(sst);
+      }
+    }
+  } else if (wg == NCW) {
+    // one thread issues every TMA load
     if (threadIdx.x == CONSUMERS && n_tiles > 0) {
       prefetch_tensor_map(&tm_t1);
       prefetch_tensor_map(&tm_t2);
@@ -282,20 +401,13 @@ bwd_dchunk_wgmma_kernel(const __grid_constant__ CUtensorMap tm_r1,
             tma_load_4d(ss + (L::VBOXES + y) * DB_TBOX, &tm_t2,
                         s_full(sp.s), c0 + y * BOX_COLS, h, t0, b);
         }
-        if constexpr (DKDV) {
-          // lse/delta as one flat array: a tile past Sq reads the next
-          // head's rows (or zeros past the end), masked below
-          const int row0 = (bh * Sq + t0) & ~3;
-          tma_load_1d(ss + L::SLICE_ROWS, &tm_lse, s_full(sp.s), row0);
-          tma_load_1d(ss + L::SLICE_ROWS + DB_DELTA_OFF, &tm_delta,
-                      s_full(sp.s), row0);
-        }
+        if constexpr (DKDV) load_rows(ss, s_full(sp.s), t0);
         sp.next(sst);
       }
     }
   } else {
     // ---- consumers: warpgroup wg owns rows [r0 + 64 wg, +64)
-    if constexpr (NCW == 2) setmaxnreg_inc<240>();
+    if constexpr (NCW + NPROD > 2) setmaxnreg_inc<CONSUMER_REGS>();
     const int warp = (threadIdx.x % 128) / 32;
     const int lane = threadIdx.x % 32;
     const int g = lane >> 2;
@@ -338,7 +450,7 @@ bwd_dchunk_wgmma_kernel(const __grid_constant__ CUtensorMap tm_r1,
     float xa[BN / 2], ya[BN / 2];  // X and Y of a tile
     uint32_t pa[BN / 16][4], da[BN / 16][4];  // p and ds in bf16
 
-    if (RES && lo < hi) mbar_wait_no_trap(r_full, 0);
+    if (RES && lo < hi) feed_acquire<FEED>(r_full, 0);
     RingPos kp, sp;
     for (int j = 0; j < n_tiles; ++j) {
       if (j < lo || j >= hi) {
@@ -367,7 +479,7 @@ bwd_dchunk_wgmma_kernel(const __grid_constant__ CUtensorMap tm_r1,
         const uint32_t r2_box = opaque(
             (RES ? base + (nb + x) * L::RBOX : st + 2 * DB_TBOX + L::RBOX) +
             r_rows);
-        mbar_wait_no_trap(full(kp.s), kp.ph);
+        feed_acquire<FEED>(full(kp.s), kp.ph);
         wgmma_fence();
 #pragma unroll
         for (int kk = 0; kk < BOX_COLS / 16; ++kk)
@@ -393,12 +505,12 @@ bwd_dchunk_wgmma_kernel(const __grid_constant__ CUtensorMap tm_r1,
 
       // the slice stage (K3 reads its lse and delta rows now)
       const uint32_t ss = slice + sp.s * L::SLICE;
-      mbar_wait_no_trap(s_full(sp.s), sp.ph);
+      feed_acquire<FEED>(s_full(sp.s), sp.ph);
 
       // p = exp2(X scale log2e - lse log2e) and ds = p (Y - delta) scale
       // in fp32, the mask only where the tile needs it: the causal
-      // diagonal and the ragged ends (TMA reads rows past S as zeros: X
-      // = 0 there, p = exp(-lse) != 0). The accumulator element i is row
+      // diagonal and the ragged ends (rows past S load as zeros: X = 0
+      // there, p = exp(-lse) != 0). The accumulator element i is row
       // rows[(i >> 1) & 1], column 8 (i >> 2) + 2t + (i & 1) of the tile;
       // the pair {i, i + 1} with i = 8kc + 2x is register x of the A
       // operand of 16-row step kc, packed to bf16 straight from X and Y
@@ -470,8 +582,8 @@ bwd_dchunk_wgmma_kernel(const __grid_constant__ CUtensorMap tm_r1,
       sp.next(sst);
     }
 
-    // this slice's real columns; c0 and sw are multiples of 8 and D % 8
-    // == 0, so an 8-column block is all in or all out
+    // this slice's real columns; c0 and sw are multiples of 8, so at even
+    // D the slice's rows start 4-byte aligned and hold an even count
     const int cols = min(sw, D - c0);
 #pragma unroll
     for (int r = 0; r < 2; ++r) {
@@ -479,18 +591,17 @@ bwd_dchunk_wgmma_kernel(const __grid_constant__ CUtensorMap tm_r1,
       const long at = (((long)b * Sr + rows[r]) * H + h) * D + c0;
 #pragma unroll
       for (int jj = 0; jj < SWP / 8; ++jj) {
-        if (8 * jj >= cols) continue;
-        *reinterpret_cast<uint32_t*>(out1 + at + 8 * jj + 2 * t) =
-            pack_bf16(acc1[4 * jj + 2 * r], acc1[4 * jj + 2 * r + 1]);
+        store_pair_bf16(out1 + at, 8 * jj + 2 * t, cols, (D & 1) == 0,
+                        acc1[4 * jj + 2 * r], acc1[4 * jj + 2 * r + 1]);
         if constexpr (DKDV)
-          *reinterpret_cast<uint32_t*>(out2 + at + 8 * jj + 2 * t) =
-              pack_bf16(acc2[4 * jj + 2 * r], acc2[4 * jj + 2 * r + 1]);
+          store_pair_bf16(out2 + at, 8 * jj + 2 * t, cols, (D & 1) == 0,
+                          acc2[4 * jj + 2 * r], acc2[4 * jj + 2 * r + 1]);
       }
     }
   }
 }
 
-template <int SWP, int NCW, bool RES, bool DKDV>
+template <int SWP, int NCW, bool RES, bool DKDV, int FEED>
 cudaError_t launch_db(const bf16* q, const bf16* k, const bf16* v,
                       const bf16* dout, const float* lse, const float* delta,
                       bf16* out1, bf16* out2, int B, int H, int Sq, int Sk,
@@ -505,40 +616,47 @@ cudaError_t launch_db(const bf16* q, const bf16* k, const bf16* v,
   const bf16 *r1 = DKDV ? k : q, *r2 = DKDV ? v : dout;
   const bf16 *t1 = DKDV ? q : k, *t2 = DKDV ? dout : v;
   const int Sr = DKDV ? Sk : Sq, St = DKDV ? Sq : Sk;
+  // the other feed reads them through their pointers: no tile maps
   CUtensorMap tr1{}, tr2{}, tt1{}, tt2{}, tl{}, td{};
-  int err = encode_bshd(&tr1, r1, B, Sr, H, D, L::BM);
-  if (!err) err = encode_bshd(&tr2, r2, B, Sr, H, D, L::BM);
-  if (!err) err = encode_bshd(&tt1, t1, B, St, H, D, DB_BN);
-  if (!err) err = encode_bshd(&tt2, t2, B, St, H, D, DB_BN);
+  int err = 0;
+  if constexpr (FEED == FEED_TMA) {
+    err = encode_bshd(&tr1, r1, B, Sr, H, D, L::BM);
+    if (!err) err = encode_bshd(&tr2, r2, B, Sr, H, D, L::BM);
+    if (!err) err = encode_bshd(&tt1, t1, B, St, H, D, DB_BN);
+    if (!err) err = encode_bshd(&tt2, t2, B, St, H, D, DB_BN);
+  }
   if (DKDV && !err) err = encode_rows(&tl, lse, (long)B * H * Sq, DB_ROWS);
   if (DKDV && !err) err = encode_rows(&td, delta, (long)B * H * Sq, DB_ROWS);
   if (err) return static_cast<cudaError_t>(err);
   const int smem = L::alloc(nb, kst, sst);
   cudaError_t cerr = cudaFuncSetAttribute(
-      bwd_dchunk_wgmma_kernel<SWP, NCW, RES, DKDV>,
+      bwd_dchunk_wgmma_kernel<SWP, NCW, RES, DKDV, FEED>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (cerr != cudaSuccess) return cerr;
   const dim3 grid((Sr + L::BM - 1) / L::BM, B * H, (D + sw - 1) / sw);
-  bwd_dchunk_wgmma_kernel<SWP, NCW, RES, DKDV>
-      <<<grid, 128 * (NCW + 1), smem, stream>>>(
-          tr1, tr2, tt1, tt2, tl, td, lse, delta, out1, out2, H, Sq, Sk, D,
-          sw, kst, sst, causal, scale);
+  bwd_dchunk_wgmma_kernel<SWP, NCW, RES, DKDV, FEED>
+      <<<grid, 128 * (NCW + feed_producers(FEED, NCW)), smem, stream>>>(
+          tr1, tr2, tt1, tt2, tl, td, r1, r2, t1, t2, lse, delta, out1, out2,
+          H, Sq, Sk, D, sw, kst, sst, causal, scale);
   return cudaGetLastError();
 }
 
-// K2 (DKDV false: out1 = dq) or K3 (true: out1 = dk, out2 = dv) past 256:
-// the slice plan, then the instantiation at the slice width and the
-// layout that fits. Given ``layout``, it launches nothing and writes the
-// layout it would launch there: {SWP, slice width, consumer warpgroups,
-// rows resident, box stages, slice stages}
-template <bool DKDV>
-cudaError_t bwd_dchunk_wgmma(const void* q, const void* k, const void* v,
-                             const void* dout, const float* lse,
-                             const float* delta, void* out1, void* out2,
-                             int B, int H, int Sq, int Sk, int D, int causal,
-                             float scale, cudaStream_t stream,
-                             int* layout = nullptr) {
-  if (!rtt::dchunk_wgmma_head_dim(D)) return cudaErrorInvalidValue;
+// K2 (DKDV false: out1 = dq) or K3 (true: out1 = dk, out2 = dv) past 256
+// through the kernel fed by FEED: the slice plan, then the instantiation
+// at the slice width and the layout that fits. Given ``layout``, it
+// launches nothing and writes the layout it would launch there: {SWP,
+// slice width, consumer warpgroups, rows resident, box stages, slice
+// stages, producer warpgroups}
+template <bool DKDV, int FEED>
+cudaError_t bwd_dchunk_feed(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* delta, void* out1, void* out2,
+                            int B, int H, int Sq, int Sk, int D, int causal,
+                            float scale, cudaStream_t stream,
+                            int* layout = nullptr) {
+  if (FEED == FEED_TMA ? !rtt::dchunk_wgmma_head_dim(D)
+                       : !rtt::dchunk_unaligned_head_dim(D))
+    return cudaErrorInvalidValue;
   // ns balanced slices, each a multiple of 8 columns
   const int most = dchunk_bwd_max_slice(DKDV);
   const int ns = (D + most - 1) / most;
@@ -558,11 +676,12 @@ cudaError_t bwd_dchunk_wgmma(const void* q, const void* k, const void* v,
         int kst, sst;
         if (!DbLayout<SWP, NCW, RES, DKDV>::plan(nb, &kst, &sst))
           return cudaErrorInvalidValue;
-        const int chosen[6] = {SWP, sw, NCW, RES, kst, sst};
-        for (int i = 0; i < 6; ++i) layout[i] = chosen[i];
+        const int chosen[7] = {SWP, sw, NCW, RES, kst, sst,
+                               feed_producers(FEED, NCW)};
+        for (int i = 0; i < 7; ++i) layout[i] = chosen[i];
         return cudaSuccess;
       }
-      return launch_db<SWP, NCW, RES, DKDV>(
+      return launch_db<SWP, NCW, RES, DKDV, FEED>(
           static_cast<const bf16*>(q), static_cast<const bf16*>(k),
           static_cast<const bf16*>(v), static_cast<const bf16*>(dout), lse,
           delta, static_cast<bf16*>(out1), static_cast<bf16*>(out2), B, H,
@@ -573,8 +692,9 @@ cudaError_t bwd_dchunk_wgmma(const void* q, const void* k, const void* v,
     // resident where they fit, two consumer warpgroups before one. K3
     // takes one: its dk and dv beside S^T and dP^T outgrow setmaxnreg's
     // 240 registers (144 bytes spilled at 128 columns, its wgmmas
-    // serialised)
-    if constexpr (!DKDV) {
+    // serialised); so does K2's dq at 256 columns in the 224 beside a
+    // producer warpgroup that fills the boxes
+    if constexpr (!DKDV && (FEED == FEED_TMA || SWP < 256)) {
       if (blocks128 >= sm_count() &&
           DbLayout<SWP, 2, true, DKDV>::plan(nb, &kst, &sst))
         return take(Two{}, std::true_type{});

@@ -10,10 +10,10 @@
 //     (hopper_common.cuh: fill_box); each stage completes on its full
 //     barrier, one arrival a producer thread; beside one consumer
 //     warpgroup three producer warpgroups fill every third stage each (as
-//     in flash_attn_fwd_padded.cuh). It replaced the mma.sync
-//     kernel of flash_attn_dchunk.cu, which gave each 64-column output
-//     chunk a block of its own and so computed S D/64 times a tile pair
-//     (5x the products at D 300).
+//     in flash_attn_fwd_padded.cuh). It replaced the chunked mma.sync
+//     kernel, which gave each 64-column output chunk a block of its own
+//     and so computed S D/64 times a tile pair (5x the products at D
+//     300).
 // Replaces ray_tpu/ops/attention.py::_flash_kernel (lines 202-259,
 // launched by _pallas_fwd) for those inputs; flash_attn_fwd.cu's header
 // describes the kernel family and its numerics, which this one keeps:

@@ -373,7 +373,7 @@ extern "C" int rtt_flash_attn_fwd(const void* q, const void* k,
   if (D == 128)
     return launch_ws<128>(q, k, v, out, lse_f, B, H, Sq, Sk, causal, scale,
                           s);
-  if (rtt::fwd_padded_head_dim(D))
+  if (rtt::wgmma_padded_head_dim(D))
     return rtt::fwd_padded(q, k, v, out, lse_f, B, H, Sq, Sk, D, causal,
                            scale, s);
   return rtt::fwd_padded_cp_async(q, k, v, out, lse_f, B, H, Sq, Sk, D,

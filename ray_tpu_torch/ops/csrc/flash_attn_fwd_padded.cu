@@ -10,7 +10,7 @@ namespace rtt {
 cudaError_t fwd_padded(const void* q, const void* k, const void* v,
                        void* out, float* lse, int B, int H, int Sq, int Sk,
                        int D, int causal, float scale, cudaStream_t stream) {
-  if (!fwd_padded_head_dim(D)) return cudaErrorInvalidValue;
+  if (!wgmma_padded_head_dim(D)) return cudaErrorInvalidValue;
   return fwd_padded_feed<FEED_TMA>(q, k, v, out, lse, B, H, Sq, Sk, D,
                                    causal, scale, stream);
 }

@@ -15,7 +15,7 @@ cudaError_t fwd_padded_cp_async(const void* q, const void* k, const void* v,
                                 void* out, float* lse, int B, int H, int Sq,
                                 int Sk, int D, int causal, float scale,
                                 cudaStream_t stream) {
-  if (!fwd_padded_cp_async_head_dim(D)) return cudaErrorInvalidValue;
+  if (!wgmma_padded_cp_async_head_dim(D)) return cudaErrorInvalidValue;
   return fwd_padded_feed<FEED_CP_ASYNC>(q, k, v, out, lse, B, H, Sq, Sk, D,
                                         causal, scale, stream);
 }

@@ -1,14 +1,12 @@
 // The routes of K1, K2 and K3 past the wgmma kernels at head_dim 64 and
 // 128, each in its own translation unit so that nvcc compiles them side by
-// side: K1 in bf16 on wgmma at every other head dim (its boxes filled by
-// TMA where the row stride is a multiple of 16 bytes, by cp.async or
-// through registers where not; up to 256 and past it), K2 and K3 on wgmma
-// at the padded head dims and past 256 at D % 8 == 0, the mma.sync (bf16)
-// and FMA (fp32) kernels, past 256 K2 and K3 in bf16 off the multiples of
-// 8 on the head-dim-chunked mma.sync kernels, and K1, K2 and K3 in fp32
-// on the register-blocked ring kernels. The C entry points in
-// flash_attn_fwd.cu and flash_attn_bwd.cu dispatch to them. The mma.sync
-// and FMA routes take any head dim D in [1, MAX_HEAD_DIM]
+// side: in bf16 all three on wgmma at every other head dim (their boxes
+// filled by TMA where the row stride is a multiple of 16 bytes, by
+// cp.async or through registers where not; up to 256 and past it), so a
+// head dim takes the same route for all three; in fp32 the FMA kernels up
+// to 256 and the register-blocked ring kernels past it. The C entry
+// points in flash_attn_fwd.cu and flash_attn_bwd.cu dispatch to them. The
+// FMA routes take any head dim D in [1, MAX_HEAD_DIM]
 // (flash_attn_common.cuh), each other route the D its constexpr below
 // admits; each returns a cudaError_t (cudaErrorInvalidValue for a D
 // outside its set). attention.py::kernel_route is the same table in
@@ -28,33 +26,17 @@ namespace rtt {
 cudaError_t fwd_fma(const void* q, const void* k, const void* v, void* out,
                     float* lse, int B, int H, int Sq, int Sk, int D,
                     int causal, float scale, cudaStream_t stream);
-// K2, bf16 on mma.sync (flash_attn_bwd_dq_mma.cu)
-cudaError_t bwd_dq_mma(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse,
-                       const float* delta, void* dq, int B, int H, int Sq,
-                       int Sk, int D, int causal, float scale,
-                       cudaStream_t stream);
-// K3, bf16 on mma.sync (flash_attn_bwd_dkdv_mma.cu)
-cudaError_t bwd_dkdv_mma(const void* q, const void* k, const void* v,
-                         const void* dout, const float* lse,
-                         const float* delta, void* dk, void* dv, int B,
-                         int H, int Sq, int Sk, int D, int causal,
-                         float scale, cudaStream_t stream);
-// The head dims K2 and K3 take on wgmma at a padded width in bf16:
-// D % 8 == 0 (TMA's 16-byte row stride), 64 < D <= 256, D != 128 (64 and
-// 128 have their own instantiations in flash_attn_bwd.cu)
+// The bf16 head dims K1, K2 and K3 take on their padded wgmma kernels
+// fed by TMA: D % 8 == 0 (TMA's 16-byte row stride) up to 256 but 64 and
+// 128 (their own instantiations in flash_attn_fwd.cu and
+// flash_attn_bwd.cu), the ones under 64 in a 64-column box that TMA fills
+// with zeros past D
 constexpr bool wgmma_padded_head_dim(int D) {
-  return D % 8 == 0 && D > 64 && D <= 256 && D != 128;
-}
-// The bf16 head dims K1 takes on its padded wgmma kernel fed by TMA: D %
-// 8 == 0 up to 256 but 64 and 128 (flash_attn_fwd.cu's own kernel), the
-// ones under 64 in a 64-column box that TMA fills with zeros past D
-constexpr bool fwd_padded_head_dim(int D) {
   return D % 8 == 0 && D >= 1 && D <= 256 && D != 64 && D != 128;
 }
 // ... and fed by cp.async (or through registers at odd D): D % 8 != 0 up
 // to 256, a row stride TMA cannot take
-constexpr bool fwd_padded_cp_async_head_dim(int D) {
+constexpr bool wgmma_padded_cp_async_head_dim(int D) {
   return D % 8 != 0 && D >= 1 && D <= 256;
 }
 // K1, bf16 on wgmma at those head dims (flash_attn_fwd_padded.cu and
@@ -67,18 +49,34 @@ cudaError_t fwd_padded_cp_async(const void* q, const void* k, const void* v,
                                 void* out, float* lse, int B, int H, int Sq,
                                 int Sk, int D, int causal, float scale,
                                 cudaStream_t stream);
-// K2, bf16 on wgmma at those head dims (flash_attn_bwd_dq_padded.cu)
+// K2, bf16 on wgmma at those head dims (flash_attn_bwd_dq_padded.cu and
+// flash_attn_bwd_dq_padded_cp_async.cu, one kernel in
+// flash_attn_bwd_dq_ws.cuh)
 cudaError_t bwd_dq_padded(const void* q, const void* k, const void* v,
                           const void* dout, const float* lse,
                           const float* delta, void* dq, int B, int H, int Sq,
                           int Sk, int D, int causal, float scale,
                           cudaStream_t stream);
-// K3, bf16 on wgmma at those head dims (flash_attn_bwd_dkdv_padded.cu)
+cudaError_t bwd_dq_padded_cp_async(const void* q, const void* k,
+                                   const void* v, const void* dout,
+                                   const float* lse, const float* delta,
+                                   void* dq, int B, int H, int Sq, int Sk,
+                                   int D, int causal, float scale,
+                                   cudaStream_t stream);
+// K3, bf16 on wgmma at those head dims (flash_attn_bwd_dkdv_padded.cu and
+// flash_attn_bwd_dkdv_padded_cp_async.cu, one kernel in
+// flash_attn_bwd_dkdv_padded.cuh)
 cudaError_t bwd_dkdv_padded(const void* q, const void* k, const void* v,
                             const void* dout, const float* lse,
                             const float* delta, void* dk, void* dv, int B,
                             int H, int Sq, int Sk, int D, int causal,
                             float scale, cudaStream_t stream);
+cudaError_t bwd_dkdv_padded_cp_async(const void* q, const void* k,
+                                     const void* v, const void* dout,
+                                     const float* lse, const float* delta,
+                                     void* dk, void* dv, int B, int H,
+                                     int Sq, int Sk, int D, int causal,
+                                     float scale, cudaStream_t stream);
 // K2 and K3, fp32 on the CUDA cores (flash_attn_bwd_fma.cu)
 cudaError_t bwd_dq_fma(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse,
@@ -97,9 +95,8 @@ constexpr bool dchunk_head_dim(int D) { return D > 256; }
 // The bf16 head dims K1, K2 and K3 take on wgmma past 256 fed by TMA: D %
 // 8 == 0 (TMA's 16-byte row stride) ...
 constexpr bool dchunk_wgmma_head_dim(int D) { return D > 256 && D % 8 == 0; }
-// ... and the rest, whose rows TMA cannot stride: K1 on wgmma fed by
-// cp.async (or through registers at odd D), K2 and K3 on the chunked
-// mma.sync kernels
+// ... and the rest, whose rows TMA cannot stride: all three on wgmma fed
+// by cp.async (or through registers at odd D)
 constexpr bool dchunk_unaligned_head_dim(int D) {
   return D > 256 && D % 8 != 0;
 }
@@ -116,10 +113,12 @@ cudaError_t fwd_dchunk_wgmma_cp_async(const void* q, const void* k,
                                       int B, int H, int Sq, int Sk, int D,
                                       int causal, float scale,
                                       cudaStream_t stream);
-// K2 and K3 in bf16 on wgmma fed by TMA at the first set, a block per
-// slice of up to 256 columns of dq, 128 of dk and dv
-// (flash_attn_dchunk_bwd_dq_wgmma.cu and flash_attn_dchunk_bwd_dkdv_wgmma.cu,
-// one kernel in flash_attn_dchunk_bwd_wgmma.cuh)
+// K2 and K3 in bf16 on wgmma at those head dims, a block per slice of up
+// to 256 columns of dq, 128 of dk and dv, fed by TMA at the first set
+// (flash_attn_dchunk_bwd_dq_wgmma.cu, flash_attn_dchunk_bwd_dkdv_wgmma.cu)
+// and by cp.async at the second (flash_attn_dchunk_bwd_dq_cp_async.cu,
+// flash_attn_dchunk_bwd_dkdv_cp_async.cu), one kernel in
+// flash_attn_dchunk_bwd_wgmma.cuh
 cudaError_t bwd_dq_dchunk_wgmma(const void* q, const void* k, const void* v,
                                 const void* dout, const float* lse,
                                 const float* delta, void* dq, int B, int H,
@@ -131,17 +130,14 @@ cudaError_t bwd_dkdv_dchunk_wgmma(const void* q, const void* k,
                                   void* dk, void* dv, int B, int H, int Sq,
                                   int Sk, int D, int causal, float scale,
                                   cudaStream_t stream);
-// K2 and K3 in bf16 on mma.sync at the second set (flash_attn_dchunk.cu)
-cudaError_t bwd_dq_dchunk_mma(const void* q, const void* k, const void* v,
-                              const void* dout, const float* lse,
-                              const float* delta, void* dq, int B, int H,
-                              int Sq, int Sk, int D, int causal, float scale,
-                              cudaStream_t stream);
-cudaError_t bwd_dkdv_dchunk_mma(const void* q, const void* k, const void* v,
-                                const void* dout, const float* lse,
-                                const float* delta, void* dk, void* dv, int B,
-                                int H, int Sq, int Sk, int D, int causal,
-                                float scale, cudaStream_t stream);
+cudaError_t bwd_dq_dchunk_wgmma_cp_async(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dq, int B, int H, int Sq,
+    int Sk, int D, int causal, float scale, cudaStream_t stream);
+cudaError_t bwd_dkdv_dchunk_wgmma_cp_async(
+    const void* q, const void* k, const void* v, const void* dout,
+    const float* lse, const float* delta, void* dk, void* dv, int B, int H,
+    int Sq, int Sk, int D, int causal, float scale, cudaStream_t stream);
 // K1, K2 and K3 in fp32 on the CUDA cores at every head dim past 256,
 // register-blocked FMAs fed by cp.async rings, a block per output slice
 // of up to 320 columns (K1 flash_attn_dchunk_fma.cu; K2 and K3

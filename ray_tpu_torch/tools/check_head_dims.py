@@ -1,30 +1,29 @@
 """K1, K2 and K3 at head dims off the wgmma route's 64 and 128, against
 their plain versions: the short first call after the padded wgmma
-(K1's fed by TMA or by cp.async), mma.sync, FMA or chunked (past 256)
-kernels change.
+(fed by TMA or by cp.async), FMA or chunked (past 256) kernels change.
 
     python3 -m ray_tpu_torch.tools.check_head_dims
 
-Builds the kernels (printing the build time; for the mma.sync and FMA
-kernels the most registers any instantiation uses and every one that
-spills; for each instantiation of K1's padded wgmma kernel (each width,
-consumer warpgroups and feed), of K2's and K3's wgmma kernels and of
-the kernels past 256 (K1's two, and K2's and K3's wgmma and ring
-kernels) its registers, spills and ptxas's performance notes, such as
-wgmmas serialised for want of registers), then for each (dtype, head dim)
-in ``CASES`` (and
-``WIDE_CASES`` at their own shapes) runs the forward,
+Builds the kernels (printing the build time; for the FMA kernels the
+most registers any instantiation uses and every one that spills; for
+each instantiation of the padded wgmma kernels of K1, K2 and K3 (each
+width, consumer warpgroups and feed) and of the kernels past 256 (K1's
+two, and K2's and K3's wgmma kernel at each feed and their ring kernel)
+its registers, spills and ptxas's performance notes, such as wgmmas
+serialised for want of registers), then for each (dtype, head dim) in
+``CASES`` (and ``WIDE_CASES`` at their own shapes) runs the forward,
 then K2 and K3 on its lse, at a ragged shape with Sq != Sk (causal at
 even head dims, non-causal at odd ones), and holds out/lse against
 ``_blockwise_fwd`` and dq/dk/dv against ``_blockwise_bwd`` within
 chip_smoke.py's tolerances. For K2's and K3's wgmma kernels past 256 it
 reads, from the C dispatch itself, the layout each case launches
-(consumer warpgroups, rows resident, ring stages), checks that the
-cases reach every layout in ``LAYOUTS`` and that every head dim of the
-route to 4096 has a layout that fits, and prints the layouts at
-``LAYOUT_SHAPES``. Prints the card's name and power limit, then one JSON
-line per case and one for the layouts. Exits 1 if any case disagreed or
-failed or a layout was not reached or did not fit, 2 without CUDA.
+(consumer warpgroups, rows resident, ring stages, producer
+warpgroups), checks that the cases reach every layout in ``LAYOUTS`` on
+each feed and that every head dim past 256 to 4096 has a layout that
+fits, and prints the layouts at ``LAYOUT_SHAPES``. Prints the card's
+name and power limit, then one JSON line per case and one for the
+layouts. Exits 1 if any case disagreed or failed or a layout was not
+reached or did not fit, 2 without CUDA.
 """
 
 from __future__ import annotations
@@ -35,21 +34,21 @@ import sys
 import time
 
 # (dtype, head dims): every padded instantiation's edges -- element-wise
-# rows (D % 8 != 0 in bf16, D % 4 != 0 in fp32), odd k-step counts
-# (D rounded to 16 an odd multiple of 16), mma.sync K3's two-launch split
-# past 128, fp32's 32-row tiles past 160, and in bf16 the padded wgmma
-# widths of K1, K2 and K3 (D rounded up to 32: 96, 128, 160, 192, 224, 256; a
-# 32-column piece at 80, 96, 160, 224; D 72 and 200 short of their
-# padding by 24; K1 also at 32 and 64, fed by TMA under 64 at D % 8 == 0,
-# by cp.async of 8 bytes at D % 4 == 0 (20, 100), of 4 at D % 4 == 2
-# (58, 250, 258) and through registers at odd D (1, 33, 257, 301)) -- and
-# the debug configs' 16
+# rows (D % 8 != 0 in bf16, D % 4 != 0 in fp32), fp32's 32-row tiles
+# past 160, and in bf16 the padded wgmma widths of K1, K2 and K3 at each
+# feed (D rounded up to 32: 32 ... 256; a 32-column piece at 80, 96,
+# 160, 224; D 72 and 200 short of their padding by 24; fed by TMA at D %
+# 8 == 0, under 64 in one box (8 ... 56; K3 splitting its two products
+# there), by cp.async of 8 bytes at D % 4 == 0 (20, 100), of 4 at D % 4
+# == 2 (58, 90, 150, 222, 250, 258) and through registers at odd D (1,
+# 33, 181, 255, 257, 301)) -- and the debug configs' 16
 CASES = [
-    ("bfloat16", (1, 8, 16, 20, 24, 32, 33, 40, 48, 58, 72, 80, 96, 100,
-                  112, 136, 160, 176, 192, 200, 224, 250, 256,
-                  # past 256: K2 and K3 on mma.sync at D % 8 != 0 (a
-                  # last chunk of one column, of 2, of 44), on wgmma at
-                  # D % 8 == 0, dq's slices padded to 160 (264, 320), 192
+    ("bfloat16", (1, 8, 16, 20, 24, 32, 33, 40, 48, 56, 58, 72, 80, 90, 96,
+                  100, 112, 136, 150, 160, 176, 181, 192, 200, 222, 224,
+                  250, 255, 256,
+                  # past 256: on wgmma fed by cp.async at D % 8 != 0 (a
+                  # last box of one column, of 2, of 44) and by TMA at D %
+                  # 8 == 0, dq's slices padded to 160 (264, 320), 192
                   # (576), 224 (448) and 256 (512), dk/dv's to 96 (264)
                   # and 128
                   257, 258, 264, 300, 301, 320, 448, 512, 576)),
@@ -58,16 +57,18 @@ CASES = [
 ]
 SHAPE = (2, 300, 237, 3)  # B, Sq, Sk, H
 # (dtype, head dim, (B, Sq, Sk, H)): the wgmma kernels at shapes whose
-# grids choose their other layouts. At SHAPE the bf16 wgmma kernels take
-# one consumer warpgroup (64-row tiles: 128-row ones would leave SMs
-# idle); here K1 two, past 256 with Q resident (D 512, and 300 and 301
-# fed by cp.async and through registers) and streamed beside K (D 640,
-# ten 64-column boxes; D 650 fed by 4-byte cp.async), and Sq != Sk both
-# ways; K2 past 256 with two consumer warpgroups and its rows resident
-# (D 320, 384), K2 and K3 with one and their rows resident (512, 640) and
-# streamed (704: eleven boxes); up to 256 the padded kernel fed by TMA under 64
-# (16), by cp.async (100) and through registers (33); fp32 at slices of
-# 320 and of 256 columns, with 16- and 4-byte copies (D 302)
+# grids choose their other layouts. At SHAPE the bf16 wgmma kernels of K1
+# and K2 take one consumer warpgroup (64-row tiles: 128-row ones would
+# leave SMs idle); here two, past 256 with their rows resident (D 512,
+# and 300 and 301 fed by cp.async and through registers) and streamed
+# beside the tiles (D 640, ten 64-column boxes; D 650 fed by 4-byte
+# cp.async), and Sq != Sk both ways; K2 past 256 with two consumer
+# warpgroups and its rows resident (D 320, 384; 300 and 301 fed by
+# cp.async), K2 and K3 with one and their rows resident (512, 640) and
+# streamed (704: eleven boxes; 650); up to 256 the padded kernels fed by
+# TMA under 64 (16), by cp.async (100) and through registers (33); fp32
+# at slices of 320 and of 256 columns, with 16- and 4-byte copies (D
+# 302)
 WIDE_CASES = [
     ("bfloat16", 512, (2, 1000, 700, 8)),
     ("bfloat16", 640, (2, 700, 1000, 8)),
@@ -85,15 +86,16 @@ WIDE_CASES = [
     ("float32", 512, (1, 1000, 1000, 8)),
 ]
 # (consumer warpgroups, rows resident) of K2's and K3's wgmma kernels
-# past 256: the layouts the cases must reach (K3 takes one consumer
-# warpgroup)
+# past 256: the layouts the cases must reach on each feed (K3 takes one
+# consumer warpgroup)
 LAYOUTS = {"dq": {(1, True), (2, True), (1, False)},
            "dkdv": {(1, True), (1, False)}}
+FEEDS = ("tma", "cp_async")
 # (B, Sq, Sk, H) of b1_h4's train step and of the kernel phase's
 # d512_wide row, whose layouts are printed
 LAYOUT_SHAPES = {"b1_h4_train": (8, 2048, 2048, 4),
                  "d512_wide": (2, 2048, 2048, 8)}
-_LAYOUT_KEYS = ("swp", "sw", "ncw", "resident", "kst", "sst")
+_LAYOUT_KEYS = ("swp", "sw", "ncw", "resident", "kst", "sst", "producers")
 # chip_smoke.py's KERNEL_TOL and BWD_TOL, (atol, rtol)
 FWD_TOL = {"bfloat16": {"out": (2e-2, 2e-2), "lse": (1e-3, 1e-4)},
            "float32": {"out": (1e-4, 1e-4), "lse": (1e-4, 1e-4)}}
@@ -101,17 +103,15 @@ BWD_TOL = {"bfloat16": (5e-2, 2e-2), "float32": (1e-5, 1e-5)}
 
 
 def ptxas_summary(log: str) -> dict:
-    """Most registers and every spilling kernel of the mma.sync and FMA
-    routes in ``nvcc -Xptxas=-v``'s report."""
+    """Most registers and every spilling kernel of the FMA routes in
+    ``nvcc -Xptxas=-v``'s report."""
     name, most, spills = None, {}, []
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
-        elif name and ("mma_kernel" in name or "f32_kernel" in name):
+        elif name and "f32_kernel" in name:
             if "Used" in ln and "registers" in ln:
-                route = "mma" if "mma_kernel" in name else "fma"
-                if "dchunk" in name:
-                    route = f"dchunk_{route}"
+                route = "dchunk_fma" if "dchunk" in name else "fma"
                 regs = int(ln.split("Used")[1].split()[0])
                 most[route] = max(most.get(route, 0), regs)
             elif "spill stores" in ln and not ln.strip().startswith(
@@ -176,14 +176,16 @@ def wgmma_rows(log: str) -> list:
 def dchunk_layout(kernel: str, d: int, shape: tuple):
     """The layout the C dispatch of K2's (``kernel`` "dq") or K3's
     ("dkdv") wgmma kernel past 256 takes at head dim ``d`` and ``shape``
-    (B, Sq, Sk, H), launching nothing: {"swp", "sw", "ncw", "resident",
-    "kst", "sst"}, or None where no layout fits. Needs the built
+    (B, Sq, Sk, H) on its feed (TMA at d % 8 == 0, else cp.async),
+    launching nothing: {"swp", "sw", "ncw", "resident", "kst", "sst",
+    "producers"}, or None where no layout fits. Needs the built
     kernels."""
     import ctypes
 
     from ray_tpu_torch.ops import attention as T
 
-    fn = getattr(T._lib, f"rtt_flash_attn_bwd_{kernel}_dchunk_layout")
+    feed = "" if d % 8 == 0 else "cp_async_"
+    fn = getattr(T._lib, f"rtt_flash_attn_bwd_{kernel}_dchunk_{feed}layout")
     fn.argtypes = [ctypes.c_int] * 5 + [ctypes.POINTER(ctypes.c_int)]
     fn.restype = ctypes.c_int
     out = (ctypes.c_int * len(_LAYOUT_KEYS))()
@@ -197,24 +199,29 @@ def dchunk_layout(kernel: str, d: int, shape: tuple):
 
 def layout_report(rows: list) -> dict:
     """The (consumer warpgroups, rows resident) layouts ``rows`` reached
-    against LAYOUTS, the head dims of the wgmma route past 256 to 4096
-    (at B1 S1000 H4) with no layout that fits, and the layouts at
-    LAYOUT_SHAPES; "ok" when every layout was reached and every head dim
-    fits."""
-    reached = {kernel: set() for kernel in LAYOUTS}
+    on each feed against LAYOUTS, the head dims past 256 to 4096 (at B1
+    S1000 H4) with no layout that fits, and the layouts at LAYOUT_SHAPES
+    (d 512, and d 511 on the other feed); "ok" when every layout was
+    reached on both feeds and every head dim fits."""
+    wanted = {f"{kernel}_{feed}": v for kernel, v in LAYOUTS.items()
+              for feed in FEEDS}
+    reached = {key: set() for key in wanted}
     for row in rows:
+        feed = FEEDS[row["D"] % 8 != 0]
         for kernel, got in row.get("layouts", {}).items():
             if got:
-                reached[kernel].add((got["ncw"], got["resident"]))
-    no_fit = [(kernel, d) for d in range(264, 4097, 8) for kernel in LAYOUTS
+                reached[f"{kernel}_{feed}"].add((got["ncw"],
+                                                 got["resident"]))
+    no_fit = [(kernel, d) for d in range(257, 4097) for kernel in LAYOUTS
               if dchunk_layout(kernel, d, (1, 1000, 1000, 4)) is None]
     return {"layouts_reached": {k: sorted(v) for k, v in reached.items()},
-            "layouts_wanted": {k: sorted(v) for k, v in LAYOUTS.items()},
+            "layouts_wanted": {k: sorted(v) for k, v in wanted.items()},
             "no_fit": no_fit,
-            "at": {name: {kernel: dchunk_layout(kernel, 512, shape)
-                          for kernel in LAYOUTS}
-                   for name, shape in LAYOUT_SHAPES.items()},
-            "ok": reached == LAYOUTS and not no_fit}
+            "at": {f"{name} d{d}": {kernel: dchunk_layout(kernel, d, shape)
+                                    for kernel in LAYOUTS}
+                   for name, shape in LAYOUT_SHAPES.items()
+                   for d in (512, 511)},
+            "ok": reached == wanted and not no_fit}
 
 
 def run_case(dtype: str, d: int, shape: tuple = SHAPE) -> dict:
@@ -244,7 +251,8 @@ def run_case(dtype: str, d: int, shape: tuple = SHAPE) -> dict:
              ("lse", lse, p_lse, FWD_TOL[dtype]["lse"])]
     pairs += [(n, x, y, BWD_TOL[dtype])
               for n, x, y in zip(("dq", "dk", "dv"), got, want)]
-    if dtype == "bfloat16" and row["routes"]["dq"] == T.DCHUNK_WGMMA:
+    if dtype == "bfloat16" and row["routes"]["dq"] in (T.DCHUNK_WGMMA,
+                                                       T.DCHUNK_WGMMA_CP):
         row["layouts"] = {kernel: dchunk_layout(kernel, d, shape)
                           for kernel in LAYOUTS}
     for name, x, y, (atol, rtol) in pairs:

@@ -16,7 +16,9 @@ each row's dtype given with it; K1 on its cp.async-fed wgmma kernels and
 at d 16 at chip_smoke.py's d16_bf16, d20_ragged, d33_odd, d100_wide,
 d300, d300_wide and d301 rows; K2 and K3 past 256 at chip_smoke.py's
 d264, d320, d512, d512_wide, b1_h4_train, d320_f32 and d320_f32_wide
-rows) the script checks that
+rows, and where they left mma.sync at its d16_bf16, d20_ragged, d33_odd,
+d100_wide, d300, d300_wide and d301 rows; all three at its entry_train
+row, and on the FMA kernels at its debug_f32 row) the script checks that
 the two trees' outputs agree, then times the forward (K1), the dq
 backward (K2) or the dk/dv backward (K3) with CUDA events in the order
 baseline, current, current, baseline, repeated ``--rounds`` times, and
@@ -52,7 +54,11 @@ SHAPES = [
     # registers), past 256 d 300 (cp.async) and 301 (through registers)
     # at chip_smoke.py's rows; K2 and K3 past 256 at chip_smoke.py's rows
     # (d264, d320, d512, d512_wide and b1_h4_train in bf16, d320_f32 and
-    # d320_f32_wide in fp32)
+    # d320_f32_wide in fp32); K2 and K3 where they left mma.sync: d 16
+    # (fed by TMA), 20 and 100 (cp.async), 33 (through registers), past
+    # 256 d 300 (cp.async, at both sizes) and 301 (through registers); all
+    # three at the entry_train step's attention (d 32, fed by TMA) and at
+    # ModelConfig.debug's fp32 d 16 (the FMA kernels)
     ("served_fwd", "fwd", 2, 2048, 2048, 16, 128, True, "bfloat16"),
     ("train_fwd", "fwd", 8, 2048, 2048, 16, 128, True, "bfloat16"),
     ("d160_fwd", "fwd", 2, 2048, 2048, 16, 160, True, "bfloat16"),
@@ -99,6 +105,26 @@ SHAPES = [
     ("d320_f32_dkdv", "dkdv", 1, 1000, 1000, 4, 320, True, "float32"),
     ("d320_f32_wide_dq", "dq", 2, 2048, 2048, 8, 320, True, "float32"),
     ("d320_f32_wide_dkdv", "dkdv", 2, 2048, 2048, 8, 320, True, "float32"),
+    ("d16_bf16_dq", "dq", 2, 1000, 1000, 4, 16, True, "bfloat16"),
+    ("d16_bf16_dkdv", "dkdv", 2, 1000, 1000, 4, 16, True, "bfloat16"),
+    ("d20_ragged_dq", "dq", 1, 1000, 700, 4, 20, False, "bfloat16"),
+    ("d20_ragged_dkdv", "dkdv", 1, 1000, 700, 4, 20, False, "bfloat16"),
+    ("d33_odd_dq", "dq", 1, 1000, 1000, 4, 33, True, "bfloat16"),
+    ("d33_odd_dkdv", "dkdv", 1, 1000, 1000, 4, 33, True, "bfloat16"),
+    ("d100_wide_dq", "dq", 2, 2048, 2048, 16, 100, True, "bfloat16"),
+    ("d100_wide_dkdv", "dkdv", 2, 2048, 2048, 16, 100, True, "bfloat16"),
+    ("d300_dq", "dq", 1, 1000, 1000, 4, 300, True, "bfloat16"),
+    ("d300_dkdv", "dkdv", 1, 1000, 1000, 4, 300, True, "bfloat16"),
+    ("d300_wide_dq", "dq", 2, 2048, 2048, 8, 300, True, "bfloat16"),
+    ("d300_wide_dkdv", "dkdv", 2, 2048, 2048, 8, 300, True, "bfloat16"),
+    ("d301_dq", "dq", 1, 1000, 1000, 4, 301, True, "bfloat16"),
+    ("d301_dkdv", "dkdv", 1, 1000, 1000, 4, 301, True, "bfloat16"),
+    ("entry_train_fwd", "fwd", 16, 512, 512, 8, 32, True, "bfloat16"),
+    ("entry_train_dq", "dq", 16, 512, 512, 8, 32, True, "bfloat16"),
+    ("entry_train_dkdv", "dkdv", 16, 512, 512, 8, 32, True, "bfloat16"),
+    ("debug_f32_fwd", "fwd", 2, 128, 128, 4, 16, True, "float32"),
+    ("debug_f32_dq", "dq", 2, 128, 128, 4, 16, True, "float32"),
+    ("debug_f32_dkdv", "dkdv", 2, 128, 128, 4, 16, True, "float32"),
 ]
 ITERS = 20
 # the two trees round p (and ds) to bf16 in the same places but sum in

@@ -46,6 +46,9 @@ DRYRUN_MODEL = dict(vocab_size=128, hidden=64, layers=2, heads=4,
                     kv_heads=4, intermediate=128, max_seq=64, remat=False)
 DRYRUN_SEQ = 33  # [B, S + 1] tokens: next-token targets for S = 32
 RANK_TIMEOUT_S = 600
+# the JAX entry point's model (its remaining field: dtype bfloat16)
+ENTRY_MODEL = dict(vocab_size=2048, hidden=256, layers=4, heads=8,
+                   kv_heads=4, intermediate=704, max_seq=512, remat=False)
 
 
 def entry(device="cuda"):
@@ -59,9 +62,7 @@ def entry(device="cuda"):
     from ray_tpu_torch.models.training import build_forward
 
     device = resolve_device(device)
-    cfg = tfm.ModelConfig(vocab_size=2048, hidden=256, layers=4, heads=8,
-                          kv_heads=4, intermediate=704, max_seq=512,
-                          dtype=torch.bfloat16, remat=False)
+    cfg = tfm.ModelConfig(**ENTRY_MODEL, dtype=torch.bfloat16)
     params = tfm.init_params(
         cfg, torch.Generator(device=device).manual_seed(0), device=device)
     tokens = torch.zeros((2, 128), dtype=torch.int64, device=device)

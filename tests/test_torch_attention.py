@@ -171,13 +171,13 @@ def test_blockwise_bwd_matches_jax(causal, shape):
     (120, False),
     (192, True),
     (224, False),
-    # K1's padded wgmma kernel fed through registers (an odd D under 64)
+    # the padded wgmma kernels fed through registers (an odd D under 64)
     # and by 8-byte cp.async (a row of 200 bytes)
     (33, True),
     (100, False),
 ])
 def test_blockwise_fwd_bwd_match_jax_at_head_dims_off_64_and_128(d, causal):
-    """The plain versions the padded wgmma, mma.sync and FMA kernels are
+    """The plain versions the padded wgmma and FMA kernels are
     held against on the card, against the JAX package's, at the head dims
     those routes take, ragged (Sq != Sk, neither a multiple of the
     128-key block)."""
@@ -214,11 +214,9 @@ def test_flash_attention_past_head_dim_256_matches_jax(d, dtype):
     card take every head dim past 256: the port's flash_attention on the
     CPU, forward and grads, against the JAX package's flash_attention and
     jax.grad at [1, 128, 2, D] causal (the JAX blockwise path here). On
-    the card K1 takes its wgmma kernel in bf16 (fed by TMA at D % 8 == 0,
-    by cp.async at 300 and through registers at 301) and its ring-fed FMA
-    kernel in fp32; K2 and K3 their wgmma kernels in bf16 at D % 8 == 0
-    (the chunked mma.sync ones at 300 and 301) and their ring-fed FMA
-    kernels in fp32."""
+    the card K1, K2 and K3 take their wgmma kernels in bf16 (fed by TMA
+    at D % 8 == 0, by cp.async at 300 and through registers at 301) and
+    their ring-fed FMA kernels in fp32."""
     import jax
 
     rng = np.random.default_rng(d)
@@ -238,15 +236,44 @@ def test_flash_attention_past_head_dim_256_matches_jax(d, dtype):
     k1 = (T.DCHUNK_FMA if dtype == "float32" else
           T.DCHUNK_WGMMA if d % 8 == 0 else T.DCHUNK_WGMMA_CP)
     assert out.dtype == tdt and T.kernel_route("fwd", tdt, d) == k1
-    bwd = (T.DCHUNK_FMA if dtype == "float32" else
-           T.DCHUNK_WGMMA if d % 8 == 0 else T.DCHUNK)
     assert T.kernel_route("dq", tdt, d) == T.kernel_route(
-        "dkdv", tdt, d) == bwd
+        "dkdv", tdt, d) == k1
     np.testing.assert_allclose(out.detach().float().numpy(),
                                np.asarray(j_out, np.float32), **tol)
     for got, want in zip((tq.grad, tk.grad, tv.grad), j_grads):
         np.testing.assert_allclose(got.float().numpy(),
                                    np.asarray(want, np.float32), **gtol)
+
+
+@pytest.mark.parametrize("d", [20, 33, 48])
+def test_flash_attention_bf16_grads_under_64_match_jax(d):
+    """The head dims K2 and K3 took on mma.sync until they moved onto
+    their padded wgmma kernels: 20 (fed by cp.async), 33 (through
+    registers) and 48 (by TMA, one 64-column box). In bf16, the port's
+    flash_attention on the CPU, forward and grads, against the JAX
+    package's flash_attention and jax.vjp at [1, 128, 2, D] causal (the
+    JAX blockwise path here), seeded numpy inputs."""
+    import jax
+
+    rng = np.random.default_rng(100 + d)
+    q, k, v, g = (rng.standard_normal((1, 128, 2, d)).astype(np.float32)
+                  for _ in range(4))
+    jq, jk, jv = (jnp.asarray(x, jnp.bfloat16) for x in (q, k, v))
+    j_out, vjp = jax.vjp(lambda a, b, c: A.flash_attention(a, b, c, True),
+                         jq, jk, jv)
+    j_grads = vjp(jnp.asarray(g, jnp.bfloat16))
+    tq, tk, tv = (torch.from_numpy(x).to(torch.bfloat16).requires_grad_()
+                  for x in (q, k, v))
+    out = T.flash_attention(tq, tk, tv, causal=True)
+    out.backward(torch.from_numpy(g).to(torch.bfloat16))
+    route = T.WGMMA_PADDED if d % 8 == 0 else T.WGMMA_PADDED_CP
+    for kernel in ("fwd", "dq", "dkdv"):
+        assert T.kernel_route(kernel, torch.bfloat16, d) == route
+    np.testing.assert_allclose(out.detach().float().numpy(),
+                               np.asarray(j_out, np.float32), **BF16_TOL)
+    for got, want in zip((tq.grad, tk.grad, tv.grad), j_grads):
+        np.testing.assert_allclose(got.float().numpy(),
+                                   np.asarray(want, np.float32), **BF16_TOL)
 
 
 @pytest.mark.parametrize("causal", [False, True])

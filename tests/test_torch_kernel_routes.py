@@ -25,11 +25,11 @@ ROOT = Path(__file__).resolve().parents[1]
     ("fwd", torch.bfloat16, 64, T.WGMMA),
     ("dkdv", torch.bfloat16, 128, T.WGMMA),
     ("dkdv", torch.bfloat16, 64, T.WGMMA),
-    # under 64 K2 and K3 take mma.sync; K1 takes its padded wgmma kernel
-    # fed by TMA at D % 8 == 0 (one 64-column box, zeros past D: the
-    # debug configs' 16, 32, 48; more at the end)
+    # under 64 all three take their padded wgmma kernels fed by TMA at D %
+    # 8 == 0 (one 64-column box, zeros past D: the debug configs' 16, 32,
+    # 48 and the entry config's 32; more at the end)
     ("fwd", torch.bfloat16, 32, T.WGMMA_PADDED),
-    ("dkdv", torch.bfloat16, 32, T.MMA_SYNC),
+    ("dkdv", torch.bfloat16, 32, T.WGMMA_PADDED),
     ("fwd", torch.bfloat16, 16, T.WGMMA_PADDED),
     ("fwd", torch.bfloat16, 48, T.WGMMA_PADDED),
     # K1, K2 and K3 take the padded wgmma kernels at D % 8 == 0 between
@@ -48,18 +48,18 @@ ROOT = Path(__file__).resolve().parents[1]
     ("dkdv", torch.bfloat16, 96, T.WGMMA_PADDED),
     ("dq", torch.bfloat16, 192, T.WGMMA_PADDED),
     ("dkdv", torch.bfloat16, 192, T.WGMMA_PADDED),
-    # ... and where a row is not a multiple of 16 bytes K1 on its padded
-    # wgmma kernel fed by cp.async, K2 and K3 on mma.sync
+    # ... and where a row is not a multiple of 16 bytes all three on
+    # their padded wgmma kernels fed by cp.async
     ("fwd", torch.bfloat16, 100, T.WGMMA_PADDED_CP),
     ("fwd", torch.bfloat16, 250, T.WGMMA_PADDED_CP),
-    ("dq", torch.bfloat16, 100, T.MMA_SYNC),
-    ("dkdv", torch.bfloat16, 100, T.MMA_SYNC),
-    ("dq", torch.bfloat16, 250, T.MMA_SYNC),
-    ("dkdv", torch.bfloat16, 250, T.MMA_SYNC),
-    # K2 follows K3's rule: wgmma at 64 and 128, mma.sync at 32
+    ("dq", torch.bfloat16, 100, T.WGMMA_PADDED_CP),
+    ("dkdv", torch.bfloat16, 100, T.WGMMA_PADDED_CP),
+    ("dq", torch.bfloat16, 250, T.WGMMA_PADDED_CP),
+    ("dkdv", torch.bfloat16, 250, T.WGMMA_PADDED_CP),
+    # K2 follows K3's rule: wgmma at 64 and 128, the padded kernel at 32
     ("dq", torch.bfloat16, 128, T.WGMMA),
     ("dq", torch.bfloat16, 64, T.WGMMA),
-    ("dq", torch.bfloat16, 32, T.MMA_SYNC),
+    ("dq", torch.bfloat16, 32, T.WGMMA_PADDED),
     # float32: exact FMAs for all three
     ("fwd", torch.float32, 128, T.FMA),
     ("dq", torch.float32, 64, T.FMA),
@@ -90,10 +90,10 @@ ROOT = Path(__file__).resolve().parents[1]
     ("fwd", torch.bfloat16, 20, T.WGMMA_PADDED_CP),
     ("fwd", torch.bfloat16, 1, T.WGMMA_PADDED_CP),
     ("fwd", torch.bfloat16, 301, T.DCHUNK_WGMMA_CP),
-    # K2 and K3 in bf16 past 256 off the multiples of 8 keep the chunked
-    # mma.sync kernels
-    ("dq", torch.bfloat16, 300, T.DCHUNK),
-    ("dkdv", torch.bfloat16, 301, T.DCHUNK),
+    # K2 and K3 in bf16 past 256 off the multiples of 8 on their wgmma
+    # kernel fed by cp.async (through registers at 301)
+    ("dq", torch.bfloat16, 300, T.DCHUNK_WGMMA_CP),
+    ("dkdv", torch.bfloat16, 301, T.DCHUNK_WGMMA_CP),
     ("dkdv", torch.bfloat16, 264, T.DCHUNK_WGMMA),
 ])
 def test_kernel_route(kernel, dtype, head_dim, route):
@@ -103,33 +103,25 @@ def test_kernel_route(kernel, dtype, head_dim, route):
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkdv"])
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_kernel_route_takes_every_head_dim_to_256(kernel, dtype):
-    """Every head dim has a kernel: bf16 keeps wgmma at 64 and 128; K2
-    and K3 take the padded wgmma kernels at every other multiple of 8
-    past 64 up to 256 and mma.sync below 64 and off the multiples of 8,
-    K1 its padded wgmma kernel at every other head dim up to 256, fed by
-    TMA at the multiples of 8 and by cp.async off them; fp32 takes the
-    FMA kernels at all up to 256; past 256, with no upper bound, all
-    three take the wgmma kernels in bf16 at D % 8 == 0 and the ring-fed
-    FMA kernels in fp32, and off the multiples of 8 in bf16 K1 its wgmma
-    kernel fed by cp.async and K2 and K3 the chunked mma.sync route; no
-    K1 route is mma.sync; 0 raises."""
+    """Every head dim has a kernel, the same for K1, K2 and K3: bf16
+    keeps wgmma at 64 and 128 and takes the padded wgmma kernels at every
+    other head dim up to 256, fed by TMA at the multiples of 8 and by
+    cp.async off them; fp32 takes the FMA kernels at all up to 256; past
+    256, with no upper bound, all three take the wgmma kernels in bf16
+    (fed by TMA at D % 8 == 0, by cp.async off it) and the ring-fed FMA
+    kernels in fp32; 0 raises."""
     padded = [d for d in range(1, T.DCHUNK_PAST + 1)
-              if d % 8 == 0 and d > 64 and d != 128]
-    assert len(padded) == 23 and padded[0] == 72 and padded[-1] == 256
+              if d % 8 == 0 and d not in (64, 128)]
+    assert len(padded) == 30 and padded[0] == 8 and padded[-1] == 256
     for d in range(1, T.DCHUNK_PAST + 1):
         want = (T.FMA if dtype == torch.float32 else
                 T.WGMMA if d in (64, 128) else
-                T.WGMMA_PADDED if d in padded else
-                T.MMA_SYNC if kernel != "fwd" else
-                T.WGMMA_PADDED if d % 8 == 0 else T.WGMMA_PADDED_CP)
+                T.WGMMA_PADDED if d in padded else T.WGMMA_PADDED_CP)
         assert T.kernel_route(kernel, dtype, d) == want, d
         assert T.wgmma_padded_head_dim(d) == (d in padded), d
-        if kernel == "fwd":
-            assert want != T.MMA_SYNC
     for d in (T.DCHUNK_PAST + 1, 264, 300, 320, 512, 4096):
         want = (T.DCHUNK_FMA if dtype == torch.float32 else
-                T.DCHUNK_WGMMA if d % 8 == 0 else
-                T.DCHUNK_WGMMA_CP if kernel == "fwd" else T.DCHUNK)
+                T.DCHUNK_WGMMA if d % 8 == 0 else T.DCHUNK_WGMMA_CP)
         assert T.kernel_route(kernel, dtype, d) == want, d
         assert not T.wgmma_padded_head_dim(d)
     with pytest.raises(ValueError, match="head_dim"):
@@ -152,11 +144,11 @@ def test_launch_count_by_route():
     """A count adds up its launches in all and by route; reset clears
     both, and by_route hands out a copy."""
     count = T.LaunchCount()
-    for route in (T.WGMMA, T.WGMMA, T.MMA_SYNC):
+    for route in (T.WGMMA, T.WGMMA, T.WGMMA_PADDED_CP):
         count.add(route)
     assert count.count == 3
     seen = count.by_route
-    assert seen == {T.WGMMA: 2, T.MMA_SYNC: 1}
+    assert seen == {T.WGMMA: 2, T.WGMMA_PADDED_CP: 1}
     seen[T.FMA] = 7
     assert T.FMA not in count.by_route
     count.reset()
@@ -465,11 +457,15 @@ def test_check_head_dims_reports_each_wgmma_backward_instantiation():
     assert rows[1]["notes"] == [
         "wgmma.mma_async instructions are serialized due to insufficient "
         "register resources"]
-    # every padded width (D rounded up to 32) and both sides of D % 8
+    # every padded width (D rounded up to 32) on both sides of D % 8
     bf16 = dict(CASES)["bfloat16"]
+    widths = {32, 64, 96, 128, 160, 192, 224, 256}
     assert {(d + 31) // 32 * 32 for d in bf16
-            if T.wgmma_padded_head_dim(d)} == {96, 128, 160, 192, 224, 256}
-    assert any(d % 8 and d > 64 for d in bf16)
+            if T.wgmma_padded_head_dim(d)} == widths
+    assert {(d + 31) // 32 * 32 for d in bf16 if d <= T.DCHUNK_PAST
+            and T.kernel_route("dq", torch.bfloat16, d)
+            == T.WGMMA_PADDED_CP} == widths
+    assert {d % 2 for d in bf16 if d % 8} == {0, 1}
 
 
 def test_compare_kernels_times_the_padded_route_at_its_rows():
@@ -496,9 +492,9 @@ def test_compare_kernels_times_the_padded_route_at_its_rows():
 
 def test_chunked_route_is_built_dispatched_and_held_on_the_card():
     """Past 256: the sources are built, every C entry dispatches there
-    before the per-head-dim kernels of either dtype (K1 to its TMA-fed
-    wgmma kernel before the cp.async-fed one, K2 and K3 to theirs before
-    the chunked mma.sync ones), and the kernel phase holds K1, K2 and K3
+    before the per-head-dim kernels of either dtype (K1, K2 and K3 to
+    their TMA-fed wgmma kernel before the cp.async-fed one), and the
+    kernel phase holds K1, K2 and K3
     at 264, 320 and 512 in bf16 and at 320 in fp32, K1 and K2/K3 at B2
     S2048 H8 D512 too, and K1 at fp32 d 320 at that size, at d 384
     non-causal with Sq != Sk and at bf16 d 300 (the wgmma kernel fed by
@@ -506,8 +502,9 @@ def test_chunked_route_is_built_dispatched_and_held_on_the_card():
     by tools/compare_kernels."""
     from ray_tpu_torch.tools.compare_kernels import SHAPES
 
-    assert {"flash_attn_dchunk.cu", "flash_attn_dchunk_fma.cu",
-            "flash_attn_dchunk_fwd_wgmma.cu",
+    assert {"flash_attn_dchunk_bwd_dq_cp_async.cu",
+            "flash_attn_dchunk_bwd_dkdv_cp_async.cu",
+            "flash_attn_dchunk_fma.cu", "flash_attn_dchunk_fwd_wgmma.cu",
             "flash_attn_dchunk_fwd_cp_async.cu"} <= set(T._SOURCES)
     csrc = ROOT / "ray_tpu_torch" / "ops" / "csrc"
     fwd = (csrc / "flash_attn_fwd.cu").read_text()
@@ -523,9 +520,9 @@ def test_chunked_route_is_built_dispatched_and_held_on_the_card():
         assert bwd.index(f"rtt::bwd_{kernel}_dchunk_fma(") < bwd.index(
             f"rtt::bwd_{kernel}_fma(")
         assert bwd.index(f"rtt::bwd_{kernel}_dchunk_wgmma(") < bwd.index(
-            f"rtt::bwd_{kernel}_dchunk_mma(")
-        assert bwd.index(f"rtt::bwd_{kernel}_dchunk_mma(") < bwd.index(
-            f"rtt::bwd_{kernel}_mma(")
+            f"rtt::bwd_{kernel}_dchunk_wgmma_cp_async(")
+        assert bwd.index(f"rtt::bwd_{kernel}_dchunk_wgmma_cp_async(") < (
+            bwd.index(f"rtt::bwd_{kernel}_fma("))
     cs = _chip_smoke()
     fwd_rows = {row[0]: row[1:] for row in cs.KERNEL_SHAPES}
     bwd_rows = {row[0]: row[1:] for row in cs.BWD_SHAPES}
@@ -694,24 +691,31 @@ def _header_rules() -> dict:
 @pytest.mark.parametrize("rule,kernel,route", [
     ("wgmma_padded_head_dim", "dq", T.WGMMA_PADDED),
     ("wgmma_padded_head_dim", "dkdv", T.WGMMA_PADDED),
-    ("fwd_padded_head_dim", "fwd", T.WGMMA_PADDED),
-    ("fwd_padded_cp_async_head_dim", "fwd", T.WGMMA_PADDED_CP),
+    ("wgmma_padded_head_dim", "fwd", T.WGMMA_PADDED),
+    ("wgmma_padded_cp_async_head_dim", "fwd", T.WGMMA_PADDED_CP),
+    ("wgmma_padded_cp_async_head_dim", "dq", T.WGMMA_PADDED_CP),
+    ("wgmma_padded_cp_async_head_dim", "dkdv", T.WGMMA_PADDED_CP),
     ("dchunk_wgmma_head_dim", "fwd", T.DCHUNK_WGMMA),
     ("dchunk_unaligned_head_dim", "fwd", T.DCHUNK_WGMMA_CP),
     ("dchunk_wgmma_head_dim", "dq", T.DCHUNK_WGMMA),
     ("dchunk_wgmma_head_dim", "dkdv", T.DCHUNK_WGMMA),
-    ("dchunk_unaligned_head_dim", "dq", T.DCHUNK),
-    ("dchunk_unaligned_head_dim", "dkdv", T.DCHUNK),
+    ("dchunk_unaligned_head_dim", "dq", T.DCHUNK_WGMMA_CP),
+    ("dchunk_unaligned_head_dim", "dkdv", T.DCHUNK_WGMMA_CP),
 ])
 def test_route_table_is_the_headers_constexprs(rule, kernel, route):
     """attention.kernel_route in bf16 takes ``route`` at exactly the head
-    dims the C dispatch's constexpr of the same route admits."""
+    dims the C dispatch's constexpr of the same route admits, and
+    ``wgmma_padded_head_dim`` is the same rule in Python and in C."""
     rules = _header_rules()
     assert {"dchunk_head_dim", rule} <= set(rules)
+    assert not {"fwd_padded_head_dim",
+                "fwd_padded_cp_async_head_dim"} & set(rules)
     for d in range(1, 1100):
         got = T.kernel_route(kernel, torch.bfloat16, d) == route
         assert got == bool(rules[rule](d)), (rule, d)
         assert bool(rules["dchunk_head_dim"](d)) == (d > T.DCHUNK_PAST)
+        assert bool(rules["wgmma_padded_head_dim"](d)) == (
+            T.wgmma_padded_head_dim(d)), d
 
 
 @pytest.mark.parametrize("header,sources,launch", [
@@ -753,13 +757,19 @@ def test_each_feed_is_instantiated_at_each_width_without_trap(
 
 
 def test_no_source_names_a_removed_kernel():
-    """K1's mma.sync kernels and the chunked fp32 K2 and K3 kernels past
-    256 are gone: no source, build list or smoke list names them, every
-    listed source exists, and every kernel source in csrc/ is listed."""
+    """The mma.sync kernels of K1, K2 and K3 and the chunked fp32 K2 and K3
+    kernels past 256 are gone: no source, build list or smoke list names
+    them, no kernel source issues an mma.sync or ldmatrix instruction,
+    every listed source exists, and every kernel source in csrc/ is
+    listed; no bf16 route of K1, K2 or K3 at any head dim is one of the
+    removed ones."""
     csrc = ROOT / "ray_tpu_torch" / "ops" / "csrc"
     gone = ("flash_attn_fwd_mma.cu", "flash_fwd_mma_kernel", "fwd_mma(",
             "fwd_dchunk_mma", "rtt::fwd_mma", "bwd_dq_dchunk_f32_kernel",
-            "bwd_dkdv_dchunk_f32_kernel")
+            "bwd_dkdv_dchunk_f32_kernel", "flash_attn_dchunk.cu",
+            "flash_attn_bwd_dq_mma.cu", "flash_attn_bwd_dkdv_mma.cu",
+            "bwd_dq_mma(", "bwd_dkdv_mma(", "dchunk_mma(",
+            "mma.sync.aligned", "ldmatrix")
     for path in csrc.iterdir():
         text = path.read_text()
         assert not [g for g in gone if g in text], path.name
@@ -768,8 +778,12 @@ def test_no_source_names_a_removed_kernel():
     assert {p.name for p in csrc.glob("*.cuh")} == set(T._HEADERS)
     smoke = (ROOT / "chip_smoke.py").read_text()
     assert not [g for g in gone if g in smoke]
-    assert T.MMA_SYNC not in {T.kernel_route("fwd", torch.bfloat16, d)
-                              for d in range(1, 700)}
+    assert not hasattr(T, "MMA_SYNC") and not hasattr(T, "DCHUNK")
+    routes = {T.kernel_route(kernel, torch.bfloat16, d)
+              for kernel in ("fwd", "dq", "dkdv") for d in range(1, 601)}
+    assert routes == {T.WGMMA, T.WGMMA_PADDED, T.WGMMA_PADDED_CP,
+                      T.DCHUNK_WGMMA, T.DCHUNK_WGMMA_CP}
+    assert not {"mma_sync", "dchunk"} & routes
 
 
 @pytest.mark.parametrize("name,shape,bound_ms", [
@@ -822,25 +836,27 @@ def test_kernel_phase_and_compare_reach_every_new_route():
 
 def test_dchunk_bwd_wgmma_source_instantiates_each_slice_width_without_trap():
     """K2's and K3's wgmma kernel past 256 is one template (DKDV) in one
-    header, instantiated by one source a kernel, each every build
-    compiles: K2 at dq's slice widths (160..256) with one or two consumer
-    warpgroups, K3 at dk/dv's (96, 128) with one, each with its rows
-    resident or streamed; no wait traps (a trap keeps ptxas from allocating the
-    consumers within setmaxnreg's count), and the C dispatch takes it at
-    the head dims the Python route table does."""
+    header, instantiated by one source a kernel and feed, each every
+    build compiles: K2 at dq's slice widths (160..256) with one or two
+    consumer warpgroups, K3 at dk/dv's (96, 128) with one, each with its
+    rows resident or streamed; no wait traps (a trap keeps ptxas from
+    allocating the consumers within setmaxnreg's count), and the C
+    dispatch takes it at the head dims the Python route table does."""
     csrc = ROOT / "ray_tpu_torch" / "ops" / "csrc"
     header = "flash_attn_dchunk_bwd_wgmma.cuh"
     assert header in T._HEADERS
     code = re.sub(r"//[^\n]*", "", (csrc / header).read_text())
     assert "__trap" not in code and "mbar_wait(" not in code
     assert "mbar_wait_no_trap(" in code
-    assert "launch_db<SWP, NCW, RES, DKDV>(" in code
+    assert "launch_db<SWP, NCW, RES, DKDV, FEED>(" in code
     assert set(re.findall(r"take\((One|Two)\{\}, std::(true|false)_type",
                           code)) == {("One", "true"), ("Two", "true"),
                                      ("One", "false")}
-    # K3 never takes two consumer warpgroups
-    assert "if constexpr (!DKDV) {\n      if (blocks128 >= sm_count() &&" \
-        in code
+    # K3 never takes two consumer warpgroups, nor K2 at 256 columns beside
+    # a producer warpgroup that fills the boxes (its consumers' 224
+    # registers spilled there)
+    assert ("if constexpr (!DKDV && (FEED == FEED_TMA || SWP < 256)) {\n"
+            "      if (blocks128 >= sm_count() &&") in code
     dkdv = code[code.index("if constexpr (DKDV) {\n    if (sw <= 96)"):]
     widths = {int(w) for w in
               re.findall(r"integral_constant<int, (\d+)>", dkdv)}
@@ -851,7 +867,7 @@ def test_dchunk_bwd_wgmma_source_instantiates_each_slice_width_without_trap():
         assert name in T._SOURCES
         src = re.sub(r"//[^\n]*", "", (csrc / name).read_text())
         assert f'#include "{header}"' in src
-        assert f"bwd_dchunk_wgmma<{flag}>(" in src
+        assert f"bwd_dchunk_feed<{flag}, FEED_TMA>(" in src
         assert "__trap" not in src and "mbar_wait(" not in src
     for d in (264, 300, 320, 512, 520, 4096):
         for kernel in ("dq", "dkdv"):
@@ -928,13 +944,19 @@ def test_dchunk_bwd_layouts_fit_and_the_checks_reach_each():
         in code
     assert ("if (!DbLayout<SWP, NCW, RES, DKDV>::plan(nb, &kst, &sst))\n"
             "          return cudaErrorInvalidValue;") in code
-    assert "const int chosen[6] = {SWP, sw, NCW, RES, kst, sst};" in code
-    assert len(chd._LAYOUT_KEYS) == 6
+    assert ("const int chosen[7] = {SWP, sw, NCW, RES, kst, sst,\n"
+            "                               feed_producers(FEED, NCW)};"
+            ) in code
+    assert len(chd._LAYOUT_KEYS) == 7 and chd.FEEDS == ("tma", "cp_async")
     for kernel, flag in (("dq", "false"), ("dkdv", "true")):
-        src = (csrc / f"flash_attn_dchunk_bwd_{kernel}_wgmma.cu").read_text()
-        assert f"rtt_flash_attn_bwd_{kernel}_dchunk_layout(" in src
-        assert f"bwd_dchunk_wgmma<{flag}>(" in src and (
-            "nullptr, layout);" in src)
+        for name, feed, export in (
+                ("wgmma", "FEED_TMA", "dchunk_layout"),
+                ("cp_async", "FEED_CP_ASYNC", "dchunk_cp_async_layout")):
+            src = (csrc / f"flash_attn_dchunk_bwd_{kernel}_{name}.cu"
+                   ).read_text()
+            assert f"rtt_flash_attn_bwd_{kernel}_{export}(" in src
+            assert f"bwd_dchunk_feed<{flag}, {feed}>(" in src and (
+                "nullptr, layout);" in src)
     # what the dispatch instantiates: K2 at both consumer-warpgroup counts
     # (two only with its rows resident), K3 at one
     assert chd.LAYOUTS == {"dq": {(1, True), (2, True), (1, False)},
@@ -942,7 +964,7 @@ def test_dchunk_bwd_layouts_fit_and_the_checks_reach_each():
     tool = (ROOT / "ray_tpu_torch" / "tools"
             / "check_head_dims.py").read_text()
     assert "failed += not layouts[\"ok\"]" in tool
-    assert "range(264, 4097, 8)" in tool
+    assert "range(257, 4097)" in tool
     # the shapes whose layouts it prints are the kernel phase's rows
     fwd = {row[0]: row[1:] for row in _chip_smoke().KERNEL_SHAPES}
     for name, (b, sq, sk, h) in chd.LAYOUT_SHAPES.items():
@@ -1006,7 +1028,7 @@ def test_kernel_phase_holds_the_backward_past_256_at_its_edges():
     """The kernel phase's backward rows past 256: fp32 d 320 at the size
     the forward has (B2 S2048 H8), d 384 non-causal with Sq 1000 > Sk
     700, d 320 causal with Sq 700 < Sk 1000 (key tiles no query reaches),
-    and bf16 d 300 on the chunked mma.sync kernels that stay; each listed
+    and bf16 d 300 on the wgmma kernels fed by cp.async; each listed
     with the head-dim rows; tools/compare_kernels times K2 and K3 at the
     rows past 256 against the parent, each at its kernel-phase shape."""
     from ray_tpu_torch.tools.compare_kernels import SHAPES
@@ -1020,7 +1042,8 @@ def test_kernel_phase_holds_the_backward_past_256_at_its_edges():
                            T.DCHUNK_WGMMA),
         "d320_sq_lt_sk": ((1, 700, 1000, 4, 320, True, "bfloat16"),
                           T.DCHUNK_WGMMA),
-        "d300": ((1, 1000, 1000, 4, 300, True, "bfloat16"), T.DCHUNK),
+        "d300": ((1, 1000, 1000, 4, 300, True, "bfloat16"),
+                 T.DCHUNK_WGMMA_CP),
     }
     for name, (row, route) in want.items():
         assert bwd[name] == row and name in cs.HEAD_DIM_SHAPES, name
@@ -1056,3 +1079,169 @@ def test_check_head_dims_reports_the_backward_kernels_past_256():
         "bwd_dchunk_wgmma_kernel<256, 1, 1, 0>",
         "bwd_dchunk_ring_f32_kernel<5, 1, 1>"]
     assert [r["registers"] for r in rows] == [250, 240]
+
+
+@pytest.mark.parametrize("header,sources,launch", [
+    # K2 up to 256: the d 64/128 kernel, every padded width at both
+    # consumer-warpgroup counts for each feed
+    ("flash_attn_bwd_dq_ws.cuh",
+     {"flash_attn_bwd_dq_padded.cu": "bwd_dq_padded_feed<FEED_TMA>",
+      "flash_attn_bwd_dq_padded_cp_async.cu":
+      "bwd_dq_padded_feed<FEED_CP_ASYNC>"},
+     r"launch_dq_ws<DP, false, FEED, (\d)>"),
+    # K3 up to 256: its padded kernel at every width for each feed
+    ("flash_attn_bwd_dkdv_padded.cuh",
+     {"flash_attn_bwd_dkdv_padded.cu": "bwd_dkdv_padded_feed<FEED_TMA>",
+      "flash_attn_bwd_dkdv_padded_cp_async.cu":
+      "bwd_dkdv_padded_feed<FEED_CP_ASYNC>"},
+     r"launch_dkdv_padded<(\d+), FEED>"),
+    # K2 and K3 past 256: the slice kernel for each feed
+    ("flash_attn_dchunk_bwd_wgmma.cuh",
+     {"flash_attn_dchunk_bwd_dq_wgmma.cu": "bwd_dchunk_feed<false, FEED_TMA>",
+      "flash_attn_dchunk_bwd_dkdv_wgmma.cu":
+      "bwd_dchunk_feed<true, FEED_TMA>",
+      "flash_attn_dchunk_bwd_dq_cp_async.cu":
+      "bwd_dchunk_feed<false, FEED_CP_ASYNC>",
+      "flash_attn_dchunk_bwd_dkdv_cp_async.cu":
+      "bwd_dchunk_feed<true, FEED_CP_ASYNC>"},
+     r"launch_db<SWP, NCW, RES, DKDV, (FEED)>"),
+])
+def test_backward_feeds_are_instantiated_on_both_sides_of_256(
+        header, sources, launch):
+    """K2's and K3's wgmma templates take what fills their boxes as a
+    parameter, as K1's do: one source a feed instantiates each template
+    with FEED_TMA or FEED_CP_ASYNC, up to 256 and past it; the boxes are
+    filled by fill_box and fill_done where TMA cannot stride the rows,
+    and a consumer fences after each wait on a full barrier; K3's stages,
+    whose lse and delta rows stay 1-D TMA copies beside the producer
+    threads' fills, count one arrival more; no new source traps."""
+    csrc = ROOT / "ray_tpu_torch" / "ops" / "csrc"
+    assert header in T._HEADERS
+    hdr = re.sub(r"//[^\n]*", "", (csrc / header).read_text())
+    assert re.findall(launch, hdr)
+    assert "int FEED>" in hdr or "int FEED, int NCW>" in hdr
+    assert "fill_box<" in hdr and "fill_done(" in hdr
+    assert "fence_proxy_async()" in hdr or "feed_acquire<FEED>(" in hdr
+    assert "FEED == FEED_TMA ? 1 : FEED_THREADS" in hdr
+    if "dkdv" in header:
+        assert "FEED_THREADS + 1" in hdr
+    elif "dchunk" in header:
+        assert "fills + (FEED != FEED_TMA && DKDV ? 1 : 0)" in hdr
+    for name, call in sources.items():
+        assert name in T._SOURCES
+        code = re.sub(r"//[^\n]*", "", (csrc / name).read_text())
+        assert f'#include "{header}"' in code and call in code
+        assert "__trap" not in code and "mbar_wait(" not in code
+    # the padded kernels' widths: D rounded up to 32 from 32 to 256 (K2's
+    # in its dispatch's switch, K3's in its launches)
+    if "dchunk" not in header:
+        widths = re.findall(launch if "dkdv" in header
+                            else r"integral_constant<int, (\d+)>", hdr)
+        assert {int(w) for w in widths} == {32, 64, 96, 128, 160, 192, 224,
+                                            256}
+    # the route each feed takes, on both sides of 256
+    for d, route in ((20, T.WGMMA_PADDED_CP), (33, T.WGMMA_PADDED_CP),
+                     (32, T.WGMMA_PADDED), (300, T.DCHUNK_WGMMA_CP),
+                     (301, T.DCHUNK_WGMMA_CP), (320, T.DCHUNK_WGMMA)):
+        for kernel in ("dq", "dkdv"):
+            assert T.kernel_route(kernel, torch.bfloat16, d) == route
+
+
+def test_k3_splits_its_products_at_one_box():
+    """K3's padded kernel at D <= 64 (one 64-column box) gives warpgroup 0
+    dV and warpgroup 1 dK over all DP columns, where past 64 they split
+    the columns; its plan of columns at each width."""
+    src = (ROOT / "ray_tpu_torch" / "ops" / "csrc"
+           / "flash_attn_bwd_dkdv_padded.cuh").read_text()
+    assert "static constexpr bool ONE_BOX = BOXES == 1;" in src
+    assert ("ONE_BOX ? DP : BOXES == 3 ? DP - BOX_COLS : FIRST * BOX_COLS"
+            in src)
+    assert "const uint32_t a = wg == 0 ? pt : dst;" in src
+    assert "store_pair_bf16((wg == 0 ? dv : dk) + o" in src
+
+
+def test_entry_train_path_is_the_entry_model():
+    """chip_smoke.py's entry_train phase trains the entry point's model
+    (tools/multichip.py's ENTRY_MODEL, the JAX entry's config) at its
+    full width, in bf16, remat off, at [16, 513] tokens (max_seq 512):
+    head_dim 32, where K1, K2 and K3 all take the padded wgmma kernels fed
+    by TMA; its kernel rows run at the step's attention shape (8 heads
+    after the GQA repeat), compare_kernels times all three there, and the
+    phase runs after b1_h4_train's."""
+    from ray_tpu_torch.tools.compare_kernels import SHAPES
+    from ray_tpu_torch.tools.multichip import ENTRY_MODEL
+
+    cs = _chip_smoke()
+    cfg = cs._text_config("entry")
+    assert ENTRY_MODEL == dict(vocab_size=2048, hidden=256, layers=4,
+                               heads=8, kv_heads=4, intermediate=704,
+                               max_seq=512, remat=False)
+    assert (cfg.vocab_size, cfg.hidden, cfg.layers, cfg.heads,
+            cfg.kv_heads, cfg.intermediate, cfg.max_seq) == (
+        2048, 256, 4, 8, 4, 704, 512)
+    assert cfg.head_dim == 32 and not cfg.remat
+    assert cfg.dtype == torch.bfloat16
+    assert cs._main_path_routes("bfloat16", cfg.head_dim) == {
+        "fwd": T.WGMMA_PADDED, "dq": T.WGMMA_PADDED,
+        "dkdv": T.WGMMA_PADDED}
+    assert cs.ENTRY_TRAIN_TOKENS == (16, cfg.max_seq + 1)
+    assert tuple(cs._train_batch("entry").shape) == cs.ENTRY_TRAIN_TOKENS
+    assert tuple(cs._train_batch("b1").shape) == cs.TRAIN_TOKENS
+    fwd = {row[0]: row[1:] for row in cs.KERNEL_SHAPES}
+    bwd = {row[0]: row[1:] for row in cs.BWD_SHAPES}
+    assert fwd["entry_train"] == (16, 512, 8, 32, True, "bfloat16")
+    assert bwd["entry_train"] == (16, 512, 512, 8, 32, True, "bfloat16")
+    assert "entry_train" in cs.HEAD_DIM_SHAPES and "entry" in cs.MODEL_DESC
+    timed = {name: (kernel, *rest) for name, kernel, *rest in SHAPES}
+    for kernel in ("fwd", "dq", "dkdv"):
+        assert timed[f"entry_train_{kernel}"] == (kernel, *bwd["entry_train"])
+    src = (ROOT / "chip_smoke.py").read_text()
+    assert src.index('("b1_h4_train", phase_b1_h4_train)') < src.index(
+        '("entry_train", phase_entry_train)')
+    # remat off: K1 once a layer and step, not twice
+    assert '"fwd": (2 if cfg.remat else 1) * cfg.layers * TRAIN_STEPS' in src
+
+
+@pytest.mark.parametrize("kernel,bound_ms,bound_by", [
+    # B16 S512 H8 D32 causal bf16: 131,328 kept pairs a head; at d 32
+    # the bytes bound all three (each input read once: q, k, v, out, dO,
+    # lse, delta, and the outputs written once, over 3.35 TB/s)
+    ("fwd", 0.005086, "bytes"),
+    ("dq", 0.006417, "bytes"),
+    ("dkdv", 0.007669, "bytes"),
+])
+def test_attention_bound_at_the_entry_train_shape(kernel, bound_ms,
+                                                  bound_by):
+    got, by = _chip_smoke()._attention_work(kernel, 16, 512, 512, 8, 32,
+                                            True, "bfloat16")
+    assert by == bound_by
+    assert got == pytest.approx(bound_ms, abs=5e-6)
+
+
+def test_kernel_phase_and_compare_reach_each_route_k2_and_k3_left():
+    """The backward rows where K2 and K3 left mma.sync: the kernel phase
+    holds them at d 16 (TMA), 20 (Sq > Sk), 33 (odd), 100 at B2 S2048 H16,
+    300 at both sizes and 301, each at the forward row's shape and listed
+    with the head-dim rows, and compare_kernels times both kernels there
+    against the parent, with the FMA kernels at debug_f32."""
+    from ray_tpu_torch.tools.compare_kernels import SHAPES
+
+    cs = _chip_smoke()
+    fwd = {row[0]: row[1:] for row in cs.KERNEL_SHAPES}
+    bwd = {row[0]: row[1:] for row in cs.BWD_SHAPES}
+    timed = {name: (kernel, *rest) for name, kernel, *rest in SHAPES}
+    want = {"d16_bf16": T.WGMMA_PADDED, "d20_ragged": T.WGMMA_PADDED_CP,
+            "d33_odd": T.WGMMA_PADDED_CP, "d100_wide": T.WGMMA_PADDED_CP,
+            "d300": T.DCHUNK_WGMMA_CP, "d300_wide": T.DCHUNK_WGMMA_CP,
+            "d301": T.DCHUNK_WGMMA_CP}
+    for name, route in want.items():
+        b, sq, sk, h, d, causal, dtype = bwd[name]
+        row = fwd[name]
+        assert row[:6] == (b, sq, h, d, causal, dtype), name
+        assert (row[6] if len(row) > 6 else sq) == sk, name
+        assert name in cs.HEAD_DIM_SHAPES
+        for kernel in ("dq", "dkdv"):
+            assert T.kernel_route(kernel, torch.bfloat16, d) == route
+            assert timed[f"{name}_{kernel}"] == (kernel, *bwd[name]), name
+    for kernel in ("fwd", "dq", "dkdv"):
+        assert timed[f"debug_f32_{kernel}"] == (kernel, *bwd["debug_f32"])

@@ -6,9 +6,11 @@ CPU, in float32.
   1e-6 absolute and 1e-5 relative (the same elementwise arithmetic, apart
   only in the summation order of the global norm and in the last bit of
   a pow or sqrt).
-- 3 steps of ``build_train_step`` for ``ModelConfig.debug()``, and for
-  it at hidden 640 over 2 heads (head dim 320, past the per-head-dim
-  kernels' 256), against the JAX ``build_train_step`` on a one-device
+- 3 steps of ``build_train_step`` for ``ModelConfig.debug()``, for it
+  at hidden 640 over 2 heads (head dim 320, past the per-head-dim
+  kernels' 256), and for the entry point's model (tools/multichip.py's
+  ENTRY_MODEL, head dim 32, in float32), against the JAX
+  ``build_train_step`` on a one-device
   mesh, from the same weights and tokens: loss and grad norm per step
   within 1e-4 relative (the gradient tolerance of tests/test_model.py;
   each step's update feeds the next, so the steps compound it).
@@ -34,6 +36,7 @@ from ray_tpu_torch.models.training import (
     make_optimizer,
     tree_leaves,
 )
+from ray_tpu_torch.tools.multichip import ENTRY_MODEL
 
 OPT_TOL = dict(atol=1e-6, rtol=1e-5)
 STEP_RTOL = 1e-4
@@ -86,17 +89,20 @@ def test_optimizer_matches_optax(grad_scale):
     assert state["count"] == int(adam.count) == 3
 
 
-# ModelConfig.debug()'s fields changed in both packages: its own, and
-# head dim 320 (the attention past 256 on the CPU's plain versions)
-CONFIGS = {"debug": {}, "d320": dict(hidden=640, heads=2, kv_heads=2)}
+# ModelConfig.debug()'s fields changed in both packages: its own, head
+# dim 320 (the attention past 256 on the CPU's plain versions), and the
+# entry point's model (head dim 32, which chip_smoke.py trains on the
+# card), float32 as the debug config is
+CONFIGS = {"debug": {}, "d320": dict(hidden=640, heads=2, kv_heads=2),
+           "entry": ENTRY_MODEL}
+HEAD_DIMS = {"debug": 16, "d320": 320, "entry": 32}
 
 
 @pytest.mark.parametrize("config", list(CONFIGS))
 def test_train_steps_match_jax(config):
     jcfg = dataclasses.replace(jtfm.ModelConfig.debug(), **CONFIGS[config])
     tcfg = dataclasses.replace(ttfm.ModelConfig.debug(), **CONFIGS[config])
-    assert jcfg.head_dim == tcfg.head_dim == (320 if config == "d320"
-                                              else 16)
+    assert jcfg.head_dim == tcfg.head_dim == HEAD_DIMS[config]
     mesh = build_mesh(MeshSpec(dp=1, pp=1, sp=1, tp=1))
     j_step, j_init = j_build_train_step(jcfg, mesh)
     j_params, j_state = j_init(jax.random.PRNGKey(0))
