@@ -24,8 +24,11 @@ if any failed, the script exits non-zero and prints no result. Phases:
               and 256 hold K1, K2 and K3 on the padded wgmma kernels fed
               by TMA, as do rows at 16 and 32 (the entry_train step's
               B16 S512 H8), and on them fed by cp.async rows at 20 (Sq !=
-              Sk), 33 (through registers) and 100 at B2 S2048 H16; the
-              FMA kernels (ModelConfig.debug's fp32 d 16) the same way;
+              Sk), 33 (through registers) and 100 at B2 S2048 H16; in
+              fp32 K1 and K3 on their ring kernels (route fma_f32_ring)
+              and K2 on its FMA kernel at ModelConfig.debug's d 16, at d
+              64 (ragged) and at d 16 and 128 at B2 S2048 H16, where the
+              arithmetic bounds them;
               past 256, K1, K2 and K3 on wgmma in bf16 fed by TMA at D %
               8 == 0 (d 264, 320, 512 at B1 S1000 H4, 512 at B2 S2048
               H8, 384 non-causal with Sq != Sk; K2 and K3 also at the
@@ -34,7 +37,8 @@ if any failed, the script exits non-zero and prints no result. Phases:
               at both sizes, 301), on the ring-fed FMA kernels in fp32
               (d 320, at both sizes); no route runs mma.sync;
   2b. debug — the JAX package's test configs on the card through the
-              kernels (head_dim 16, float32: the FMA route):
+              kernels (head_dim 16, float32: K1 and K3 on fma_f32_ring,
+              K2 on fma_f32):
               ModelConfig.debug() and tiny_moe() (routed alike) served
               and one train step of each, ViTConfig.debug() served, each
               against the plain attention within DEBUG_REL_L2_TOL, a
@@ -418,8 +422,13 @@ KERNEL_SHAPES = [
     # the xl16 train step's shape; the backward rows' d 80 (Sq < Sk), d
     # 192 (non-causal), d 120 (padded to 128, Sq > Sk) and d 224 below;
     # fed through registers at an odd D (33), and by 8-byte cp.async at a
-    # size where the arithmetic bounds it (d 100, B2 S2048 H16)
+    # size where the arithmetic bounds it (d 100, B2 S2048 H16); fp32 (K1
+    # and K3 on their ring kernels, K2 on FMA) at the debug configs' d 16
+    # and, where the arithmetic bounds the work, at d 16 and 128 at B2
+    # S2048 H16
     ("debug_f32", 2, 128, 4, 16, True, "float32"),
+    ("d16_f32_wide", 2, 2048, 16, 16, True, "float32"),
+    ("d128_f32_wide", 2, 2048, 16, 128, True, "float32"),
     ("d16_bf16", 2, 1000, 4, 16, True, "bfloat16"),
     ("d20_ragged", 1, 1000, 4, 20, False, "bfloat16", 700),
     ("d160", 2, 2048, 16, 160, True, "bfloat16"),
@@ -479,8 +488,11 @@ BWD_SHAPES = [
     # tiles see no query and write zeros), d 192 (one whole box past
     # 128) without the causal bound, d 120 (padded to 128 in one 128-key
     # tile of K1) at Sq > Sk (the rows past Sk see every key), and d 224
-    # (a 32-column piece past three boxes) at a long causal length
+    # (a 32-column piece past three boxes) at a long causal length; fp32
+    # at the debug configs' d 16 and at d 16 and 128 at B2 S2048 H16
     ("debug_f32", 2, 128, 128, 4, 16, True, "float32"),
+    ("d16_f32_wide", 2, 2048, 2048, 16, 16, True, "float32"),
+    ("d128_f32_wide", 2, 2048, 2048, 16, 128, True, "float32"),
     ("d16_bf16", 2, 1000, 1000, 4, 16, True, "bfloat16"),
     ("d20_ragged", 1, 1000, 700, 4, 20, False, "bfloat16"),
     ("d160", 2, 2048, 2048, 16, 160, True, "bfloat16"),
@@ -522,13 +534,13 @@ BWD_SHAPES = [
 # the rows of KERNEL_SHAPES and BWD_SHAPES off the wgmma route, reported
 # beside the model shapes in the kernels line (each kernel at the rows it
 # has)
-HEAD_DIM_SHAPES = ("debug_f32", "d16_bf16", "d20_ragged", "d160",
-                   "d256_ragged", "xl16_train", "d80_sq_lt_sk",
-                   "d192_noncausal", "d120_sq_gt_sk", "d224", "d264",
-                   "d320", "d512", "d320_f32", "d512_wide", "d320_f32_wide",
-                   "d384_noncausal", "d300", "d33_odd", "d100_wide",
-                   "d300_wide", "d301", "b1_h4_train", "d320_sq_lt_sk",
-                   "entry_train")
+HEAD_DIM_SHAPES = ("debug_f32", "d16_f32_wide", "d128_f32_wide", "d16_bf16",
+                   "d20_ragged", "d160", "d256_ragged", "xl16_train",
+                   "d80_sq_lt_sk", "d192_noncausal", "d120_sq_gt_sk", "d224",
+                   "d264", "d320", "d512", "d320_f32", "d512_wide",
+                   "d320_f32_wide", "d384_noncausal", "d300", "d33_odd",
+                   "d100_wide", "d300_wide", "d301", "b1_h4_train",
+                   "d320_sq_lt_sk", "entry_train")
 
 SCHED = dict(nodes=256, tasks=100_000, classes=32)
 SCHED_PIPELINED_TICKS = 3
@@ -673,7 +685,7 @@ def phase_build(report: dict) -> None:
             print(f"build: ptxas {kernel_name(row['kernel'])[-60:]}: "
                   f"{row.get('registers')} registers at entry, "
                   f"{row.get('spill')} {row['notes']}", flush=True)
-    # the FMA kernels: one instantiation per padded head dim
+    # K2's fp32 FMA kernel up to 256: one instantiation per padded head dim
     small = [r for r in report["ptxas"]
              if "f32_kernel" in r["kernel"]
              and "ring_f32_kernel" not in r["kernel"]]
@@ -683,7 +695,7 @@ def phase_build(report: dict) -> None:
         "max_registers": max((r.get("registers", 0) for r in small),
                              default=0),
         "spilling": [f"{r['kernel']}: {r.get('spill')}" for r in spilling]}
-    print(f"build: {len(small)} FMA instantiations, at most "
+    print(f"build: {len(small)} FMA (K2 fp32) instantiations, at most "
           f"{report['ptxas_fma']['max_registers']} registers, "
           f"{len(spilling)} of them spill", flush=True)
 
@@ -2702,9 +2714,9 @@ def _debug_text(name: str) -> dict:
 
 def phase_debug(report: dict) -> dict:
     """The JAX package's test configs on the card through the kernels
-    (head_dim 16, float32: the FMA route): ModelConfig.debug() and
-    tiny_moe() served and one train step of each, ViTConfig.debug()
-    served, each against the plain attention."""
+    (head_dim 16, float32: K1 and K3 on fma_f32_ring, K2 on fma_f32):
+    ModelConfig.debug() and tiny_moe() served and one train step of each,
+    ViTConfig.debug() served, each against the plain attention."""
     import functools
 
     import numpy as np
@@ -6904,18 +6916,19 @@ def _kernel_table(report: dict, paths: dict) -> list:
         "kernel_route": fwd["route"],
         "source": csrc + "flash_attn_fwd.cu",
         # the wgmma kernel and C entry, then the padded wgmma kernel and
-        # its TMA and cp.async feeds, FMA and, past 256, the wgmma kernel
-        # and its two feeds and the ring-fed FMA route
+        # its TMA and cp.async feeds, the fp32 ring kernel (its one-slice
+        # launcher) and, past 256, the wgmma kernel and its two feeds and
+        # the ring kernel's slices
         "sources": [csrc + f for f in ("flash_attn_fwd.cu",
                                        "flash_attn_fwd_padded.cuh",
                                        "flash_attn_fwd_padded.cu",
                                        "flash_attn_fwd_padded_cp_async.cu",
-                                       "flash_attn_fwd_fma.cu",
+                                       "flash_attn_ring_f32.cuh",
+                                       "flash_attn_fwd_fma_ring.cu",
                                        "flash_attn_dchunk_fwd_wgmma.cuh",
                                        "flash_attn_dchunk_fwd_wgmma.cu",
                                        "flash_attn_dchunk_fwd_cp_async.cu",
-                                       "flash_attn_dchunk_fma.cu",
-                                       "flash_attn_dchunk_ring_f32.cuh")],
+                                       "flash_attn_dchunk_fma.cu")],
         "replaces": "ray_tpu/ops/attention.py:202",
         **launches("fwd"), "head_dims_by_route": head_dims("fwd"),
         "max_abs_err": max(r["max_abs_err"]
@@ -6933,19 +6946,21 @@ def _kernel_table(report: dict, paths: dict) -> list:
             "kernel_route": bwd["routes"][kernel],
             "source": csrc + "flash_attn_bwd.cu",
             # the wgmma kernels at d 64/128 and padded D (the padded one
-            # and its TMA and cp.async feeds), FMA, and past 256 the wgmma
-            # kernel and its two feeds and the ring-fed FMA kernel
+            # and its TMA and cp.async feeds), fp32 up to 256 (K2 FMA, K3
+            # the ring kernel's one-slice launcher), and past 256 the
+            # wgmma kernel and its two feeds and the ring kernel's slices
             "sources": [csrc + f for f in (
                 "flash_attn_bwd.cu",
                 "flash_attn_bwd_dq_ws.cuh" if kernel == "dq"
                 else "flash_attn_bwd_dkdv_padded.cuh",
                 f"flash_attn_bwd_{kernel}_padded.cu",
                 f"flash_attn_bwd_{kernel}_padded_cp_async.cu",
-                "flash_attn_bwd_fma.cu",
+                "flash_attn_bwd_fma.cu" if kernel == "dq"
+                else "flash_attn_bwd_dkdv_fma_ring.cu",
                 "flash_attn_dchunk_bwd_wgmma.cuh",
                 f"flash_attn_dchunk_bwd_{kernel}_wgmma.cu",
                 f"flash_attn_dchunk_bwd_{kernel}_cp_async.cu",
-                "flash_attn_dchunk_ring_f32.cuh",
+                "flash_attn_ring_f32.cuh",
                 f"flash_attn_dchunk_bwd_{kernel}_fma.cu")],
             "replaces": f"ray_tpu/ops/attention.py:{line}",
             **launches(kernel), "head_dims_by_route": head_dims(kernel),

@@ -129,15 +129,19 @@
 //     warps), which served D under 64 and off the multiples of 8 at about
 //     1 % of their bound.
 //   - fp32, every head_dim 1..256: exact FMAs on the CUDA cores (the
-//     tensor cores would round to tf32), warps of 8 rows, the forward's
-//     fp32 layout (flash_attn_bwd_fma.cu).
+//     tensor cores would round to tf32). K2 in warps of 8 rows
+//     (flash_attn_bwd_fma.cu, route "fma_f32"); K3 register-blocked and
+//     fed by a cp.async ring, one slice of dK and dV (all of D) a block
+//     with its keys of K and V resident (route "fma_f32_ring",
+//     flash_attn_bwd_dkdv_fma_ring.cu; the kernel in
+//     flash_attn_ring_f32.cuh).
 //   - past 256 (the tile rings of a block no longer fit its 227 KB of
 //     shared memory at full width): K2 and K3 in bf16 at D % 8 == 0 on
 //     wgmma (route "dchunk_wgmma_tma_ws", flash_attn_dchunk_bwd_wgmma.cuh:
 //     a block per tile and slice of its output's columns, up to 256 of dq
 //     and 128 of dk/dv, S and dP over the whole head dim in TMA boxes);
 //     in fp32 on register-blocked FMAs fed by a cp.async ring
-//     ("dchunk_fma_f32_ring", flash_attn_dchunk_ring_f32.cuh, slices of
+//     ("dchunk_fma_f32_ring", flash_attn_ring_f32.cuh, slices of
 //     up to 320 columns); in bf16 off the multiples of 8 (a row stride
 //     TMA cannot take) the same wgmma kernel with its boxes filled by the
 //     producer warpgroups ("dchunk_wgmma_cp_async_ws").
@@ -511,9 +515,9 @@ extern "C" int rtt_flash_attn_bwd_dkdv(const void* q, const void* k,
     return rtt::bwd_dkdv_dchunk_wgmma_cp_async(q, k, v, dout, l, dl, dk, dv,
                                                B, H, Sq, Sk, D, causal, scale,
                                                s);
-  if (dtype == 0)
-    return rtt::bwd_dkdv_fma(q, k, v, dout, l, dl, dk, dv, B, H, Sq, Sk, D,
-                             causal, scale, s);
+  if (rtt::fma_ring_head_dim(D) && dtype == 0)
+    return rtt::bwd_dkdv_fma_ring(q, k, v, dout, l, dl, dk, dv, B, H, Sq, Sk,
+                                  D, causal, scale, s);
   if (dtype != 1) return cudaErrorInvalidValue;
   if (D == 64 || D == 128) {
     // K3's lse/delta rows are TMA-copied directly only when they start on

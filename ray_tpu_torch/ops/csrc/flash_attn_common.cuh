@@ -1,7 +1,7 @@
-// Helpers shared by the flash-attention kernels (flash_attn_*.cu): warp
-// reductions, bf16 packing, cp.async group commits and waits, the row
-// loaders and products of the FMA routes, the bf16 row stores, and the
-// dispatch of a head dim to its padded instantiation.
+// Helpers shared by the flash-attention kernels (flash_attn_*.cu): bf16
+// packing, cp.async group commits and waits, the row loader and products
+// of K2's FMA route, the bf16 row stores, and the dispatch of a head dim
+// to its padded instantiation.
 // Each .cu file includes this once; everything here is inline code in an
 // anonymous namespace, so the translation units do not share symbols.
 
@@ -23,19 +23,6 @@ __device__ __forceinline__ float4 ld4(const float* p) {
   return *reinterpret_cast<const float4*>(p);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 // two floats -> packed bf16x2, the first in the low half (lower k index)
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
@@ -51,7 +38,7 @@ __device__ __forceinline__ void cp_async_wait() {
 }
 
 // ---------------------------------------------------------------------------
-// Any head dim D in [1, MAX_HEAD_DIM] on the FMA routes: each kernel is
+// Any head dim D in [1, MAX_HEAD_DIM] on K2's FMA route: its kernel is
 // instantiated at a padded head dim DP (D rounded up to 32) and told the
 // real D. Loads fill the columns past D with zeros in shared memory (they
 // add nothing to q.k or p.v), stores drop them. A row whose byte width is
@@ -108,9 +95,8 @@ __device__ __forceinline__ void load_rows_f32(float* dst, const float* src,
   }
 }
 
-// The FMA routes' two products, for warps of FMA_ROWS rows over fp32 row
-// tiles of DP + PAD floats in shared memory (flash_attn_bwd_fma.cu, and
-// every kernel of flash_attn_dchunk_fma.cu at DP 64).
+// K2's FMA route's two products, for warps of FMA_ROWS rows over fp32 row
+// tiles of DP + PAD floats in shared memory (flash_attn_bwd_fma.cu).
 constexpr int FMA_ROWS = 8;
 
 // rows x columns (lane + 32 j) dot products of two row sets sharing the

@@ -55,8 +55,11 @@
 //     a row stride TMA cannot take, the producer warpgroup fills the
 //     same swizzled boxes by cp.async or, at odd D, through registers
 //     ("wgmma_cp_async_ws_padded", flash_attn_fwd_padded_cp_async.cu);
-//   - fp32, every head_dim 1..256: exact fp32 FMAs on the CUDA cores in
-//     flash_attn_fwd_fma.cu (the tensor cores would round fp32 to tf32);
+//   - fp32, every head_dim 1..256: exact fp32 FMAs on the CUDA cores (the
+//     tensor cores would round fp32 to tf32), register-blocked and fed by
+//     a cp.async ring, one slice of O (all of D) a block with Q resident
+//     (route "fma_f32_ring", flash_attn_fwd_fma_ring.cu; the kernel in
+//     flash_attn_ring_f32.cuh);
 //   - bf16 and fp32, every head_dim past 256, where a block no longer
 //     holds full-width tiles beside its rings in the 227 KB of shared
 //     memory it may have: a block owns a slice of O's columns, up to 256
@@ -67,7 +70,8 @@
 //     (route "dchunk_wgmma_tma_ws") and by cp.async or through registers
 //     at D % 8 != 0 ("dchunk_wgmma_cp_async_ws"); fp32 on register-blocked
 //     FMAs fed by a cp.async ring ("dchunk_fma_f32_ring",
-//     flash_attn_dchunk_fma.cu).
+//     flash_attn_dchunk_fma.cu), the kernel of "fma_f32_ring" with its q
+//     rows streamed.
 // All skip every tile above the causal diagonal by making it the loop
 // bound (the TPU kernel's index-map clamp has no counterpart), schedule
 // the longest q tiles first, and mask ragged lengths themselves
@@ -364,9 +368,9 @@ extern "C" int rtt_flash_attn_fwd(const void* q, const void* k,
   if (rtt::dchunk_unaligned_head_dim(D) && dtype == 1)
     return rtt::fwd_dchunk_wgmma_cp_async(q, k, v, out, lse_f, B, H, Sq, Sk,
                                           D, causal, scale, s);
-  if (dtype == 0)
-    return rtt::fwd_fma(q, k, v, out, lse_f, B, H, Sq, Sk, D, causal, scale,
-                        s);
+  if (rtt::fma_ring_head_dim(D) && dtype == 0)
+    return rtt::fwd_fma_ring(q, k, v, out, lse_f, B, H, Sq, Sk, D, causal,
+                             scale, s);
   if (dtype != 1) return cudaErrorInvalidValue;
   if (D == 64)
     return launch_ws<64>(q, k, v, out, lse_f, B, H, Sq, Sk, causal, scale, s);

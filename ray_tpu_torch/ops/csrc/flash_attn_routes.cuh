@@ -3,10 +3,11 @@
 // side: in bf16 all three on wgmma at every other head dim (their boxes
 // filled by TMA where the row stride is a multiple of 16 bytes, by
 // cp.async or through registers where not; up to 256 and past it), so a
-// head dim takes the same route for all three; in fp32 the FMA kernels up
-// to 256 and the register-blocked ring kernels past it. The C entry
-// points in flash_attn_fwd.cu and flash_attn_bwd.cu dispatch to them. The
-// FMA routes take any head dim D in [1, MAX_HEAD_DIM]
+// head dim takes the same route for all three; in fp32 the
+// register-blocked ring kernels (flash_attn_ring_f32.cuh) for K1 and K3
+// at every head dim and for K2 past 256, K2's FMA kernel up to 256. The
+// C entry points in flash_attn_fwd.cu and flash_attn_bwd.cu dispatch to
+// them. K2's FMA route takes any head dim D in [1, MAX_HEAD_DIM]
 // (flash_attn_common.cuh), each other route the D its constexpr below
 // admits; each returns a cudaError_t (cudaErrorInvalidValue for a D
 // outside its set). attention.py::kernel_route is the same table in
@@ -22,10 +23,21 @@
 
 namespace rtt {
 
-// K1, fp32 on the CUDA cores (flash_attn_fwd_fma.cu)
-cudaError_t fwd_fma(const void* q, const void* k, const void* v, void* out,
-                    float* lse, int B, int H, int Sq, int Sk, int D,
-                    int causal, float scale, cudaStream_t stream);
+// The fp32 head dims K1 and K3 take on their ring kernels in one slice
+// (route "fma_f32_ring"): every D up to 256
+constexpr bool fma_ring_head_dim(int D) { return D >= 1 && D <= 256; }
+// K1 and K3 in fp32 at those head dims: register-blocked FMAs fed by a
+// cp.async ring, the block's own rows resident (flash_attn_fwd_fma_ring.cu
+// and flash_attn_bwd_dkdv_fma_ring.cu, one kernel each in
+// flash_attn_ring_f32.cuh)
+cudaError_t fwd_fma_ring(const void* q, const void* k, const void* v,
+                         void* out, float* lse, int B, int H, int Sq, int Sk,
+                         int D, int causal, float scale, cudaStream_t stream);
+cudaError_t bwd_dkdv_fma_ring(const void* q, const void* k, const void* v,
+                              const void* dout, const float* lse,
+                              const float* delta, void* dk, void* dv, int B,
+                              int H, int Sq, int Sk, int D, int causal,
+                              float scale, cudaStream_t stream);
 // The bf16 head dims K1, K2 and K3 take on their padded wgmma kernels
 // fed by TMA: D % 8 == 0 (TMA's 16-byte row stride) up to 256 but 64 and
 // 128 (their own instantiations in flash_attn_fwd.cu and
@@ -77,17 +89,13 @@ cudaError_t bwd_dkdv_padded_cp_async(const void* q, const void* k,
                                      void* dk, void* dv, int B, int H,
                                      int Sq, int Sk, int D, int causal,
                                      float scale, cudaStream_t stream);
-// K2 and K3, fp32 on the CUDA cores (flash_attn_bwd_fma.cu)
+// K2, fp32 on the CUDA cores at every head dim up to 256
+// (flash_attn_bwd_fma.cu)
 cudaError_t bwd_dq_fma(const void* q, const void* k, const void* v,
                        const void* dout, const float* lse,
                        const float* delta, void* dq, int B, int H, int Sq,
                        int Sk, int D, int causal, float scale,
                        cudaStream_t stream);
-cudaError_t bwd_dkdv_fma(const void* q, const void* k, const void* v,
-                         const void* dout, const float* lse,
-                         const float* delta, void* dk, void* dv, int B,
-                         int H, int Sq, int Sk, int D, int causal,
-                         float scale, cudaStream_t stream);
 
 // The head dims past 256 (the per-head-dim routes' widest), in bf16 and
 // in fp32, with no upper bound
@@ -141,8 +149,8 @@ cudaError_t bwd_dkdv_dchunk_wgmma_cp_async(
 // K1, K2 and K3 in fp32 on the CUDA cores at every head dim past 256,
 // register-blocked FMAs fed by cp.async rings, a block per output slice
 // of up to 320 columns (K1 flash_attn_dchunk_fma.cu; K2 and K3
-// flash_attn_dchunk_bwd_dq_fma.cu and flash_attn_dchunk_bwd_dkdv_fma.cu,
-// one kernel in flash_attn_dchunk_ring_f32.cuh)
+// flash_attn_dchunk_bwd_dq_fma.cu and flash_attn_dchunk_bwd_dkdv_fma.cu;
+// the kernels in flash_attn_ring_f32.cuh)
 cudaError_t fwd_dchunk_fma(const void* q, const void* k, const void* v,
                            void* out, float* lse, int B, int H, int Sq,
                            int Sk, int D, int causal, float scale,

@@ -1,16 +1,19 @@
 """K1, K2 and K3 at head dims off the wgmma route's 64 and 128, against
 their plain versions: the short first call after the padded wgmma
-(fed by TMA or by cp.async), FMA or chunked (past 256) kernels change.
+(fed by TMA or by cp.async), fp32 (K1's and K3's ring kernels, K2's FMA
+kernel) or chunked (past 256) kernels change.
 
     python3 -m ray_tpu_torch.tools.check_head_dims
 
-Builds the kernels (printing the build time; for the FMA kernels the
-most registers any instantiation uses and every one that spills; for
-each instantiation of the padded wgmma kernels of K1, K2 and K3 (each
-width, consumer warpgroups and feed) and of the kernels past 256 (K1's
-two, and K2's and K3's wgmma kernel at each feed and their ring kernel)
-its registers, spills and ptxas's performance notes, such as wgmmas
-serialised for want of registers), then for each (dtype, head dim) in
+Builds the kernels (printing the build time; for K2's FMA kernel and
+the fp32 ring kernels the most registers any instantiation uses and
+every one that spills; for each instantiation of the padded wgmma
+kernels of K1, K2 and K3 (each width, consumer warpgroups and feed), of
+K1's and K3's ring kernels up to 256 (each one-slice width and copy
+size) and of the kernels past 256 (K1's two, and K2's and K3's wgmma
+kernel at each feed and their ring kernel) its registers, spills and
+ptxas's performance notes, such as wgmmas serialised for want of
+registers), then for each (dtype, head dim) in
 ``CASES`` (and ``WIDE_CASES`` at their own shapes) runs the forward,
 then K2 and K3 on its lse, at a ragged shape with Sq != Sk (causal at
 even head dims, non-causal at odd ones), and holds out/lse against
@@ -34,8 +37,11 @@ import sys
 import time
 
 # (dtype, head dims): every padded instantiation's edges -- element-wise
-# rows (D % 8 != 0 in bf16, D % 4 != 0 in fp32), fp32's 32-row tiles
-# past 160, and in bf16 the padded wgmma widths of K1, K2 and K3 at each
+# rows (D % 8 != 0 in bf16, D % 4 != 0 in fp32), in fp32 each one-slice
+# width of K1's and K3's ring kernels (16, 32, 64, 128, 192, 256: D 1,
+# 3, 16, 20, 33, 64, 100, 128, 160, 161, 192, 224, 256, with 4-byte copies
+# at 1, 3, 33 and 161) and K2's 32-row tiles past 192, and in bf16 the
+# padded wgmma widths of K1, K2 and K3 at each
 # feed (D rounded up to 32: 32 ... 256; a 32-column piece at 80, 96,
 # 160, 224; D 72 and 200 short of their padding by 24; fed by TMA at D %
 # 8 == 0, under 64 in one box (8 ... 56; K3 splitting its two products
@@ -52,8 +58,8 @@ CASES = [
                   # (576), 224 (448) and 256 (512), dk/dv's to 96 (264)
                   # and 128
                   257, 258, 264, 300, 301, 320, 448, 512, 576)),
-    ("float32", (1, 3, 16, 20, 33, 64, 100, 128, 160, 161, 192, 224, 256,
-                 257, 264, 300, 320, 384, 512)),
+    ("float32", (1, 3, 16, 20, 32, 33, 64, 100, 128, 160, 161, 192, 224,
+                 255, 256, 257, 264, 300, 320, 384, 512)),
 ]
 SHAPE = (2, 300, 237, 3)  # B, Sq, Sk, H
 # (dtype, head dim, (B, Sq, Sk, H)): the wgmma kernels at shapes whose
@@ -68,7 +74,7 @@ SHAPE = (2, 300, 237, 3)  # B, Sq, Sk, H
 # streamed (704: eleven boxes; 650); up to 256 the padded kernels fed by
 # TMA under 64 (16), by cp.async (100) and through registers (33); fp32
 # at slices of 320 and of 256 columns, with 16- and 4-byte copies (D
-# 302)
+# 302), and up to 256 on many blocks of 64 rows (d 16 and 128, Sq != Sk)
 WIDE_CASES = [
     ("bfloat16", 512, (2, 1000, 700, 8)),
     ("bfloat16", 640, (2, 700, 1000, 8)),
@@ -84,6 +90,8 @@ WIDE_CASES = [
     ("float32", 320, (2, 700, 1000, 8)),
     ("float32", 302, (2, 1000, 700, 8)),
     ("float32", 512, (1, 1000, 1000, 8)),
+    ("float32", 16, (2, 1000, 700, 16)),
+    ("float32", 128, (2, 700, 1000, 8)),
 ]
 # (consumer warpgroups, rows resident) of K2's and K3's wgmma kernels
 # past 256: the layouts the cases must reach on each feed (K3 takes one
@@ -103,7 +111,8 @@ BWD_TOL = {"bfloat16": (5e-2, 2e-2), "float32": (1e-5, 1e-5)}
 
 
 def ptxas_summary(log: str) -> dict:
-    """Most registers and every spilling kernel of the FMA routes in
+    """Most registers and every spilling kernel of the fp32 kernels (K2's
+    FMA kernel, "fma"; the ring kernels of either side of 256, "ring") in
     ``nvcc -Xptxas=-v``'s report."""
     name, most, spills = None, {}, []
     for ln in log.splitlines():
@@ -111,7 +120,7 @@ def ptxas_summary(log: str) -> dict:
             name = ln.split("'")[1]
         elif name and "f32_kernel" in name:
             if "Used" in ln and "registers" in ln:
-                route = "dchunk_fma" if "dchunk" in name else "fma"
+                route = "ring" if "ring_f32_kernel" in name else "fma"
                 regs = int(ln.split("Used")[1].split()[0])
                 most[route] = max(most.get(route, 0), regs)
             elif "spill stores" in ln and not ln.strip().startswith(
@@ -137,13 +146,16 @@ def kernel_name(mangled: str) -> str:
 
 
 # the wgmma kernels of K1 and K3 at the padded widths, and of K2 (every
-# width); the kernels past 256 at each slice width: K1's two (the bf16 one
-# also by consumer warpgroups and Q resident or not), K2's and K3's wgmma
-# kernel (by consumer warpgroups and rows resident or not) and ring kernel
+# width); the kernels past 256 at each slice width: K1's wgmma kernel (by
+# consumer warpgroups and Q resident or not), K2's and K3's wgmma kernel
+# (by consumer warpgroups and rows resident or not); the fp32 ring kernels
+# of K1 and of K2/K3 at each shape (rows a thread, head-dim step, column
+# group, groups, slice-step rows, rows resident, copy size), on both sides
+# of 256
 _WGMMA_ROWS = ("flash_fwd_padded_kernel<", "bwd_dq_ws_kernel<",
                "bwd_dkdv_padded_kernel<", "fwd_dchunk_wgmma_kernel<",
-               "fwd_dchunk_ring_f32_kernel<", "bwd_dchunk_wgmma_kernel<",
-               "bwd_dchunk_ring_f32_kernel<")
+               "fwd_ring_f32_kernel<", "bwd_dchunk_wgmma_kernel<",
+               "bwd_ring_f32_kernel<")
 
 
 def wgmma_rows(log: str) -> list:

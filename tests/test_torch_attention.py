@@ -245,6 +245,53 @@ def test_flash_attention_past_head_dim_256_matches_jax(d, dtype):
                                    np.asarray(want, np.float32), **gtol)
 
 
+@pytest.mark.parametrize("d,b,s,heads,kv_heads", [
+    # ModelConfig.debug's attention: 4 heads over 2 kv heads, d 16, its
+    # max_seq 128
+    (16, 2, 128, 4, 2),
+    # d 128, ragged (no multiple of the 128-key block), no GQA
+    (128, 1, 150, 2, 2),
+])
+def test_flash_attention_fp32_ring_head_dims_match_jax(d, b, s, heads,
+                                                        kv_heads):
+    """The plain versions the fp32 kernels up to 256 are held against on
+    the card (K1 and K3 on their ring kernels, K2 on FMA): the port's
+    flash_attention on the CPU, forward and grads, against the JAX
+    package's flash_attention and jax.vjp, causal, with k and v repeated
+    from kv_heads to heads on both sides as the models do (jnp.repeat /
+    torch.repeat_interleave on the head axis), so the grads reach the
+    un-repeated k and v. Tolerances: TOL for the forward, GRAD_TOL for
+    the grads (the module's, the JAX package's own)."""
+    import jax
+
+    rng = np.random.default_rng(1000 + d)
+    q, g = (rng.standard_normal((b, s, heads, d)).astype(np.float32)
+            for _ in range(2))
+    k, v = (rng.standard_normal((b, s, kv_heads, d)).astype(np.float32)
+            for _ in range(2))
+    rep = heads // kv_heads
+
+    def j_attn(a, kk, vv):
+        return A.flash_attention(a, jnp.repeat(kk, rep, axis=2),
+                                 jnp.repeat(vv, rep, axis=2), True)
+
+    j_out, vjp = jax.vjp(j_attn, *(jnp.asarray(x) for x in (q, k, v)))
+    j_grads = vjp(jnp.asarray(g))
+    tq, tk, tv = (torch.from_numpy(x).requires_grad_() for x in (q, k, v))
+    out = T.flash_attention(tq, tk.repeat_interleave(rep, dim=2),
+                            tv.repeat_interleave(rep, dim=2), causal=True)
+    out.backward(torch.from_numpy(g))
+    assert T.kernel_route("fwd", torch.float32, d) == T.FMA_RING
+    assert T.kernel_route("dkdv", torch.float32, d) == T.FMA_RING
+    assert T.kernel_route("dq", torch.float32, d) == T.FMA
+    np.testing.assert_allclose(out.detach().numpy(), np.asarray(j_out),
+                               **TOL)
+    for got, want in zip((tq.grad, tk.grad, tv.grad), j_grads):
+        assert tuple(got.shape) == tuple(want.shape)
+        np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                                   **GRAD_TOL)
+
+
 @pytest.mark.parametrize("d", [20, 33, 48])
 def test_flash_attention_bf16_grads_under_64_match_jax(d):
     """The head dims K2 and K3 took on mma.sync until they moved onto

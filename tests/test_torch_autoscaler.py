@@ -75,9 +75,15 @@ def _on_both(scenario, num_cpus: int):
 def _own_state_dir(tmp_path, monkeypatch):
     """``ray up``'s state files under this test's tmp_path, and a small
     object store for every raylet a provider starts (the port's
-    segments are prefaulted)."""
+    segments are prefaulted). The port's cached Config is dropped after
+    the test: built under this environment it holds the 64 MiB store,
+    which would reach the next test file run in this process."""
+    from ray_tpu_torch._private.config import Config
+
     monkeypatch.setenv("HOME", str(tmp_path))
     monkeypatch.setenv("RAY_TPU_object_store_memory", str(64 << 20))
+    yield
+    Config.reset()
 
 
 # ------------------------------------------------ pure planning function

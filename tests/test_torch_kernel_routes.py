@@ -60,10 +60,11 @@ ROOT = Path(__file__).resolve().parents[1]
     ("dq", torch.bfloat16, 128, T.WGMMA),
     ("dq", torch.bfloat16, 64, T.WGMMA),
     ("dq", torch.bfloat16, 32, T.WGMMA_PADDED),
-    # float32: exact FMAs for all three
-    ("fwd", torch.float32, 128, T.FMA),
+    # float32 up to 256: K1 and K3 on their ring kernels, K2 on its FMA
+    # kernel
+    ("fwd", torch.float32, 128, T.FMA_RING),
     ("dq", torch.float32, 64, T.FMA),
-    ("dkdv", torch.float32, 32, T.FMA),
+    ("dkdv", torch.float32, 32, T.FMA_RING),
     # past 256, both dtypes (the kernel phase's rows at 264, 320 and
     # 512): all three on the Hopper kernels, wgmma in bf16 at D % 8 == 0
     # and the ring-fed FMA kernels in fp32
@@ -106,15 +107,16 @@ def test_kernel_route_takes_every_head_dim_to_256(kernel, dtype):
     """Every head dim has a kernel, the same for K1, K2 and K3: bf16
     keeps wgmma at 64 and 128 and takes the padded wgmma kernels at every
     other head dim up to 256, fed by TMA at the multiples of 8 and by
-    cp.async off them; fp32 takes the FMA kernels at all up to 256; past
-    256, with no upper bound, all three take the wgmma kernels in bf16
-    (fed by TMA at D % 8 == 0, by cp.async off it) and the ring-fed FMA
-    kernels in fp32; 0 raises."""
+    cp.async off them; fp32 takes the ring kernels (K1, K3) and the FMA
+    kernel (K2) at all up to 256; past 256, with no upper bound, all three
+    take the wgmma kernels in bf16 (fed by TMA at D % 8 == 0, by cp.async
+    off it) and the ring-fed FMA kernels in fp32; 0 raises."""
     padded = [d for d in range(1, T.DCHUNK_PAST + 1)
               if d % 8 == 0 and d not in (64, 128)]
     assert len(padded) == 30 and padded[0] == 8 and padded[-1] == 256
     for d in range(1, T.DCHUNK_PAST + 1):
-        want = (T.FMA if dtype == torch.float32 else
+        fp32 = T.FMA if kernel == "dq" else T.FMA_RING
+        want = (fp32 if dtype == torch.float32 else
                 T.WGMMA if d in (64, 128) else
                 T.WGMMA_PADDED if d in padded else T.WGMMA_PADDED_CP)
         assert T.kernel_route(kernel, dtype, d) == want, d
@@ -509,20 +511,21 @@ def test_chunked_route_is_built_dispatched_and_held_on_the_card():
     csrc = ROOT / "ray_tpu_torch" / "ops" / "csrc"
     fwd = (csrc / "flash_attn_fwd.cu").read_text()
     bwd = (csrc / "flash_attn_bwd.cu").read_text()
-    assert fwd.index("rtt::fwd_dchunk_fma(") < fwd.index("rtt::fwd_fma(")
+    assert fwd.index("rtt::fwd_dchunk_fma(") < fwd.index(
+        "rtt::fwd_fma_ring(")
     assert fwd.index("rtt::fwd_dchunk_wgmma_cp_async(") < fwd.index(
         "launch_ws<64>(")
     assert fwd.index("rtt::fwd_dchunk_wgmma(") < fwd.index(
         "rtt::fwd_dchunk_wgmma_cp_async(")
     assert fwd.index("rtt::fwd_dchunk_fma(") < fwd.index(
         "rtt::fwd_dchunk_wgmma_cp_async(")
-    for kernel in ("dq", "dkdv"):
+    for kernel, fp32 in (("dq", "fma("), ("dkdv", "fma_ring(")):
         assert bwd.index(f"rtt::bwd_{kernel}_dchunk_fma(") < bwd.index(
-            f"rtt::bwd_{kernel}_fma(")
+            f"rtt::bwd_{kernel}_{fp32}")
         assert bwd.index(f"rtt::bwd_{kernel}_dchunk_wgmma(") < bwd.index(
             f"rtt::bwd_{kernel}_dchunk_wgmma_cp_async(")
         assert bwd.index(f"rtt::bwd_{kernel}_dchunk_wgmma_cp_async(") < (
-            bwd.index(f"rtt::bwd_{kernel}_fma("))
+            bwd.index(f"rtt::bwd_{kernel}_{fp32}"))
     cs = _chip_smoke()
     fwd_rows = {row[0]: row[1:] for row in cs.KERNEL_SHAPES}
     bwd_rows = {row[0]: row[1:] for row in cs.BWD_SHAPES}
@@ -639,16 +642,16 @@ def test_check_head_dims_reports_the_kernels_past_256():
         "'sm_90a'",
         "ptxas info    : Used 168 registers, used 1 barriers",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
-        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_126"
-        "fwd_dchunk_ring_f32_kernelILi5ELb0EEEvPKfS2_S2_PfS3_iiiiif' for "
-        "'sm_90a'",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119"
+        "fwd_ring_f32_kernelILi4ELi64ELi64ELi5ELi16ELb0ELb0EEEvPKfS2_S2_"
+        "PfS3_iiiiif' for 'sm_90a'",
         "ptxas info    : Used 230 registers, used 1 barriers",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
     ])
     rows = wgmma_rows(log)
     assert [r["kernel"] for r in rows] == [
         "fwd_dchunk_wgmma_kernel<256, 2, 1>",
-        "fwd_dchunk_ring_f32_kernel<5, 0>"]
+        "fwd_ring_f32_kernel<4, 64, 64, 5, 16, 0, 0>"]
     assert [r["registers"] for r in rows] == [168, 230]
     # two consumer warpgroups need at least 132 blocks of 128 rows
     for dtype, d, (b, sq, _, h) in WIDE_CASES:
@@ -757,8 +760,9 @@ def test_each_feed_is_instantiated_at_each_width_without_trap(
 
 
 def test_no_source_names_a_removed_kernel():
-    """The mma.sync kernels of K1, K2 and K3 and the chunked fp32 K2 and K3
-    kernels past 256 are gone: no source, build list or smoke list names
+    """The mma.sync kernels of K1, K2 and K3, the chunked fp32 K2 and K3
+    kernels past 256 and the fp32 K1 and K3 up to 256 that the ring
+    kernels replaced are gone: no source, build list or smoke list names
     them, no kernel source issues an mma.sync or ldmatrix instruction,
     every listed source exists, and every kernel source in csrc/ is
     listed; no bf16 route of K1, K2 or K3 at any head dim is one of the
@@ -769,7 +773,10 @@ def test_no_source_names_a_removed_kernel():
             "bwd_dkdv_dchunk_f32_kernel", "flash_attn_dchunk.cu",
             "flash_attn_bwd_dq_mma.cu", "flash_attn_bwd_dkdv_mma.cu",
             "bwd_dq_mma(", "bwd_dkdv_mma(", "dchunk_mma(",
-            "mma.sync.aligned", "ldmatrix")
+            "mma.sync.aligned", "ldmatrix", "flash_attn_fwd_fma.cu",
+            "flash_fwd_f32_kernel", "rtt::fwd_fma(", "bwd_dkdv_f32_kernel",
+            "bwd_dkdv_fma(", "flash_attn_dchunk_ring_f32.cuh",
+            "fwd_dchunk_ring_f32_kernel", "bwd_dchunk_ring_f32_kernel")
     for path in csrc.iterdir():
         text = path.read_text()
         assert not [g for g in gone if g in text], path.name
@@ -879,27 +886,31 @@ def test_dchunk_bwd_ring_source_instantiates_each_width_and_copy_size():
     """K2's and K3's fp32 kernel past 256 is one template in the header
     K1's ring kernel shares (its ring copies and barrier), instantiated
     by one source a kernel at each slice width (3, 4 or 5 groups of 64
-    columns) and both copy sizes (16 bytes at D % 4 == 0, else 4); it
-    sums on the CUDA cores alone (no mma, no tf32)."""
+    columns, the rows streamed) and both copy sizes (16 bytes at D % 4 ==
+    0, else 4); it sums on the CUDA cores alone (no mma, no tf32)."""
     csrc = ROOT / "ray_tpu_torch" / "ops" / "csrc"
-    header = "flash_attn_dchunk_ring_f32.cuh"
+    header = "flash_attn_ring_f32.cuh"
     assert header in T._HEADERS
     code = re.sub(r"//[^\n]*", "", (csrc / header).read_text())
-    assert set(re.findall(r"launch_bwd_ring<(\d), VEC, DKDV>", code)) == {
-        "3", "4", "5"}
+    past = code[code.index("cudaError_t dchunk_shape("):]
+    past = past[:past.index("\n}\n")]
+    assert set(re.findall(r"RingShape<4, 64, 64, (\d), 16, false>",
+                          past)) == {"3", "4", "5"}
     assert "RF_MAX_SLICE = 320" in code
     assert "mma" not in code and "tf32" not in code.lower()
-    assert "pick(std::true_type{})" in code and (
-        "pick(std::false_type{})" in code)
+    assert "launch(std::true_type{})" in code and (
+        "launch(std::false_type{})" in code)
     for kernel, flag in (("dq", "false"), ("dkdv", "true")):
         name = f"flash_attn_dchunk_bwd_{kernel}_fma.cu"
         assert name in T._SOURCES
         src = (csrc / name).read_text()
         assert f'#include "{header}"' in src
-        assert f"bwd_dchunk_ring<{flag}>(" in src
+        assert "dchunk_shape(D," in src
+        assert f"bwd_ring_at<decltype(shape), {flag}>(" in src
     k1 = (csrc / "flash_attn_dchunk_fma.cu").read_text()
     assert f'#include "{header}"' in k1 and "bwd_" not in re.sub(
         r"//[^\n]*", "", k1)
+    assert "dchunk_shape(D," in k1 and "fwd_ring_at<" in k1
 
 
 @pytest.mark.parametrize("d,dq,dkdv", [
@@ -1068,16 +1079,16 @@ def test_check_head_dims_reports_the_backward_kernels_past_256():
         "for 'sm_90a'",
         "ptxas info    : Used 250 registers, used 1 barriers",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
-        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_126"
-        "bwd_dchunk_ring_f32_kernelILi5ELb1ELb1EEEvPKfS2_S2_S2_S2_S2_PfS3_"
-        "iiiiif' for 'sm_90a'",
+        "ptxas info    : Compiling entry function '_ZN12_GLOBAL__N_119"
+        "bwd_ring_f32_kernelILi4ELi64ELi64ELi5ELi16ELb0ELb1ELb1EEEvPKfS2_"
+        "S2_S2_S2_S2_PfS3_iiiiif' for 'sm_90a'",
         "ptxas info    : Used 240 registers, used 1 barriers",
         "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
     ])
     rows = wgmma_rows(log)
     assert [r["kernel"] for r in rows] == [
         "bwd_dchunk_wgmma_kernel<256, 1, 1, 0>",
-        "bwd_dchunk_ring_f32_kernel<5, 1, 1>"]
+        "bwd_ring_f32_kernel<4, 64, 64, 5, 16, 0, 1, 1>"]
     assert [r["registers"] for r in rows] == [250, 240]
 
 
@@ -1223,7 +1234,7 @@ def test_kernel_phase_and_compare_reach_each_route_k2_and_k3_left():
     holds them at d 16 (TMA), 20 (Sq > Sk), 33 (odd), 100 at B2 S2048 H16,
     300 at both sizes and 301, each at the forward row's shape and listed
     with the head-dim rows, and compare_kernels times both kernels there
-    against the parent, with the FMA kernels at debug_f32."""
+    against the parent, with the fp32 kernels at debug_f32."""
     from ray_tpu_torch.tools.compare_kernels import SHAPES
 
     cs = _chip_smoke()
@@ -1245,3 +1256,129 @@ def test_kernel_phase_and_compare_reach_each_route_k2_and_k3_left():
             assert timed[f"{name}_{kernel}"] == (kernel, *bwd[name]), name
     for kernel in ("fwd", "dq", "dkdv"):
         assert timed[f"debug_f32_{kernel}"] == (kernel, *bwd["debug_f32"])
+
+
+@pytest.mark.parametrize("d", [1, 16, 33, 64, 128, 255, 256])
+@pytest.mark.parametrize("kernel", ["fwd", "dq", "dkdv"])
+def test_fp32_takes_the_ring_kernels_up_to_256(kernel, d):
+    """In fp32 K1 and K3 take their ring kernels at every head dim up to
+    256 (odd ones too) and K2 its FMA kernel; past 256 all three take the
+    ring kernels' slices."""
+    want = T.FMA if kernel == "dq" else T.FMA_RING
+    assert T.kernel_route(kernel, torch.float32, d) == want
+    assert T.kernel_route(kernel, torch.float32, d + 256) == T.DCHUNK_FMA
+
+
+def test_fma_ring_rule_is_the_headers_constexpr():
+    """The C dispatch sends fp32 K1 and K3 to the ring kernels at exactly
+    the head dims attention.kernel_route names FMA_RING, after the past-256
+    check; flash_attn_fwd.cu no longer calls the old FMA forward."""
+    rule = _header_rules()["fma_ring_head_dim"]
+    for d in range(1, 1100):
+        for kernel in ("fwd", "dkdv"):
+            got = T.kernel_route(kernel, torch.float32, d) == T.FMA_RING
+            assert got == bool(rule(d)), (kernel, d)
+    csrc = ROOT / "ray_tpu_torch" / "ops" / "csrc"
+    fwd = re.sub(r"//[^\n]*", "", (csrc / "flash_attn_fwd.cu").read_text())
+    bwd = re.sub(r"//[^\n]*", "", (csrc / "flash_attn_bwd.cu").read_text())
+    assert "rtt::fwd_fma(" not in fwd and "rtt::bwd_dkdv_fma(" not in bwd
+    assert "rtt::fma_ring_head_dim(D) && dtype == 0" in fwd
+    assert "rtt::fma_ring_head_dim(D) && dtype == 0" in bwd
+    assert fwd.index("rtt::fwd_dchunk_fma(") < fwd.index(
+        "rtt::fwd_fma_ring(")
+    assert bwd.index("rtt::bwd_dkdv_dchunk_fma(") < bwd.index(
+        "rtt::bwd_dkdv_fma_ring(")
+    assert bwd.index("rtt::bwd_dq_dchunk_fma(") < bwd.index(
+        "rtt::bwd_dq_fma(")
+
+
+def _one_slice_shapes(code: str) -> list:
+    """(largest D, RM, DK, CW, NCG, VK) of each branch of the header's
+    one_slice_shape, in order, the last branch's D 256."""
+    body = code[code.index("cudaError_t one_slice_shape("):]
+    body = body[:body.index("\n}\n")]
+    out = []
+    for line in re.findall(r"(?:if \(D <= (\d+)\) )?return launch\("
+                           r"RingShape<([^>]*)>", body.replace("\n", " ")):
+        bound, args = line
+        args = [a.strip() for a in args.split(",")]
+        assert args[-1] == "true"  # the rows resident
+        out.append((int(bound) if bound else 256, args[0],
+                    *(int(a) for a in args[1:5])))
+    return out
+
+
+def test_ring_sources_instantiate_each_one_slice_width_and_copy_size():
+    """Up to 256 K1's and K3's ring kernels run one slice a block: a
+    source each (K1 flash_attn_fwd_fma_ring.cu, K3
+    flash_attn_bwd_dkdv_fma_ring.cu) launches the shared header's kernel
+    at each one-slice width -- the head dim rounded up to 16, 32 or 64
+    under 64 (head-dim step and column group alike), to 64 from there --
+    with the block's rows resident, and at both copy sizes (16 bytes at D
+    % 4 == 0, else 4); 64 rows a block (8 a thread) up to 128 columns for
+    K1 and 64 for K3, 32 past."""
+    csrc = ROOT / "ray_tpu_torch" / "ops" / "csrc"
+    header = "flash_attn_ring_f32.cuh"
+    code = re.sub(r"//[^\n]*", "", (csrc / header).read_text())
+    shapes = _one_slice_shapes(code)
+    assert [(bound, dk, cw, ncg * cw) for bound, _, dk, cw, ncg, _
+            in shapes] == [(16, 16, 16, 16), (32, 32, 32, 32),
+                           (64, 64, 64, 64), (128, 64, 64, 128),
+                           (192, 64, 64, 192), (256, 64, 64, 256)]
+    assert all(64 % vk == 0 and vk * (ncg * cw + 4) <= 64 * (dk + 4)
+               for _, _, dk, cw, ncg, vk in shapes)
+    assert [rm for _, rm, *_ in shapes] == ["8", "8", "8", "RM128", "4",
+                                            "4"]
+    assert "constexpr int RM128 = WIDE_RM >= 128 ? 8 : 4;" in code
+    assert "with_copy_size(D," in code
+    widths = (16, 32, 64, 128, 192, 256)
+    for d in range(1, 257):  # the narrowest width that holds d
+        _, _, _, cw, ncg, _ = next(s for s in shapes if d <= s[0])
+        assert ncg * cw == min(w for w in widths if w >= d), d
+    for name, wide, call in (
+            ("flash_attn_fwd_fma_ring.cu", 128,
+             "fwd_ring_at<decltype(shape)>("),
+            ("flash_attn_bwd_dkdv_fma_ring.cu", 64,
+             "bwd_ring_at<decltype(shape), true>(")):
+        assert name in T._SOURCES
+        src = re.sub(r"//[^\n]*", "", (csrc / name).read_text())
+        assert f'#include "{header}"' in src
+        assert f"one_slice_shape<{wide}>(D," in src and call in src
+        assert "if (!fma_ring_head_dim(D)) return cudaErrorInvalidValue;" \
+            in src
+    assert "mma" not in code and "tf32" not in code.lower()
+
+
+@pytest.mark.parametrize("name,shape,bounds", [
+    # B2 S2048 H16 causal fp32: 2,098,176 kept pairs a head, 2 D FLOPs a
+    # pair and product (K1 2, K2 3, K3 4) over 67 TFLOP/s
+    ("d16_f32_wide", (2, 2048, 2048, 16, 16, True, "float32"),
+     (0.06413, 0.09620, 0.12827)),
+    ("d128_f32_wide", (2, 2048, 2048, 16, 128, True, "float32"),
+     (0.51307, 0.76960, 1.02613)),
+])
+def test_kernel_phase_and_compare_hold_the_fp32_wide_rows(name, shape,
+                                                          bounds):
+    """The kernel phase holds K1, K2 and K3 in fp32 at d 16 and 128 at a
+    size where the arithmetic bounds them, listed with the head-dim rows,
+    and compare_kernels times all three there, at debug_f32 and at the
+    ragged fp32 rows against the parent."""
+    from ray_tpu_torch.tools.compare_kernels import SHAPES
+
+    cs = _chip_smoke()
+    fwd = {row[0]: row[1:] for row in cs.KERNEL_SHAPES}
+    bwd = {row[0]: row[1:] for row in cs.BWD_SHAPES}
+    timed = {row[0]: row[1:] for row in SHAPES}
+    b, sq, sk, h, d, causal, dtype = shape
+    assert fwd[name] == (b, sq, h, d, causal, dtype)
+    assert bwd[name] == shape and name in cs.HEAD_DIM_SHAPES
+    for kernel, bound_ms in zip(("fwd", "dq", "dkdv"), bounds):
+        assert timed[f"{name}_{kernel}"] == (kernel, *shape)
+        got, by = cs._attention_work(kernel, b, sq, sk, h, d, causal, dtype)
+        assert by == "operations"
+        assert got == pytest.approx(bound_ms, abs=5e-5)
+    for row in ("debug_f32", "ragged_f32"):
+        assert {f"{row}_{k}" for k in ("fwd", "dq", "dkdv")} <= set(timed)
+    assert timed["ragged_f32_dq"][1:] == bwd["ragged"]
+    assert timed["ragged_f32_fwd"][1:4] == fwd["ragged"][:2] + (
+        fwd["ragged"][1],)
