@@ -25,10 +25,10 @@ if any failed, the script exits non-zero and prints no result. Phases:
               by TMA, as do rows at 16 and 32 (the entry_train step's
               B16 S512 H8), and on them fed by cp.async rows at 20 (Sq !=
               Sk), 33 (through registers) and 100 at B2 S2048 H16; in
-              fp32 K1 and K3 on their ring kernels (route fma_f32_ring)
-              and K2 on its FMA kernel at ModelConfig.debug's d 16, at d
-              64 (ragged) and at d 16 and 128 at B2 S2048 H16, where the
-              arithmetic bounds them;
+              fp32 K1, K2 and K3 on their ring kernels (route
+              fma_f32_ring) at ModelConfig.debug's d 16, at d 64 (ragged),
+              at d 16 and 128 at B2 S2048 H16 and at d 256 at B2 S2048
+              H8, where the arithmetic bounds them;
               past 256, K1, K2 and K3 on wgmma in bf16 fed by TMA at D %
               8 == 0 (d 264, 320, 512 at B1 S1000 H4, 512 at B2 S2048
               H8, 384 non-causal with Sq != Sk; K2 and K3 also at the
@@ -37,8 +37,8 @@ if any failed, the script exits non-zero and prints no result. Phases:
               at both sizes, 301), on the ring-fed FMA kernels in fp32
               (d 320, at both sizes); no route runs mma.sync;
   2b. debug — the JAX package's test configs on the card through the
-              kernels (head_dim 16, float32: K1 and K3 on fma_f32_ring,
-              K2 on fma_f32):
+              kernels (head_dim 16, float32: K1, K2 and K3 on
+              fma_f32_ring):
               ModelConfig.debug() and tiny_moe() (routed alike) served
               and one train step of each, ViTConfig.debug() served, each
               against the plain attention within DEBUG_REL_L2_TOL, a
@@ -198,7 +198,7 @@ if any failed, the script exits non-zero and prints no result. Phases:
               worker's (built in this process on the thread tier), holds
               its tensors on cuda; PPOTrainer on CartPole at upstream RLlib's PPO
               defaults (256x256, batch 4000, minibatch 128, 30 SGD
-              passes, 2 workers) for 3 iterations, each train() split
+              passes, 2 workers) for 2 iterations, each train() split
               into sampling and learning; vision_net at 84x84x4 (batch
               128) forward+backward timed and held against the CPU; the
               card's memory after trainer.stop() within RLLIB_MEM_SLACK
@@ -314,7 +314,7 @@ if any failed, the script exits non-zero and prints no result. Phases:
               out within KERNEL_TOL and gradients within GRAD_REL_L2_TOL
               of one rank's flash_attention; b1 trained by
               build_pipeline_train_step over pp=4 (6 layers a stage, 4
-              microbatches, 7 ticks) for 3 steps at [8, 2049]: step 1's
+              microbatches, 7 ticks) for 2 steps at [8, 2049]: step 1's
               gradients of each stage's first layer and of embed within
               GRAD_REL_L2_TOL of one rank's, each step's loss within
               PARALLEL_LOSS_TOL and grad norm within GRAD_REL_L2_TOL of
@@ -363,7 +363,6 @@ import contextlib
 import json
 import math
 import os
-import re
 import subprocess
 import sys
 import threading
@@ -422,13 +421,14 @@ KERNEL_SHAPES = [
     # the xl16 train step's shape; the backward rows' d 80 (Sq < Sk), d
     # 192 (non-causal), d 120 (padded to 128, Sq > Sk) and d 224 below;
     # fed through registers at an odd D (33), and by 8-byte cp.async at a
-    # size where the arithmetic bounds it (d 100, B2 S2048 H16); fp32 (K1
-    # and K3 on their ring kernels, K2 on FMA) at the debug configs' d 16
-    # and, where the arithmetic bounds the work, at d 16 and 128 at B2
-    # S2048 H16
+    # size where the arithmetic bounds it (d 100, B2 S2048 H16); fp32 (K1,
+    # K2 and K3 on their ring kernels) at the debug configs' d 16 and,
+    # where the arithmetic bounds the work, at d 16 and 128 at B2 S2048
+    # H16 and at the widest one-slice shape, d 256 at B2 S2048 H8
     ("debug_f32", 2, 128, 4, 16, True, "float32"),
     ("d16_f32_wide", 2, 2048, 16, 16, True, "float32"),
     ("d128_f32_wide", 2, 2048, 16, 128, True, "float32"),
+    ("d256_f32_wide", 2, 2048, 8, 256, True, "float32"),
     ("d16_bf16", 2, 1000, 4, 16, True, "bfloat16"),
     ("d20_ragged", 1, 1000, 4, 20, False, "bfloat16", 700),
     ("d160", 2, 2048, 16, 160, True, "bfloat16"),
@@ -489,10 +489,12 @@ BWD_SHAPES = [
     # 128) without the causal bound, d 120 (padded to 128 in one 128-key
     # tile of K1) at Sq > Sk (the rows past Sk see every key), and d 224
     # (a 32-column piece past three boxes) at a long causal length; fp32
-    # at the debug configs' d 16 and at d 16 and 128 at B2 S2048 H16
+    # at the debug configs' d 16, at d 16 and 128 at B2 S2048 H16 and at
+    # d 256 at B2 S2048 H8
     ("debug_f32", 2, 128, 128, 4, 16, True, "float32"),
     ("d16_f32_wide", 2, 2048, 2048, 16, 16, True, "float32"),
     ("d128_f32_wide", 2, 2048, 2048, 16, 128, True, "float32"),
+    ("d256_f32_wide", 2, 2048, 2048, 8, 256, True, "float32"),
     ("d16_bf16", 2, 1000, 1000, 4, 16, True, "bfloat16"),
     ("d20_ragged", 1, 1000, 700, 4, 20, False, "bfloat16"),
     ("d160", 2, 2048, 2048, 16, 160, True, "bfloat16"),
@@ -534,13 +536,14 @@ BWD_SHAPES = [
 # the rows of KERNEL_SHAPES and BWD_SHAPES off the wgmma route, reported
 # beside the model shapes in the kernels line (each kernel at the rows it
 # has)
-HEAD_DIM_SHAPES = ("debug_f32", "d16_f32_wide", "d128_f32_wide", "d16_bf16",
-                   "d20_ragged", "d160", "d256_ragged", "xl16_train",
-                   "d80_sq_lt_sk", "d192_noncausal", "d120_sq_gt_sk", "d224",
-                   "d264", "d320", "d512", "d320_f32", "d512_wide",
-                   "d320_f32_wide", "d384_noncausal", "d300", "d33_odd",
-                   "d100_wide", "d300_wide", "d301", "b1_h4_train",
-                   "d320_sq_lt_sk", "entry_train")
+HEAD_DIM_SHAPES = ("debug_f32", "d16_f32_wide", "d128_f32_wide",
+                   "d256_f32_wide", "d16_bf16", "d20_ragged", "d160",
+                   "d256_ragged", "xl16_train", "d80_sq_lt_sk",
+                   "d192_noncausal", "d120_sq_gt_sk", "d224", "d264", "d320",
+                   "d512", "d320_f32", "d512_wide", "d320_f32_wide",
+                   "d384_noncausal", "d300", "d33_odd", "d100_wide",
+                   "d300_wide", "d301", "b1_h4_train", "d320_sq_lt_sk",
+                   "entry_train")
 
 SCHED = dict(nodes=256, tasks=100_000, classes=32)
 SCHED_PIPELINED_TICKS = 3
@@ -661,12 +664,6 @@ def ptxas_report(log: str) -> list:
     return rows
 
 
-def _spill_bytes(spill: str) -> int:
-    """The spill-store bytes of a ptxas "... bytes spill stores ..." line."""
-    found = re.search(r"(\d+) bytes spill stores", spill)
-    return int(found.group(1)) if found else 0
-
-
 def phase_build(report: dict) -> None:
     from ray_tpu_torch.ops import attention
     from ray_tpu_torch.tools.check_head_dims import kernel_name
@@ -685,19 +682,6 @@ def phase_build(report: dict) -> None:
             print(f"build: ptxas {kernel_name(row['kernel'])[-60:]}: "
                   f"{row.get('registers')} registers at entry, "
                   f"{row.get('spill')} {row['notes']}", flush=True)
-    # K2's fp32 FMA kernel up to 256: one instantiation per padded head dim
-    small = [r for r in report["ptxas"]
-             if "f32_kernel" in r["kernel"]
-             and "ring_f32_kernel" not in r["kernel"]]
-    spilling = [r for r in small if _spill_bytes(r.get("spill", ""))]
-    report["ptxas_fma"] = {
-        "kernels": len(small),
-        "max_registers": max((r.get("registers", 0) for r in small),
-                             default=0),
-        "spilling": [f"{r['kernel']}: {r.get('spill')}" for r in spilling]}
-    print(f"build: {len(small)} FMA (K2 fp32) instantiations, at most "
-          f"{report['ptxas_fma']['max_registers']} registers, "
-          f"{len(spilling)} of them spill", flush=True)
 
 
 # --------------------------------------------------------------- phase 2
@@ -2714,7 +2698,7 @@ def _debug_text(name: str) -> dict:
 
 def phase_debug(report: dict) -> dict:
     """The JAX package's test configs on the card through the kernels
-    (head_dim 16, float32: K1 and K3 on fma_f32_ring, K2 on fma_f32):
+    (head_dim 16, float32: K1, K2 and K3 on fma_f32_ring):
     ModelConfig.debug() and tiny_moe() served and one train step of each,
     ViTConfig.debug() served, each against the plain attention."""
     import functools
@@ -3369,7 +3353,7 @@ RLLIB_OTHER_ITERS = 2
 # absent KL penalty are the port's PPOPolicy defaults
 RLLIB_PPO_PUBLISHED = dict(hidden=(256, 256), train_batch_size=4000,
                            sgd_minibatch_size=128, num_sgd_iter=30,
-                           num_workers=2, iterations=3)
+                           num_workers=2, iterations=2)
 RLLIB_VISION = dict(shape=(84, 84, 4), batch=128, hidden=256, iters=20)
 # card memory after every trainer.stop() against before the phase,
 # read after a warm-up trainer has given a cuBLAS handle and workspace
@@ -5765,7 +5749,9 @@ PARALLEL_RANKS = 4
 PARALLEL_CARDS = 1
 PARALLEL_SERVE_REQUESTS = 2  # the serve phase's first two prompts
 PARALLEL_ULYSSES = (8, 2048, 16, 128)  # b1's train attention [B, S, H, D]
-PARALLEL_PIPE_STEPS = 3
+# two steps: the second checks the stages' optimizer updates (a third
+# cost 3.5 s a run, with the whole run near its time limit)
+PARALLEL_PIPE_STEPS = 2
 PARALLEL_MICROBATCHES = 4
 # pipeline loss against the single-rank step, absolute, each step: the
 # same bf16 model on [2, 2048] microbatches against one [8, 2048] batch
@@ -6946,17 +6932,16 @@ def _kernel_table(report: dict, paths: dict) -> list:
             "kernel_route": bwd["routes"][kernel],
             "source": csrc + "flash_attn_bwd.cu",
             # the wgmma kernels at d 64/128 and padded D (the padded one
-            # and its TMA and cp.async feeds), fp32 up to 256 (K2 FMA, K3
-            # the ring kernel's one-slice launcher), and past 256 the
-            # wgmma kernel and its two feeds and the ring kernel's slices
+            # and its TMA and cp.async feeds), fp32 up to 256 (the ring
+            # kernel's one-slice launcher), and past 256 the wgmma kernel
+            # and its two feeds and the ring kernel's slices
             "sources": [csrc + f for f in (
                 "flash_attn_bwd.cu",
                 "flash_attn_bwd_dq_ws.cuh" if kernel == "dq"
                 else "flash_attn_bwd_dkdv_padded.cuh",
                 f"flash_attn_bwd_{kernel}_padded.cu",
                 f"flash_attn_bwd_{kernel}_padded_cp_async.cu",
-                "flash_attn_bwd_fma.cu" if kernel == "dq"
-                else "flash_attn_bwd_dkdv_fma_ring.cu",
+                f"flash_attn_bwd_{kernel}_fma_ring.cu",
                 "flash_attn_dchunk_bwd_wgmma.cuh",
                 f"flash_attn_dchunk_bwd_{kernel}_wgmma.cu",
                 f"flash_attn_dchunk_bwd_{kernel}_cp_async.cu",

@@ -44,20 +44,20 @@ _NEG_INF = -1e30
 
 _CSRC = Path(__file__).resolve().parent / "csrc"
 # one nvcc per source, all started together, then one link: the padded
-# wgmma routes and K2's FMA route are instantiated at every padded head
-# dim up to 256, K1's and K3's ring kernels (a source each) at each
-# one-slice width; past it the wgmma and ring kernels at each slice
-# width; each kernel's wgmma template once for each feed (TMA, cp.async),
-# past 256 the backward's once for K2 and once for K3, so that the halves
-# of their instantiations compile side by side
+# wgmma routes are instantiated at every padded head dim up to 256, the
+# fp32 ring kernels (a source each for K1, K2 and K3) at each one-slice
+# width; past it the wgmma and ring kernels at each slice width; each
+# kernel's wgmma template once for each feed (TMA, cp.async), past 256
+# the backward's once for K2 and once for K3, so that the halves of
+# their instantiations compile side by side
 _SOURCES = ("flash_attn_fwd.cu", "flash_attn_bwd.cu",
             "flash_attn_fwd_padded.cu", "flash_attn_fwd_padded_cp_async.cu",
             "flash_attn_bwd_dq_padded.cu",
             "flash_attn_bwd_dq_padded_cp_async.cu",
             "flash_attn_bwd_dkdv_padded.cu",
             "flash_attn_bwd_dkdv_padded_cp_async.cu",
-            "flash_attn_fwd_fma_ring.cu", "flash_attn_bwd_dkdv_fma_ring.cu",
-            "flash_attn_bwd_fma.cu",
+            "flash_attn_fwd_fma_ring.cu", "flash_attn_bwd_dq_fma_ring.cu",
+            "flash_attn_bwd_dkdv_fma_ring.cu",
             "flash_attn_dchunk_fma.cu", "flash_attn_dchunk_fwd_wgmma.cu",
             "flash_attn_dchunk_fwd_cp_async.cu",
             "flash_attn_dchunk_bwd_dq_wgmma.cu",
@@ -110,15 +110,12 @@ _DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 #          WGMMA_PADDED kernels with their boxes filled by cp.async
 #          (csrc/flash_attn_fwd_padded.cuh, flash_attn_bwd_dq_ws.cuh,
 #          flash_attn_bwd_dkdv_padded.cuh);
-#   FMA_RING: float32 K1 and K3 at every head_dim up to 256 -- exact
-#          FMAs on the CUDA cores, register-blocked (8 x 4 or 4 x 4 a
-#          thread) and fed by a cp.async ring, one block per 64 or 32
+#   FMA_RING: float32 K1, K2 and K3 at every head_dim up to 256 --
+#          exact FMAs on the CUDA cores, register-blocked (8 x 4 or 4 x 4
+#          a thread) and fed by a cp.async ring, one block per 64 or 32
 #          rows and all of the head dim (rounded up to 16, 32 or 64
-#          under 64, to 64 past), its own rows (K1: Q; K3: K and V)
-#          resident (csrc/flash_attn_ring_f32.cuh);
-#   FMA: float32 K2 at every head_dim up to 256 -- exact FMAs on the
-#          CUDA cores in warps of 8 rows, instantiated at the head dim
-#          rounded up to 32;
+#          under 64, to 64 past), its own rows (K1: Q; K2: Q and dO; K3:
+#          K and V) resident (csrc/flash_attn_ring_f32.cuh);
 #   Past 256, with no upper bound, where a block cannot hold full-width
 #   tiles beside its rings (the Hopper designs have names of their own,
 #   as WGMMA_PADDED has):
@@ -141,7 +138,6 @@ WGMMA = "wgmma_tma_ws"
 WGMMA_PADDED = "wgmma_tma_ws_padded"
 WGMMA_PADDED_CP = "wgmma_cp_async_ws_padded"
 FMA_RING = "fma_f32_ring"
-FMA = "fma_f32"
 DCHUNK_WGMMA = "dchunk_wgmma_tma_ws"
 DCHUNK_WGMMA_CP = "dchunk_wgmma_cp_async_ws"
 DCHUNK_FMA = "dchunk_fma_f32_ring"
@@ -169,7 +165,7 @@ def kernel_route(kernel: str, dtype: torch.dtype, head_dim: int) -> str:
             return DCHUNK_FMA
         return DCHUNK_WGMMA if head_dim % 8 == 0 else DCHUNK_WGMMA_CP
     if dtype == torch.float32:
-        return FMA if kernel == "dq" else FMA_RING
+        return FMA_RING
     if head_dim in _WGMMA_HEAD_DIMS:
         return WGMMA
     return WGMMA_PADDED if wgmma_padded_head_dim(head_dim) else WGMMA_PADDED_CP

@@ -129,12 +129,11 @@
 //     warps), which served D under 64 and off the multiples of 8 at about
 //     1 % of their bound.
 //   - fp32, every head_dim 1..256: exact FMAs on the CUDA cores (the
-//     tensor cores would round to tf32). K2 in warps of 8 rows
-//     (flash_attn_bwd_fma.cu, route "fma_f32"); K3 register-blocked and
-//     fed by a cp.async ring, one slice of dK and dV (all of D) a block
-//     with its keys of K and V resident (route "fma_f32_ring",
-//     flash_attn_bwd_dkdv_fma_ring.cu; the kernel in
-//     flash_attn_ring_f32.cuh).
+//     tensor cores would round to tf32), register-blocked and fed by a
+//     cp.async ring, one slice (all of D) a block (route "fma_f32_ring";
+//     one kernel for both in flash_attn_ring_f32.cuh): K2 with its query
+//     rows of Q and dO resident (flash_attn_bwd_dq_fma_ring.cu), K3 with
+//     its keys of K and V (flash_attn_bwd_dkdv_fma_ring.cu).
 //   - past 256 (the tile rings of a block no longer fit its 227 KB of
 //     shared memory at full width): K2 and K3 in bf16 at D % 8 == 0 on
 //     wgmma (route "dchunk_wgmma_tma_ws", flash_attn_dchunk_bwd_wgmma.cuh:
@@ -471,9 +470,9 @@ extern "C" int rtt_flash_attn_bwd_dq(const void* q, const void* k,
   if (rtt::dchunk_unaligned_head_dim(D) && dtype == 1)
     return rtt::bwd_dq_dchunk_wgmma_cp_async(q, k, v, dout, l, dl, dq, B, H,
                                              Sq, Sk, D, causal, scale, s);
-  if (dtype == 0)
-    return rtt::bwd_dq_fma(q, k, v, dout, l, dl, dq, B, H, Sq, Sk, D, causal,
-                           scale, s);
+  if (rtt::fma_ring_head_dim(D) && dtype == 0)
+    return rtt::bwd_dq_fma_ring(q, k, v, dout, l, dl, dq, B, H, Sq, Sk, D,
+                                causal, scale, s);
   if (dtype != 1) return cudaErrorInvalidValue;
   const bf16 *bq = static_cast<const bf16*>(q),
              *bk = static_cast<const bf16*>(k),

@@ -1,13 +1,12 @@
 // The fp32 kernels of K1, K2 and K3 on the CUDA cores: register-blocked
 // exact FMAs fed by cp.async rings (route "fma_f32_ring" up to head dim
-// 256 for K1 and K3, "dchunk_fma_f32_ring" past 256 for all three). One
-// template a kernel (K1: fwd_ring_f32_kernel; K2 and K3:
-// bwd_ring_f32_kernel), instantiated at a block shape (RingShape) per
-// head-dim class: past 256 in flash_attn_dchunk_fma.cu (K1) and
+// 256, "dchunk_fma_f32_ring" past it, for all three). One template a
+// kernel (K1: fwd_ring_f32_kernel; K2 and K3: bwd_ring_f32_kernel),
+// instantiated at a block shape (RingShape) per head-dim class: past 256
+// in flash_attn_dchunk_fma.cu (K1) and
 // flash_attn_dchunk_bwd_{dq,dkdv}_fma.cu, up to 256 in
-// flash_attn_fwd_fma_ring.cu (K1) and flash_attn_bwd_dkdv_fma_ring.cu
-// (K3). K2 up to 256 stays on bwd_dq_f32_kernel (flash_attn_bwd_fma.cu).
-// Replace ray_tpu/ops/attention.py::_flash_kernel (K1, launched by
+// flash_attn_fwd_fma_ring.cu (K1) and flash_attn_bwd_{dq,dkdv}_fma_ring.cu
+// (K2, K3). Replace ray_tpu/ops/attention.py::_flash_kernel (K1, launched by
 // _pallas_fwd), ::_bwd_dq_kernel and ::_bwd_dkdv_kernel (K2, K3, launched
 // by _pallas_bwd) for float32 inputs.
 //
@@ -48,34 +47,40 @@
 //   - the operands stream through a group's three-stage cp.async ring of
 //     steps, the copies of step i + 2 in flight while step i computes: per
 //     tile, ceil(D / DK) row steps (K1: a K chunk [64 x DK]; K2/K3: T1's,
-//     then T2's) and 64/VK slice steps (K1: V [VK keys x the slice]; K3:
-//     Q's then dO's rows); the block's own rows either stream beside each
-//     row step (past 256: a Q, or R1/R2, chunk [8 RM x DK]) or stay
-//     resident in shared memory for the whole loop (up to 256: Q for K1,
-//     K and V for K3, loaded once by the block, so the ring carries only
-//     the streamed tiles); 16-byte copies at D % 4 == 0, 4-byte ones
-//     otherwise (VEC), so every D is taken;
+//     then T2's) and 64/VK slice steps (K1: V [VK keys x the slice]; K2:
+//     K's rows; K3: Q's then dO's rows); the block's own rows either
+//     stream beside each row step (past 256: a Q, or R1/R2, chunk [8 RM x
+//     DK]) or stay resident in shared memory for the whole loop (up to
+//     256: Q for K1, Q and dO for K2, K and V for K3, loaded once by the
+//     block, so the ring carries only the streamed tiles); K2 at D <= 64
+//     reads its slice step's K rows from the S step's chunk (the same
+//     [64 x DK] rows), two steps a tile on four stages; 16-byte copies at
+//     D % 4 == 0, 4-byte ones otherwise (VEC), so every D is taken;
 //   - S is summed over the head dim in the same order in every slice
 //     block, so m, l and p are bit-identical across slices; slice 0
 //     writes lse.
 // Up to 256 the shape follows D (one_slice_shape below): 64 rows a block
 // (RM 8) where the outputs' registers leave room (K1 up to 128 columns,
-// K3's dK and dV up to 64), else 32; DK = CW = D rounded up to 16, 32 or
-// 64 under 64 (the JAX package's fp32 configs run at d 16: a 64-column
-// step would do 4x their S and P V work on zero columns); VK so that a
-// slice step's stage is about a K chunk's (64 keys up to 64 columns, 32
-// at 128, 16 past). Trials on the H100 (compare_kernels, PERF.md): K1 at
+// K2's dq beside S, dP and its rows' lse and delta up to 128, K3's dK and
+// dV up to 64), else 32; DK = CW = D rounded up to 16, 32 or 64 under 64
+// (the JAX package's fp32 configs run at d 16: a 64-column step would do
+// 4x their S and P V work on zero columns); VK so that a slice step's
+// stage is about a K chunk's (64 keys up to 64 columns, 32 at 128, 16
+// past). Trials on the H100 (compare_kernels, PERF.md): K1 at
 // 128 columns ran 1.19x slower at 4 x 4 rows a thread, and 8 x 8
 // (128-key tiles, DK 32) gained nothing (1.00x) and left a key group idle
 // at S 128; K3 at 128 columns ran the same at 8 x 4 (DK 32, 255
 // registers) and 4 % slower at 4 x 8; two blocks an SM (128 registers)
 // ran K1 at 128 columns 1.14x slower, and at 16 columns 7 % faster but
-// spilled 8 bytes.
+// spilled 8 bytes; K2 at 128 columns ran 1.18x faster at 8 x 4 than at
+// 4 x 4, and at 16 columns its ds K from the S step's chunk 1.07x faster
+// than from a slice step's copy.
 // ptxas (sm_90a, on the H100 host; tools/check_head_dims.py), no spills
 // in any instantiation but K3's past 256 at 5 column groups: up to 256 K1
-// 168 registers at 16..64 columns, 230 at 128, 196-198 past; K3 168 at
-// 16 columns, 214-216 at 32, 254 at 64, 210-214 at 128, 252-254 past;
-// past 256 K1 196-230 registers, K2 226-254; K3 254 at 3 and 4 column
+// 168 registers at 16..64 columns, 230 at 128, 196-198 past; K2 200 at 16
+// columns, 210-212 at 32, 254 at 64 and 128, 222 at 192, 228 at 256; K3
+// 168 at 16 columns, 214-216 at 32, 254 at 64, 210-214 at 128, 252-254
+// past; past 256 K1 196-230 registers, K2 226-254; K3 254 at 3 and 4 column
 // groups, 255 and 28-32 bytes spilled at 5 (K3 at slices of 256 ran
 // slower at D 320 than at 320 with the spill).
 
@@ -118,9 +123,20 @@ struct RingShape {
   static constexpr int STAGE = R_FL + T_FL > V_FL ? R_FL + T_FL : V_FL;
   static constexpr int P_OFF = RF_ST * STAGE;        // p^T after the ring
   static constexpr int RES_FL = RES ? BM * V_LD : 0;  // one resident tile
-  // a key group's ring and p^T (and ds^T: ``tiles`` 2 for K3)
-  __host__ __device__ static constexpr int group_fl(int tiles) {
-    return P_OFF + tiles * RF_N * P_LD;
+  // a key group's ring and p^T (and ds^T: ``tiles`` 2 for K3) on
+  // ``stages`` stages
+  __host__ __device__ static constexpr int group_fl(int tiles,
+                                                    int stages = RF_ST) {
+    return stages * STAGE + tiles * RF_N * P_LD;
+  }
+  // The ring stages of K2 (``dkdv`` false) or K3. With the rows resident,
+  // one row step and one slice step a tile (D <= 64), a tile chunk's
+  // [64][DK + PAD] rows are a slice step's too: K2 reads its ds K step's
+  // rows from the S step's stage, so a tile is two steps, on a fourth
+  // stage (the copies of step i + 2 go to step i - 2's, whose chunk step
+  // i - 1 read last)
+  __host__ __device__ static constexpr int bwd_stages(bool dkdv) {
+    return !dkdv && RES && DK == SW && VK == RF_N ? RF_ST + 1 : RF_ST;
   }
 };
 
@@ -563,7 +579,9 @@ bwd_ring_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   using S = RingShape<RM, DK, CW, NCG, VK, RES>;
   constexpr int CPT = S::CPT;
   constexpr int TILES = DKDV ? 2 : 1;  // ds^T, p^T
-  constexpr int GROUP_FL = S::group_fl(TILES);
+  constexpr int NST = S::bwd_stages(DKDV);  // ring stages
+  constexpr bool SHARE = NST > RF_ST;  // K2's ds K reads S's K chunk
+  constexpr int GROUP_FL = S::group_fl(TILES, NST);
   extern __shared__ __align__(16) unsigned char smem_raw[];
   float* base = reinterpret_cast<float*>(smem_raw);
   const int grp = threadIdx.x / RF_GROUP;
@@ -571,7 +589,7 @@ bwd_ring_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   float* R1s = base;  // RES: the block's rows of R1, then of R2
   float* R2s = base + S::RES_FL;
   float* ring = base + 2 * S::RES_FL + grp * GROUP_FL;
-  float* DSt = ring + S::P_OFF;        // ds^T of the current tile
+  float* DSt = ring + NST * S::STAGE;  // ds^T of the current tile
   float* Pt = DSt + RF_N * S::P_LD;    // p^T (K3)
 
   const int ty = gt >> 4;  // rows RM ty..RM ty + RM - 1
@@ -607,7 +625,7 @@ bwd_ring_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
   const int my_tiles =
       n_tiles > grp ? (n_tiles - grp + RF_NG - 1) / RF_NG : 0;
   const int n_sq = (D + DK - 1) / DK;  // X (then Y) steps a tile
-  constexpr int N_SLICE = TILES * (RF_N / VK);  // slice steps
+  constexpr int N_SLICE = SHARE ? 0 : TILES * (RF_N / VK);  // slice steps
   const int spt = 2 * n_sq + N_SLICE;            // steps a tile
   const int n_steps = my_tiles * spt;
   const int live = D - c0;  // this slice's columns before D's end
@@ -634,13 +652,13 @@ bwd_ring_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     }
   }
 
-  // step i's copies into stage i % RF_ST (one commit group each, empty
+  // step i's copies into stage i % NST (one commit group each, empty
   // past the last step, so that the waits count alike)
   auto load_step = [&](int i) {
     if (i < n_steps) {
       const int t0 = (t_first + grp + RF_NG * (i / spt)) * RF_N;
       const int u = i % spt;
-      float* st = ring + (i % RF_ST) * S::STAGE;
+      float* st = ring + (i % NST) * S::STAGE;
       if (u < 2 * n_sq) {
         const bool second = u >= n_sq;
         const int col = (second ? u - n_sq : u) * DK;
@@ -729,7 +747,7 @@ bwd_ring_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
     cp_async_wait<RF_ST - 2>();
     group_sync(1 + grp);
     load_step(i + RF_ST - 1);
-    const float* st = ring + (i % RF_ST) * S::STAGE;
+    const float* st = ring + (i % NST) * S::STAGE;
     const int u = i % spt;
     if (u < 2 * n_sq) {
       // X (then Y) += R_u T_u^T over this step's DK columns (a call each,
@@ -738,8 +756,17 @@ bwd_ring_f32_kernel(const float* __restrict__ q, const float* __restrict__ k,
         row_step(x, st, u, R1s);
       else
         row_step(y, st, u - n_sq, R2s);
-      if (u == 2 * n_sq - 1)
+      if (u == 2 * n_sq - 1) {
         p_ds((t_first + grp + RF_NG * (i / spt)) * RF_N);
+        if constexpr (SHARE) {
+          // dq += ds K from step i - 1's K chunk; the ds^T rows of this
+          // thread's q rows were written by its own warp
+          __syncwarp();
+          slice_product<RM, CW, NCG, VK, S::P_LD, S::V_LD, RES>(
+              o1, DSt + RM * ty,
+              ring + ((i - 1) % NST) * S::STAGE + S::R_FL + CPT * tx, live);
+        }
+      }
     } else {
       // out1 += ds T1_slice (K3 then out2 += p T2_slice) over this
       // step's VK tile rows
@@ -811,7 +838,9 @@ cudaError_t launch_bwd_ring(const float* q, const float* k, const float* v,
                             const float* delta, float* out1, float* out2,
                             int B, int H, int Sq, int Sk, int D, int causal,
                             float scale, cudaStream_t stream) {
-  constexpr int smem = (2 * S::RES_FL + RF_NG * S::group_fl(DKDV ? 2 : 1)) *
+  constexpr int smem = (2 * S::RES_FL +
+                        RF_NG * S::group_fl(DKDV ? 2 : 1,
+                                            S::bwd_stages(DKDV))) *
                        (int)sizeof(float);
   static_assert(smem <= RF_MAX_SMEM, "a block's shared memory");
   cudaError_t err = cudaFuncSetAttribute(
@@ -855,10 +884,10 @@ cudaError_t dchunk_shape(int D, F&& launch) {
   }
 }
 
-// Up to 256 (K1 and K3): one slice, the rows resident; DK = CW = D rounded
-// up to 16, 32 or 64 under 64 (NCG 1), 64 from there (NCG 2, 3 or 4); 64
-// rows a block (RM 8) up to WIDE_RM columns, else 32; VK 64 keys up to 64
-// columns, 32 at 128, 16 past
+// Up to 256 (K1, K2 and K3): one slice, the rows resident; DK = CW = D
+// rounded up to 16, 32 or 64 under 64 (NCG 1), 64 from there (NCG 2, 3
+// or 4); 64 rows a block (RM 8) up to WIDE_RM columns, else 32; VK 64
+// keys up to 64 columns, 32 at 128, 16 past
 template <int WIDE_RM, class F>
 cudaError_t one_slice_shape(int D, F&& launch) {
   constexpr int RM128 = WIDE_RM >= 128 ? 8 : 4;  // rows a thread at 128

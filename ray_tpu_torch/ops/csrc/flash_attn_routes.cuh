@@ -3,15 +3,12 @@
 // side: in bf16 all three on wgmma at every other head dim (their boxes
 // filled by TMA where the row stride is a multiple of 16 bytes, by
 // cp.async or through registers where not; up to 256 and past it), so a
-// head dim takes the same route for all three; in fp32 the
-// register-blocked ring kernels (flash_attn_ring_f32.cuh) for K1 and K3
-// at every head dim and for K2 past 256, K2's FMA kernel up to 256. The
-// C entry points in flash_attn_fwd.cu and flash_attn_bwd.cu dispatch to
-// them. K2's FMA route takes any head dim D in [1, MAX_HEAD_DIM]
-// (flash_attn_common.cuh), each other route the D its constexpr below
-// admits; each returns a cudaError_t (cudaErrorInvalidValue for a D
-// outside its set). attention.py::kernel_route is the same table in
-// Python.
+// head dim takes the same route for all three; in fp32 all three on the
+// register-blocked ring kernels (flash_attn_ring_f32.cuh) at every head
+// dim. The C entry points in flash_attn_fwd.cu and flash_attn_bwd.cu
+// dispatch to them. Each route takes the D its constexpr below admits
+// and returns a cudaError_t (cudaErrorInvalidValue for a D outside its
+// set). attention.py::kernel_route is the same table in Python.
 //
 // Layouts as the C entry points': q/dout/out/dq [B,Sq,H,D], k/v/dk/dv
 // [B,Sk,H,D], contiguous with a 16-byte aligned base; lse and delta
@@ -23,16 +20,22 @@
 
 namespace rtt {
 
-// The fp32 head dims K1 and K3 take on their ring kernels in one slice
-// (route "fma_f32_ring"): every D up to 256
+// The fp32 head dims K1, K2 and K3 take on their ring kernels in one
+// slice (route "fma_f32_ring"): every D up to 256
 constexpr bool fma_ring_head_dim(int D) { return D >= 1 && D <= 256; }
-// K1 and K3 in fp32 at those head dims: register-blocked FMAs fed by a
-// cp.async ring, the block's own rows resident (flash_attn_fwd_fma_ring.cu
-// and flash_attn_bwd_dkdv_fma_ring.cu, one kernel each in
+// K1, K2 and K3 in fp32 at those head dims: register-blocked FMAs fed by
+// a cp.async ring, the block's own rows resident
+// (flash_attn_fwd_fma_ring.cu, flash_attn_bwd_dq_fma_ring.cu and
+// flash_attn_bwd_dkdv_fma_ring.cu; K1's kernel and K2's and K3's in
 // flash_attn_ring_f32.cuh)
 cudaError_t fwd_fma_ring(const void* q, const void* k, const void* v,
                          void* out, float* lse, int B, int H, int Sq, int Sk,
                          int D, int causal, float scale, cudaStream_t stream);
+cudaError_t bwd_dq_fma_ring(const void* q, const void* k, const void* v,
+                            const void* dout, const float* lse,
+                            const float* delta, void* dq, int B, int H,
+                            int Sq, int Sk, int D, int causal, float scale,
+                            cudaStream_t stream);
 cudaError_t bwd_dkdv_fma_ring(const void* q, const void* k, const void* v,
                               const void* dout, const float* lse,
                               const float* delta, void* dk, void* dv, int B,
@@ -89,14 +92,6 @@ cudaError_t bwd_dkdv_padded_cp_async(const void* q, const void* k,
                                      void* dk, void* dv, int B, int H,
                                      int Sq, int Sk, int D, int causal,
                                      float scale, cudaStream_t stream);
-// K2, fp32 on the CUDA cores at every head dim up to 256
-// (flash_attn_bwd_fma.cu)
-cudaError_t bwd_dq_fma(const void* q, const void* k, const void* v,
-                       const void* dout, const float* lse,
-                       const float* delta, void* dq, int B, int H, int Sq,
-                       int Sk, int D, int causal, float scale,
-                       cudaStream_t stream);
-
 // The head dims past 256 (the per-head-dim routes' widest), in bf16 and
 // in fp32, with no upper bound
 constexpr bool dchunk_head_dim(int D) { return D > 256; }

@@ -1,20 +1,19 @@
 """K1, K2 and K3 at head dims off the wgmma route's 64 and 128, against
 their plain versions: the short first call after the padded wgmma
-(fed by TMA or by cp.async), fp32 (K1's and K3's ring kernels, K2's FMA
-kernel) or chunked (past 256) kernels change.
+(fed by TMA or by cp.async), fp32 (the ring kernels of K1, K2 and K3)
+or chunked (past 256) kernels change.
 
     python3 -m ray_tpu_torch.tools.check_head_dims
 
-Builds the kernels (printing the build time; for K2's FMA kernel and
-the fp32 ring kernels the most registers any instantiation uses and
-every one that spills; for each instantiation of the padded wgmma
-kernels of K1, K2 and K3 (each width, consumer warpgroups and feed), of
-K1's and K3's ring kernels up to 256 (each one-slice width and copy
-size) and of the kernels past 256 (K1's two, and K2's and K3's wgmma
-kernel at each feed and their ring kernel) its registers, spills and
-ptxas's performance notes, such as wgmmas serialised for want of
-registers), then for each (dtype, head dim) in
-``CASES`` (and ``WIDE_CASES`` at their own shapes) runs the forward,
+Builds the kernels (printing the build time; for the fp32 ring kernels
+the most registers any instantiation uses and every one that spills;
+for each instantiation of the padded wgmma kernels of K1, K2 and K3
+(each width, consumer warpgroups and feed), of the ring kernels up to
+256 (each one-slice width and copy size) and of the kernels past 256
+(K1's two, and K2's and K3's wgmma kernel at each feed and their ring
+kernel) its registers, spills and ptxas's performance notes, such as
+wgmmas serialised for want of registers), then for each (dtype, head
+dim) in ``CASES`` (and ``WIDE_CASES`` at their own shapes) runs the forward,
 then K2 and K3 on its lse, at a ragged shape with Sq != Sk (causal at
 even head dims, non-causal at odd ones), and holds out/lse against
 ``_blockwise_fwd`` and dq/dk/dv against ``_blockwise_bwd`` within
@@ -38,16 +37,15 @@ import time
 
 # (dtype, head dims): every padded instantiation's edges -- element-wise
 # rows (D % 8 != 0 in bf16, D % 4 != 0 in fp32), in fp32 each one-slice
-# width of K1's and K3's ring kernels (16, 32, 64, 128, 192, 256: D 1,
-# 3, 16, 20, 33, 64, 100, 128, 160, 161, 192, 224, 256, with 4-byte copies
-# at 1, 3, 33 and 161) and K2's 32-row tiles past 192, and in bf16 the
-# padded wgmma widths of K1, K2 and K3 at each
-# feed (D rounded up to 32: 32 ... 256; a 32-column piece at 80, 96,
-# 160, 224; D 72 and 200 short of their padding by 24; fed by TMA at D %
-# 8 == 0, under 64 in one box (8 ... 56; K3 splitting its two products
-# there), by cp.async of 8 bytes at D % 4 == 0 (20, 100), of 4 at D % 4
-# == 2 (58, 90, 150, 222, 250, 258) and through registers at odd D (1,
-# 33, 181, 255, 257, 301)) -- and the debug configs' 16
+# width of the ring kernels (16, 32, 64, 128, 192, 256: D 1, 3, 16, 20,
+# 33, 64, 100, 128, 160, 161, 192, 224, 256, with 4-byte copies at 1, 3,
+# 33 and 161), and in bf16 the padded wgmma widths of K1, K2 and K3 at
+# each feed (D rounded up to 32: 32 ... 256; a 32-column piece at 80,
+# 96, 160, 224; D 72 and 200 short of their padding by 24; fed by TMA at
+# D % 8 == 0, under 64 in one box (8 ... 56; K3 splitting its two
+# products there), by cp.async of 8 bytes at D % 4 == 0 (20, 100), of 4
+# at D % 4 == 2 (58, 90, 150, 222, 250, 258) and through registers at odd
+# D (1, 33, 181, 255, 257, 301)) -- and the debug configs' 16
 CASES = [
     ("bfloat16", (1, 8, 16, 20, 24, 32, 33, 40, 48, 56, 58, 72, 80, 90, 96,
                   100, 112, 136, 150, 160, 176, 181, 192, 200, 222, 224,
@@ -111,18 +109,15 @@ BWD_TOL = {"bfloat16": (5e-2, 2e-2), "float32": (1e-5, 1e-5)}
 
 
 def ptxas_summary(log: str) -> dict:
-    """Most registers and every spilling kernel of the fp32 kernels (K2's
-    FMA kernel, "fma"; the ring kernels of either side of 256, "ring") in
-    ``nvcc -Xptxas=-v``'s report."""
-    name, most, spills = None, {}, []
+    """Most registers and every spilling kernel of the fp32 ring kernels
+    (on either side of 256) in ``nvcc -Xptxas=-v``'s report."""
+    name, most, spills = None, 0, []
     for ln in log.splitlines():
         if "Compiling entry function" in ln:
             name = ln.split("'")[1]
-        elif name and "f32_kernel" in name:
+        elif name and "ring_f32_kernel" in name:
             if "Used" in ln and "registers" in ln:
-                route = "ring" if "ring_f32_kernel" in name else "fma"
-                regs = int(ln.split("Used")[1].split()[0])
-                most[route] = max(most.get(route, 0), regs)
+                most = max(most, int(ln.split("Used")[1].split()[0]))
             elif "spill stores" in ln and not ln.strip().startswith(
                     "0 bytes stack frame, 0 bytes spill stores"):
                 spills.append(f"{name}: {ln.strip()}")

@@ -18,9 +18,9 @@ d300, d300_wide and d301 rows; K2 and K3 past 256 at chip_smoke.py's
 d264, d320, d512, d512_wide, b1_h4_train, d320_f32 and d320_f32_wide
 rows, and where they left mma.sync at its d16_bf16, d20_ragged, d33_odd,
 d100_wide, d300, d300_wide and d301 rows; all three at its entry_train
-row, and in fp32 up to 256 (K1 and K3 on their ring kernels, K2 on FMA)
-at its debug_f32, ragged, d16_f32_wide and d128_f32_wide rows) the
-script checks that
+row, and in fp32 up to 256 (all three on their ring kernels) at its
+debug_f32, ragged, d16_f32_wide, d128_f32_wide and d256_f32_wide rows)
+the script checks that
 the two trees' outputs agree, then times the forward (K1), the dq
 backward (K2) or the dk/dv backward (K3) with CUDA events in the order
 baseline, current, current, baseline, repeated ``--rounds`` times, and
@@ -60,9 +60,9 @@ SHAPES = [
     # (fed by TMA), 20 and 100 (cp.async), 33 (through registers), past
     # 256 d 300 (cp.async, at both sizes) and 301 (through registers); all
     # three at the entry_train step's attention (d 32, fed by TMA); fp32
-    # up to 256 (K1 and K3 on their ring kernels, K2 on FMA) at
-    # ModelConfig.debug's d 16, chip_smoke.py's ragged rows (d 64, K2 and
-    # K3 at Sk 700) and at d 16 and 128 at B2 S2048 H16, where the
+    # up to 256 (all three on their ring kernels) at ModelConfig.debug's d
+    # 16, chip_smoke.py's ragged rows (d 64, K2 and K3 at Sk 700), at d 16
+    # and 128 at B2 S2048 H16 and at d 256 at B2 S2048 H8, where the
     # arithmetic bounds the work
     ("served_fwd", "fwd", 2, 2048, 2048, 16, 128, True, "bfloat16"),
     ("train_fwd", "fwd", 8, 2048, 2048, 16, 128, True, "bfloat16"),
@@ -140,6 +140,9 @@ SHAPES = [
     ("d128_f32_wide_dq", "dq", 2, 2048, 2048, 16, 128, True, "float32"),
     ("d128_f32_wide_dkdv", "dkdv", 2, 2048, 2048, 16, 128, True,
      "float32"),
+    ("d256_f32_wide_fwd", "fwd", 2, 2048, 2048, 8, 256, True, "float32"),
+    ("d256_f32_wide_dq", "dq", 2, 2048, 2048, 8, 256, True, "float32"),
+    ("d256_f32_wide_dkdv", "dkdv", 2, 2048, 2048, 8, 256, True, "float32"),
 ]
 ITERS = 20
 # the two trees round p (and ds) to bf16 in the same places but sum in

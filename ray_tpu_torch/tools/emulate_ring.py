@@ -1,7 +1,7 @@
-"""The fp32 kernels on the host CPU: K1's and K3's ring kernels up to head
-dim 256 (route ``fma_f32_ring``), K1's, K2's and K3's past it
-(``dchunk_fma_f32_ring``) and K2's FMA kernel (``fma_f32``), held against
-``attention._blockwise_fwd`` / ``_blockwise_bwd``.
+"""The fp32 kernels on the host CPU: K1's, K2's and K3's ring kernels up to
+head dim 256 (route ``fma_f32_ring``) and past it
+(``dchunk_fma_f32_ring``), held against ``attention._blockwise_fwd`` /
+``_blockwise_bwd``.
 
     python3 -m ray_tpu_torch.tools.emulate_ring [D ...]
 
@@ -35,16 +35,18 @@ _EMU = _HERE / "ring_emu"
 _CSRC = _HERE.parent / "ops" / "csrc"
 _BUILD = _HERE.parent / "ops" / "_build"
 # the sources the fp32 C dispatch reaches, and what they include
-SOURCES = ("flash_attn_fwd_fma_ring.cu", "flash_attn_bwd_dkdv_fma_ring.cu",
-           "flash_attn_dchunk_fma.cu", "flash_attn_dchunk_bwd_dq_fma.cu",
-           "flash_attn_dchunk_bwd_dkdv_fma.cu", "flash_attn_bwd_fma.cu")
+SOURCES = ("flash_attn_fwd_fma_ring.cu", "flash_attn_bwd_dq_fma_ring.cu",
+           "flash_attn_bwd_dkdv_fma_ring.cu", "flash_attn_dchunk_fma.cu",
+           "flash_attn_dchunk_bwd_dq_fma.cu",
+           "flash_attn_dchunk_bwd_dkdv_fma.cu")
 HEADERS = ("flash_attn_common.cuh", "flash_attn_routes.cuh",
            "flash_attn_ring_f32.cuh")
 # entry point -> (kernel, outputs): the C launcher each calls
 ENTRIES = {"emu_fwd_fma_ring": ("fwd", 2), "emu_fwd_dchunk_fma": ("fwd", 2),
            "emu_bwd_dkdv_fma_ring": ("dkdv", 2),
            "emu_bwd_dkdv_dchunk_fma": ("dkdv", 2),
-           "emu_bwd_dq_dchunk_fma": ("dq", 1), "emu_bwd_dq_fma": ("dq", 1)}
+           "emu_bwd_dq_dchunk_fma": ("dq", 1),
+           "emu_bwd_dq_fma_ring": ("dq", 1)}
 # kernel vs plain version, (atol, rtol): summation order only, as
 # chip_smoke.py's KERNEL_TOL and BWD_TOL in fp32
 FWD_TOL = (1e-4, 1e-4)
@@ -179,8 +181,8 @@ def check(lib, d: int, b: int = 1, sq: int = 150, sk: int = 130,
     delta = torch.einsum("bqhd,bqhd->bhq", p_out, do).contiguous()
     p_lse = p_lse.contiguous()
     bwd = dict(dout=do, lse=p_lse, delta=delta)
-    (dq,) = run(lib, "emu_bwd_dq_dchunk_fma" if past else "emu_bwd_dq_fma",
-                q, k, v, causal, scale, **bwd)
+    (dq,) = run(lib, "emu_bwd_dq_dchunk_fma" if past
+                else "emu_bwd_dq_fma_ring", q, k, v, causal, scale, **bwd)
     dk, dv = run(lib, "emu_bwd_dkdv_dchunk_fma" if past
                  else "emu_bwd_dkdv_fma_ring", q, k, v, causal, scale, **bwd)
     want = T._blockwise_bwd(q, k, v, p_out, p_lse, do, causal, scale)

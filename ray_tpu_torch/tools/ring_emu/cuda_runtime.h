@@ -1,14 +1,14 @@
 // The CUDA runtime as the fp32 ring kernels (ops/csrc/flash_attn_ring_f32.cuh)
-// and K2's FMA kernel (flash_attn_bwd_fma.cu) use it, emulated on the host
-// so that their index arithmetic, masks, rings and hand-offs can be held
-// against the plain versions on a machine without a card
-// (tools/emulate_ring.py translates the sources: their asm and launches
-// become the emu_* hooks below). A block's threads are OS threads run
-// together, blocks one after another; __syncthreads, named barriers,
-// __syncwarp and shuffles are std::barrier waits; a cp.async is a
-// synchronous copy (its commit and wait no-ops), so a missing wait is not
-// seen, a missing barrier or a wrong index is. Shared memory starts as
-// NaN at every launch, so a read of what no thread wrote shows.
+// use it, emulated on the host so that their index arithmetic, masks,
+// rings and hand-offs can be held against the plain versions on a
+// machine without a card (tools/emulate_ring.py translates the sources:
+// their asm and launches become the emu_* hooks below). A block's threads
+// are OS threads run together, blocks one after another; __syncthreads,
+// named barriers, __syncwarp and shuffles are std::barrier waits; a
+// cp.async is a synchronous copy (its commit and wait no-ops), so a
+// missing wait is not seen, a missing barrier or a wrong index is. Shared
+// memory starts as NaN at every launch, so a read of what no thread wrote
+// shows.
 #pragma once
 #include <math.h>
 #include <string.h>

@@ -27,4 +27,6 @@ extern "C" int emu_bwd_dkdv_dchunk_fma(BWD_ARGS) {
 extern "C" int emu_bwd_dq_dchunk_fma(BWD_ARGS) {
   return rtt::bwd_dq_dchunk_fma(BWD_PASS(o1));
 }
-extern "C" int emu_bwd_dq_fma(BWD_ARGS) { return rtt::bwd_dq_fma(BWD_PASS(o1)); }
+extern "C" int emu_bwd_dq_fma_ring(BWD_ARGS) {
+  return rtt::bwd_dq_fma_ring(BWD_PASS(o1));
+}

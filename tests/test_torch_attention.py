@@ -255,7 +255,7 @@ def test_flash_attention_past_head_dim_256_matches_jax(d, dtype):
 def test_flash_attention_fp32_ring_head_dims_match_jax(d, b, s, heads,
                                                         kv_heads):
     """The plain versions the fp32 kernels up to 256 are held against on
-    the card (K1 and K3 on their ring kernels, K2 on FMA): the port's
+    the card (K1, K2 and K3 on their ring kernels): the port's
     flash_attention on the CPU, forward and grads, against the JAX
     package's flash_attention and jax.vjp, causal, with k and v repeated
     from kv_heads to heads on both sides as the models do (jnp.repeat /
@@ -283,7 +283,7 @@ def test_flash_attention_fp32_ring_head_dims_match_jax(d, b, s, heads,
     out.backward(torch.from_numpy(g))
     assert T.kernel_route("fwd", torch.float32, d) == T.FMA_RING
     assert T.kernel_route("dkdv", torch.float32, d) == T.FMA_RING
-    assert T.kernel_route("dq", torch.float32, d) == T.FMA
+    assert T.kernel_route("dq", torch.float32, d) == T.FMA_RING
     np.testing.assert_allclose(out.detach().numpy(), np.asarray(j_out),
                                **TOL)
     for got, want in zip((tq.grad, tk.grad, tv.grad), j_grads):

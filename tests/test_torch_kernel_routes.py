@@ -60,10 +60,9 @@ ROOT = Path(__file__).resolve().parents[1]
     ("dq", torch.bfloat16, 128, T.WGMMA),
     ("dq", torch.bfloat16, 64, T.WGMMA),
     ("dq", torch.bfloat16, 32, T.WGMMA_PADDED),
-    # float32 up to 256: K1 and K3 on their ring kernels, K2 on its FMA
-    # kernel
+    # float32 up to 256: K1, K2 and K3 on their ring kernels
     ("fwd", torch.float32, 128, T.FMA_RING),
-    ("dq", torch.float32, 64, T.FMA),
+    ("dq", torch.float32, 64, T.FMA_RING),
     ("dkdv", torch.float32, 32, T.FMA_RING),
     # past 256, both dtypes (the kernel phase's rows at 264, 320 and
     # 512): all three on the Hopper kernels, wgmma in bf16 at D % 8 == 0
@@ -107,16 +106,15 @@ def test_kernel_route_takes_every_head_dim_to_256(kernel, dtype):
     """Every head dim has a kernel, the same for K1, K2 and K3: bf16
     keeps wgmma at 64 and 128 and takes the padded wgmma kernels at every
     other head dim up to 256, fed by TMA at the multiples of 8 and by
-    cp.async off them; fp32 takes the ring kernels (K1, K3) and the FMA
-    kernel (K2) at all up to 256; past 256, with no upper bound, all three
+    cp.async off them; fp32 takes the ring kernels at all up to 256; past
+    256, with no upper bound, all three
     take the wgmma kernels in bf16 (fed by TMA at D % 8 == 0, by cp.async
     off it) and the ring-fed FMA kernels in fp32; 0 raises."""
     padded = [d for d in range(1, T.DCHUNK_PAST + 1)
               if d % 8 == 0 and d not in (64, 128)]
     assert len(padded) == 30 and padded[0] == 8 and padded[-1] == 256
     for d in range(1, T.DCHUNK_PAST + 1):
-        fp32 = T.FMA if kernel == "dq" else T.FMA_RING
-        want = (fp32 if dtype == torch.float32 else
+        want = (T.FMA_RING if dtype == torch.float32 else
                 T.WGMMA if d in (64, 128) else
                 T.WGMMA_PADDED if d in padded else T.WGMMA_PADDED_CP)
         assert T.kernel_route(kernel, dtype, d) == want, d
@@ -151,8 +149,8 @@ def test_launch_count_by_route():
     assert count.count == 3
     seen = count.by_route
     assert seen == {T.WGMMA: 2, T.WGMMA_PADDED_CP: 1}
-    seen[T.FMA] = 7
-    assert T.FMA not in count.by_route
+    seen[T.DCHUNK_FMA] = 7
+    assert T.DCHUNK_FMA not in count.by_route
     count.reset()
     assert (count.count, count.by_route) == (0, {})
 
@@ -470,6 +468,34 @@ def test_check_head_dims_reports_each_wgmma_backward_instantiation():
     assert {d % 2 for d in bf16 if d % 8} == {0, 1}
 
 
+def test_check_head_dims_sums_up_the_ring_kernels_ptxas_lines():
+    """tools/check_head_dims' summary of the fp32 kernels reads the ring
+    kernels alone (every fp32 route is one since K2 left its FMA kernel):
+    their most registers, and each one that spills; other functions'
+    lines are left out."""
+    from ray_tpu_torch.tools.check_head_dims import ptxas_summary
+
+    k2 = "_Z19bwd_ring_f32_kernelILi4ELi64ELi64ELi2ELi32ELb1ELb1ELb0EEv"
+    k1 = "_Z19fwd_ring_f32_kernelILi8ELi16ELi16ELi1ELi64ELb1ELb1EEv"
+    log = "\n".join([
+        f"ptxas info    : Compiling entry function '{k2}' for 'sm_90a'",
+        "ptxas info    : Used 232 registers, used 1 barriers",
+        "    0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads",
+        f"ptxas info    : Compiling entry function '{k1}' for 'sm_90a'",
+        "ptxas info    : Used 168 registers, used 1 barriers",
+        "    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
+        "ptxas info    : Compiling entry function '_Z16bwd_dq_ws_kernelILi"
+        "160ELb0EEv' for 'sm_90a'",
+        "ptxas info    : Used 240 registers, used 1 barriers",
+        "    8 bytes stack frame, 8 bytes spill stores, 8 bytes spill loads",
+    ])
+    got = ptxas_summary(log)
+    assert got["most_registers"] == 232
+    assert got["spilling"] == [
+        f"{k1}: 8 bytes stack frame, 8 bytes spill stores, 8 bytes spill "
+        "loads"]
+
+
 def test_compare_kernels_times_the_padded_route_at_its_rows():
     """tools/compare_kernels times K1, K2 and K3 at bench.py's xl head dim
     160 (B2, and the xl16 train step's B8) and at chip_smoke.py's rows of
@@ -519,13 +545,13 @@ def test_chunked_route_is_built_dispatched_and_held_on_the_card():
         "rtt::fwd_dchunk_wgmma_cp_async(")
     assert fwd.index("rtt::fwd_dchunk_fma(") < fwd.index(
         "rtt::fwd_dchunk_wgmma_cp_async(")
-    for kernel, fp32 in (("dq", "fma("), ("dkdv", "fma_ring(")):
+    for kernel in ("dq", "dkdv"):
         assert bwd.index(f"rtt::bwd_{kernel}_dchunk_fma(") < bwd.index(
-            f"rtt::bwd_{kernel}_{fp32}")
+            f"rtt::bwd_{kernel}_fma_ring(")
         assert bwd.index(f"rtt::bwd_{kernel}_dchunk_wgmma(") < bwd.index(
             f"rtt::bwd_{kernel}_dchunk_wgmma_cp_async(")
         assert bwd.index(f"rtt::bwd_{kernel}_dchunk_wgmma_cp_async(") < (
-            bwd.index(f"rtt::bwd_{kernel}_{fp32}"))
+            bwd.index(f"rtt::bwd_{kernel}_fma_ring("))
     cs = _chip_smoke()
     fwd_rows = {row[0]: row[1:] for row in cs.KERNEL_SHAPES}
     bwd_rows = {row[0]: row[1:] for row in cs.BWD_SHAPES}
@@ -761,8 +787,9 @@ def test_each_feed_is_instantiated_at_each_width_without_trap(
 
 def test_no_source_names_a_removed_kernel():
     """The mma.sync kernels of K1, K2 and K3, the chunked fp32 K2 and K3
-    kernels past 256 and the fp32 K1 and K3 up to 256 that the ring
-    kernels replaced are gone: no source, build list or smoke list names
+    kernels past 256 and the fp32 K1, K2 and K3 up to 256 that the ring
+    kernels replaced (with K2's row loader, products and padded-dim
+    dispatch) are gone: no source, build list or smoke list names
     them, no kernel source issues an mma.sync or ldmatrix instruction,
     every listed source exists, and every kernel source in csrc/ is
     listed; no bf16 route of K1, K2 or K3 at any head dim is one of the
@@ -776,7 +803,10 @@ def test_no_source_names_a_removed_kernel():
             "mma.sync.aligned", "ldmatrix", "flash_attn_fwd_fma.cu",
             "flash_fwd_f32_kernel", "rtt::fwd_fma(", "bwd_dkdv_f32_kernel",
             "bwd_dkdv_fma(", "flash_attn_dchunk_ring_f32.cuh",
-            "fwd_dchunk_ring_f32_kernel", "bwd_dchunk_ring_f32_kernel")
+            "fwd_dchunk_ring_f32_kernel", "bwd_dchunk_ring_f32_kernel",
+            "flash_attn_bwd_fma.cu", "bwd_dq_f32_kernel", "bwd_dq_fma(",
+            "row_dots", "slab_product", "load_rows_f32", "with_padded_dim",
+            "FMA_ROWS")
     for path in csrc.iterdir():
         text = path.read_text()
         assert not [g for g in gone if g in text], path.name
@@ -786,6 +816,7 @@ def test_no_source_names_a_removed_kernel():
     smoke = (ROOT / "chip_smoke.py").read_text()
     assert not [g for g in gone if g in smoke]
     assert not hasattr(T, "MMA_SYNC") and not hasattr(T, "DCHUNK")
+    assert not hasattr(T, "FMA") and "ptxas_fma" not in smoke
     routes = {T.kernel_route(kernel, torch.bfloat16, d)
               for kernel in ("fwd", "dq", "dkdv") for d in range(1, 601)}
     assert routes == {T.WGMMA, T.WGMMA_PADDED, T.WGMMA_PADDED_CP,
@@ -1261,35 +1292,37 @@ def test_kernel_phase_and_compare_reach_each_route_k2_and_k3_left():
 @pytest.mark.parametrize("d", [1, 16, 33, 64, 128, 255, 256])
 @pytest.mark.parametrize("kernel", ["fwd", "dq", "dkdv"])
 def test_fp32_takes_the_ring_kernels_up_to_256(kernel, d):
-    """In fp32 K1 and K3 take their ring kernels at every head dim up to
-    256 (odd ones too) and K2 its FMA kernel; past 256 all three take the
-    ring kernels' slices."""
-    want = T.FMA if kernel == "dq" else T.FMA_RING
-    assert T.kernel_route(kernel, torch.float32, d) == want
+    """In fp32 K1, K2 and K3 take their ring kernels at every head dim up
+    to 256 (odd ones too); past 256 all three take the ring kernels'
+    slices."""
+    assert T.kernel_route(kernel, torch.float32, d) == T.FMA_RING
     assert T.kernel_route(kernel, torch.float32, d + 256) == T.DCHUNK_FMA
 
 
 def test_fma_ring_rule_is_the_headers_constexpr():
-    """The C dispatch sends fp32 K1 and K3 to the ring kernels at exactly
-    the head dims attention.kernel_route names FMA_RING, after the past-256
-    check; flash_attn_fwd.cu no longer calls the old FMA forward."""
+    """The C dispatch sends fp32 K1, K2 and K3 to the ring kernels at
+    exactly the head dims attention.kernel_route names FMA_RING, after the
+    past-256 check; flash_attn_fwd.cu no longer calls the old FMA forward
+    nor flash_attn_bwd.cu the old FMA backwards, whose source is gone."""
     rule = _header_rules()["fma_ring_head_dim"]
     for d in range(1, 1100):
-        for kernel in ("fwd", "dkdv"):
+        for kernel in ("fwd", "dq", "dkdv"):
             got = T.kernel_route(kernel, torch.float32, d) == T.FMA_RING
             assert got == bool(rule(d)), (kernel, d)
     csrc = ROOT / "ray_tpu_torch" / "ops" / "csrc"
     fwd = re.sub(r"//[^\n]*", "", (csrc / "flash_attn_fwd.cu").read_text())
     bwd = re.sub(r"//[^\n]*", "", (csrc / "flash_attn_bwd.cu").read_text())
     assert "rtt::fwd_fma(" not in fwd and "rtt::bwd_dkdv_fma(" not in bwd
+    assert "rtt::bwd_dq_fma(" not in bwd
+    assert not (csrc / "flash_attn_bwd_fma.cu").exists()
     assert "rtt::fma_ring_head_dim(D) && dtype == 0" in fwd
-    assert "rtt::fma_ring_head_dim(D) && dtype == 0" in bwd
+    assert bwd.count("rtt::fma_ring_head_dim(D) && dtype == 0") == 2
     assert fwd.index("rtt::fwd_dchunk_fma(") < fwd.index(
         "rtt::fwd_fma_ring(")
     assert bwd.index("rtt::bwd_dkdv_dchunk_fma(") < bwd.index(
         "rtt::bwd_dkdv_fma_ring(")
     assert bwd.index("rtt::bwd_dq_dchunk_fma(") < bwd.index(
-        "rtt::bwd_dq_fma(")
+        "rtt::bwd_dq_fma_ring(")
 
 
 def _one_slice_shapes(code: str) -> list:
@@ -1309,14 +1342,15 @@ def _one_slice_shapes(code: str) -> list:
 
 
 def test_ring_sources_instantiate_each_one_slice_width_and_copy_size():
-    """Up to 256 K1's and K3's ring kernels run one slice a block: a
-    source each (K1 flash_attn_fwd_fma_ring.cu, K3
-    flash_attn_bwd_dkdv_fma_ring.cu) launches the shared header's kernel
-    at each one-slice width -- the head dim rounded up to 16, 32 or 64
-    under 64 (head-dim step and column group alike), to 64 from there --
-    with the block's rows resident, and at both copy sizes (16 bytes at D
-    % 4 == 0, else 4); 64 rows a block (8 a thread) up to 128 columns for
-    K1 and 64 for K3, 32 past."""
+    """Up to 256 the ring kernels of K1, K2 and K3 run one slice a block:
+    a source each (K1 flash_attn_fwd_fma_ring.cu, K2
+    flash_attn_bwd_dq_fma_ring.cu, K3 flash_attn_bwd_dkdv_fma_ring.cu)
+    launches the shared header's kernel at each one-slice width -- the
+    head dim rounded up to 16, 32 or 64 under 64 (head-dim step and column
+    group alike), to 64 from there -- with the block's rows resident, and
+    at both copy sizes (16 bytes at D % 4 == 0, else 4); 64 rows a block
+    (8 a thread) up to 128 columns for K1 and K2 and 64 for K3, 32
+    past."""
     csrc = ROOT / "ray_tpu_torch" / "ops" / "csrc"
     header = "flash_attn_ring_f32.cuh"
     code = re.sub(r"//[^\n]*", "", (csrc / header).read_text())
@@ -1338,6 +1372,8 @@ def test_ring_sources_instantiate_each_one_slice_width_and_copy_size():
     for name, wide, call in (
             ("flash_attn_fwd_fma_ring.cu", 128,
              "fwd_ring_at<decltype(shape)>("),
+            ("flash_attn_bwd_dq_fma_ring.cu", 128,
+             "bwd_ring_at<decltype(shape), false>("),
             ("flash_attn_bwd_dkdv_fma_ring.cu", 64,
              "bwd_ring_at<decltype(shape), true>(")):
         assert name in T._SOURCES
@@ -1349,6 +1385,26 @@ def test_ring_sources_instantiate_each_one_slice_width_and_copy_size():
     assert "mma" not in code and "tf32" not in code.lower()
 
 
+def test_k2_one_slice_shapes_fit_a_blocks_shared_memory():
+    """K2's block at each one-slice width fits the card's shared memory:
+    Q and dO resident, and per key group its ring and ds^T; up to 64
+    columns (one head-dim step, one 64-key slice step a tile, whose K rows
+    are the S step's) the ring has a fourth stage, on which K2 reads ds
+    K's rows from the S step's chunk."""
+    csrc = ROOT / "ray_tpu_torch" / "ops" / "csrc"
+    code = re.sub(r"//[^\n]*", "", (csrc / "flash_attn_ring_f32.cuh")
+                  .read_text())
+    pad, n, st, smem_max = 4, 64, 3, 232448
+    for bound, rm, dk, cw, ncg, vk in _one_slice_shapes(code):
+        rm = 8 if rm == "RM128" else int(rm)  # K2 takes K1's <128>
+        sw, bm = ncg * cw, 8 * rm
+        share = dk == sw and vk == n
+        assert share == (bound <= 64), bound
+        stage = max(n * (dk + pad), vk * (sw + pad))
+        group = (st + share) * stage + n * (bm + pad)
+        assert (2 * bm * (sw + pad) + 2 * group) * 4 <= smem_max, bound
+
+
 @pytest.mark.parametrize("name,shape,bounds", [
     # B2 S2048 H16 causal fp32: 2,098,176 kept pairs a head, 2 D FLOPs a
     # pair and product (K1 2, K2 3, K3 4) over 67 TFLOP/s
@@ -1356,13 +1412,17 @@ def test_ring_sources_instantiate_each_one_slice_width_and_copy_size():
      (0.06413, 0.09620, 0.12827)),
     ("d128_f32_wide", (2, 2048, 2048, 16, 128, True, "float32"),
      (0.51307, 0.76960, 1.02613)),
+    # B2 S2048 H8 D256: the same FLOPs, at the widest one-slice shape
+    # (RM 4, four 64-column groups, 16-row slice steps)
+    ("d256_f32_wide", (2, 2048, 2048, 8, 256, True, "float32"),
+     (0.51307, 0.76960, 1.02613)),
 ])
 def test_kernel_phase_and_compare_hold_the_fp32_wide_rows(name, shape,
                                                           bounds):
-    """The kernel phase holds K1, K2 and K3 in fp32 at d 16 and 128 at a
-    size where the arithmetic bounds them, listed with the head-dim rows,
-    and compare_kernels times all three there, at debug_f32 and at the
-    ragged fp32 rows against the parent."""
+    """The kernel phase holds K1, K2 and K3 in fp32 at d 16, 128 and 256
+    at a size where the arithmetic bounds them, listed with the head-dim
+    rows, and compare_kernels times all three there, at debug_f32 and at
+    the ragged fp32 rows against the parent."""
     from ray_tpu_torch.tools.compare_kernels import SHAPES
 
     cs = _chip_smoke()

@@ -320,10 +320,10 @@ def test_chunked_cross_entropy_matches_plain(caplog):
 def test_debug_configs_attention_takes_a_kernel_on_the_card(name):
     """The JAX package's test configs run on the card through the
     kernels: their head dim (hidden 64 over 4 heads, 16 as in the JAX
-    package) takes the fp32 routes in their float32 (K1 and K3 the ring
-    kernels, K2 the FMA kernel), and the wrapper's
-    input checks pass at their attention shape (these raised for a CUDA
-    tensor before every head dim up to 256 had a kernel)."""
+    package) takes the fp32 route in their float32 (the ring kernels of
+    K1, K2 and K3), and the wrapper's input checks pass at their
+    attention shape (these raised for a CUDA tensor before every head dim
+    up to 256 had a kernel)."""
     from ray_tpu.models import vision as jvit
     from ray_tpu_torch.models import vision as tvit
     from ray_tpu_torch.ops import attention as T
@@ -339,6 +339,6 @@ def test_debug_configs_attention_takes_a_kernel_on_the_card(name):
     assert cfg.dtype == torch.float32
     for kernel in ("fwd", "dq", "dkdv"):
         assert T.kernel_route(kernel, cfg.dtype, cfg.head_dim) == (
-            T.FMA if kernel == "dq" else T.FMA_RING)
+            T.FMA_RING)
     q = torch.zeros((2, seq, cfg.heads, cfg.head_dim), dtype=cfg.dtype)
     T._check_kernel_inputs(q, q, q)
